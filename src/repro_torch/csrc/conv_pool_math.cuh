@@ -1,0 +1,86 @@
+// Shared arithmetic of the fused conv+act+pool kernels (conv_pool.cu,
+// conv_pool_q8.cu): output geometry, the window index math, padding as
+// bounds-checked taps, and the int8 requantization.
+//
+// Everything here is __host__ __device__ so that a plain C++ compiler can
+// build the host side into a small library (conv_pool_math_host.cpp) and the
+// CPU tests can hold it against the reference package's numerics; nvcc
+// builds the same lines into the kernels.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define CP_HD __host__ __device__ __forceinline__
+#else
+#define CP_HD inline
+#endif
+
+namespace cp {
+
+// Conv output extent along one axis: floor((in + 2*pad - k) / stride) + 1.
+CP_HD int conv_out(int in, int pad, int k, int stride) {
+  return (in + 2 * pad - k) / stride + 1;
+}
+
+// Pooled extent along one axis (unpadded pool, as FusedConvPool requires).
+CP_HD int pool_out(int in, int k, int stride) { return (in - k) / stride + 1; }
+
+// Conv output position read by window offset `i` of pooled position `p`.
+CP_HD int conv_pos(int p, int pool_stride, int i) { return p * pool_stride + i; }
+
+// First input position (in unpadded coordinates; may be negative) read by
+// conv output position `o`.  Tap `d` then reads `origin + d`.
+CP_HD int in_origin(int o, int conv_stride, int pad) { return o * conv_stride - pad; }
+
+// A tap outside [0, n) reads the zero padding: the kernels skip it.
+CP_HD bool in_bounds(int i, int n) { return static_cast<unsigned>(i) < static_cast<unsigned>(n); }
+
+// f32 product rounded to nearest even, never contracted into an FMA.
+CP_HD float mul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+// int32 -> f32, rounded to nearest even (what astype(float32) does).
+CP_HD float i2f_rn(int32_t a) {
+#if defined(__CUDA_ARCH__)
+  return __int2float_rn(a);
+#else
+  return static_cast<float>(a);
+#endif
+}
+
+// The reference's requantize (repro/core/quantize.py:198-207):
+// f32(acc) * m, round half to even, saturate to [-128, 127].  rintf rounds
+// half to even under the default rounding mode; roundf would round half
+// away from zero and is never used here.
+CP_HD int8_t requant(int32_t acc, float m) {
+  float v = rintf(mul_rn(i2f_rn(acc), m));
+  v = fminf(fmaxf(v, -128.0f), 127.0f);
+  return static_cast<int8_t>(v);
+}
+
+// Geometry of one fused conv+act+pool call, NCHW.
+struct Geom {
+  int n, cin, h, w, cout, kh, kw, csh, csw, padh, padw, pkh, pkw, psh, psw;
+  int oh, ow, ph, pw;
+};
+
+CP_HD Geom make_geom(int n, int cin, int h, int w, int cout, int kh, int kw,
+                     int csh, int csw, int padh, int padw, int pkh, int pkw,
+                     int psh, int psw) {
+  Geom g{n, cin, h, w, cout, kh, kw, csh, csw, padh, padw, pkh, pkw, psh, psw,
+         0, 0, 0, 0};
+  g.oh = conv_out(h, padh, kh, csh);
+  g.ow = conv_out(w, padw, kw, csw);
+  g.ph = pool_out(g.oh, pkh, psh);
+  g.pw = pool_out(g.ow, pkw, psw);
+  return g;
+}
+
+}  // namespace cp

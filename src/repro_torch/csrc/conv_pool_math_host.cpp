@@ -1,0 +1,35 @@
+// Host build of conv_pool_math.cuh for the CPU tests: a C ABI over the exact
+// lines the kernels run, so a plain C++ compiler (no nvcc) can hold the
+// requantization and the geometry against the reference package.
+//
+//   g++ -O2 -shared -fPIC -o libconv_pool_math.so conv_pool_math_host.cpp
+#include "conv_pool_math.cuh"
+
+extern "C" {
+
+// out[i] = requant(acc[i], m[i]) for i < n.
+void cp_requant(const int32_t* acc, const float* m, int8_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) out[i] = cp::requant(acc[i], m[i]);
+}
+
+// (oh, ow, ph, pw) of one fused conv+pool geometry.
+void cp_geom(int h, int w, int kh, int kw, int csh, int csw, int padh, int padw,
+             int pkh, int pkw, int psh, int psw, int* out4) {
+  const cp::Geom g = cp::make_geom(1, 1, h, w, 1, kh, kw, csh, csw, padh, padw,
+                                   pkh, pkw, psh, psw);
+  out4[0] = g.oh;
+  out4[1] = g.ow;
+  out4[2] = g.ph;
+  out4[3] = g.pw;
+}
+
+// Input rows [lo, hi] that pooled row `p` reads, before clipping to the
+// image: the halo a row tile of the kernels touches.
+void cp_pooled_row_span(int p, int kh, int csh, int padh, int pkh, int psh,
+                        int* lo_hi) {
+  lo_hi[0] = cp::in_origin(cp::conv_pos(p, psh, 0), csh, padh);
+  lo_hi[1] = cp::in_origin(cp::conv_pos(p, psh, pkh - 1), csh, padh) + kh - 1;
+}
+
+int cp_in_bounds(int i, int n) { return cp::in_bounds(i, n) ? 1 : 0; }
+}

@@ -1,0 +1,190 @@
+"""Launch plumbing of the fused conv+act+pool kernels on Hopper.
+
+The port's counterpart of ``repro/kernels/conv_pool/kernel.py``: everything
+dtype-independent about a launch — geometry, the checks on device, dtype,
+shape and layout, the output (allocated, or an ``out=`` view into an arena
+bank), the row tiling of the grid and the launch counters — shared by the
+float kernel K1 (``csrc/conv_pool.cu``) and the int8 kernel K2
+(``csrc/conv_pool_q8.cu``, wrapped in `repro_torch.quant.kernel_q8`), so
+the two cannot diverge.
+
+Layout is NCHW, as in the paper and PyTorch.  Each image of ``x`` and of
+the output must be contiguous; the batch stride is free, so the executors
+pass views of their ``(N, arena_elems)`` arena and the kernel reads one
+bank and writes the other in place.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.graph import _pair
+from repro_torch.kernels import build
+
+# A CTA holds the layer's weights in shared memory; 227 KB is what one CTA
+# may have on Hopper.
+MAX_SMEM_BYTES = 232448
+# Aim for about this many CTAs (four per SM on 132 SMs) before tiling
+# several pooled rows into one CTA.
+_TARGET_CTAS = 528
+
+
+class LaunchCounter:
+    """A plain integer count of kernel launches, plus the same count broken
+    down by a key (the launch geometry), so a run can show which kernel the
+    main path went through and at which shapes."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.count = 0
+        self.by_key: dict = {}
+
+    def add(self, key) -> None:
+        with self._lock:
+            self.count += 1
+            self.by_key[key] = self.by_key.get(key, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+            self.by_key = {}
+
+
+# One counter per kernel; each wrapper adds one where it launches, and
+# nowhere else.
+K1_LAUNCHES = LaunchCounter()
+
+
+def output_hw(h: int, w: int, kh: int, kw: int, *, conv_stride, padding,
+              pool_k, pool_stride) -> Tuple[int, int, int, int]:
+    """(OH, OW, PH, PW): the conv and pooled extents of one geometry."""
+    (csh, csw), (ph_, pw_) = _pair(conv_stride), _pair(padding)
+    (pkh, pkw), (psh, psw) = _pair(pool_k), _pair(pool_stride)
+    oh = (h + 2 * ph_ - kh) // csh + 1
+    ow = (w + 2 * pw_ - kw) // csw + 1
+    return oh, ow, (oh - pkh) // psh + 1, (ow - pkw) // psw + 1
+
+
+def rows_per_cta(n: int, ph: int) -> int:
+    """Pooled rows per CTA: 1 until the grid would exceed the target CTA
+    count, then as many as keep it near that count."""
+    per_image = max(1, _TARGET_CTAS // max(n, 1))
+    return max(1, -(-ph // per_image))
+
+
+def _image_contiguous(t: torch.Tensor) -> bool:
+    """True iff every image of a (N, C, H, W) tensor is one dense block."""
+    _, c, h, w = t.shape
+    return t.stride(3) == 1 and t.stride(2) == w and t.stride(1) == h * w
+
+
+def conv_pool_call(
+    fn_name: str,
+    lib_name: str,
+    counter: LaunchCounter,
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor],
+    *,
+    conv_stride,
+    padding,
+    pool_k,
+    pool_stride,
+    activation: str,
+    pool: str,
+    out_dtype: torch.dtype,
+    bias_dtype: torch.dtype,
+    out: Optional[torch.Tensor] = None,
+    extra_args: tuple = (),
+) -> torch.Tensor:
+    """Check, allocate and launch one fused conv+act+pool kernel.
+
+    ``x`` is (N, Cin, H, W) on a CUDA device, ``w`` (Cout, Cin, kh, kw) and
+    ``b`` (Cout,) contiguous on the same device.  ``extra_args`` are ctypes
+    values passed after the strides (K2's requant multiplier).  Raises on
+    anything the kernel does not take; never falls back.
+    """
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn_name}: expected a CUDA tensor, got {x.device}")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"{fn_name}: x must be (N,C,H,W) and w (O,I,kh,kw), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    n, cin, h, wd = x.shape
+    cout, wcin, kh, kw = w.shape
+    if wcin != cin:
+        raise ValueError(f"{fn_name}: w has {wcin} input channels, x has {cin}")
+    for name, t in (("w", w), ("b", b)):
+        if t is not None and (t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{fn_name}: {name} must be contiguous on {x.device}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"{fn_name}: x and w must share one dtype, got "
+                        f"{x.dtype} and {w.dtype}")
+    if b is not None and (b.dtype != bias_dtype or tuple(b.shape) != (cout,)):
+        raise TypeError(f"{fn_name}: b must be ({cout},) {bias_dtype}, got "
+                        f"{tuple(b.shape)} {b.dtype}")
+    if not _image_contiguous(x):
+        raise ValueError(f"{fn_name}: each image of x must be contiguous")
+    if activation not in ("relu", "none") or pool not in ("max", "avg"):
+        raise ValueError(f"{fn_name}: unsupported activation/pool "
+                         f"{activation!r}/{pool!r}")
+    (csh, csw), (padh, padw) = _pair(conv_stride), _pair(padding)
+    (pkh, pkw), (psh, psw) = _pair(pool_k), _pair(pool_stride)
+    _, _, ph, pw = output_hw(h, wd, kh, kw, conv_stride=conv_stride,
+                             padding=padding, pool_k=pool_k,
+                             pool_stride=pool_stride)
+    if ph < 1 or pw < 1:
+        raise ValueError(f"{fn_name}: geometry gives an empty output")
+    # K1 stages its weights as f32 (bf16 is widened), K2 as int8.
+    smem = w.numel() * (1 if out_dtype == torch.int8 else 4)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{fn_name}: {smem} B of weights exceed a CTA's "
+                         f"shared memory ({MAX_SMEM_BYTES} B)")
+    if out is None:
+        out = torch.empty((n, cout, ph, pw), dtype=out_dtype, device=x.device)
+    elif (tuple(out.shape) != (n, cout, ph, pw) or out.dtype != out_dtype
+          or out.device != x.device or not _image_contiguous(out)):
+        raise ValueError(f"{fn_name}: out must be ({n},{cout},{ph},{pw}) "
+                         f"{out_dtype} with contiguous images on {x.device}, "
+                         f"got {tuple(out.shape)} {out.dtype}")
+    if n == 0:
+        return out
+    # Build/load first: without nvcc or a card this raises before any
+    # pointer is taken.
+    fn = getattr(build.load(lib_name), fn_name)
+    rows = rows_per_cta(n, ph)
+    ints = (n, cin, h, wd, cout, kh, kw, csh, csw, padh, padw, pkh, pkw,
+            psh, psw, int(activation == "relu"), int(pool == "avg"), rows)
+    args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+            ctypes.c_void_p(b.data_ptr() if b is not None else 0),
+            ctypes.c_void_p(out.data_ptr())]
+    args += [ctypes.c_int(v) for v in ints]
+    args += [ctypes.c_longlong(x.stride(0)), ctypes.c_longlong(out.stride(0))]
+    args += list(extra_args)
+    args.append(ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    fn.restype = ctypes.c_int
+    fn.argtypes = [type(a) for a in args]
+    build.check(fn(*args), fn_name)
+    counter.add((fn_name, n, cin, h, wd, cout, kh, kw, csh, csw, padh, padw,
+                 pkh, pkw, psh, psw, pool))
+    return out
+
+
+def conv_pool(x, w, b, *, conv_stride=1, padding=0, pool_k=2, pool_stride=2,
+              activation: str = "relu", pool: str = "max", out=None):
+    """K1 on the card: f32 or bf16 (N,Cin,H,W) in, (N,Cout,PH,PW) out in the
+    input dtype, f32 accumulation."""
+    if x.dtype == torch.float32:
+        fn_name = "conv_pool_f32"
+    elif x.dtype == torch.bfloat16:
+        fn_name = "conv_pool_bf16"
+    else:
+        raise TypeError(f"conv_pool: f32 or bf16 input, got {x.dtype}")
+    return conv_pool_call(
+        fn_name, "conv_pool", K1_LAUNCHES, x, w, b, conv_stride=conv_stride,
+        padding=padding, pool_k=pool_k, pool_stride=pool_stride,
+        activation=activation, pool=pool, out_dtype=x.dtype,
+        bias_dtype=x.dtype, out=out,
+    )

@@ -1,0 +1,83 @@
+"""The bucketed executor cache shared by the serving engines.
+
+The port's counterpart of ``repro/serve/step.py::bucket_for`` and
+``BucketedExecutorCache`` (``step.py:68-140``).  The rest of that file
+(prefill/decode under pjit) waits for the LM slice.
+
+Requests pad up to the nearest bucket, so an executor only ever sees the
+batch sizes on the ladder; in the port, preparing a bucket means running its
+executor once, which allocates the bucket's arena and builds the kernels.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket ≥ n from an ascending ladder (requests pad up)."""
+    if n < 1:
+        raise ValueError(f"batch size must be >= 1, got {n}")
+    for b in buckets:
+        if b >= n:
+            return int(b)
+    raise ValueError(f"batch {n} exceeds the largest bucket {buckets[-1]}")
+
+
+class BucketedExecutorCache:
+    """Batch-bucket ladder → prepared executable, built once per bucket.
+
+    ``lower_fn(bucket)`` produces the callable for one batch size.  One
+    entry per bucket, no rebuilds; ``misses`` counts how many preparations
+    actually ran.  Pass ``metrics`` (a
+    :class:`repro_torch.obs.metrics.MetricsRegistry`) to record
+    ``executor_cache.hits`` / ``.lowerings`` counters and an
+    ``executor_cache.lower_s`` histogram.
+    """
+
+    def __init__(
+        self,
+        lower_fn: Callable[[int], Any],
+        buckets: Sequence[int],
+        *,
+        prewarm: bool = True,
+        metrics=None,
+    ):
+        if not buckets:
+            raise ValueError("need at least one bucket")
+        self.buckets: Tuple[int, ...] = tuple(sorted({int(b) for b in buckets}))
+        self._lower = lower_fn
+        self._compiled: Dict[int, Any] = {}
+        self._metrics = metrics
+        if prewarm:
+            for b in self.buckets:
+                self.get(b)
+
+    def bucket_for(self, n: int) -> int:
+        return bucket_for(n, self.buckets)
+
+    def get(self, bucket: int) -> Any:
+        """The prepared executable for one exact bucket size."""
+        if bucket not in self.buckets:
+            raise KeyError(f"{bucket} is not on the ladder {self.buckets}")
+        hit = self._compiled.get(bucket)
+        if hit is None:
+            t0 = time.monotonic()
+            hit = self._compiled[bucket] = self._lower(bucket)
+            if self._metrics is not None:
+                self._metrics.inc("executor_cache.lowerings")
+                self._metrics.observe(
+                    "executor_cache.lower_s", time.monotonic() - t0)
+        elif self._metrics is not None:
+            self._metrics.inc("executor_cache.hits")
+        return hit
+
+    def for_batch(self, n: int) -> Tuple[int, Any]:
+        """(bucket, executable) serving a batch of n requests (pads up)."""
+        b = self.bucket_for(n)
+        return b, self.get(b)
+
+    @property
+    def misses(self) -> int:
+        """How many buckets have been prepared."""
+        return len(self._compiled)

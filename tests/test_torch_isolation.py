@@ -1,0 +1,179 @@
+"""The port stands alone, and never moves work off the card on its own.
+
+* An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py`` finds no
+  import of ``jax`` or of the reference package ``repro``.
+* On a host without CUDA, an entry point called with its default device
+  (``"cuda"``) raises instead of running on the CPU.
+* A kernel wrapper handed a CUDA tensor launches its kernel or raises; it
+  never runs its plain version in its place.  Here, with no card and no
+  ``nvcc``, it must raise.  Fake CUDA tensors (shapes and strides, no
+  storage) stand in for real ones.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro_torch import convert
+from repro_torch.core import fusion, graph, nn, pingpong, planner
+from repro_torch.core.quantize import QuantizedLayer, QuantizedModel
+from repro_torch.kernels.conv_pool import ops, ref
+from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
+from repro_torch.quant import exec as qexec
+from repro_torch.quant import kernel_q8
+from repro_torch.serve.cnn_engine import CNNEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_sources():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
+           for p in sources for line, mod in _imported_modules(p)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+
+
+def _lenet():
+    g = graph.lenet5()
+    fused = fusion.fuse(g)
+    params = fusion.rename_params(
+        fused, nn.init_params(g, torch.Generator().manual_seed(0), device="cpu"))
+    return g, fused, params
+
+
+def _cifar_qm():
+    fused = fusion.fuse(graph.cifar_testnet())
+    rng = np.random.default_rng(0)
+    layers = {}
+    for layer in fused.layers:
+        if layer.kind == "FusedConvPool":
+            c = layer.conv
+            shape = (c.out_channels, c.in_channels, *c.kernel_size)
+            n_out = c.out_channels
+        elif layer.kind in ("FusedLinear", "Linear"):
+            lin = getattr(layer, "linear", layer)
+            shape = (lin.out_features, lin.in_features)
+            n_out = lin.out_features
+        else:
+            continue
+        layers[layer.name] = QuantizedLayer(
+            name=layer.name, w_q=rng.integers(-127, 128, shape).astype(np.int8),
+            b_q=np.zeros(n_out, np.int32), w_scale=0.01, in_scale=0.02,
+            out_scale=0.05)
+    return QuantizedModel(graph=fused, input_scale=0.02, layers=layers)
+
+
+ENTRY_POINTS = {
+    "init_params": lambda: nn.init_params(graph.lenet5(), torch.Generator()),
+    "params_from_numpy": lambda: convert.params_from_numpy(
+        {"fc": {"w": np.zeros((2, 2), np.float32)}}),
+    "make_int8_executor": lambda: qexec.make_int8_executor(
+        _cifar_qm(), planner.plan_pingpong(graph.cifar_testnet(), io_dtype_bytes=1)),
+    "CNNEngine.from_graph": lambda: CNNEngine.from_graph(
+        _lenet()[1], planner.plan_pingpong(graph.lenet5()), _lenet()[2]),
+    "CNNEngine.from_quantized": lambda: CNNEngine.from_quantized(
+        _cifar_qm(), planner.plan_pingpong(graph.cifar_testnet(), io_dtype_bytes=1)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_point_default_device_raises_without_cuda(entry):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[entry]()
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+    """Make the plain versions fail loudly if a CUDA call reaches them."""
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "conv_pool_ref", forbidden)
+    monkeypatch.setattr(kernel_q8, "conv_pool_q8_ref", forbidden)
+
+
+def test_k1_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = K1_LAUNCHES.count
+    with FakeTensorMode():
+        x = torch.empty(2, 1, 32, 32, device="cuda")
+        w = torch.empty(6, 1, 5, 5, device="cuda")
+        b = torch.empty(6, device="cuda")
+        with pytest.raises(RuntimeError):
+            ops.fused_conv_pool(x, w, b)
+        # the executor's step takes the same route
+        _, fused, _ = _lenet()
+        step = fused.layers[1]
+        assert step.kind == "FusedConvPool"
+        with pytest.raises(RuntimeError):
+            pingpong.apply_layer(step, {"w": w, "b": b}, x)
+    assert K1_LAUNCHES.count == before
+
+
+def test_k2_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = kernel_q8.K2_LAUNCHES.count
+    with FakeTensorMode():
+        x = torch.empty(2, 3, 32, 32, dtype=torch.int8, device="cuda")
+        w = torch.empty(32, 3, 5, 5, dtype=torch.int8, device="cuda")
+        b = torch.empty(32, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError):
+            kernel_q8.fused_conv_pool_q8(x, w, b, multiplier=0.01, padding=2)
+    assert kernel_q8.K2_LAUNCHES.count == before
+
+
+def test_wrappers_check_before_launching():
+    """Type, shape and layout faults raise before any build or launch."""
+    with FakeTensorMode():
+        x = torch.empty(2, 1, 32, 32, device="cuda")
+        w = torch.empty(6, 1, 5, 5, device="cuda")
+        with pytest.raises(ValueError, match="input channels"):
+            ops.fused_conv_pool(x, torch.empty(6, 2, 5, 5, device="cuda"))
+        with pytest.raises(TypeError, match="one dtype"):
+            ops.fused_conv_pool(x, w.to(torch.bfloat16))
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.fused_conv_pool(x.transpose(2, 3), w)
+        with pytest.raises(ValueError, match="out must be"):
+            ops.fused_conv_pool(x, w, out=torch.empty(2, 6, 13, 14, device="cuda"))
+        xq = torch.empty(1, 3, 32, 32, dtype=torch.int8, device="cuda")
+        wq = torch.empty(32, 3, 5, 5, dtype=torch.int8, device="cuda")
+        with pytest.raises(ValueError, match="non-negative"):
+            kernel_q8.fused_conv_pool_q8(xq, wq, multiplier=-0.5, padding=2)
+        with pytest.raises(TypeError, match="int32"):
+            kernel_q8.fused_conv_pool_q8(xq, wq, torch.empty(32, device="cuda"),
+                                         multiplier=0.5, padding=2)
+
+
+def test_other_devices_raise():
+    x = torch.empty(1, 1, 32, 32, device="meta")
+    w = torch.empty(6, 1, 5, 5, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        ops.fused_conv_pool(x, w)
+    with pytest.raises(ValueError, match="no implementation"):
+        kernel_q8.fused_conv_pool_q8(x.to(torch.int8), w.to(torch.int8))
