@@ -7,12 +7,12 @@ and duck-typed records — the port never imports the reference package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import QuantizedLayer, QuantizedModel
+from repro_torch.core.quantize import QuantizedJoin, QuantizedLayer, QuantizedModel
 from repro_torch.device import resolve
 
 
@@ -28,13 +28,16 @@ def params_from_numpy(params_np: Mapping[str, Mapping[str, object]],
 
 
 def quantized_from_numpy(graph, input_scale: float,
-                         layers: Mapping[str, object]) -> QuantizedModel:
-    """Rebuild a port :class:`QuantizedModel` over ``graph`` (a port graph)
-    from another model's per-layer records.
+                         layers: Mapping[str, object],
+                         joins: Optional[Mapping[str, object]] = None) -> QuantizedModel:
+    """Rebuild a port :class:`QuantizedModel` over ``graph`` (a port graph,
+    sequential or DAG) from another model's per-layer and per-join records.
 
     Each record in ``layers`` exposes ``w_q`` (int8), ``b_q`` (int32 or
-    None), ``w_scale``, ``in_scale`` and ``out_scale`` as attributes — the
-    reference's ``QuantizedLayer`` qualifies as it is.
+    None), ``w_scale`` (a float, or a ``(C,)`` array for a per-channel
+    layer), ``in_scale`` and ``out_scale`` as attributes; each record in
+    ``joins`` exposes ``in_scales`` and ``out_scale``.  The reference's
+    ``QuantizedLayer`` and ``QuantizedJoin`` qualify as they are.
     """
     out: Dict[str, QuantizedLayer] = {}
     for name, q in layers.items():
@@ -47,4 +50,9 @@ def quantized_from_numpy(graph, input_scale: float,
             in_scale=float(q.in_scale),
             out_scale=float(q.out_scale),
         )
-    return QuantizedModel(graph=graph, input_scale=float(input_scale), layers=out)
+    return QuantizedModel(
+        graph=graph, input_scale=float(input_scale), layers=out,
+        joins={name: QuantizedJoin(name=name,
+                                   in_scales=tuple(float(v) for v in j.in_scales),
+                                   out_scale=float(j.out_scale))
+               for name, j in (joins or {}).items()})

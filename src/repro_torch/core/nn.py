@@ -30,8 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.graph import (
+    Add,
     AvgPool2d,
+    Concat,
     Conv2d,
+    DAGGraph,
     DepthwiseConv2d,
     Flatten,
     FusedConvPool,
@@ -110,9 +113,10 @@ def _conv_like(conv, p, x: torch.Tensor) -> torch.Tensor:
     return conv2d(x, p["w"], p.get("b"), conv.stride, conv.padding)
 
 
-def init_params(graph: SequentialGraph, generator: torch.Generator, *,
-                dtype=torch.float32, device="cuda") -> Params:
-    """Kaiming-uniform init (PyTorch's fan-in default) from ``generator``.
+def init_params(graph: SequentialGraph | DAGGraph, generator: torch.Generator,
+                *, dtype=torch.float32, device="cuda") -> Params:
+    """Kaiming-uniform init (PyTorch's fan-in default) from ``generator``,
+    for a sequential or a DAG graph (keyed by layer, i.e. node, name).
 
     Draws on the CPU, then moves to ``device``, so one seed gives the same
     weights on every device.
@@ -192,3 +196,30 @@ def forward(graph: SequentialGraph, params: Params, x: torch.Tensor) -> torch.Te
         name = layer.name or layer.kind
         x = apply_layer(layer, params.get(name, {}), x)
     return x
+
+
+def apply_node(layer, p, xs) -> torch.Tensor:
+    """Apply one layer to its input list (DAG form): joins (:class:`Add`,
+    :class:`Concat`) consume every input, other layers take exactly one."""
+    if isinstance(layer, Add):
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+    if isinstance(layer, Concat):
+        return torch.cat(list(xs), dim=layer.axis)
+    if len(xs) != 1:
+        raise ValueError(f"{layer.name or layer.kind}: expected one input, got {len(xs)}")
+    return apply_layer(layer, p, xs[0])
+
+
+def forward_dag(graph: DAGGraph, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Functional DAG forward pass (the float oracle of the DAG executors)."""
+    vals: Dict[str, torch.Tensor] = {}
+    for node in graph.nodes:
+        if isinstance(node.layer, Input):
+            vals[node.name] = x
+            continue
+        vals[node.name] = apply_node(node.layer, params.get(node.name, {}),
+                                     [vals[src] for src in node.inputs])
+    return vals[graph.output]

@@ -1,6 +1,6 @@
-"""Arena executors: run a sequential graph *inside the planned arena*.
+"""Arena executors: run a sequential or DAG graph *inside the planned arena*.
 
-The port's counterpart of the sequential half of ``repro/core/pingpong.py``:
+The port's counterpart of ``repro/core/pingpong.py``.  Sequential graphs:
 
 * :func:`run_with_arena` — the walker.  Every inter-layer tensor is written
   at its planned offset in one flat arena tensor and read back from there,
@@ -17,13 +17,33 @@ The port's counterpart of the sequential half of ``repro/core/pingpong.py``:
   segment partition is kept for the stats, where it equals the reference's.
 * :func:`run_batch_with_arena` — N images through one plan.
 
-Both executors are parametric in ``apply_layer_fn(layer, params, x, out)``,
-the per-layer numerics: :func:`apply_layer` (float; ``FusedConvPool`` goes
-to kernel K1 for a CUDA tensor) by default, the int8 step of
-`repro_torch.quant.exec` for the §5 int8 path.  The arena takes the input's
-dtype and device, so an int8 input gives a genuine int8 arena.
+DAG graphs, on the reordered plans of `repro_torch.core.schedule.plan_dag`
+(``plan.buffers`` in schedule order):
 
-The DAG executors come with the DAG slice.
+* :func:`run_dag_with_arena` — the walker, one image, one flat arena;
+* :class:`DagArenaExecutor` (:func:`make_dag_executor`) — the executor:
+  one ``(N, arena_elems)`` arena per batch size; each step reads its inputs
+  as views of their planned buffers and writes its own buffer in place.
+  Steps run one after the other in plan order: the isomorphic branches the
+  reference batches into one ``vmap`` run apart, and the segment partition
+  is kept for the stats;
+* :func:`run_batch_dag_with_arena` — N images through one DAG plan.
+
+The sequential executors are parametric in ``apply_layer_fn(layer, params,
+x, out)``, the DAG ones in ``apply_node_fn(layer, params, xs, out, relu)``:
+the float steps :func:`apply_layer` / :func:`apply_node` by default (a
+dense ``FusedConvPool`` runs kernel K1 for a CUDA tensor, a depthwise conv
+kernel K3), the int8 steps of `repro_torch.quant.exec` for the int8 path.
+The arena takes the input's dtype and device, so an int8 input gives a
+genuine int8 arena.
+
+**The ReLU fold.**  A ``DepthwiseConv2d`` step whose first folded view is a
+ReLU passes ``relu=True`` to its step, which hands ``activation="relu"`` to
+K3/K4, and the view is not applied again.  In f32 that is the same
+computation.  In int8 the reference requantizes, then takes the ReLU; for a
+multiplier m ≥ 0 requantization is non-decreasing and maps 0 to 0, so
+``requant(max(acc, 0)) == max(requant(acc), 0)`` bit for bit, and the K4
+wrapper refuses a negative multiplier.
 """
 from __future__ import annotations
 
@@ -35,13 +55,17 @@ from repro_torch.core import nn
 from repro_torch.core import segments as segments_mod
 from repro_torch.core.graph import (
     Conv2d,
+    DAGGraph,
+    DepthwiseConv2d,
     FusedConvPool,
     Input,
     SequentialGraph,
     as_sequential,
 )
 from repro_torch.core.planner import MemoryPlan, materialized_steps
+from repro_torch.core.schedule import check_dag_plan
 from repro_torch.core.segments import cache_fifo
+from repro_torch.kernels.conv_pool.depthwise import fused_depthwise_conv_pool
 from repro_torch.kernels.conv_pool.ops import fused_conv_pool
 
 # Executors kept per (graph, plan) object pair, bounded FIFO.
@@ -271,6 +295,193 @@ def run_batch_with_arena(
     if xs.ndim != in_ndim + 1:
         raise ValueError(f"expected batched input (N, ...), got {tuple(xs.shape)}")
     ex = _cached_executor(graph, plan)
+    out = ex(params, xs)
+    stats = ex.stats()
+    stats["batch"] = int(xs.shape[0])
+    return out, stats
+
+
+# ---------------------------------------------------------------------------
+# DAG executors (reordered schedules from repro_torch.core.schedule)
+# ---------------------------------------------------------------------------
+
+
+def apply_node(layer, p, xs, out: Optional[torch.Tensor] = None,
+               relu: bool = False) -> torch.Tensor:
+    """The float DAG step: :func:`repro_torch.core.nn.apply_node`, except
+    that a dense ``FusedConvPool`` runs through kernel K1's wrapper and a
+    depthwise conv (bare, or inside a ``FusedConvPool``) through K3's — the
+    kernel for a CUDA tensor, the plain version for a CPU one.  ``relu``
+    folds a bare depthwise conv's ReLU view into K3.  ``out``, when given,
+    receives the result."""
+    if isinstance(layer, DepthwiseConv2d):
+        return fused_depthwise_conv_pool(
+            xs[0], p["w"], p.get("b"), conv_stride=layer.stride,
+            padding=layer.padding, activation="relu" if relu else "none",
+            out=out)
+    if relu:
+        raise ValueError(f"{layer.name}: only a depthwise conv folds its ReLU")
+    if isinstance(layer, FusedConvPool) and isinstance(layer.conv, DepthwiseConv2d):
+        return fused_depthwise_conv_pool(
+            xs[0], p["w"], p.get("b"), conv_stride=layer.conv.stride,
+            padding=layer.conv.padding, pool_k=layer.pool_kernel,
+            pool_stride=layer.pool_stride, activation=layer.activation,
+            pool=layer.pool, out=out)
+    if len(xs) == 1:
+        return apply_layer(layer, p, xs[0], out)
+    return _write(out, nn.apply_node(layer, p, xs))
+
+
+def folds_relu(step) -> bool:
+    """True iff ``step`` (a schedule step) is a depthwise conv whose first
+    folded view is a ReLU, which its kernel then applies."""
+    return (isinstance(step.layer, DepthwiseConv2d) and bool(step.views)
+            and step.views[0].kind == "ReLU")
+
+
+def run_step(apply_node_fn, step, p, xs, out: Optional[torch.Tensor] = None):
+    """One schedule step: its node, then its folded views (ReLU in place on
+    the buffer, Flatten as a view), the ReLU fold applied."""
+    relu = folds_relu(step)
+    y = apply_node_fn(step.layer, p, xs, out=out, relu=relu)
+    for v in step.views[int(relu):]:
+        y = y.clamp_(min=0) if v.kind == "ReLU" else nn.apply_layer(v, {}, y)
+    return y
+
+
+def _layer_shape(step, in_shape):
+    """A step's output shape before its views (what its kernel writes)."""
+    if isinstance(step.layer, Input):
+        return tuple(in_shape)
+    return tuple(step.layer.out_shape_multi(step.in_shapes))
+
+
+def run_dag_with_arena(
+    graph: DAGGraph,
+    plan: MemoryPlan,
+    params,
+    x: torch.Tensor,
+    *,
+    apply_node_fn=apply_node,
+) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """Execute a DAG on one image inside the planned arena, in the plan's
+    schedule order: the slow proof that the reordered plan's offsets are
+    clobber-free (each input is read back as a copy out of its slot)."""
+    mat, order = check_dag_plan(graph, plan)
+    steps = {s.name: s for s in mat.steps}
+    bufs = {b.name: b for b in plan.buffers}
+    arena = torch.zeros(plan.arena_elems, dtype=x.dtype, device=x.device)
+
+    def slot(name):
+        b = bufs[name]
+        return arena[b.offset_elems: b.offset_elems + b.size_elems]
+
+    if _prod(x.shape) != bufs[order[0]].size_elems:
+        raise ValueError(f"input size {tuple(x.shape)} != planned "
+                         f"{bufs[order[0]].size_elems}")
+    val = run_step(apply_node_fn, steps[order[0]], {}, [x.clone()]) \
+        if steps[order[0]].views else x
+    slot(order[0]).copy_(val.reshape(-1))
+    for name in order[1:]:
+        step = steps[name]
+        xs = [slot(src).clone().reshape(steps[src].out_shape) for src in step.inputs]
+        out = run_step(apply_node_fn, step, params.get(name, {}), xs)
+        if out.numel() != bufs[name].size_elems:
+            raise ValueError(f"step {name}: produced {tuple(out.shape)} but plan "
+                             f"expects {bufs[name].size_elems} elements")
+        slot(name).copy_(out.reshape(-1))
+    out = slot(mat.output).clone().reshape(steps[mat.output].out_shape)
+    return out, {"arena_elems": int(plan.arena_elems), "buffers": len(plan.buffers)}
+
+
+def _overlap(a, b) -> bool:
+    return (a.offset_elems < b.offset_elems + b.size_elems
+            and b.offset_elems < a.offset_elems + a.size_elems)
+
+
+class DagArenaExecutor(ArenaExecutor):
+    """``(params, x) -> y`` for a DAG over one preallocated arena per batch
+    size, as :class:`ArenaExecutor` is for a chain.
+
+    Each step reads its inputs as views of their planned buffers and writes
+    its own planned buffer through an ``out=`` view; the plan must never
+    put a step's output on one of its inputs (checked here).  The output is
+    a copy.  Calls on one executor must be ordered.
+    """
+
+    def __init__(self, graph: DAGGraph, plan: MemoryPlan, *,
+                 apply_node_fn=apply_node):
+        mat, order, self.segments = segments_mod.segments_for_plan(graph, plan)
+        self.graph, self.plan = graph, plan
+        self.apply_node_fn = apply_node_fn
+        self.in_shape = tuple(graph.nodes[0].layer.shape)
+        steps = {s.name: s for s in mat.steps}
+        self.bufs = {b.name: b for b in plan.buffers}
+        self.order = [steps[n] for n in order]
+        self.output = mat.output
+        self.layer_shapes = {s.name: _layer_shape(s, self.in_shape)
+                             for s in self.order}
+        for s in self.order:
+            if _prod(s.out_shape) != self.bufs[s.name].size_elems:
+                raise ValueError(f"step {s.name}: output {s.out_shape} but plan "
+                                 f"expects {self.bufs[s.name].size_elems} elements")
+            for src in s.inputs:
+                if _overlap(self.bufs[src], self.bufs[s.name]):
+                    raise ValueError(f"step {s.name}: plan overlaps its output "
+                                     f"with its input {src}")
+        self.arenas: Dict[int, torch.Tensor] = {}
+
+    def _buf(self, arena: torch.Tensor, name: str, shape) -> torch.Tensor:
+        b = self.bufs[name]
+        flat = arena[:, b.offset_elems: b.offset_elems + b.size_elems]
+        return flat.view((arena.shape[0], *shape))
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        nbatch = x.ndim - len(self.in_shape)
+        if nbatch not in (0, 1) or tuple(x.shape[nbatch:]) != self.in_shape:
+            raise ValueError(f"input shape {tuple(x.shape)} does not match "
+                             f"{self.in_shape}")
+        xb = x if nbatch else x[None]
+        arena = self.arena(xb.shape[0], xb.dtype, xb.device)
+        first = self.order[0]
+        cur = self._buf(arena, first.name, self.in_shape)
+        cur.copy_(xb)
+        vals = {first.name: run_step(self.apply_node_fn, first, {}, [cur], out=cur)
+                if first.views else cur}
+        for s in self.order[1:]:
+            dst = self._buf(arena, s.name, self.layer_shapes[s.name])
+            vals[s.name] = run_step(self.apply_node_fn, s, params.get(s.name, {}),
+                                    [vals[src] for src in s.inputs], out=dst)
+        y = vals[self.output].clone()
+        return y if nbatch else y[0]
+
+
+def make_dag_executor(graph: DAGGraph, plan: MemoryPlan, *,
+                      apply_node_fn=apply_node) -> DagArenaExecutor:
+    """The executor for (graph, plan); reuse it to reuse its arenas.  The
+    graph must be the one ``plan_dag`` planned (fused the same way)."""
+    return DagArenaExecutor(graph, plan, apply_node_fn=apply_node_fn)
+
+
+_DAG_EXEC_CACHE: Dict[Tuple[int, int], Tuple[DAGGraph, MemoryPlan, DagArenaExecutor]] = {}
+
+
+def run_batch_dag_with_arena(
+    graph: DAGGraph,
+    plan: MemoryPlan,
+    params,
+    xs: torch.Tensor,  # (N, *in_shape)
+) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """N images through one reordered DAG plan; the arena is
+    ``(N, arena_elems)``."""
+    in_ndim = len(graph.nodes[0].layer.shape)
+    if xs.ndim != in_ndim + 1:
+        raise ValueError(f"expected batched input (N, ...), got {tuple(xs.shape)}")
+    ex = cache_fifo(
+        _DAG_EXEC_CACHE, (id(graph), id(plan)), _EXEC_CACHE_MAX,
+        lambda: (graph, plan, make_dag_executor(graph, plan)),
+        name="dag_exec",
+    )[2]
     out = ex(params, xs)
     stats = ex.stats()
     stats["batch"] = int(xs.shape[0])

@@ -1,9 +1,10 @@
-"""Post-training int8 quantization (paper §5), sequential graphs.
+"""Post-training int8 quantization (paper §5), sequential and DAG graphs.
 
-The port's counterpart of ``repro/core/quantize.py``: symmetric per-tensor
+The port's counterpart of ``repro/core/quantize.py``: symmetric
 quantization, CMSIS-NN flavour —
 
-* weights: int8, scale = max|w| / 127;
+* weights: int8, scale = max|w| / 127 (per output channel for depthwise
+  layers);
 * activations: int8, scale calibrated from a calibration batch (max |x|);
 * accumulation: int32, requantized to int8 between layers.
 
@@ -15,8 +16,8 @@ low bits differ across frameworks, so the tests hold bit-exactness on the
 (:func:`repro_torch.convert.quantized_from_numpy`), and this module's own
 :func:`quantize` to a relative tolerance on its scales.
 
-:func:`simulate_int8_forward` is the eager int8 oracle of the int8
-executors and kernel K2.  Integer convolutions and matrix products do not
+:func:`simulate_int8_forward` and :func:`simulate_int8_dag_forward` are
+the eager int8 oracles of the int8 executors and kernels K2 and K4.  Integer convolutions and matrix products do not
 exist for CUDA tensors in PyTorch, so it computes them in float64, which is
 exact here: every partial sum is an integer of magnitude at most
 ``taps · 128 · 127`` (``5·5·32·128·127 ≈ 1.3e7`` for the §5 net), far
@@ -33,8 +34,11 @@ import torch.nn.functional as F
 
 from repro_torch.core import nn
 from repro_torch.core.graph import (
+    Add,
     AvgPool2d,
+    Concat,
     Conv2d,
+    DAGGraph,
     DepthwiseConv2d,
     Flatten,
     FusedConvPool,
@@ -69,10 +73,25 @@ class QuantizedLayer:
 
 
 @dataclasses.dataclass
+class QuantizedJoin:
+    """Join-node (Add/Concat) requantization: one int8→int8 multiplier per
+    input, rescaling each input's scale onto the join's output scale."""
+
+    name: str
+    in_scales: tuple
+    out_scale: float
+
+    @property
+    def multipliers(self) -> tuple:
+        return tuple(s / self.out_scale for s in self.in_scales)
+
+
+@dataclasses.dataclass
 class QuantizedModel:
-    graph: SequentialGraph
+    graph: SequentialGraph | DAGGraph
     input_scale: float
     layers: Dict[str, QuantizedLayer]
+    joins: Dict[str, QuantizedJoin] = dataclasses.field(default_factory=dict)
 
     def param_bytes(self) -> int:
         total = 0
@@ -154,10 +173,52 @@ def quantize(graph: SequentialGraph, params, calibration_x: torch.Tensor) -> Qua
     return QuantizedModel(graph=graph, input_scale=input_scale, layers=layers)
 
 
+def quantize_dag(graph: DAGGraph, params, calibration_x: torch.Tensor) -> QuantizedModel:
+    """Quantize a (fused) DAG's parameters given a calibration batch.
+
+    Per-node symmetric scales from the float activations, one topological
+    sweep, as the reference does: scale-preserving nodes (ReLU, Flatten,
+    MaxPool) pass their input's scale through; conv/linear nodes get the
+    accumulator-scale bias and requant multiplier; joins get one multiplier
+    per input (:class:`QuantizedJoin`).
+    """
+    input_scale = max(_max_abs(calibration_x), 1e-8) / 127.0
+    scales: Dict[str, float] = {}
+    vals: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, QuantizedLayer] = {}
+    joins: Dict[str, QuantizedJoin] = {}
+    for node in graph.nodes:
+        name = node.name
+        if isinstance(node.layer, Input):
+            vals[name] = calibration_x
+            scales[name] = input_scale
+            continue
+        val = nn.apply_node(node.layer, params.get(name, {}),
+                            [vals[src] for src in node.inputs])
+        vals[name] = val
+        if isinstance(node.layer, (Add, Concat)):
+            out_scale = max(_max_abs(val), 1e-8) / 127.0
+            joins[name] = QuantizedJoin(
+                name=name, in_scales=tuple(scales[src] for src in node.inputs),
+                out_scale=out_scale)
+            scales[name] = out_scale
+            continue
+        if name not in params:
+            scales[name] = scales[node.inputs[0]]  # scale-preserving node
+            continue
+        out_scale = max(_max_abs(val), 1e-8) / 127.0
+        layers[name] = _quantize_layer(
+            name, params[name], scales[node.inputs[0]], out_scale,
+            per_channel=_is_depthwise(node.layer))
+        scales[name] = out_scale
+    return QuantizedModel(graph=graph, input_scale=input_scale, layers=layers,
+                          joins=joins)
+
+
 # ---------------------------------------------------------------------------
 # Requantization — the one definition every int8 path of the port shares
-# (the executors, K2's plain version; K2 itself runs the same arithmetic in
-# csrc/conv_pool_math.cuh): f32 rescale, round half to even, saturate.
+# (the executors, the plain versions of K2 and K4; the kernels run the same
+# arithmetic in csrc/conv_pool_math.cuh): f32 rescale, round half to even, saturate.
 # ---------------------------------------------------------------------------
 
 
@@ -166,15 +227,44 @@ def requant_multiplier(in_scale: float, w_scale: float, out_scale: float) -> flo
     return in_scale * w_scale / out_scale
 
 
+def _f32(multiplier, device) -> torch.Tensor:
+    if isinstance(multiplier, torch.Tensor):
+        return multiplier.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(multiplier, np.float32), device=device)
+
+
 def requantize(acc_i32: torch.Tensor, multiplier) -> torch.Tensor:
     """int32 accumulator → int8 (f32 rescale, round-half-even, saturate).
 
     ``multiplier`` is cast to float32 first, as the reference does;
     ``torch.round`` rounds half to even, as ``jnp.round`` does.
     """
-    m = torch.as_tensor(np.asarray(multiplier, np.float32), device=acc_i32.device)
+    m = _f32(multiplier, acc_i32.device)
     v = torch.round(acc_i32.to(torch.float32) * m)
     return v.clamp_(-128, 127).to(torch.int8)
+
+
+def requantize_per_channel(acc_i32: torch.Tensor, multipliers) -> torch.Tensor:
+    """Per-output-channel requantization (depthwise convs): ``acc_i32`` is
+    ``(..., C, H, W)``, ``multipliers`` ``(C,)``, broadcast over the spatial
+    dims through the same :func:`requantize` math."""
+    return requantize(acc_i32, _f32(multipliers, acc_i32.device).reshape(-1, 1, 1))
+
+
+def requantize_join(xs_i8, multipliers) -> torch.Tensor:
+    """Int8 Add: requantize each input onto the output scale, sum in int32,
+    saturate to [-128, 127]."""
+    acc = None
+    for x, m in zip(xs_i8, multipliers):
+        r = requantize(x.to(torch.int32), m).to(torch.int32)
+        acc = r if acc is None else acc + r
+    return acc.clamp_(-128, 127).to(torch.int8)
+
+
+def requantize_concat(xs_i8, multipliers, axis: int) -> torch.Tensor:
+    """Int8 Concat: each input segment requantized onto the join scale."""
+    parts = [requantize(x.to(torch.int32), m) for x, m in zip(xs_i8, multipliers)]
+    return torch.cat(parts, dim=axis)
 
 
 def int8_avgpool(x_i8: torch.Tensor, kernel, stride, padding=0) -> torch.Tensor:
@@ -218,11 +308,35 @@ def simulate_int8_forward(qm: QuantizedModel, x_q: torch.Tensor) -> torch.Tensor
     for layer in qm.graph.layers:
         if isinstance(layer, Input):
             continue
-        x = _simulate_int8_layer(qm, layer, layer.name or layer.kind, x)
+        x = _simulate_int8_node(qm, layer, layer.name or layer.kind, [x])
     return x
 
 
-def _simulate_int8_layer(qm: QuantizedModel, layer, name: str, x) -> torch.Tensor:
+def simulate_int8_dag_forward(qm: QuantizedModel, x_q: torch.Tensor) -> torch.Tensor:
+    """Run the int8 DAG (int8 tensors, int32 accumulation) eagerly: the
+    oracle of the int8 DAG executors."""
+    g = qm.graph
+    if not isinstance(g, DAGGraph):
+        raise TypeError("simulate_int8_dag_forward expects a DAG-quantized model")
+    vals: Dict[str, torch.Tensor] = {}
+    for node in g.nodes:
+        if isinstance(node.layer, Input):
+            vals[node.name] = x_q
+            continue
+        vals[node.name] = _simulate_int8_node(
+            qm, node.layer, node.name, [vals[src] for src in node.inputs])
+    return vals[g.output]
+
+
+def _requant_conv(acc: torch.Tensor, q: QuantizedLayer, m=None) -> torch.Tensor:
+    """Requantize with the layer's scalar or per-channel multiplier."""
+    m = q.multiplier if m is None else m
+    return requantize_per_channel(acc, m) if q.per_channel else requantize(acc, m)
+
+
+def _simulate_int8_node(qm: QuantizedModel, layer, name: str, xs) -> torch.Tensor:
+    """One node of the int8 simulation (int8 tensors, int32 accumulation)."""
+    x = xs[0]
     if isinstance(layer, ReLU):
         return torch.clamp(x, min=0)
     if isinstance(layer, Flatten):
@@ -231,17 +345,18 @@ def _simulate_int8_layer(qm: QuantizedModel, layer, name: str, x) -> torch.Tenso
         return nn.maxpool2d(x, layer.kernel_size, layer.stride, layer.padding)
     if isinstance(layer, AvgPool2d):
         return int8_avgpool(x, layer.kernel_size, layer.stride, layer.padding)
+    if isinstance(layer, (Add, Concat)):
+        j = qm.joins[name]
+        if isinstance(layer, Add):
+            return requantize_join(xs, j.multipliers)
+        return requantize_concat(xs, j.multipliers, axis=layer.axis)
     q = qm.layers[name]
-    if q.per_channel:
-        raise NotImplementedError(
-            f"{name}: per-channel (depthwise) int8 layers come with the DAG slice")
     dev = x.device
-    if isinstance(layer, (Conv2d, FusedConvPool)):
+    if isinstance(layer, (Conv2d, DepthwiseConv2d, FusedConvPool)):
         conv = layer.conv if isinstance(layer, FusedConvPool) else layer
-        if isinstance(conv, DepthwiseConv2d):
-            raise NotImplementedError(f"{name}: depthwise int8 conv")
+        groups = conv.channels if isinstance(conv, DepthwiseConv2d) else 1
         acc = int_conv2d(x, torch.as_tensor(q.w_q, device=dev), conv.stride,
-                         conv.padding)
+                         conv.padding, groups=groups)
         if q.b_q is not None:
             bias = torch.as_tensor(q.b_q, device=dev)
             acc = acc + (bias[:, None, None] if acc.ndim == 3
@@ -252,11 +367,11 @@ def _simulate_int8_layer(qm: QuantizedModel, layer, name: str, x) -> torch.Tenso
             if layer.pool == "avg":
                 pkh, pkw = layer.pool_kernel
                 s = nn.sumpool2d(acc, layer.pool_kernel, layer.pool_stride)
-                return requantize(
-                    s, np.float32(q.multiplier) / np.float32(pkh * pkw))
-            y = requantize(acc, q.multiplier)
+                m = np.asarray(q.multiplier, np.float32) / np.float32(pkh * pkw)
+                return _requant_conv(s, q, m)
+            y = _requant_conv(acc, q)
             return nn.maxpool2d(y, layer.pool_kernel, layer.pool_stride)
-        return requantize(acc, q.multiplier)
+        return _requant_conv(acc, q)
     if isinstance(layer, (Linear, FusedLinear)):
         acc = int_linear(x, torch.as_tensor(q.w_q, device=dev))
         if q.b_q is not None:

@@ -1,19 +1,20 @@
-"""Segment partition of a sequential schedule, plus the shared FIFO memo.
+"""Segment partition of a schedule, plus the shared FIFO memo.
 
-Framework-free copy of the sequential half of ``repro/core/segments.py``
-(``Segment``, ``cache_fifo``, ``sequential_segments``, ``segment_stats``).
-The reference stacks each segment into one ``lax.scan``; PyTorch has no
-scan, so the port's executors run every step in a loop and keep the
-partition for their stats, where it must equal the reference's.  The DAG
-half (``compile_segments``, ``segments_for_plan``) comes with the DAG
-planner.
+Framework-free copy of ``repro/core/segments.py``.  The reference stacks
+each segment into one ``lax.scan`` (or one ``vmap`` of isomorphic
+branches); PyTorch has no scan, so the port's executors run every step in
+plan order and keep the partition for their stats, where it must equal the
+reference's.  Batching isomorphic branches into one launch is later work.
 
-Two segment shapes exist on sequential graphs, both one :class:`Segment`
-record:
+Three segment shapes exist, all one :class:`Segment` record:
 
-* **single step** — one branch of length 1 (heterogeneous layers).
-* **stacked chain run** — one branch of length L>1: a run of spec-identical
-  steps (same kind, hyper-parameters, views and shapes).
+* **single step** — one branch of length 1 (joins, heterogeneous layers).
+* **stacked chain run** — one branch of length L>1: a sole-consumer run of
+  spec-identical steps (same kind, hyper-parameters, views and shapes), or
+  on DAG schedules a spec-periodic run (DS-CNN's alternating dw/pw
+  backbone, period 2).
+* **batched isomorphic branches** — B>1 branches, pairwise identical specs
+  and mutually independent (DAG schedules only).
 """
 from __future__ import annotations
 
@@ -117,6 +118,20 @@ class _StepView:
     out_shape: Tuple[int, ...]
 
 
+def _dag_step_views(mat) -> Dict[str, _StepView]:
+    return {
+        s.name: _StepView(
+            name=s.name,
+            layer=s.layer,
+            view_kinds=tuple(v.kind for v in s.views),
+            inputs=s.inputs,
+            in_shapes=s.in_shapes,
+            out_shape=s.out_shape,
+        )
+        for s in mat.steps
+    }
+
+
 def _steps_isomorphic(a: _StepView, b: _StepView) -> bool:
     """True iff two steps are identical up to weights (and input sources)."""
     return (
@@ -201,6 +216,89 @@ def _chain_runs(
     return runs
 
 
+def _run_isomorphic(
+    steps: Dict[str, _StepView], a: Tuple[str, ...], b: Tuple[str, ...]
+) -> bool:
+    """True iff two chain runs match position-wise up to weights."""
+    if len(a) != len(b):
+        return False
+    return all(_steps_isomorphic(steps[x], steps[y]) for x, y in zip(a, b))
+
+
+def _batchable(steps: Dict[str, _StepView], names: Tuple[str, ...]) -> bool:
+    """Only single-input steps batch (a join's input list cannot stack)."""
+    return all(len(steps[n].inputs) == 1 for n in names)
+
+
+def _group_segments(
+    steps: Dict[str, _StepView],
+    runs: List[Tuple[int, Tuple[str, ...], int]],
+    *,
+    batch_branches: bool,
+) -> Tuple[Segment, ...]:
+    """Fold adjacent isomorphic, mutually independent runs into one Segment.
+
+    Runs tile the schedule contiguously, so adjacency in the run list is
+    adjacency in the schedule; a candidate branch joins the group iff it has
+    the same period, matches position-wise, and its (single) input step lies
+    outside the group — i.e. it was produced before the group's start.
+    """
+    segs: List[Segment] = []
+    i = 0
+    while i < len(runs):
+        start, names, period = runs[i]
+        group = [names]
+        j = i + 1
+        if batch_branches and _batchable(steps, names):
+            covered = set(names)
+            while j < len(runs):
+                _, cand, cand_period = runs[j]
+                if cand_period != period:
+                    break
+                if not _batchable(steps, cand):
+                    break
+                if not _run_isomorphic(steps, names, cand):
+                    break
+                if steps[cand[0]].inputs[0] in covered:
+                    break  # reads a value produced inside the group
+                group.append(cand)
+                covered.update(cand)
+                j += 1
+        segs.append(
+            Segment(
+                start=start,
+                kind=steps[names[0]].layer.kind,
+                branches=tuple(group),
+                period=period,
+            )
+        )
+        i = j if len(group) > 1 else i + 1
+    return tuple(segs)
+
+
+# Largest spec period the run factorization searches for (the reference's
+# bound: 2 covers the depthwise/pointwise alternation).
+_MAX_PERIOD = 4
+
+# Bounded-FIFO size for the per-(graph, plan) segment cache below.
+_SEGMENT_CACHE_MAX = 64
+
+
+def compile_segments(mat, order: Sequence[str], *, batch_branches: bool = True):
+    """Partition a scheduled DAG into segments.
+
+    ``mat`` is a `repro_torch.core.schedule.MaterializedDAG`; ``order`` the
+    plan's schedule (``order[0]`` is the input step, which owns no
+    segment).  Chain runs are spec-periodic up to period ``_MAX_PERIOD``;
+    ``batch_branches=False`` keeps isomorphic branches apart.
+    """
+    steps = _dag_step_views(mat)
+    runs = _chain_runs(
+        steps, mat.consumers(), tuple(order), 1, max_period=_MAX_PERIOD
+    )
+    return _group_segments(steps, runs, batch_branches=batch_branches)
+
+
 def sequential_segments(graph) -> Tuple[Segment, ...]:
     """Partition a sequential graph's materialized steps into segments.
 
@@ -241,6 +339,34 @@ def sequential_segments(graph) -> Tuple[Segment, ...]:
         )
         for start, names, period in runs
     )
+
+
+# Keyed by object identity (+ the batching flag); values keep the graph and
+# plan alive so the ids stay valid.
+_SEGMENT_CACHE: Dict[Tuple[int, int, bool], tuple] = {}
+
+
+def segments_for_plan(graph, plan, *, batch_branches: bool = True):
+    """``(materialized, order, segments)`` for a (DAG graph, plan) pair.
+
+    Validates the plan against the graph (`schedule.check_dag_plan`) and
+    partitions its schedule once per (graph, plan, batch_branches) triple.
+    """
+    from repro_torch.core.schedule import check_dag_plan
+
+    def build():
+        mat, order = check_dag_plan(graph, plan)
+        segs = compile_segments(mat, order, batch_branches=batch_branches)
+        return (graph, plan, mat, order, segs)
+
+    hit = cache_fifo(
+        _SEGMENT_CACHE,
+        (id(graph), id(plan), batch_branches),
+        _SEGMENT_CACHE_MAX,
+        build,
+        name="segments",
+    )
+    return hit[2], hit[3], hit[4]
 
 
 def segment_stats(segments: Sequence[Segment]) -> Dict[str, int]:

@@ -16,8 +16,12 @@
 // cores, since TF32 would break the reference's 1e-5 tolerance.
 //
 // Design, simple first:
-// * one CTA per (image, tile of pooled rows); the layer's weights (<= 9.6 KB
-//   for LeNet conv2) are staged once per CTA in shared memory, as f32;
+// * one CTA per (tile of pooled rows, image, tile of output channels); the
+//   weights of its channel tile are staged once per CTA in shared memory, as
+//   f32.  The host picks the channel tile so that they fit in 227 KB
+//   (kernel.py::cout_tile): all channels in one tile for the paper's layers
+//   (9.6 KB for LeNet conv2), two tiles of 128 for MobileNet's 256->256
+//   head (256 KB of f32 weights in all);
 // * one thread per (out channel, pooled column) walks the pooled rows of the
 //   tile; for each it accumulates in f32 over the conv positions its pool
 //   window needs, adds the bias, applies the ReLU and takes the max or sum
@@ -49,11 +53,14 @@ template <typename T>
 __global__ void conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                  const T* __restrict__ b, T* __restrict__ y,
                                  cp::Geom g, long long x_bstride, long long y_bstride,
-                                 int rows_per_cta, int relu, int avg) {
-  extern __shared__ float w_s[];  // (cout, cin, kh, kw) as f32
+                                 int rows_per_cta, int cout_tile, int relu, int avg) {
+  extern __shared__ float w_s[];  // (channels of this tile, cin, kh, kw) as f32
   const int taps = g.kh * g.kw;
-  const int n_w = g.cout * g.cin * taps;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) w_s[i] = to_f32(w[i]);
+  const int co0 = blockIdx.z * cout_tile;
+  const int ct = min(cout_tile, g.cout - co0);
+  const int n_w = ct * g.cin * taps;
+  const T* wt = w + static_cast<long long>(co0) * g.cin * taps;
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) w_s[i] = to_f32(wt[i]);
   __syncthreads();
 
   const int img = blockIdx.y;
@@ -61,17 +68,18 @@ __global__ void conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ 
   const T* xi = x + img * x_bstride;
   T* yi = y + img * y_bstride;
   const int plane = g.h * g.w;
-  const int work = rows_per_cta * g.cout * g.pw;
+  const int work = rows_per_cta * ct * g.pw;
   const float identity = avg ? 0.0f : -INFINITY;
 
   for (int t = threadIdx.x; t < work; t += blockDim.x) {
     const int pc = t % g.pw;
     const int rest = t / g.pw;
-    const int co = rest % g.cout;
-    const int pr = pr0 + rest / g.cout;
+    const int cl = rest % ct;
+    const int co = co0 + cl;
+    const int pr = pr0 + rest / ct;
     if (pr >= g.ph) continue;
     const float bias = b ? to_f32(b[co]) : 0.0f;
-    const float* wc0 = w_s + co * g.cin * taps;
+    const float* wc0 = w_s + cl * g.cin * taps;
     float red = identity;
     for (int i = 0; i < g.pkh; ++i) {
       const int ih0 = cp::in_origin(cp::conv_pos(pr, g.psh, i), g.csh, g.padh);
@@ -105,24 +113,25 @@ template <typename T>
 int launch(const void* x, const void* w, const void* b, void* y, int n, int cin,
            int h, int w_, int cout, int kh, int kw, int csh, int csw, int padh,
            int padw, int pkh, int pkw, int psh, int psw, int relu, int avg,
-           int rows_per_cta, long long x_bstride, long long y_bstride,
-           void* stream) {
+           int rows_per_cta, int cout_tile, long long x_bstride,
+           long long y_bstride, void* stream) {
   const cp::Geom g = cp::make_geom(n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                    padw, pkh, pkw, psh, psw);
-  const size_t smem = sizeof(float) * static_cast<size_t>(cout) * cin * kh * kw;
+  const size_t smem = sizeof(float) * static_cast<size_t>(cout_tile) * cin * kh * kw;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(conv_pool_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int work = rows_per_cta * cout * g.pw;
+  const int work = rows_per_cta * cout_tile * g.pw;
   int threads = ((work + 31) / 32) * 32;
   if (threads > 256) threads = 256;
-  const dim3 grid((g.ph + rows_per_cta - 1) / rows_per_cta, n);
+  const dim3 grid((g.ph + rows_per_cta - 1) / rows_per_cta, n,
+                  (cout + cout_tile - 1) / cout_tile);
   conv_pool_kernel<T><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), g, x_bstride, y_bstride, rows_per_cta, relu, avg);
+      static_cast<T*>(y), g, x_bstride, y_bstride, rows_per_cta, cout_tile, relu, avg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,18 +141,20 @@ extern "C" int conv_pool_f32(const void* x, const void* w, const void* b, void* 
                              int n, int cin, int h, int w_, int cout, int kh, int kw,
                              int csh, int csw, int padh, int padw, int pkh, int pkw,
                              int psh, int psw, int relu, int avg, int rows_per_cta,
-                             long long x_bstride, long long y_bstride, void* stream) {
+                             int cout_tile, long long x_bstride, long long y_bstride,
+                             void* stream) {
   return launch<float>(x, w, b, y, n, cin, h, w_, cout, kh, kw, csh, csw, padh, padw,
-                       pkh, pkw, psh, psw, relu, avg, rows_per_cta, x_bstride,
-                       y_bstride, stream);
+                       pkh, pkw, psh, psw, relu, avg, rows_per_cta, cout_tile,
+                       x_bstride, y_bstride, stream);
 }
 
 extern "C" int conv_pool_bf16(const void* x, const void* w, const void* b, void* y,
                               int n, int cin, int h, int w_, int cout, int kh, int kw,
                               int csh, int csw, int padh, int padw, int pkh, int pkw,
                               int psh, int psw, int relu, int avg, int rows_per_cta,
-                              long long x_bstride, long long y_bstride, void* stream) {
+                              int cout_tile, long long x_bstride, long long y_bstride,
+                              void* stream) {
   return launch<__nv_bfloat16>(x, w, b, y, n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                padw, pkh, pkw, psh, psw, relu, avg, rows_per_cta,
-                               x_bstride, y_bstride, stream);
+                               cout_tile, x_bstride, y_bstride, stream);
 }

@@ -1,6 +1,7 @@
 // Shared arithmetic of the fused conv+act+pool kernels (conv_pool.cu,
-// conv_pool_q8.cu): output geometry, the window index math, padding as
-// bounds-checked taps, and the int8 requantization.
+// conv_pool_q8.cu, conv_pool_dw.cu, conv_pool_dw_q8.cu): output geometry,
+// the window index math, padding as bounds-checked taps, and the int8
+// requantization, per tensor and per channel.
 //
 // Everything here is __host__ __device__ so that a plain C++ compiler can
 // build the host side into a small library (conv_pool_math_host.cpp) and the
@@ -63,6 +64,17 @@ CP_HD int8_t requant(int32_t acc, float m) {
   float v = rintf(mul_rn(i2f_rn(acc), m));
   v = fminf(fmaxf(v, -128.0f), 127.0f);
   return static_cast<int8_t>(v);
+}
+
+// The reference's requantize_per_channel (repro/core/quantize.py:210):
+// channel c of an (N, C, H, W) accumulator is requantized with m[c].
+CP_HD int8_t requant_per_channel(int32_t acc, const float* m, int c) {
+  return requant(acc, m[c]);
+}
+
+// Channel of element i of a contiguous (N, C, H, W) tensor with hw = H*W.
+CP_HD int nchw_channel(long long i, int c, int hw) {
+  return static_cast<int>((i / hw) % c);
 }
 
 // Geometry of one fused conv+act+pool call, NCHW.

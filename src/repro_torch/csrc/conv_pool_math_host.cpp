@@ -12,6 +12,14 @@ void cp_requant(const int32_t* acc, const float* m, int8_t* out, long long n) {
   for (long long i = 0; i < n; ++i) out[i] = cp::requant(acc[i], m[i]);
 }
 
+// Per-channel requant of a contiguous (N, C, H, W) int32 block of n
+// elements, hw = H*W: out[i] = requant(acc[i], m[channel of i]).
+void cp_requant_per_channel(const int32_t* acc, const float* m, int8_t* out,
+                            long long n, int c, int hw) {
+  for (long long i = 0; i < n; ++i)
+    out[i] = cp::requant_per_channel(acc[i], m, cp::nchw_channel(i, c, hw));
+}
+
 // (oh, ow, ph, pw) of one fused conv+pool geometry.
 void cp_geom(int h, int w, int kh, int kw, int csh, int csw, int padh, int padw,
              int pkh, int pkw, int psh, int psw, int* out4) {

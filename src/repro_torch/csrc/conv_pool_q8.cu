@@ -25,9 +25,10 @@
 // microsecond at the card's rates, so a launch bounds it.  Exact integer
 // arithmetic on the CUDA cores; no dp4a or int8 tensor-core MMA yet.
 //
-// Design: the same structure as K1 (conv_pool.cu): one CTA per (image, tile
-// of pooled rows), the layer's int8 weights (<= 12.8 KB here) in shared
-// memory, one thread per (out channel, pooled column) walking the tile's
+// Design: the same structure as K1 (conv_pool.cu): one CTA per (tile of
+// pooled rows, image, tile of output channels), the int8 weights of its
+// channel tile in shared memory (one tile holds a whole layer up to 227 KB;
+// 12.8 KB for CIFAR conv2, 64 KB for MobileNet's head), one thread per (out channel, pooled column) walking the tile's
 // pooled rows with an int32 accumulator, padding as bounds-checked zero taps
 // (symmetric quantization: the zero point is 0), batch-strided NCHW input
 // and output so the arena banks are read and written in place.
@@ -43,11 +44,14 @@ __global__ void conv_pool_q8_kernel(const int8_t* __restrict__ x,
                                     const int32_t* __restrict__ b,
                                     int8_t* __restrict__ y, cp::Geom g, float m,
                                     long long x_bstride, long long y_bstride,
-                                    int rows_per_cta, int relu, int avg) {
-  extern __shared__ int8_t wq_s[];  // (cout, cin, kh, kw) int8
+                                    int rows_per_cta, int cout_tile, int relu, int avg) {
+  extern __shared__ int8_t wq_s[];  // (channels of this tile, cin, kh, kw) int8
   const int taps = g.kh * g.kw;
-  const int n_w = g.cout * g.cin * taps;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) wq_s[i] = w[i];
+  const int co0 = blockIdx.z * cout_tile;
+  const int ct = min(cout_tile, g.cout - co0);
+  const int n_w = ct * g.cin * taps;
+  const int8_t* wt = w + static_cast<long long>(co0) * g.cin * taps;
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) wq_s[i] = wt[i];
   __syncthreads();
 
   const int img = blockIdx.y;
@@ -55,16 +59,17 @@ __global__ void conv_pool_q8_kernel(const int8_t* __restrict__ x,
   const int8_t* xi = x + img * x_bstride;
   int8_t* yi = y + img * y_bstride;
   const int plane = g.h * g.w;
-  const int work = rows_per_cta * g.cout * g.pw;
+  const int work = rows_per_cta * ct * g.pw;
 
   for (int t = threadIdx.x; t < work; t += blockDim.x) {
     const int pc = t % g.pw;
     const int rest = t / g.pw;
-    const int co = rest % g.cout;
-    const int pr = pr0 + rest / g.cout;
+    const int cl = rest % ct;
+    const int co = co0 + cl;
+    const int pr = pr0 + rest / ct;
     if (pr >= g.ph) continue;
     const int32_t bias = b ? b[co] : 0;
-    const int8_t* wc0 = wq_s + co * g.cin * taps;
+    const int8_t* wc0 = wq_s + cl * g.cin * taps;
     int32_t red = avg ? 0 : INT32_MIN;
     for (int i = 0; i < g.pkh; ++i) {
       const int ih0 = cp::in_origin(cp::conv_pos(pr, g.psh, i), g.csh, g.padh);
@@ -100,24 +105,25 @@ extern "C" int conv_pool_q8(const void* x, const void* w, const void* b, void* y
                             int n, int cin, int h, int w_, int cout, int kh, int kw,
                             int csh, int csw, int padh, int padw, int pkh, int pkw,
                             int psh, int psw, int relu, int avg, int rows_per_cta,
-                            long long x_bstride, long long y_bstride, float m,
-                            void* stream) {
+                            int cout_tile, long long x_bstride, long long y_bstride,
+                            float m, void* stream) {
   const cp::Geom g = cp::make_geom(n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                    padw, pkh, pkw, psh, psw);
-  const size_t smem = static_cast<size_t>(cout) * cin * kh * kw;
+  const size_t smem = static_cast<size_t>(cout_tile) * cin * kh * kw;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(conv_pool_q8_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int work = rows_per_cta * cout * g.pw;
+  const int work = rows_per_cta * cout_tile * g.pw;
   int threads = ((work + 31) / 32) * 32;
   if (threads > 256) threads = 256;
-  const dim3 grid((g.ph + rows_per_cta - 1) / rows_per_cta, n);
+  const dim3 grid((g.ph + rows_per_cta - 1) / rows_per_cta, n,
+                  (cout + cout_tile - 1) / cout_tile);
   conv_pool_q8_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const int32_t*>(b), static_cast<int8_t*>(y), g, m, x_bstride,
-      y_bstride, rows_per_cta, relu, avg);
+      y_bstride, rows_per_cta, cout_tile, relu, avg);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,7 +25,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # Kernel library name -> its source; every source also includes the header.
-SOURCES = {"conv_pool": "conv_pool.cu", "conv_pool_q8": "conv_pool_q8.cu"}
+SOURCES = {
+    "conv_pool": "conv_pool.cu",  # K1
+    "conv_pool_q8": "conv_pool_q8.cu",  # K2
+    "conv_pool_dw": "conv_pool_dw.cu",  # K3
+    "conv_pool_dw_q8": "conv_pool_dw_q8.cu",  # K4
+}
 _HEADERS = ("conv_pool_math.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,99 @@
+"""K3: the fused depthwise conv + activation + pool kernel, its plain version
+and its NCHW wrapper.
+
+The port's counterpart of ``repro/kernels/conv_pool/depthwise.py``
+(``_kernel_dw``, ``fused_depthwise_conv_pool``): one kh×kw filter per
+channel (groups = C, weights ``(C, 1, kh, kw)``), bias, activation, then a
+max or average pool; ``pool_k = pool_stride = 1`` is the identity, which is
+how the un-pooled depthwise+ReLU steps of DS-CNN and MobileNet run through
+the kernel.
+
+* a CPU tensor runs :func:`depthwise_conv_pool_ref`, the plain version
+  (f32 accumulation; bf16 is widened first, the result cast back);
+* a CUDA tensor launches ``csrc/conv_pool_dw.cu`` (f32 or bf16) through the
+  family's shared launch plumbing
+  (`repro_torch.kernels.conv_pool.kernel.conv_pool_call`), or raises;
+* any other device raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import nn
+from repro_torch.kernels.conv_pool.kernel import LaunchCounter, conv_pool_call
+
+K3_LAUNCHES = LaunchCounter()
+
+
+def depthwise_conv_pool_ref(x, w, b, *, conv_stride=1, padding=0, pool_k=1,
+                            pool_stride=1, activation: str = "relu",
+                            pool: str = "max") -> torch.Tensor:
+    """Plain K3: (N, C, H, W) → (N, C, PH, PW) in ``x.dtype``."""
+    wide = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    y = nn.depthwise_conv2d(x.to(wide), w.to(wide),
+                            None if b is None else b.to(wide),
+                            conv_stride, padding)
+    if activation == "relu":
+        y = torch.relu(y)
+    elif activation != "none":
+        raise ValueError(f"unknown activation {activation!r}")
+    if pool == "avg":
+        y = nn.avgpool2d(y, pool_k, pool_stride)
+    elif pool == "max":
+        y = nn.maxpool2d(y, pool_k, pool_stride)
+    else:
+        raise ValueError(f"unknown pool {pool!r}")
+    return y.to(x.dtype)
+
+
+def depthwise_conv_pool(x, w, b, *, conv_stride=1, padding=0, pool_k=1,
+                        pool_stride=1, activation: str = "relu",
+                        pool: str = "max", out=None) -> torch.Tensor:
+    """K3 on the card: f32 or bf16 (N, C, H, W) in, (N, C, PH, PW) out in the
+    input dtype, f32 accumulation."""
+    if x.dtype == torch.float32:
+        fn_name = "conv_pool_dw_f32"
+    elif x.dtype == torch.bfloat16:
+        fn_name = "conv_pool_dw_bf16"
+    else:
+        raise TypeError(f"depthwise_conv_pool: f32 or bf16 input, got {x.dtype}")
+    return conv_pool_call(
+        fn_name, "conv_pool_dw", K3_LAUNCHES, x, w, b, conv_stride=conv_stride,
+        padding=padding, pool_k=pool_k, pool_stride=pool_stride,
+        activation=activation, pool=pool, out_dtype=x.dtype,
+        bias_dtype=x.dtype, out=out, depthwise=True,
+    )
+
+
+def fused_depthwise_conv_pool(
+    x: torch.Tensor,  # (C, H, W) or (N, C, H, W)
+    w: torch.Tensor,  # (C, 1, kh, kw)
+    b: Optional[torch.Tensor] = None,
+    *,
+    conv_stride=1,
+    padding=0,
+    pool_k=1,
+    pool_stride=1,
+    activation: str = "relu",
+    pool: str = "max",
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Returns (C, PH, PW) or (N, C, PH, PW) in ``x.dtype``; ``out``, when
+    given, receives the result (on CUDA the kernel writes it directly)."""
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+        if out is not None:
+            out = out[None]
+    geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
+                pool_stride=pool_stride, activation=activation, pool=pool)
+    if x.device.type == "cpu":
+        y = depthwise_conv_pool_ref(x, w, b, **geom)
+        y = y if out is None else out.copy_(y)
+    elif x.device.type == "cuda":
+        y = depthwise_conv_pool(x, w, b, out=out, **geom)
+    else:
+        raise ValueError(f"fused_depthwise_conv_pool: no implementation for {x.device}")
+    return y[0] if squeeze else y

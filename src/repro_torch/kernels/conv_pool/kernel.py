@@ -3,10 +3,15 @@
 The port's counterpart of ``repro/kernels/conv_pool/kernel.py``: everything
 dtype-independent about a launch — geometry, the checks on device, dtype,
 shape and layout, the output (allocated, or an ``out=`` view into an arena
-bank), the row tiling of the grid and the launch counters — shared by the
-float kernel K1 (``csrc/conv_pool.cu``) and the int8 kernel K2
-(``csrc/conv_pool_q8.cu``, wrapped in `repro_torch.quant.kernel_q8`), so
-the two cannot diverge.
+bank), the tiling of the grid over pooled rows and output channels, and the
+launch counters — shared by the whole family, so the four cannot diverge:
+
+* K1, dense float (``csrc/conv_pool.cu``);
+* K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`);
+* K3, depthwise float (``csrc/conv_pool_dw.cu``,
+  `repro_torch.kernels.conv_pool.depthwise`);
+* K4, depthwise int8 (``csrc/conv_pool_dw_q8.cu``,
+  `repro_torch.quant.kernel_q8`).
 
 Layout is NCHW, as in the paper and PyTorch.  Each image of ``x`` and of
 the output must be contiguous; the batch stride is free, so the executors
@@ -24,8 +29,8 @@ import torch
 from repro_torch.core.graph import _pair
 from repro_torch.kernels import build
 
-# A CTA holds the layer's weights in shared memory; 227 KB is what one CTA
-# may have on Hopper.
+# A CTA holds the weights of its tile of output channels in shared memory;
+# 227 KB is what one CTA may have on Hopper.
 MAX_SMEM_BYTES = 232448
 # Aim for about this many CTAs (four per SM on 132 SMs) before tiling
 # several pooled rows into one CTA.
@@ -75,6 +80,19 @@ def rows_per_cta(n: int, ph: int) -> int:
     return max(1, -(-ph // per_image))
 
 
+def cout_tile(cout: int, w_elems_per_cout: int, elem_bytes: int) -> int:
+    """Output channels per CTA: all of them when their weights fit in one
+    CTA's shared memory, else the fewest equal tiles that fit (the last may
+    be shorter).  Raises when one channel's weights alone do not fit."""
+    per = w_elems_per_cout * elem_bytes
+    most = MAX_SMEM_BYTES // per
+    if most < 1:
+        raise ValueError(f"{per} B of weights per output channel exceed a "
+                         f"CTA's shared memory ({MAX_SMEM_BYTES} B)")
+    tiles = -(-cout // most)
+    return -(-cout // tiles)
+
+
 def _image_contiguous(t: torch.Tensor) -> bool:
     """True iff every image of a (N, C, H, W) tensor is one dense block."""
     _, c, h, w = t.shape
@@ -98,13 +116,16 @@ def conv_pool_call(
     out_dtype: torch.dtype,
     bias_dtype: torch.dtype,
     out: Optional[torch.Tensor] = None,
+    depthwise: bool = False,
     extra_args: tuple = (),
 ) -> torch.Tensor:
     """Check, allocate and launch one fused conv+act+pool kernel.
 
-    ``x`` is (N, Cin, H, W) on a CUDA device, ``w`` (Cout, Cin, kh, kw) and
-    ``b`` (Cout,) contiguous on the same device.  ``extra_args`` are ctypes
-    values passed after the strides (K2's requant multiplier).  Raises on
+    ``x`` is (N, Cin, H, W) on a CUDA device, ``w`` (Cout, Cin, kh, kw) —
+    or (C, 1, kh, kw) with Cout = Cin = C when ``depthwise`` — and ``b``
+    (Cout,), contiguous on the same device.  ``extra_args`` are passed after
+    the strides: ctypes values (K2's requant multiplier) or tensors, passed
+    as their device pointers (K4's per-channel multipliers).  Raises on
     anything the kernel does not take; never falls back.
     """
     if x.device.type != "cuda":
@@ -114,7 +135,10 @@ def conv_pool_call(
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     n, cin, h, wd = x.shape
     cout, wcin, kh, kw = w.shape
-    if wcin != cin:
+    if depthwise and (wcin != 1 or cout != cin):
+        raise ValueError(f"{fn_name}: a depthwise w is ({cin},1,kh,kw), got "
+                         f"{tuple(w.shape)} for {cin} input channels")
+    if not depthwise and wcin != cin:
         raise ValueError(f"{fn_name}: w has {wcin} input channels, x has {cin}")
     for name, t in (("w", w), ("b", b)):
         if t is not None and (t.device != x.device or not t.is_contiguous()):
@@ -137,11 +161,9 @@ def conv_pool_call(
                              pool_stride=pool_stride)
     if ph < 1 or pw < 1:
         raise ValueError(f"{fn_name}: geometry gives an empty output")
-    # K1 stages its weights as f32 (bf16 is widened), K2 as int8.
-    smem = w.numel() * (1 if out_dtype == torch.int8 else 4)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn_name}: {smem} B of weights exceed a CTA's "
-                         f"shared memory ({MAX_SMEM_BYTES} B)")
+    # The float kernels stage their weights as f32 (bf16 is widened), the
+    # int8 kernels as int8.
+    tile = cout_tile(cout, wcin * kh * kw, 1 if out_dtype == torch.int8 else 4)
     if out is None:
         out = torch.empty((n, cout, ph, pw), dtype=out_dtype, device=x.device)
     elif (tuple(out.shape) != (n, cout, ph, pw) or out.dtype != out_dtype
@@ -154,15 +176,16 @@ def conv_pool_call(
     # Build/load first: without nvcc or a card this raises before any
     # pointer is taken.
     fn = getattr(build.load(lib_name), fn_name)
-    rows = rows_per_cta(n, ph)
+    rows = rows_per_cta(n * -(-cout // tile), ph)
     ints = (n, cin, h, wd, cout, kh, kw, csh, csw, padh, padw, pkh, pkw,
-            psh, psw, int(activation == "relu"), int(pool == "avg"), rows)
+            psh, psw, int(activation == "relu"), int(pool == "avg"), rows, tile)
     args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
             ctypes.c_void_p(b.data_ptr() if b is not None else 0),
             ctypes.c_void_p(out.data_ptr())]
     args += [ctypes.c_int(v) for v in ints]
     args += [ctypes.c_longlong(x.stride(0)), ctypes.c_longlong(out.stride(0))]
-    args += list(extra_args)
+    args += [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+             for a in extra_args]
     args.append(ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     fn.restype = ctypes.c_int
     fn.argtypes = [type(a) for a in args]

@@ -1,7 +1,7 @@
 """Continuous-batching CNN serving engine over the arena executors.
 
 The port's counterpart of ``repro/serve/cnn_engine.py`` (``CNNEngine`` with
-``from_graph`` / ``from_quantized`` for sequential graphs): a deployed
+``from_graph`` / ``from_quantized``, sequential and DAG graphs): a deployed
 vision or keyword endpoint sees variable-arrival single-image traffic, and
 its throughput comes from dynamic batching and from keeping the executors
 and their arenas resident across steps.
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pingpong
+from repro_torch.core.graph import DAGGraph
 from repro_torch.device import resolve
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
@@ -175,7 +176,8 @@ class CNNEngine:
     """Continuous-batching engine over one arena executor.
 
     ``executor_fn`` is a ``(params, x) -> y`` executor from
-    ``pingpong.make_scan_executor`` or ``quant.exec.make_int8_executor``;
+    ``pingpong.make_scan_executor``, ``pingpong.make_dag_executor`` or
+    ``quant.exec.make_int8_executor``;
     ``params`` live on ``device``.  Use as a context manager, or call
     :meth:`start` / :meth:`stop`.
     """
@@ -241,18 +243,23 @@ class CNNEngine:
 
     @classmethod
     def from_graph(cls, graph, plan, params, *, device="cuda", **kw) -> "CNNEngine":
-        """Float engine for a sequential (graph, plan) pair on ``device``."""
+        """Float engine for a (graph, plan) pair on ``device``: a DAG graph
+        through the DAG arena executor (its plan from ``schedule.plan_dag``),
+        a sequential one through the sequential arena executor."""
         dev = resolve(device)
         params = {k: {kk: v.to(dev) for kk, v in p.items()}
                   for k, p in params.items()}
-        fn = pingpong.make_scan_executor(graph, plan)
+        if isinstance(graph, DAGGraph):
+            fn = pingpong.make_dag_executor(graph, plan)
+        else:
+            fn = pingpong.make_scan_executor(graph, plan)
         return cls(fn, params, tuple(graph.layers[0].shape), torch.float32,
                    device=dev, **kw)
 
     @classmethod
     def from_quantized(cls, qm, plan, *, device="cuda", **kw) -> "CNNEngine":
-        """Int8 engine for a quantized model: int8 wire format and int8
-        arena banks, at a quarter of the float bytes."""
+        """Int8 engine for a quantized model (sequential or DAG): int8 wire
+        format and int8 arena banks, at a quarter of the float bytes."""
         from repro_torch.quant.exec import make_int8_executor
 
         dev = resolve(device)

@@ -1,11 +1,12 @@
-"""The arithmetic that kernels K1 and K2 run, compiled for the host.
+"""The arithmetic that kernels K1-K4 run, compiled for the host.
 
-``src/repro_torch/csrc/conv_pool_math.cuh`` holds the requantization and the
-window/halo index math of both CUDA kernels as ``__host__ __device__``
-functions.  Here g++ builds its host side (``conv_pool_math_host.cpp``) into
-a small ctypes library under ``build/host/``, and the tests hold those exact
-lines against the reference package: the requantization bit for bit on more
-than 100k values, ties and saturation included, and the geometry against
+``src/repro_torch/csrc/conv_pool_math.cuh`` holds the requantization (per
+tensor and per channel) and the window/halo index math of the CUDA kernels
+as ``__host__ __device__`` functions.  Here g++ builds its host side
+(``conv_pool_math_host.cpp``) into a small ctypes library under
+``build/host/``, and the tests hold those exact lines against the reference
+package: the requantization bit for bit on more than 100k values, ties and
+saturation included, per channel as K4 applies it, and the geometry against
 the reference's layer shapes and halo windows.
 """
 import ctypes
@@ -48,6 +49,8 @@ def lib():
     so = ctypes.CDLL(str(out))
     p = ctypes.c_void_p
     so.cp_requant.argtypes = [p, p, p, ctypes.c_longlong]
+    so.cp_requant_per_channel.argtypes = [p, p, p, ctypes.c_longlong,
+                                          ctypes.c_int, ctypes.c_int]
     so.cp_geom.argtypes = [ctypes.c_int] * 12 + [p]
     so.cp_pooled_row_span.argtypes = [ctypes.c_int] * 6 + [p]
     so.cp_in_bounds.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -111,6 +114,22 @@ def test_host_requant_bit_exact_vs_reference(lib):
 def test_host_requant_rounds_half_to_even(lib):
     got = _requant(lib, np.array([1, 3, 5, 7, -1, -3, -5, 255, -255, 257, -257]), 0.5)
     assert got.tolist() == [0, 2, 2, 4, 0, -2, -2, 127, -128, 127, -128]
+
+
+def test_host_requant_per_channel_bit_exact_vs_reference(lib):
+    """K4's requant: channel c of an (N, C, H, W) int32 block with m[c]."""
+    acc, m_all = _requant_cases()
+    n, c, hw = 4, 64, 25
+    block = acc[: n * c * hw].reshape(n, c, 5, 5)
+    m = np.ascontiguousarray(m_all[::997][:c], np.float32)
+    m[::7] = np.float32(2.0**-5)  # channels whose values tie
+    out = np.empty(block.shape, np.int8)
+    lib.cp_requant_per_channel(np.ascontiguousarray(block).ctypes.data, m.ctypes.data,
+                               out.ctypes.data, block.size, c, hw)
+    ref = np.asarray(ref_quantize.requantize_per_channel(jnp.asarray(block),
+                                                         jnp.asarray(m)))
+    np.testing.assert_array_equal(out, ref)
+    assert (ref == 127).any() and (ref == -128).any()
 
 
 GEOMS = [

@@ -18,9 +18,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import convert
-from repro_torch.core import fusion, graph, nn, pingpong, planner
+from repro_torch.core import fusion, graph, nn, pingpong, planner, quantize, schedule
 from repro_torch.core.quantize import QuantizedLayer, QuantizedModel
-from repro_torch.kernels.conv_pool import ops, ref
+from repro_torch.kernels.conv_pool import depthwise, ops, ref
 from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
 from repro_torch.quant import exec as qexec
 from repro_torch.quant import kernel_q8
@@ -47,6 +47,9 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     sources = _port_sources()
     assert len(sources) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in sources}
+    assert {"src/repro_torch/core/schedule.py",
+            "src/repro_torch/kernels/conv_pool/depthwise.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -88,6 +91,20 @@ def _cifar_qm():
     return QuantizedModel(graph=fused, input_scale=0.02, layers=layers)
 
 
+def _dag_float():
+    g = graph.ds_cnn_kws()
+    fused = schedule.fuse_dag_priced(g)
+    return fused, schedule.plan_dag(g), nn.init_params(
+        fused, torch.Generator().manual_seed(0), device="cpu")
+
+
+def _dag_qm():
+    fused, _, params = _dag_float()
+    calib = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 1, 49, 10)).astype(np.float32))
+    return quantize.quantize_dag(fused, params, calib)
+
+
 ENTRY_POINTS = {
     "init_params": lambda: nn.init_params(graph.lenet5(), torch.Generator()),
     "params_from_numpy": lambda: convert.params_from_numpy(
@@ -98,6 +115,14 @@ ENTRY_POINTS = {
         _lenet()[1], planner.plan_pingpong(graph.lenet5()), _lenet()[2]),
     "CNNEngine.from_quantized": lambda: CNNEngine.from_quantized(
         _cifar_qm(), planner.plan_pingpong(graph.cifar_testnet(), io_dtype_bytes=1)),
+    "init_params[dag]": lambda: nn.init_params(
+        schedule.fuse_dag_priced(graph.mobilenet_v1()), torch.Generator()),
+    "int8_params[dag]": lambda: qexec.int8_params(_dag_qm()),
+    "make_int8_executor[dag]": lambda: qexec.make_int8_executor(
+        _dag_qm(), schedule.plan_dag(graph.ds_cnn_kws(), io_dtype_bytes=1)),
+    "CNNEngine.from_graph[dag]": lambda: CNNEngine.from_graph(*_dag_float()),
+    "CNNEngine.from_quantized[dag]": lambda: CNNEngine.from_quantized(
+        _dag_qm(), schedule.plan_dag(graph.ds_cnn_kws(), io_dtype_bytes=1)),
 }
 
 
@@ -116,6 +141,8 @@ def no_plain(monkeypatch):
 
     monkeypatch.setattr(ref, "conv_pool_ref", forbidden)
     monkeypatch.setattr(kernel_q8, "conv_pool_q8_ref", forbidden)
+    monkeypatch.setattr(depthwise, "depthwise_conv_pool_ref", forbidden)
+    monkeypatch.setattr(kernel_q8, "depthwise_conv_pool_q8_ref", forbidden)
 
 
 def test_k1_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
@@ -148,6 +175,61 @@ def test_k2_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
     assert kernel_q8.K2_LAUNCHES.count == before
 
 
+def test_k3_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = depthwise.K3_LAUNCHES.count
+    with FakeTensorMode():
+        x = torch.empty(2, 64, 25, 5, device="cuda")
+        w = torch.empty(64, 1, 3, 3, device="cuda")
+        b = torch.empty(64, device="cuda")
+        with pytest.raises(RuntimeError):
+            depthwise.fused_depthwise_conv_pool(x, w, b, padding=1)
+        # the DAG executors' step takes the same route, ReLU folded or not
+        dw = graph.DepthwiseConv2d(64, 3, padding=1, name="dw1")
+        for relu in (False, True):
+            with pytest.raises(RuntimeError):
+                pingpong.apply_node(dw, {"w": w, "b": b}, [x], relu=relu)
+    assert depthwise.K3_LAUNCHES.count == before
+
+
+def test_k4_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = kernel_q8.K4_LAUNCHES.count
+    m = np.full(64, 0.01, np.float32)
+    with FakeTensorMode():
+        x = torch.empty(2, 64, 25, 5, dtype=torch.int8, device="cuda")
+        w = torch.empty(64, 1, 3, 3, dtype=torch.int8, device="cuda")
+        b = torch.empty(64, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError):
+            kernel_q8.fused_depthwise_conv_pool_q8(x, w, b, multiplier=m, padding=1)
+        dw = graph.DepthwiseConv2d(64, 3, padding=1, name="dw1")
+        ms = torch.empty(64, device="cuda")
+        with pytest.raises(RuntimeError):
+            qexec.apply_int8_node(dw, {"w": w, "b": b, "m": ms, "m_host": m}, [x],
+                                  relu=True)
+    assert kernel_q8.K4_LAUNCHES.count == before
+
+
+def test_depthwise_wrappers_check_before_launching():
+    with FakeTensorMode():
+        x = torch.empty(2, 16, 8, 8, device="cuda")
+        with pytest.raises(ValueError, match="depthwise w"):
+            depthwise.fused_depthwise_conv_pool(x, torch.empty(16, 2, 3, 3, device="cuda"))
+        with pytest.raises(ValueError, match="depthwise w"):
+            depthwise.fused_depthwise_conv_pool(x, torch.empty(8, 1, 3, 3, device="cuda"))
+        xq = torch.empty(2, 16, 8, 8, dtype=torch.int8, device="cuda")
+        wq = torch.empty(16, 1, 3, 3, dtype=torch.int8, device="cuda")
+        m = np.full(16, 0.01, np.float32)
+        with pytest.raises(ValueError, match="non-negative"):
+            kernel_q8.fused_depthwise_conv_pool_q8(xq, wq, multiplier=-m)
+        with pytest.raises(ValueError, match="ms must be"):
+            kernel_q8.fused_depthwise_conv_pool_q8(
+                xq, wq, multiplier=m, ms=torch.empty(8, device="cuda"))
+        with pytest.raises(TypeError, match="host values"):
+            kernel_q8.fused_depthwise_conv_pool_q8(
+                xq, wq, multiplier=torch.empty(16, device="cuda"))
+
+
 def test_wrappers_check_before_launching():
     """Type, shape and layout faults raise before any build or launch."""
     with FakeTensorMode():
@@ -177,3 +259,10 @@ def test_other_devices_raise():
         ops.fused_conv_pool(x, w)
     with pytest.raises(ValueError, match="no implementation"):
         kernel_q8.fused_conv_pool_q8(x.to(torch.int8), w.to(torch.int8))
+    xd = torch.empty(1, 4, 8, 8, device="meta")
+    wd = torch.empty(4, 1, 3, 3, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        depthwise.fused_depthwise_conv_pool(xd, wd)
+    with pytest.raises(ValueError, match="no implementation"):
+        kernel_q8.fused_depthwise_conv_pool_q8(xd.to(torch.int8), wd.to(torch.int8),
+                                               multiplier=0.5)
