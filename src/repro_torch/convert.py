@@ -7,7 +7,7 @@ and duck-typed records — the port never imports the reference package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -56,3 +56,44 @@ def quantized_from_numpy(graph, input_scale: float,
                                    in_scales=tuple(float(v) for v in j.in_scales),
                                    out_scale=float(j.out_scale))
                for name, j in (joins or {}).items()})
+
+
+def lm_params_from_numpy(params_np: Mapping[str, Any], cfg, device="cuda",
+                         compute_dtype=None) -> Dict[str, Any]:
+    """The reference LM's param pytree (``repro.models.transformer.Model``)
+    as numpy → the port's params, so that both compute the same function.
+
+    The reference stacks each position ``i`` of the block pattern over
+    pattern groups (``g{i}``: a leading group axis on every leaf) and keeps
+    the remainder layers as ``r{i}``; the port keeps one dict per layer in
+    ``params["layers"]``, layer ``g * P + i`` being group ``g`` of ``g{i}``.
+    ``embed``, ``unembed`` and ``final_norm`` carry over as they are.
+
+    ``compute_dtype`` (a torch dtype or its name), when given, stores every
+    weight the model casts to the compute dtype at use in that dtype once
+    (:func:`repro_torch.models.transformer.store_compute_dtype`).  The
+    reference casts its f32 params to bf16 at every use; one cast at load
+    gives the same values without re-reading the f32 weights each step
+    (30 GB for RWKV6-7B).
+    """
+    from repro_torch.models.transformer import store_compute_dtype
+
+    dev = resolve(device)
+
+    def tensors(tree, index=None):
+        if isinstance(tree, Mapping):
+            return {k: tensors(v, index) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return torch.as_tensor(np.array(a if index is None else a[index]), device=dev)
+
+    P = len(cfg.block_pattern)
+    n_groups, rem = divmod(cfg.num_layers, P)
+    layers = [tensors(params_np[f"g{li % P}"], li // P) for li in range(n_groups * P)]
+    layers += [tensors(params_np[f"r{ri}"]) for ri in range(rem)]
+    out = {k: tensors(params_np[k]) for k in ("embed", "unembed", "final_norm")
+           if k in params_np}
+    out["layers"] = layers
+    if compute_dtype is not None:
+        store_compute_dtype(out, getattr(torch, compute_dtype)
+                            if isinstance(compute_dtype, str) else compute_dtype)
+    return out

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<name>-<hash>.so`` at the repository root, where the hash
-covers the sources and the flags: a changed source rebuilds, an unchanged
+covers the source, the headers it includes and the flags: a changed source rebuilds, an unchanged
 one loads what an earlier process built.  :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them together.
 
@@ -24,14 +24,18 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# Kernel library name -> its source; every source also includes the header.
+# Kernel library name -> its source.
 SOURCES = {
     "conv_pool": "conv_pool.cu",  # K1
     "conv_pool_q8": "conv_pool_q8.cu",  # K2
     "conv_pool_dw": "conv_pool_dw.cu",  # K3
     "conv_pool_dw_q8": "conv_pool_dw_q8.cu",  # K4
+    "flash_fwd": "flash_fwd.cu",  # K5
+    "wkv_fwd": "wkv_fwd.cu",  # K7
 }
-_HEADERS = ("conv_pool_math.cuh",)
+# Library name -> the csrc headers its source includes (hashed into its key).
+_HEADERS = {name: ("conv_pool_math.cuh",) for name in
+            ("conv_pool", "conv_pool_q8", "conv_pool_dw", "conv_pool_dw_q8")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -57,7 +61,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the library for ``name`` lives, keyed by a hash of its inputs."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name], *_HEADERS):
+    for f in (SOURCES[name], *_HEADERS.get(name, ())):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

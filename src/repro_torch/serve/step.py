@@ -1,8 +1,10 @@
-"""The bucketed executor cache shared by the serving engines.
+"""Serving steps: the bucketed executor cache shared by the engines, and
+the LM prefill and decode steps.
 
-The port's counterpart of ``repro/serve/step.py::bucket_for`` and
-``BucketedExecutorCache`` (``step.py:68-140``).  The rest of that file
-(prefill/decode under pjit) waits for the LM slice.
+The port's counterpart of ``repro/serve/step.py``: ``bucket_for`` and
+``BucketedExecutorCache`` (``step.py:68-140``), ``make_prefill_step`` and
+``make_decode_step``.  ``jit_*_step`` and ``enable_persistent_cache`` wait
+for the mesh item (PyTorch runs eagerly; nothing is compiled).
 
 Requests pad up to the nearest bucket, so an executor only ever sees the
 batch sizes on the ladder; in the port, preparing a bucket means running its
@@ -12,6 +14,8 @@ from __future__ import annotations
 
 import time
 from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -81,3 +85,22 @@ class BucketedExecutorCache:
     def misses(self) -> int:
         """How many buckets have been prepared."""
         return len(self._compiled)
+
+
+def make_decode_step(model, max_seq: int):
+    """``(params, cache, tokens, pos) -> (next_tok (B, 1) int32, logits,
+    cache)``: one decode step with greedy sampling in-step."""
+    def decode_step(params, cache, tokens, pos):
+        logits, cache = model.decode_step(params, cache, tokens, pos, max_seq)
+        next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        return next_tok, logits, cache
+
+    return decode_step
+
+
+def make_prefill_step(model, max_seq: int):
+    """``(params, batch) -> (cache, logits)``: one prompt pass."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, max_seq)
+
+    return prefill_step

@@ -10,6 +10,7 @@
   storage) stand in for real ones.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -20,11 +21,22 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch import convert
 from repro_torch.core import fusion, graph, nn, pingpong, planner, quantize, schedule
 from repro_torch.core.quantize import QuantizedLayer, QuantizedModel
+from repro_torch.configs import base as cfgbase
 from repro_torch.kernels.conv_pool import depthwise, ops, ref
 from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
+from repro_torch.kernels.flash import kernel as flash_kernel
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
+from repro_torch.kernels.wkv import kernel as wkv_kernel
+from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.kernels.wkv import ref as wkv_ref
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention, rwkv6
+from repro_torch.models.transformer import Model
 from repro_torch.quant import exec as qexec
 from repro_torch.quant import kernel_q8
 from repro_torch.serve.cnn_engine import CNNEngine
+from repro_torch.serve.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -49,7 +61,12 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(sources) > 20
     names = {p.relative_to(ROOT).as_posix() for p in sources}
     assert {"src/repro_torch/core/schedule.py",
-            "src/repro_torch/kernels/conv_pool/depthwise.py"} <= names
+            "src/repro_torch/kernels/conv_pool/depthwise.py",
+            "src/repro_torch/kernels/flash/kernel.py",
+            "src/repro_torch/kernels/wkv/kernel.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/configs/base.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -59,6 +76,10 @@ def test_port_imports_neither_jax_nor_the_reference():
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is usable")
+
+
+def _llama():
+    return cfgbase.get_reduced_config("llama3.2-1b")
 
 
 def _lenet():
@@ -123,6 +144,12 @@ ENTRY_POINTS = {
     "CNNEngine.from_graph[dag]": lambda: CNNEngine.from_graph(*_dag_float()),
     "CNNEngine.from_quantized[dag]": lambda: CNNEngine.from_quantized(
         _dag_qm(), schedule.plan_dag(graph.ds_cnn_kws(), io_dtype_bytes=1)),
+    "Model.init_params": lambda: Model(_llama()).init_params(torch.Generator()),
+    "Model.init_cache": lambda: Model(_llama()).init_cache(2, 16),
+    "Engine": lambda: Engine(Model(_llama()), {}, lanes=2, max_seq=16),
+    "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+        {"embed": np.zeros((4, 2), np.float32)}, _llama()),
+    "launch.serve.main": lambda: launch_serve.main(["--arch", "llama3.2-1b"]),
 }
 
 
@@ -143,6 +170,8 @@ def no_plain(monkeypatch):
     monkeypatch.setattr(kernel_q8, "conv_pool_q8_ref", forbidden)
     monkeypatch.setattr(depthwise, "depthwise_conv_pool_ref", forbidden)
     monkeypatch.setattr(kernel_q8, "depthwise_conv_pool_q8_ref", forbidden)
+    monkeypatch.setattr(flash_ref, "attention_ref", forbidden)
+    monkeypatch.setattr(wkv_ref, "wkv_chunked", forbidden)
 
 
 def test_k1_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
@@ -266,3 +295,85 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="no implementation"):
         kernel_q8.fused_depthwise_conv_pool_q8(xd.to(torch.int8), wd.to(torch.int8),
                                                multiplier=0.5)
+
+
+def test_k5_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = flash_kernel.K5_LAUNCHES.count
+    cfg = _llama()
+    with FakeTensorMode():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.empty(1, 17, 32, 64, dtype=dtype, device="cuda")
+            kv = torch.empty(1, 17, 8, 64, dtype=dtype, device="cuda")
+            with pytest.raises(RuntimeError):
+                flash_ops.flash_attention(q, kv, kv)
+        # the model's prefill attention takes the same route
+        p = {k: torch.empty(s, device="cuda") for k, s in (
+            ("wq", (cfg.d_model, cfg.num_heads, 64)), ("wk", (cfg.d_model, 2, 64)),
+            ("wv", (cfg.d_model, 2, 64)), ("wo", (cfg.num_heads, 64, cfg.d_model)))}
+        x = torch.empty(1, 9, cfg.d_model, device="cuda")
+        pos = torch.zeros(1, 9, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError):
+            attention.attend_train(dataclasses.replace(cfg, head_dim=64), p, x, "attn", pos)
+    assert flash_kernel.K5_LAUNCHES.count == before
+
+
+def test_k7_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    _no_cuda()
+    before = wkv_kernel.K7_LAUNCHES.count
+    cfg = cfgbase.get_reduced_config("rwkv6-7b")
+    shapes = {k: (v.shape, v.dtype) for k, v in
+              rwkv6.init_rwkv_params(cfg, torch.Generator(), "cpu").items()}
+    with FakeTensorMode():
+        for dtype in (torch.float32, torch.bfloat16):
+            r = torch.empty(1, 63, 64, 64, dtype=dtype, device="cuda")
+            logw = torch.empty(1, 63, 64, 64, device="cuda")
+            u = torch.empty(64, 64, device="cuda")
+            with pytest.raises(RuntimeError):
+                wkv_ops.wkv(r, r, r, logw, u, chunk=64)
+        # the model's multi-token time-mix takes the same route
+        p = {k: torch.empty(s, dtype=dt, device="cuda") for k, (s, dt) in shapes.items()}
+        x = torch.empty(1, 5, cfg.d_model, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(RuntimeError):
+            rwkv6.time_mix(cfg, p, x)
+    assert wkv_kernel.K7_LAUNCHES.count == before
+
+
+def test_lm_wrappers_check_before_launching():
+    """Shape, dtype, head-dim and layout faults raise before any build."""
+    with FakeTensorMode():
+        q = torch.empty(1, 8, 4, 64, device="cuda")
+        kv = torch.empty(1, 8, 2, 64, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            flash_kernel.flash_attention_fwd(torch.empty(1, 8, 4, 32, device="cuda"),
+                                             torch.empty(1, 8, 2, 32, device="cuda"),
+                                             torch.empty(1, 8, 2, 32, device="cuda"))
+        with pytest.raises(ValueError, match="KV heads"):
+            flash_kernel.flash_attention_fwd(q, torch.empty(1, 8, 3, 64, device="cuda"),
+                                             torch.empty(1, 8, 3, 64, device="cuda"))
+        with pytest.raises(TypeError, match="one dtype"):
+            flash_kernel.flash_attention_fwd(q, kv.to(torch.bfloat16), kv)
+        with pytest.raises(ValueError, match="contiguous head dim"):
+            flash_kernel.flash_attention_fwd(
+                torch.empty(1, 8, 64, 4, device="cuda").transpose(2, 3), kv, kv)
+        r = torch.empty(1, 8, 2, 16, device="cuda")
+        logw = torch.empty(1, 8, 2, 16, device="cuda")
+        u = torch.empty(2, 16, device="cuda")
+        with pytest.raises(ValueError, match="does not divide"):
+            wkv_kernel.wkv_fwd(r, r, r, logw, u, chunk=3)
+        with pytest.raises(ValueError, match="must lie"):
+            wkv_kernel.wkv_fwd(r, r, r, logw, u, chunk=65)
+        with pytest.raises(TypeError, match="must be f32"):
+            wkv_kernel.wkv_fwd(r, r, r, logw.to(torch.bfloat16), u, chunk=8)
+        with pytest.raises(ValueError, match="contiguous"):
+            wkv_kernel.wkv_fwd(torch.empty(1, 8, 16, 2, device="cuda").transpose(2, 3),
+                               r, r, logw, u, chunk=8)
+
+
+def test_lm_wrappers_on_other_devices_raise():
+    q = torch.empty(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        flash_ops.flash_attention(q, q, q)
+    r = torch.empty(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        wkv_ops.wkv(r, r, r, r, torch.empty(2, 16, device="meta"))
