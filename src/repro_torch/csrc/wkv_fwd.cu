@@ -18,14 +18,13 @@
 // so bytes and operations are both small: the chunk walk is serial and one
 // CTA per (batch, head) gives only 64 CTAs on 132 SMs, so latency bounds it.
 //
-// Numerics: every stored value is f32 as in the TPU kernel (the cumulative
-// log decay, the decayed r and k, the exponentials, the state between
-// chunks, the outputs), and every sum over a head dim or a chunk (the pair
-// term, the bonus, the history read, the pair times v, the state update)
-// is accumulated in f64.  At hk = 64 an f32 sum of ~64 terms of size ~1
-// carries ~1e-5 of rounding whatever its order, which is the size of the
-// contract's atol on outputs near zero; with f64 sums the kernel and its
-// plain version (kernels/wkv/ref.py, the same rule) agree to an f32 ulp.
+// Numerics: f32 throughout, as in the TPU kernel: the cumulative log decay,
+// the exponentials, the state between chunks, the outputs and every sum.
+// The sums run in a fixed sequential order, so they round differently from
+// the plain version's (kernels/wkv/ref.py, PyTorch's reductions): at hk = 64
+// an f32 sum of ~64 terms of size ~1 carries ~1e-5 of rounding whatever its
+// order.  chip_smoke.py holds the two apart by a bound that scales with the
+// sum of the terms' magnitudes, not by a fixed atol.
 //
 // Design, simple first, the TPU kernel's arithmetic in the same order:
 // * one CTA of 256 threads per (batch, head) walks the chunks in order; the
@@ -47,10 +46,8 @@ namespace {
 constexpr int kMax = 64;       // largest chunk, hk and hv
 constexpr int kLD = kMax + 1;  // row stride of the shared tiles
 constexpr int kThreads = 256;
-// f32: r, k, la, la_prev, v, state tiles and u; f64: the pair matrix and
-// the bonus diagonal
-constexpr size_t kSmemBytes =
-    sizeof(float) * (6 * kMax * kLD + kMax) + sizeof(double) * (kMax * kLD + kMax);
+// pair matrix, r, k, la, la_prev, v and state tiles; bonus diagonal and u
+constexpr size_t kSmemBytes = sizeof(float) * (7 * kMax * kLD + 2 * kMax);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -61,10 +58,10 @@ wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
                const float* __restrict__ logw, const float* __restrict__ u,
                float* __restrict__ o, float* __restrict__ s_out, int S, int H, int hk, int hv,
                int chunk) {
-  extern __shared__ double smd[];
-  double* A = smd;              // [C][kLD] pair term, s < t
-  double* dg = A + kMax * kLD;  // [C] bonus diagonal
-  float* rs = reinterpret_cast<float*>(dg + kMax);  // [C][kLD] r, then r * exp(la_prev)
+  extern __shared__ float smem[];
+  float* A = smem;              // [C][kLD] pair term, s < t
+  float* dg = A + kMax * kLD;   // [C] bonus diagonal
+  float* rs = dg + kMax;        // [C][kLD] r, then r * exp(la_prev)
   float* ks = rs + kMax * kLD;  // [C][kLD] k, then k * exp(la_end - la)
   float* la = ks + kMax * kLD;  // [C][kLD] cumulative log decay
   float* lp = la + kMax * kLD;  // [C][kLD] logw, then la_prev
@@ -117,18 +114,13 @@ wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
       const float* lt = lp + t * kLD;
       const float* kss = ks + s * kLD;
       const float* ls = la + s * kLD;
-      double a = 0.0;
-      for (int i = 0; i < hk; ++i) {
-        const float ex = expf(fminf(lt[i] - ls[i], 0.0f));
-        a = fma(static_cast<double>(rt[i]) * kss[i], static_cast<double>(ex), a);
-      }
+      float a = 0.0f;
+      for (int i = 0; i < hk; ++i) a = fmaf(rt[i] * kss[i], expf(fminf(lt[i] - ls[i], 0.0f)), a);
       A[t * kLD + s] = a;
     }
     for (int t = tid; t < chunk; t += kThreads) {
-      double d = 0.0;
-      for (int i = 0; i < hk; ++i)
-        d = fma(static_cast<double>(rs[t * kLD + i]) * us[i],
-                static_cast<double>(ks[t * kLD + i]), d);
+      float d = 0.0f;
+      for (int i = 0; i < hk; ++i) d = fmaf(rs[t * kLD + i] * us[i], ks[t * kLD + i], d);
       dg[t] = d;
     }
     __syncthreads();
@@ -145,25 +137,20 @@ wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
     // outputs, against the incoming state
     for (int e = tid; e < chunk * hv; e += kThreads) {
       const int t = e / hv, j = e % hv;
-      double hist = 0.0;
-      for (int i = 0; i < hk; ++i)
-        hist = fma(static_cast<double>(rs[t * kLD + i]),
-                   static_cast<double>(St[i * kLD + j]), hist);
-      double pv = 0.0;
-      for (int s = 0; s < t; ++s) pv = fma(A[t * kLD + s], static_cast<double>(vs[s * kLD + j]), pv);
-      o[v0 + (c0 + t) * v_row + j] =
-          static_cast<float>((hist + pv) + dg[t] * static_cast<double>(vs[t * kLD + j]));
+      float hist = 0.0f;
+      for (int i = 0; i < hk; ++i) hist = fmaf(rs[t * kLD + i], St[i * kLD + j], hist);
+      float pv = 0.0f;
+      for (int s = 0; s < t; ++s) pv = fmaf(A[t * kLD + s], vs[s * kLD + j], pv);
+      o[v0 + (c0 + t) * v_row + j] = (hist + pv) + dg[t] * vs[t * kLD + j];
     }
     __syncthreads();  // every read of the incoming state is done
 
     // state update
     for (int e = tid; e < hk * hv; e += kThreads) {
       const int i = e / hv, j = e % hv;
-      double kv = 0.0;
-      for (int s = 0; s < chunk; ++s)
-        kv = fma(static_cast<double>(ks[s * kLD + i]), static_cast<double>(vs[s * kLD + j]), kv);
-      St[i * kLD + j] = static_cast<float>(
-          fma(static_cast<double>(St[i * kLD + j]), static_cast<double>(expf(la_end[i])), kv));
+      float kv = 0.0f;
+      for (int s = 0; s < chunk; ++s) kv = fmaf(ks[s * kLD + i], vs[s * kLD + j], kv);
+      St[i * kLD + j] = fmaf(St[i * kLD + j], expf(la_end[i]), kv);
     }
   }
   __syncthreads();

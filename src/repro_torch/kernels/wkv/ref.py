@@ -5,13 +5,8 @@ of ``repro/kernels/wkv``), with the incoming state fixed at zero, as the TPU
 kernel's (``kernel.py:23-25``).  Only chunk-boundary states are carried;
 every exponent is a log-decay difference with t >= s, hence <= 0.
 
-Numerics, shared with K7 (``csrc/wkv_fwd.cu``): every stored value (the
-cumulative log decay, the decayed r and k, the exponentials, the state
-between chunks, the outputs) is f32, as in the reference, and every sum
-over a head dim or a chunk is taken in f64.  An f32 sum of ~64 terms of
-size ~1 carries ~1e-5 of rounding in any order; with f64 sums the kernel
-and this version agree to an f32 ulp, and both lie nearer the exact value
-than the reference's f32 sums.
+Computed in f32 throughout, as the reference and K7 (``csrc/wkv_fwd.cu``)
+are; its sums round in PyTorch's order, K7's in a fixed sequential one.
 """
 from __future__ import annotations
 
@@ -39,27 +34,27 @@ def wkv_chunked(
         return x.float().reshape(B, n, chunk, H, d).permute(1, 0, 3, 2, 4)
 
     rc, kc, vc, wc = chunks(r, hk), chunks(k, hk), chunks(v, hv), chunks(logw, hk)
-    u64 = u.float().double()
+    u = u.float()
     ci = torch.arange(chunk, device=r.device)
-    mask_lt = (ci[:, None] > ci[None, :]).double()  # t > s strictly
+    mask_lt = (ci[:, None] > ci[None, :]).float()  # t > s strictly
     s = torch.zeros((B, H, hk, hv), dtype=torch.float32, device=r.device)
     outs = []
     for rb, kb, vb, wb in zip(rc, kc, vc, wc):  # (B, H, C, ·)
         la = torch.cumsum(wb, dim=2)  # cumulative log decay
         la_prev = la - wb
-        r64, k64, v64 = rb.double(), kb.double(), vb.double()
-        o = torch.einsum("bhck,bhkv->bhcv", (rb * torch.exp(la_prev)).double(), s.double())
+        # history read: (r_t * exp(la_{t-1})) @ S_in
+        o = torch.einsum("bhck,bhkv->bhcv", rb * torch.exp(la_prev), s)
+        # intra-chunk: pair[t, s] = sum_i r_t[i] k_s[i] exp(la_{t-1}[i] - la_s[i]), s < t
         expo = la_prev[:, :, :, None] - la[:, :, None]  # (B, H, C_t, C_s, hk)
-        pair = torch.einsum("bhck,bhsk,bhcsk->bhcs", r64, k64,
-                            torch.exp(torch.clamp(expo, max=0.0)).double())
-        pair = pair * mask_lt
-        o = o + torch.einsum("bhcs,bhsv->bhcv", pair, v64)
-        diag = torch.einsum("bhck,hk,bhck->bhc", r64, u64, k64)
-        o = o + diag[..., None] * v64
+        pair = torch.einsum("bhck,bhsk,bhcsk->bhcs", rb, kb,
+                            torch.exp(torch.clamp(expo, max=0.0)))
+        o = o + torch.einsum("bhcs,bhsv->bhcv", pair * mask_lt, vb)
+        # bonus diagonal: (r_t . (u * k_t)) v_t
+        o = o + torch.einsum("bhck,hk,bhck->bhc", rb, u, kb)[..., None] * vb
+        # state: S <- diag(exp(la_C)) S + sum_s diag(exp(la_C - la_s)) k_s v_s^T
         la_end = la[:, :, -1:]
-        k_dec = kb * torch.exp(la_end - la)
-        s = (s.double() * torch.exp(la_end.squeeze(2)).double()[..., None] + torch.einsum(
-            "bhsk,bhsv->bhkv", k_dec.double(), v64)).float()
-        outs.append(o.float())
+        s = s * torch.exp(la_end.squeeze(2))[..., None] + torch.einsum(
+            "bhsk,bhsv->bhkv", kb * torch.exp(la_end - la), vb)
+        outs.append(o)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, S, H, hv)
     return o, s

@@ -3,8 +3,7 @@
 The port's counterpart of ``repro/models/attention.py``.  Prefill attention
 (:func:`attend_train`) always goes through
 :func:`repro_torch.kernels.flash.ops.flash_attention`: K5 on the card, its
-plain version on the CPU.  ``plain=True`` runs the plain version on any
-device, so a run on the card can be held against the kernel path.  Decode
+plain version on the CPU.  Decode
 attention (:func:`attend_decode`) runs outside any kernel in the reference
 too and stays plain PyTorch here.
 
@@ -29,7 +28,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash import ops as flash_ops
-from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.models.common import apply_rope, cdt, dense_init, pdt
 
 NEG_INF = -2.3819763e38  # large negative for masked logits (bf16-safe)
@@ -105,8 +103,8 @@ def _window(cfg, kind: str) -> int:
     return cfg.window if kind in ("swa", "local") else 0
 
 
-def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
-                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str,
+                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Self-attention over a whole prompt; returns (y, k, v) with k after
     RoPE, the values a KV cache holds (the reference projects them a second
     time in ``_prefill_cache``; the numbers are the same)."""
@@ -116,18 +114,18 @@ def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Te
     q, k, v = _project_qkv(cfg, p, x, x)
     q = _rope(cfg, q, positions, kind)
     k = _rope(cfg, k, positions, kind)
-    attn = flash_ref.attention_ref if plain else flash_ops.flash_attention
-    out = attn(q, k, v, causal=True, window=_window(cfg, kind),
-               scale=1.0 / np.sqrt(cfg.head_dim), softcap=cfg.attn_softcap)
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=_window(cfg, kind),
+                                    scale=1.0 / np.sqrt(cfg.head_dim),
+                                    softcap=cfg.attn_softcap)
     cd = cdt(cfg)
     y = torch.einsum("bsnh,nhd->bsd", out.to(cd), p["wo"].to(cd))
     return y, k, v
 
 
-def attend_train(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
-                 plain: bool = False) -> torch.Tensor:
+def attend_train(cfg, p: dict, x: torch.Tensor, kind: str,
+                 positions: torch.Tensor) -> torch.Tensor:
     """Self-attention over a full sequence (prefill), through K5."""
-    return attend_prefill(cfg, p, x, kind, positions, plain)[0]
+    return attend_prefill(cfg, p, x, kind, positions)[0]
 
 
 # ----------------------------------------------------------------------------

@@ -9,7 +9,7 @@ S in R^{hk x hv}:
 
 A multi-token time-mix from the zero state (prefill) runs K7 through
 :func:`repro_torch.kernels.wkv.ops.wkv` (its plain version, the chunked
-scan, on the CPU or with ``plain=True``); one token runs :func:`wkv_step`,
+scan, on the CPU); one token runs :func:`wkv_step`,
 plain PyTorch, as the reference computes it outside any kernel.  Whether the
 incoming state is zero is said by the caller (``state=None``), never tested
 on the device.  A multi-token step that carries a state in is not on any
@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.wkv import ops as wkv_ops
-from repro_torch.kernels.wkv import ref as wkv_ref
 from repro_torch.models.common import cdt, dense_init, pdt
 
 LORA_RANK = 32
@@ -102,7 +101,7 @@ def wkv_step(r, k, v, logw, u, s):
     return o, s_new
 
 
-def _time_mix_inner(cfg, p, x, xprev, state, chunk, plain=False):
+def _time_mix_inner(cfg, p, x, xprev, state, chunk):
     """The time-mix after the token-shift inputs are known.  ``state=None``
     is the zero state."""
     B, S, D = x.shape
@@ -122,11 +121,7 @@ def _time_mix_inner(cfg, p, x, xprev, state, chunk, plain=False):
         o, s_new = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["bonus_u"], s0)
         o = o[:, None]
     elif state is None:
-        if plain:
-            o, s_new = wkv_ref.wkv_chunked(r, k, v, logw, p["bonus_u"],
-                                           chunk=wkv_ops.chunk_for(S, chunk))
-        else:
-            o, s_new = wkv_ops.wkv(r, k, v, logw, p["bonus_u"], chunk=chunk)
+        o, s_new = wkv_ops.wkv(r, k, v, logw, p["bonus_u"], chunk=chunk)
     else:
         raise NotImplementedError(
             "a multi-token time-mix from a carried state (chunked prefill) is not "
@@ -142,11 +137,11 @@ def _time_mix_inner(cfg, p, x, xprev, state, chunk, plain=False):
     return out, s_new
 
 
-def time_mix(cfg, p, x, state=None, last_x=None, chunk: int = 64, plain: bool = False):
+def time_mix(cfg, p, x, state=None, last_x=None, chunk: int = 64):
     """x: (B,S,D).  state: (B,H,hk,hv), or None for the zero state.
     Returns (out, new_state, new_last_x)."""
     xprev = _shift(x, last_x)
-    out, s_new = _time_mix_inner(cfg, p, x, xprev, state, chunk, plain)
+    out, s_new = _time_mix_inner(cfg, p, x, xprev, state, chunk)
     return out, s_new, x[:, -1]
 
 

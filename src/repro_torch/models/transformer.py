@@ -9,9 +9,7 @@ per-layer lists; :func:`repro_torch.convert.lm_params_from_numpy` and the
 tests unstack the reference's group-stacked layout.
 
 Every prefill attention runs K5 and every multi-token RWKV time-mix K7 (on
-the card; their plain versions on the CPU).  ``Model(cfg, plain=True)``
-runs the plain versions on any device, to hold the kernel path against
-them on the card.
+the card; their plain versions on the CPU).
 
 Not ported yet (ROADMAP.md queue 1): ``train_loss`` / ``_xent`` (the
 training slice, with K6), and the ``rglru``, MoE, enc-dec, frontend, M-RoPE
@@ -105,7 +103,6 @@ class Model:
     cfg: ModelConfig
     rwkv_chunk: int = 64
     kv_dtype: str = "compute"  # "int8" waits (ROADMAP.md queue 1)
-    plain: bool = False  # run the kernels' plain versions on any device
 
     def __post_init__(self):
         _check_ported(self.cfg, self.kv_dtype)
@@ -168,15 +165,14 @@ class Model:
             h = apply_norm(cfg, p["norm1"], x)
             state = _init_block_state(cfg, kind, B, max_seq, cdt(cfg), x.device)
             if kind in ATTN_KINDS:
-                a, k, v = attention.attend_prefill(cfg, p["attn"], h, kind, positions,
-                                                   self.plain)
+                a, k, v = attention.attend_prefill(cfg, p["attn"], h, kind, positions)
                 attention.fill_kv_cache(state, attention.cache_spec(cfg, kind, max_seq),
                                         k, v, positions)
                 x = x + a
                 x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             else:
                 a, s_new, tm_x = rwkv6.time_mix(cfg, p["tm"], h, None, None,
-                                                chunk=self.rwkv_chunk, plain=self.plain)
+                                                chunk=self.rwkv_chunk)
                 x = x + a
                 c, cm_x = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x))
                 x = x + c
@@ -205,7 +201,7 @@ class Model:
                 x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             else:
                 a, s_new, tm_x = rwkv6.time_mix(cfg, p["tm"], h, state["s"], state["tm_x"],
-                                                chunk=self.rwkv_chunk, plain=self.plain)
+                                                chunk=self.rwkv_chunk)
                 x = x + a
                 c, cm_x = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x),
                                             state["cm_x"])
