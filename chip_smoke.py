@@ -4,13 +4,13 @@
     python3 chip_smoke.py [--out FILE]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
-and the LM serving path, served — and holds their kernels against their
-plain PyTorch versions:
+and the LM serving path, served, and the LM training path, trained — and
+holds their kernels against their plain PyTorch versions:
 
 1. builds kernels K1 (``src/repro_torch/csrc/conv_pool.cu``), K2
    (``conv_pool_q8.cu``), K3 (``conv_pool_dw.cu``), K4
-   (``conv_pool_dw_q8.cu``), K5 (``flash_fwd.cu``) and K7
-   (``wkv_fwd.cu``) with ``nvcc``, one process each, in parallel;
+   (``conv_pool_dw_q8.cu``), K5 (``flash_fwd.cu``), K6 (``xent_fwd.cu``)
+   and K7 (``wkv_fwd.cu``) with ``nvcc``, one process each, in parallel;
 2. holds each kernel against its plain version on the card: K1 on the
    reference's kernel test geometries plus an average-pool, a multi-tile
    (128x128), a rectangular case and MobileNet's head (256->256 1x1, 256 KB
@@ -27,7 +27,14 @@ plain PyTorch versions:
    5e-2 and each row within 2e-2 of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
    inputs (o and s_final at rtol 1e-4, atol 1e-5 plus the f32 rounding of
-   two summation orders, see ``k7_checks``);
+   two summation orders, see ``k7_checks``); K6 on the two train shapes
+   (N, D, V) = (4,096, 2,048, 128,256) and (2,048, 4,096, 65,536), an odd N
+   with a vocab tail, a softcap of 30 and a vocab of 37, targets at 0, V-1
+   and inside the last tile, at one split and at the automatic count (per
+   token within 1e-5 relative + 1e-5 + 8 f32 epsilons of |x| max|w|, see
+   ``K6_CASES``); and each autograd Function (K5, K6, K7 forward, the
+   plain VJP backward) at small f32 shapes: a ``grad_fn``, one launch, and
+   gradients equal to autograd through the plain version at 1e-5;
 3. serves 64 requests in bursts of 8 through six engines (bucket ladder
    1/2/4/8/16): LeNet-5 f32 and §5 CIFAR int8 (sequential), DS-CNN-KWS and
    MobileNet-V1 0.25 in f32 and int8 (DAG), with every launch counter set
@@ -51,10 +58,25 @@ plain PyTorch versions:
    tokens/s;
 6. holds each architecture at full width, 2 layers, f32 compute, kernel
    path against plain path: prefill and 4 decode steps at 1e-4;
-7. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
-   K5/K7 at S 128/512/1000) with CUDA events and the profiler, beside its
-   plain version, a PyTorch library call computing the same function
-   where there is one, and its bound from the shapes.
+7. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
+   step of 2 microbatches, then a profiled step) and RWKV6-7B at full width
+   with 2 layers (B 4 x S 512, 2 steps, then a profiled step): f32 params,
+   bf16 compute, remat, ``xent_impl="chunked"``, the launcher's AdamW,
+   token-pipeline batches; every loss finite, launches per step pinned
+   (Llama K5 32, K6 1, or 64 and 2 with 2 microbatches; RWKV K7 4, K6 1;
+   no other kernel), every parameter leaf with a nonzero finite gradient,
+   step 1's loss and grad norm against the plain path (1e-2 and 5e-2
+   relative); step ms, tokens/s, peak memory, K6's device ms per step,
+   the device's idle share and MFU;
+8. holds both architectures at full width, 2 layers, f32 compute, kernel
+   path against plain path: step 1's loss at 1e-5 relative, every
+   gradient leaf at rtol 1e-3 and 1e-3 of the leaf's largest value, and
+   the losses of 2 AdamW steps at 1e-5 relative;
+9. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
+   K5/K7 at S 128/512/1000, K6 at the two train shapes) with CUDA events
+   and the profiler, beside its plain version, a PyTorch library call
+   computing the same function where there is one, and its bound from the
+   shapes.
 
 Prints one JSON object per line: the phases' results, then the card's
 ``nvidia-smi`` name and power limit, then ``{"kernels": [...]}``, and last
@@ -182,18 +204,41 @@ def event_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def kernel_events(torch, warm, run):
+    """(``run()``'s result, its kernel events from the profiler, the device
+    ms its step spans).  The profiler first traces one ``warm()`` in its
+    warmup step and drops it: a kernel launched as tracing starts can go
+    unrecorded.  Only the kernels' own events are kept: an operator's self
+    device time repeats its kernels', and the step's ``ProfilerStep#``
+    annotation, mirrored on the device, spans them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        out = run()
+        torch.cuda.synchronize()
+        prof.step()
+    device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    step = [ev for ev in device if ev.key.startswith("ProfilerStep")]
+    return (out, [ev for ev in device if not ev.key.startswith("ProfilerStep")],
+            sum(ev.device_time_total for ev in step) / 1e3)
+
+
 def device_ms(torch, fn, iters: int = 50):
     """Device time per call, summed over every kernel ``fn`` launches, from
     the profiler; None when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(ev.self_device_time_total for ev in prof.key_averages())
+
+    _, kernels, _ = kernel_events(torch, fn, run)
+    total_us = sum(ev.self_device_time_total for ev in kernels)
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -484,10 +529,12 @@ def _counters():
     from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
     from repro_torch.kernels.flash.kernel import K5_LAUNCHES
     from repro_torch.kernels.wkv.kernel import K7_LAUNCHES
+    from repro_torch.kernels.xent.kernel import K6_LAUNCHES
     from repro_torch.quant.kernel_q8 import K2_LAUNCHES, K4_LAUNCHES
 
     return {"K1": K1_LAUNCHES, "K2": K2_LAUNCHES, "K3": K3_LAUNCHES,
-            "K4": K4_LAUNCHES, "K5": K5_LAUNCHES, "K7": K7_LAUNCHES}
+            "K4": K4_LAUNCHES, "K5": K5_LAUNCHES, "K6": K6_LAUNCHES,
+            "K7": K7_LAUNCHES}
 
 
 def engine_phase(torch, np, report):
@@ -883,23 +930,29 @@ def _rows_close(y, y_ref, rel):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Inside, the model's K5 and K7 calls run their plain versions on any
-    device, so a pass on the card can be held against the kernel path."""
+    """Inside, the model's K5, K6 and K7 calls (and so their autograd
+    Functions) run their plain versions on any device, differentiable by
+    autograd, so a pass on the card can be held against the kernel path."""
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash.ref import attention_ref
     from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.kernels.wkv.ref import wkv_chunked
+    from repro_torch.kernels.xent import ops as xent_ops
 
     def wkv_plain(r, k, v, logw, u, *, chunk=64):
         return wkv_chunked(r, k, v, logw.float(), u,
                            chunk=wkv_ops.chunk_for(r.shape[1], chunk))
 
-    saved = flash_ops.flash_attention, wkv_ops.wkv
-    flash_ops.flash_attention, wkv_ops.wkv = attention_ref, wkv_plain
+    def xent_plain(x, w, targets, **kw):
+        return xent_ops.plain_xent(x.float(), w.float(), targets, **kw)
+
+    saved = flash_ops.flash_attention, wkv_ops.wkv, xent_ops.fused_xent
+    flash_ops.flash_attention, wkv_ops.wkv, xent_ops.fused_xent = (
+        attention_ref, wkv_plain, xent_plain)
     try:
         yield
     finally:
-        flash_ops.flash_attention, wkv_ops.wkv = saved
+        flash_ops.flash_attention, wkv_ops.wkv, xent_ops.fused_xent = saved
 
 
 def k5_checks(torch, np, report) -> None:
@@ -1293,6 +1346,436 @@ def _times(torch, kern, plain, library):
     return t
 
 
+# ---------------------------------------------------------------------------
+# The LM training path: K6 (fused LM-head cross-entropy) on every loss, K5
+# and K7 inside their autograd Functions
+# ---------------------------------------------------------------------------
+PEAK_F32_OPS_PER_S = PEAK_OPS_PER_S["f32"]
+# K6 against its plain version, (N, D, V, softcap, w std): the two train
+# shapes (w ~ N(0, 1/D), so logits ~ N(0, 1) as from the models' init), an
+# odd N with a vocab tail, with and without a softcap that bites (w std 1:
+# logits ~ N(0, 64)), and a tiny odd vocab; x ~ N(0, 1).
+K6_CASES = [
+    (4096, 2048, 128256, 0.0, None),
+    (2048, 4096, 65536, 0.0, None),
+    (129, 64, 1000, 0.0, 0.1),
+    (129, 64, 1000, 30.0, 1.0),
+    (32, 16, 37, 0.0, 0.1),
+]
+# Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
+# M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
+# sum_d |x_nd w_vd|).  1e-5 / 1e-5 is tests/test_kernel_xent.py's at
+# D <= 64; the eps M term is the rounding of f32 dot products summed in
+# two orders: an f32 dot's rounding error is ~u M with random-walk partial
+# sums (u = eps / 2), so two evaluations, the target logit and the
+# logsumexp stay within a few eps M (a CPU emulation of K6's sequential
+# fmaf order at D = 2,048 differed from torch's by 0.51 eps M at most);
+# 8 gives headroom.  A dropped vocab tile (Δ ~ 128 / V = 1e-3 at Llama's V)
+# or a wrong target (Δ ~ 1) exceeds it.
+K6_RTOL, K6_ATOL, K6_EPS_UNITS = 1e-5, 1e-5, 8
+# The Functions' gradients against autograd through the plain version: the
+# backward IS that plain VJP on the same inputs, so they agree up to f32
+# re-association of the per-chunk sums of dw (xent).
+GRAD_RTOL = GRAD_ATOL = 1e-5
+# lm_train: step 1's loss and global grad norm, kernel path against plain
+# path, bf16 compute, full depth.  The paths differ only in K5's and K6's
+# f32 sums (and K5's output rounded to bf16 after them); served Llama
+# logits differ by 0.012 in the relative 2-norm at full depth (PERF.md), the
+# mean CE over 4,096 tokens much less, and the gradients flow through the
+# same plain VJPs.
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-2, 5e-2
+# train_strict (f32 compute, 2 layers): losses at 1e-5 relative; each
+# gradient leaf within rtol 1e-3 and 1e-3 of the leaf's largest |value|.
+STRICT_LOSS_RTOL, STRICT_GRAD_RTOL = 1e-5, 1e-3
+# arch: (seed, layers (None: all), batch, seq, timed steps, a microbatches=2
+# step, launches per step).  K5: 16 forward + 16 in remat's recompute; K6
+# once per loss (2 with 2 microbatches; its backward is plain); K7: 2
+# forward + 2 recompute.
+TRAIN_RUNS = {
+    "llama3.2-1b": (20, None, 8, 512, 4, True, {"K5": 32, "K6": 1}),
+    "rwkv6-7b": (21, 2, 4, 512, 2, False, {"K7": 4, "K6": 1}),
+}
+
+
+def _xent_inputs(torch, np, rng, N, D, V, w_std):
+    """x ~ N(0, 1) (N, D), w (V, D) of std ``w_std`` (1/sqrt(D) if None),
+    f32 on the card, and int32 targets with 0, V - 1 and an id inside the
+    last (partial) vocab tile among them."""
+    x = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32, device="cuda")
+    w = torch.as_tensor(rng.standard_normal((V, D)) * (w_std or D ** -0.5),
+                        dtype=torch.float32, device="cuda")
+    t = rng.integers(0, V, N).astype(np.int32)
+    last_tile = (V - 1) // 128 * 128
+    t[:3] = [0, V - 1, last_tile + (V - 1 - last_tile) // 2]
+    return x, w, torch.as_tensor(t, device="cuda")
+
+
+def k6_checks(torch, np, report) -> None:
+    """K6 against its plain version (``seq_chunked_xent``) on K6_CASES, at the
+    automatic split count and (small cases) at one split, per token within
+    K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M."""
+    from repro_torch.kernels.xent import ref as xent_ref
+    from repro_torch.kernels.xent.kernel import K6_LAUNCHES, fused_xent_fwd, split_count
+
+    eps = torch.finfo(torch.float32).eps
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for ci, (N, D, V, cap, w_std) in enumerate(K6_CASES):
+        rng = np.random.default_rng(6000 + ci)
+        x, w, t = _xent_inputs(torch, np, rng, N, D, V, w_std)
+        with torch.no_grad():
+            want = xent_ref.seq_chunked_xent(x[None], w, t[None], softcap=cap)[0]
+        M = x.norm(dim=1) * w.norm(dim=1).max()
+        allowed = K6_RTOL * want.abs() + K6_ATOL + K6_EPS_UNITS * eps * M
+        auto = split_count(N, V, sms)
+        for splits in ((auto,) if N > 1024 else (auto, 1)):
+            before = K6_LAUNCHES.count
+            got = fused_xent_fwd(x, w, t, softcap=cap, splits=splits)
+            launches = K6_LAUNCHES.count - before
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            units = float((diff / (eps * M)).max())
+            if launches != 1 or not bool((diff <= allowed).all()):
+                raise AssertionError(f"K6 {(N, D, V, cap)} splits={splits}: {launches} "
+                                     f"launches, max abs err {err} ({units:.2f} eps M), "
+                                     f"allowed {float(allowed.min())} at least")
+            rows.append({"N": N, "D": D, "V": V, "softcap": cap, "splits": splits,
+                         "max_abs_err": err, "eps_of_M": units,
+                         "ce_mean": float(want.mean())})
+        del x, w, t, want
+    report.emit({"phase": "k6_vs_plain", "checks": len(rows), "cases": rows,
+                 "rtol": K6_RTOL, "atol": K6_ATOL, "allowed_eps_of_M": K6_EPS_UNITS})
+
+
+def grad_checks(torch, np, report) -> None:
+    """Each Function (K5, K6, K7 forward; the plain VJP backward) on small
+    f32 inputs on the card: a ``grad_fn`` on its output, one launch, and the
+    gradients of a random linear functional of its output equal to autograd
+    through the plain version, at GRAD_RTOL / GRAD_ATOL."""
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.kernels.wkv.ref import wkv_chunked
+    from repro_torch.kernels.xent import ops as xent_ops
+    from repro_torch.kernels.xent import ref as xent_ref
+
+    counters = _counters()
+    rng = np.random.default_rng(8000)
+
+    def leaf(shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device="cuda").requires_grad_(True)
+
+    def compare(name, kern, plain, inputs, counter, fn_name):
+        outs_k = kern(*inputs)
+        outs_k = outs_k if isinstance(outs_k, tuple) else (outs_k,)
+        weights = [torch.as_tensor(rng.standard_normal(tuple(o.shape)), dtype=torch.float32,
+                                   device="cuda") for o in outs_k]
+        before = counters[counter].count
+        outs_k = kern(*inputs)
+        launches = counters[counter].count - before
+        outs_k = outs_k if isinstance(outs_k, tuple) else (outs_k,)
+        grad_fn = type(outs_k[0].grad_fn).__name__ if outs_k[0].grad_fn is not None else None
+        gk = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs_k, weights)), inputs)
+        outs_p = plain(*inputs)
+        outs_p = outs_p if isinstance(outs_p, tuple) else (outs_p,)
+        gp = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs_p, weights)), inputs)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(gk, gp)]
+        ok = all(torch.allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL) for a, b in zip(gk, gp))
+        if launches != 1 or grad_fn is None or fn_name not in grad_fn or not ok:
+            raise AssertionError(f"{name}: {launches} launches, grad_fn {grad_fn}, "
+                                 f"gradient max abs errs {errs}")
+        return {"name": name, "grad_fn": grad_fn, "grad_max_abs_err": errs}
+
+    rows = []
+    q, k, v = leaf((1, 129, 4, 64)), leaf((1, 129, 2, 64)), leaf((1, 129, 2, 64))
+    for window, cap in ((0, 0.0), (32, 20.0)):
+        geom = dict(causal=True, window=window, scale=0.125, softcap=cap)
+        rows.append(compare(f"K5 window={window} softcap={cap}",
+                            lambda q, k, v: flash_ops.flash_attention(q, k, v, **geom),
+                            lambda q, k, v: attention_ref(q, k, v, **geom),
+                            (q, k, v), "K5", "FlashAttention"))
+    for S, cap, w_std in ((65, 0.0, 0.1), (300, 30.0, 1.0)):
+        x, w = leaf((2, S, 64)), leaf((1000, 64), w_std)
+        t = torch.as_tensor(rng.integers(0, 1000, (2, S)), dtype=torch.int32, device="cuda")
+        rows.append(compare(f"K6 S={S} softcap={cap}",
+                            lambda x, w: xent_ops.fused_xent(x, w, t, softcap=cap),
+                            lambda x, w: xent_ref.seq_chunked_xent(x, w, t, softcap=cap),
+                            (x, w), "K6", "FusedXent"))
+    r, kk, vv = leaf((1, 63, 2, 64)), leaf((1, 63, 2, 64)), leaf((1, 63, 2, 64))
+    logw = torch.as_tensor(-rng.uniform(0.02, 2.0, (1, 63, 2, 64)), dtype=torch.float32,
+                           device="cuda").requires_grad_(True)
+    u = leaf((2, 64))
+    rows.append(compare("K7 S=63 chunk=63", lambda *a: wkv_ops.wkv(*a, chunk=64),
+                        lambda *a: wkv_chunked(*a, chunk=63), (r, kk, vv, logw, u),
+                        "K7", "WKV"))
+    report.emit({"phase": "grad_checks", "checks": rows, "rtol": GRAD_RTOL,
+                 "atol": GRAD_ATOL})
+
+
+def _train_model(torch, arch, seed, layers, compute_dtype=None):
+    """(model, params, cfg): the registry config at full width (``layers``
+    layers if given), ``xent_impl="chunked"``, remat on, f32 params from a
+    seeded generator on the card (never stored in the compute dtype)."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models.transformer import Model
+
+    changes = {} if layers is None else {"num_layers": layers}
+    if compute_dtype:
+        changes["compute_dtype"] = compute_dtype
+    cfg = dataclasses.replace(cfgbase.get_config(arch), **changes)
+    model = Model(cfg, xent_impl="chunked", remat=True, rwkv_chunk=64)
+    params = model.init_params(torch.Generator("cuda").manual_seed(seed), device="cuda")
+    return model, params, cfg
+
+
+def _leaf_stats(torch, grads):
+    """(leaves, leaves with a nonzero and finite gradient, names of the others)."""
+    from repro_torch.tree import flatten_with_paths
+
+    bad = [("/".join(map(str, path)))
+           for path, g in flatten_with_paths(grads)
+           if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))]
+    n = len(flatten_with_paths(grads))
+    return n, n - len(bad), bad
+
+
+def _profile_step(torch, fn):
+    """Run ``fn`` under the profiler: (result, {kernel-name substring: device
+    ms}, total device kernel ms, the device ms the step spans, the 10
+    kernels with the most device time as [name, launches, ms])."""
+    out, kernels, span = kernel_events(torch, lambda: torch.ones(1, device="cuda").add_(1),
+                                       fn)
+    by = {name: sum(ev.self_device_time_total for ev in kernels if name in ev.key) / 1e3
+          for name in ("xent_fwd", "flash_fwd", "wkv_fwd")}
+    top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:10]
+    return (out, by, sum(ev.self_device_time_total for ev in kernels) / 1e3, span,
+            [[ev.key[:100], ev.count, ev.self_device_time_total / 1e3] for ev in top])
+
+
+def lm_train_phase(torch, np, report) -> dict:
+    """Train Llama-3.2-1B at full width and depth, and RWKV6-7B at full width
+    with 2 layers (AdamW's 16 B a parameter for all 32 layers, ~120 GB, is
+    over the card's 80 GB): bf16 compute, f32 params, remat, the launcher's
+    AdamW, token-pipeline batches; the timed steps, a microbatches=2 step
+    (Llama), then one more step under the profiler for K6's device time and
+    the device's busy time.  Before the run, step 1's gradients on the
+    kernel path (every leaf nonzero and finite) and its loss and grad norm
+    against the plain path.  Returns {arch: K6 launches of the run}."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch.train import adamw_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
+    from repro_torch.tree import leaves
+
+    counters = _counters()
+    out = {}
+    for arch, (seed, layers, B, S, steps, micro, per_step) in TRAIN_RUNS.items():
+        model, params, cfg = _train_model(torch, arch, seed, layers)
+        pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                       global_batch=B, seed=seed)
+        b0 = tok.device_batch(pipe, 0, "cuda")
+        loss_k, _, grads = value_and_grad(model, params, b0)
+        n_leaves, n_good, bad = _leaf_stats(torch, grads)
+        norm_k = float(opt.global_norm(grads))
+        del grads
+        before = {k: c.count for k, c in counters.items()}
+        with plain_kernels():
+            loss_p, _, grads = value_and_grad(model, params, b0)
+        norm_p = float(opt.global_norm(grads))
+        del grads
+        if any(c.count != before[k] for k, c in counters.items()):
+            raise AssertionError(f"{arch}: a kernel launched in the plain pass")
+        loss_k, loss_p = float(loss_k), float(loss_p)
+        if bad or not (abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+                       and abs(norm_k - norm_p) <= TRAIN_NORM_RTOL * norm_p):
+            raise AssertionError(f"{arch}: leaves without a nonzero finite gradient "
+                                 f"{bad}; loss {loss_k} vs plain {loss_p}, grad norm "
+                                 f"{norm_k} vs plain {norm_p}")
+
+        # `steps` steps, a microbatches=2 step (Llama), then one more step
+        # under the profiler for the device breakdown.
+        kinds = ["timed"] * steps + (["micro"] if micro else []) + ["profiled"]
+        adamw = adamw_config(len(kinds))
+        step_fns = {1: make_train_step(model, TrainStepConfig(adamw=adamw)),
+                    2: make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))}
+        opt_state = opt.init_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, launches, k6_launches = [], [], [], 0
+        for s, kind in enumerate(kinds):
+            n_micro = 2 if kind == "micro" else 1
+            step_fn = step_fns[n_micro]
+            batch = tok.device_batch(pipe, s, "cuda")
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            if kind == "profiled":
+                (params, opt_state, m), by, busy, span, top = _profile_step(
+                    torch, lambda: step_fn(params, opt_state, batch))
+            else:
+                params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            counts = {k: c.count for k, c in counters.items()}
+            want = {k: per_step.get(k, 0) * n_micro for k in counters}
+            loss = float(m["loss"])
+            if counts != want or not np.isfinite(loss):
+                raise AssertionError(f"{arch} step {s + 1} ({kind}): launches {counts}, "
+                                     f"want {want}; loss {loss}")
+            losses.append(loss)
+            launches.append(counts)
+            k6_launches += counts["K6"]
+        peak = torch.cuda.max_memory_allocated()
+        p50_ms = _pct(np, step_ms[:steps], 50)
+        tokens = B * S
+        n_params = sum(p.numel() for p in leaves(params))
+        emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+        flops = 6 * (n_params - emb + cfg.vocab_size * cfg.d_model) * tokens
+        report.emit({
+            "phase": "lm_train", "arch": arch, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": B, "seq": S,
+            "tokens_per_step": tokens, "compute_dtype": cfg.compute_dtype,
+            "param_dtype": cfg.param_dtype, "remat": model.remat,
+            "xent_impl": model.xent_impl, "params": n_params,
+            "steps": kinds, "losses": losses, "launches_per_step": launches,
+            "leaves_with_nonzero_finite_grad": f"{n_good}/{n_leaves}",
+            "step1_vs_plain": {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
+                               "plain_grad_norm": norm_p},
+            "limits": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_NORM_RTOL},
+            "step_ms": step_ms, "step_ms_p50": p50_ms,
+            "tokens_per_s": tokens / (p50_ms / 1e3),
+            "profiled_step_kernel_device_ms": by, "profiled_step_device_busy_ms": busy,
+            "profiled_step_device_span_ms": span, "profiled_step_top_kernels": top,
+            "k6_device_ms_per_step": by["xent_fwd"],
+            # kernel time of the profiled step against an unprofiled step's
+            # wall time (the profiler slows the host, so the profiled
+            # step's own span overstates the idle time)
+            "device_idle_share": 1 - busy / p50_ms,
+            "max_memory_allocated": peak,
+            "mfu_flops_per_step": flops,
+            "mfu": flops / (p50_ms / 1e3) / PEAK_BF16_OPS_PER_S,
+        })
+        out[arch] = k6_launches
+        del model, params, opt_state
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_strict_phase(torch, np, report) -> None:
+    """Both architectures at full width, 2 layers, f32 compute, TF32 off:
+    step 1's loss and every gradient leaf, then the losses of 2 AdamW steps,
+    kernel path against plain path (``plain_kernels``), from identical
+    params."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch.train import adamw_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
+    from repro_torch.tree import flatten_with_paths
+
+    for arch, seed in (("llama3.2-1b", 30), ("rwkv6-7b", 31)):
+        model, params_k, cfg = _train_model(torch, arch, seed, 2, "float32")
+        _, params_p, _ = _train_model(torch, arch, seed, 2, "float32")
+        pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                       global_batch=2, seed=seed)
+        b0 = tok.device_batch(pipe, 0, "cuda")
+        loss_k, _, gk = value_and_grad(model, params_k, b0)
+        with plain_kernels():
+            loss_p, _, gp = value_and_grad(model, params_p, b0)
+        worst, bad = 0.0, []
+        for (path, a), (_, b) in zip(flatten_with_paths(gk), flatten_with_paths(gp)):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            worst = max(worst, err / max(scale, 1e-30))
+            if not torch.allclose(a, b, rtol=STRICT_GRAD_RTOL, atol=STRICT_GRAD_RTOL * scale):
+                bad.append(("/".join(map(str, path)), err, scale))
+        del gk, gp
+        losses = {"kernel": [], "plain": []}
+        for side, params in (("kernel", params_k), ("plain", params_p)):
+            step_fn = make_train_step(model, TrainStepConfig(adamw=adamw_config(2)))
+            state = opt.init_state(params)
+            for s in range(2):
+                batch = tok.device_batch(pipe, s, "cuda")
+                with plain_kernels() if side == "plain" else contextlib.nullcontext():
+                    params, state, m = step_fn(params, state, batch)
+                losses[side].append(float(m["loss"]))
+            del state
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"])]
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        if bad or loss_rel > STRICT_LOSS_RTOL or max(rel) > STRICT_LOSS_RTOL:
+            raise AssertionError(f"{arch} train_strict: loss rel {loss_rel}, step losses "
+                                 f"{losses}, leaves off {bad[:5]}")
+        report.emit({"phase": "train_strict", "arch": arch, "layers": 2,
+                     "compute_dtype": "float32", "tf32": False, "batch": 2, "seq": 256,
+                     "loss_rel_err": loss_rel, "worst_leaf_err_of_max": worst,
+                     "adamw_step_losses": losses, "adamw_step_loss_rel_err": rel,
+                     "limits": {"loss_rtol": STRICT_LOSS_RTOL,
+                                "grad_rtol": STRICT_GRAD_RTOL,
+                                "grad_atol": f"{STRICT_GRAD_RTOL} x max |leaf|"}})
+        del model, params_k, params_p
+        torch.cuda.empty_cache()
+
+
+def k6_bound(N, D, V):
+    """(ms, by): x, w, targets read and the loss written once; 2 N V D f32
+    operations on the CUDA cores."""
+    t_bytes = 4 * (N * D + V * D + 2 * N) / HBM_BYTES_PER_S
+    t_ops = 2 * N * V * D / PEAK_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k6_timing_phase(torch, np, report, k6_counts) -> list:
+    """K6 at the two train shapes: CUDA-event ms and profiler device ms,
+    beside its plain version (``seq_chunked_xent``), the library call
+    ``F.cross_entropy(x @ w.T, t, reduction="none")`` (f32, TF32 off) and
+    its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.xent import ref as xent_ref
+    from repro_torch.kernels.xent.kernel import fused_xent_fwd
+
+    entries = []
+    for arch, (N, D, V) in (("llama3.2-1b", (4096, 2048, 128256)),
+                            ("rwkv6-7b", (2048, 4096, 65536))):
+        rng = np.random.default_rng(66)
+        x, w, t = _xent_inputs(torch, np, rng, N, D, V, None)
+        tl = t.long()
+        kern = lambda: fused_xent_fwd(x, w, t)
+        plain = lambda: xent_ref.seq_chunked_xent(x[None], w, t[None])
+        library = lambda: F.cross_entropy(x @ w.T, tl, reduction="none")
+        with torch.no_grad():
+            err = float((kern() - plain()[0]).abs().max())
+            lib_err = float((library() - plain()[0]).abs().max())
+            t_ = {"ms": event_ms(torch, kern, iters=10, warmup=2),
+                  "plain_ms": event_ms(torch, plain, iters=3, warmup=1),
+                  "library_ms": event_ms(torch, library, iters=10, warmup=2),
+                  "device_ms": device_ms(torch, kern, iters=5),
+                  "plain_device_ms": device_ms(torch, plain, iters=2),
+                  "library_device_ms": device_ms(torch, library, iters=5)}
+        bms, bby = k6_bound(N, D, V)
+        report.emit({"phase": "timing", "kernel": "K6",
+                     "shape": f"N={N} D={D} V={V} f32 ({arch} train loss)",
+                     "max_abs_err": err, "library_max_abs_err": lib_err,
+                     "bound_ms": bms, "bound_by": bby,
+                     "library": "F.cross_entropy(x @ w.T, t, reduction='none'), f32, TF32 off",
+                     **t_})
+        entries.append({
+            "name": f"K6 xent_fwd_f32 [{arch} train loss, N={N} D={D} V={V}]",
+            "route": "cuda", "source": "src/repro_torch/csrc/xent_fwd.cu",
+            "replaces": "src/repro/kernels/xent/kernel.py:23",
+            "launches": k6_counts[arch], "max_abs_err": err, "ms": t_["ms"],
+            "plain_ms": t_["plain_ms"], "bound_ms": bms, "bound_by": bby,
+            "library_ms": t_["library_ms"], "device_ms": t_["device_ms"]})
+        del x, w, t, tl
+        torch.cuda.empty_cache()
+    return entries
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1329,13 +1812,18 @@ def main(argv=None) -> int:
     dw_checks(torch, np, report)
     strided_view_checks(torch, np, report)
     k5_checks(torch, np, report)
+    k6_checks(torch, np, report)
     k7_checks(torch, np, report)
+    grad_checks(torch, np, report)
     engines = engine_phase(torch, np, report)
     residual_phase(torch, np, report)
     lm_counts = lm_engine_phase(torch, np, report)
     lm_strict_phase(torch, np, report)
+    k6_counts = lm_train_phase(torch, np, report)
+    train_strict_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts)
+    entries += k6_timing_phase(torch, np, report, k6_counts)
     for net in engines:
         run = engines[net]["run"]
         report.emit({"phase": "serving", "net": net, "qps": run.qps,

@@ -97,3 +97,42 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg, device="cuda",
         store_compute_dtype(out, getattr(torch, compute_dtype)
                             if isinstance(compute_dtype, str) else compute_dtype)
     return out
+
+
+def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_numpy`: the port's params (or any
+    tree of the same structure, such as AdamW's m or v) restacked into the
+    reference's layout as numpy — ``g{i}`` holding position ``i`` of the
+    pattern with a leading group axis, ``r{i}`` the remainder layers."""
+    def arrays(tree):
+        if isinstance(tree, Mapping):
+            return {k: arrays(v) for k, v in tree.items()}
+        return tree.detach().cpu().numpy()
+
+    def stack(trees):
+        if isinstance(trees[0], Mapping):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    P = len(cfg.block_pattern)
+    n_groups, rem = divmod(cfg.num_layers, P)
+    layers = [arrays(layer) for layer in params["layers"]]
+    out = {k: arrays(v) for k, v in params.items() if k != "layers"}
+    if n_groups:
+        out.update({f"g{i}": stack([layers[g * P + i] for g in range(n_groups)])
+                    for i in range(P)})
+    out.update({f"r{ri}": layers[n_groups * P + ri] for ri in range(rem)})
+    return out
+
+
+def adamw_state_from_numpy(state_np, cfg, device="cuda"):
+    """The reference's ``AdamWState`` (``step``, group-stacked ``m`` and
+    ``v``; as numpy or any array type) → the port's
+    :class:`repro_torch.train.optimizer.AdamWState` on ``device``."""
+    from repro_torch.train.optimizer import AdamWState
+
+    dev = resolve(device)
+    return AdamWState(step=torch.as_tensor(np.array(state_np.step), dtype=torch.int32,
+                                           device=dev),
+                      m=lm_params_from_numpy(state_np.m, cfg, device=dev),
+                      v=lm_params_from_numpy(state_np.v, cfg, device=dev))

@@ -31,6 +31,7 @@ SOURCES = {
     "conv_pool_dw": "conv_pool_dw.cu",  # K3
     "conv_pool_dw_q8": "conv_pool_dw_q8.cu",  # K4
     "flash_fwd": "flash_fwd.cu",  # K5
+    "xent_fwd": "xent_fwd.cu",  # K6
     "wkv_fwd": "wkv_fwd.cu",  # K7
 }
 # Library name -> the csrc headers its source includes (hashed into its key).

@@ -4,8 +4,13 @@ The port's counterpart of ``repro/kernels/wkv/ops.py::wkv``, with the same
 chunk rule (``ops.py:27-29``): the chunk is the largest divisor of S not
 above the one asked for, so a prime S runs chunks of 1.
 
-* a CPU tensor runs :func:`repro_torch.kernels.wkv.ref.wkv_chunked`;
-* a CUDA tensor launches K7 (``csrc/wkv_fwd.cu``) or raises;
+* a CPU tensor runs :func:`repro_torch.kernels.wkv.ref.wkv_chunked`,
+  differentiable as it is;
+* a CUDA tensor runs :class:`WKV`, a ``torch.autograd.Function`` whose
+  forward launches K7 (``csrc/wkv_fwd.cu``) or raises, and whose backward
+  is autograd through ``wkv_chunked`` recomputed from the saved inputs:
+  the plain scan the reference differentiates in training
+  (``repro/models/rwkv6.py:181``), so gradients reach r, k, v, logw and u;
 * any other device raises.
 """
 from __future__ import annotations
@@ -23,6 +28,33 @@ def chunk_for(S: int, chunk: int) -> int:
     return c
 
 
+class WKV(torch.autograd.Function):
+    """(o, s_final) of the chunked wkv6 scan from the zero state, chunk a
+    divisor of S.  Forward K7 (``wkv_chunked`` on the CPU), backward the
+    plain scan's VJP."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, chunk: int):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, logw, u)
+        if r.device.type == "cuda":
+            return kernel.wkv_fwd(r, k, v, logw, u, chunk=chunk)
+        if r.device.type == "cpu":
+            return ref.wkv_chunked(r, k, v, logw, u, chunk=chunk)
+        raise ValueError(f"wkv: no implementation for {r.device}")
+
+    @staticmethod
+    def backward(ctx, go, gs):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            o, s = ref.wkv_chunked(*leaves, chunk=ctx.chunk)
+            outs = [(t, g) for t, g in ((o, go), (s, gs)) if g is not None]
+            grads = torch.autograd.grad([t for t, _ in outs], leaves, [g for _, g in outs],
+                                        allow_unused=True)
+        return (*grads, None)
+
+
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
         u: torch.Tensor, *, chunk: int = 64):
     """Chunked wkv6 forward from the zero state → (o, s_final), f32."""
@@ -30,5 +62,5 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     if r.device.type == "cpu":
         return ref.wkv_chunked(r, k, v, logw.float(), u, chunk=c)
     if r.device.type == "cuda":
-        return kernel.wkv_fwd(r, k, v, logw, u, chunk=c)
+        return WKV.apply(r, k, v, logw, u, c)
     raise ValueError(f"wkv: no implementation for {r.device}")

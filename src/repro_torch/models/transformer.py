@@ -8,12 +8,28 @@ reference's ``lax.scan`` over pattern groups, so params and caches are
 per-layer lists; :func:`repro_torch.convert.lm_params_from_numpy` and the
 tests unstack the reference's group-stacked layout.
 
-Every prefill attention runs K5 and every multi-token RWKV time-mix K7 (on
-the card; their plain versions on the CPU).
+Training (``train_loss`` / ``_xent``) follows the reference
+(``transformer.py:334-379``): the mean cross-entropy over masked positions
+plus the (here always zero) auxiliary loss.  Three CE paths:
 
-Not ported yet (ROADMAP.md queue 1): ``train_loss`` / ``_xent`` (the
-training slice, with K6), and the ``rglru``, MoE, enc-dec, frontend, M-RoPE
-and ``kv_dtype="int8"`` model families.
+* ``naive`` materializes (B, S, V) logits in the compute dtype;
+* ``chunked`` and ``seq_chunked`` go through
+  :func:`repro_torch.kernels.xent.ops.fused_xent`: K6 on the card (with the
+  sequence-chunked plain VJP as its backward), and on the CPU the plain
+  form the reference uses (vocab chunks of ``xent_chunk``, or sequence
+  chunks of ``xent_seq_chunk``).
+
+With ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``remat_policy="block"``: nothing saved inside a layer), so the
+backward pass runs each layer's forward again.
+
+Every prefill or training attention runs K5 and every multi-token RWKV
+time-mix K7 (on the card, each inside a ``torch.autograd.Function`` whose
+backward is the plain VJP; their plain versions on the CPU).
+
+Not ported yet (ROADMAP.md queue 1): the ``rglru``, MoE, enc-dec,
+frontend, M-RoPE and ``kv_dtype="int8"`` model families, and
+``remat_policy="dots"``.
 """
 from __future__ import annotations
 
@@ -21,9 +37,11 @@ import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import attention, mlp, rwkv6
 from repro_torch.models.common import apply_norm, cdt, embed_init, make_norm_params, pdt
 
@@ -82,6 +100,19 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device) -> di
     return p
 
 
+def _train_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, rwkv_chunk: int) -> torch.Tensor:
+    """One layer of the training forward (no cache, the zero RWKV state)."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind in ATTN_KINDS:
+        x = x + attention.attend_train(cfg, p["attn"], h, kind, positions)
+        return x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+    a, _, _ = rwkv6.time_mix(cfg, p["tm"], h, None, None, chunk=rwkv_chunk)
+    x = x + a
+    c, _ = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x))
+    return x + c
+
+
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
                       device) -> dict:
     if kind in ATTN_KINDS:
@@ -101,11 +132,24 @@ def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dty
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    xent_impl: str = "chunked"  # "naive" | "chunked" (vocab) | "seq_chunked"
+    xent_chunk: int = 8192
+    xent_seq_chunk: int = 256
+    remat: bool = True
+    remat_policy: str = "block"  # "dots" waits (ROADMAP.md queue 1, item 6c)
     rwkv_chunk: int = 64
     kv_dtype: str = "compute"  # "int8" waits (ROADMAP.md queue 1)
 
     def __post_init__(self):
         _check_ported(self.cfg, self.kv_dtype)
+        if self.xent_impl not in ("naive", "chunked", "seq_chunked"):
+            raise ValueError(f"unknown xent_impl {self.xent_impl!r}")
+        if self.remat_policy == "dots":
+            raise NotImplementedError(
+                'remat_policy="dots" (save the matmul outputs) is not ported yet '
+                "(ROADMAP.md queue 1, item 6c)")
+        if self.remat_policy != "block":
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
     # -- params ---------------------------------------------------------------
     def init_params(self, generator: torch.Generator, device="cuda") -> dict:
@@ -142,6 +186,49 @@ class Model:
         if cfg.logit_softcap:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         return logits
+
+    # -- losses ---------------------------------------------------------------
+    def _xent(self, params, x: torch.Tensor, targets: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """Mean CE over masked positions.  x: (B, S, D); targets: (B, S)."""
+        cfg = self.cfg
+        W = self._unembed_matrix(params)  # (V, D)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        if self.xent_impl == "naive":
+            cd = cdt(cfg)
+            logits = torch.einsum("bsd,vd->bsv", x.to(cd), W.to(cd)).float()
+            if cfg.logit_softcap:
+                logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+            return ((lse - tgt) * mask).sum() / denom
+        ce = xent_ops.fused_xent(x.float(), W.float(), targets, softcap=cfg.logit_softcap,
+                                 form=self.xent_impl, chunk=self.xent_chunk,
+                                 seq_chunk=self.xent_seq_chunk)
+        return (ce * mask).sum() / denom
+
+    def train_loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
+        """(loss, {"ce", "aux"}) of ``batch["tokens"]`` (B, S) against
+        ``batch["targets"]``, weighted by ``batch["mask"]`` (default all
+        ones).  ``aux`` is zero: no ported family has an auxiliary loss."""
+        cfg = self.cfg
+        tokens, targets = batch["tokens"], batch["targets"]
+        x = self._embed(params, tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        for kind, p in zip(cfg.blocks(), params["layers"]):
+            if self.remat:
+                x = checkpoint(_train_block, cfg, kind, p, x, positions, self.rwkv_chunk,
+                               use_reentrant=False)
+            else:
+                x = _train_block(cfg, kind, p, x, positions, self.rwkv_chunk)
+        x = apply_norm(cfg, params["final_norm"], x)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+        ce = self._xent(params, x, targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> List[dict]:

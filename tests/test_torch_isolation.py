@@ -30,7 +30,12 @@ from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.wkv import kernel as wkv_kernel
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv import ref as wkv_ref
+from repro_torch.kernels.xent import kernel as xent_kernel
+from repro_torch.kernels.xent import ops as xent_ops
+from repro_torch.kernels.xent import ref as xent_ref
+from repro_torch.data import tokens as tok
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import attention, rwkv6
 from repro_torch.models.transformer import Model
 from repro_torch.quant import exec as qexec
@@ -66,7 +71,16 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/kernels/wkv/kernel.py",
             "src/repro_torch/models/transformer.py",
             "src/repro_torch/serve/engine.py",
-            "src/repro_torch/configs/base.py"} <= names
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/kernels/xent/kernel.py",
+            "src/repro_torch/kernels/xent/ops.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/checkpoint/ckpt.py",
+            "src/repro_torch/ft/resilience.py",
+            "src/repro_torch/launch/train.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -150,6 +164,13 @@ ENTRY_POINTS = {
     "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
         {"embed": np.zeros((4, 2), np.float32)}, _llama()),
     "launch.serve.main": lambda: launch_serve.main(["--arch", "llama3.2-1b"]),
+    "launch.train.main": lambda: launch_train.main(["--arch", "llama3.2-1b"]),
+    "data.device_batch": lambda: tok.device_batch(
+        tok.TokenPipelineConfig(vocab_size=16, seq_len=4, global_batch=2), 0),
+    "adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(
+        type("S", (), {"step": np.zeros((), np.int32),
+                       "m": {"embed": np.zeros((4, 2), np.float32)},
+                       "v": {"embed": np.zeros((4, 2), np.float32)}})(), _llama()),
 }
 
 
@@ -172,6 +193,8 @@ def no_plain(monkeypatch):
     monkeypatch.setattr(kernel_q8, "depthwise_conv_pool_q8_ref", forbidden)
     monkeypatch.setattr(flash_ref, "attention_ref", forbidden)
     monkeypatch.setattr(wkv_ref, "wkv_chunked", forbidden)
+    for name in ("naive_xent", "chunked_xent", "seq_chunked_xent"):
+        monkeypatch.setattr(xent_ref, name, forbidden)
 
 
 def test_k1_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
@@ -377,3 +400,75 @@ def test_lm_wrappers_on_other_devices_raise():
     r = torch.empty(1, 4, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         wkv_ops.wkv(r, r, r, r, torch.empty(2, 16, device="meta"))
+
+
+def test_k6_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
+    """fused_xent, its Function and the model's chunked losses on fake CUDA
+    tensors: no nvcc here, so each raises, and none reaches a plain form."""
+    _no_cuda()
+    before = xent_kernel.K6_LAUNCHES.count
+    cfg = _llama()
+    with FakeTensorMode():
+        x = torch.empty(2, 9, 64, device="cuda")
+        w = torch.empty(100, 64, device="cuda")
+        t = torch.empty(2, 9, dtype=torch.int32, device="cuda")
+        with pytest.raises(RuntimeError):
+            xent_ops.fused_xent(x, w, t)
+        with pytest.raises(RuntimeError):
+            xent_ops.FusedXent.apply(x, w, t, 0.0)
+        params = {"embed": torch.empty(cfg.vocab_size, cfg.d_model, device="cuda")}
+        xm = torch.empty(2, 9, cfg.d_model, device="cuda")
+        tm = torch.empty(2, 9, dtype=torch.int32, device="cuda")
+        for impl in ("chunked", "seq_chunked"):
+            with pytest.raises(RuntimeError):
+                Model(cfg, xent_impl=impl)._xent(params, xm, tm, torch.ones(2, 9, device="cuda"))
+    assert xent_kernel.K6_LAUNCHES.count == before
+
+
+def test_k5_k7_functions_on_cuda_tensors_raise(no_plain):
+    """The Functions' forward launches or raises.  (Fake CUDA tensors that
+    require grad would make autograd look for a CUDA device guard, which a
+    CPU-only build aborts on, so these do not.)"""
+    _no_cuda()
+    k5, k7 = flash_kernel.K5_LAUNCHES.count, wkv_kernel.K7_LAUNCHES.count
+    with FakeTensorMode():
+        q = torch.empty(1, 17, 4, 64, device="cuda")
+        kv = torch.empty(1, 17, 2, 64, device="cuda")
+        with pytest.raises(RuntimeError):
+            flash_ops.FlashAttention.apply(q, kv, kv, True, 0, 0.125, 0.0)
+        r = torch.empty(1, 16, 2, 64, device="cuda")
+        u = torch.empty(2, 64, device="cuda")
+        with pytest.raises(RuntimeError):
+            wkv_ops.WKV.apply(r, r, r, r, u, 8)
+    assert (flash_kernel.K5_LAUNCHES.count, wkv_kernel.K7_LAUNCHES.count) == (k5, k7)
+
+
+def test_k6_wrapper_checks_before_launching():
+    with FakeTensorMode():
+        x = torch.empty(8, 16, device="cuda")
+        w = torch.empty(37, 16, device="cuda")
+        t = torch.empty(8, dtype=torch.int32, device="cuda")
+        with pytest.raises(TypeError, match="f32"):
+            xent_kernel.fused_xent_fwd(x.to(torch.bfloat16), w, t)
+        with pytest.raises(TypeError, match="int32"):
+            xent_kernel.fused_xent_fwd(x, w, t.long())
+        with pytest.raises(ValueError, match="contiguous"):
+            xent_kernel.fused_xent_fwd(torch.empty(16, 8, device="cuda").T, w, t)
+        with pytest.raises(ValueError, match="targets"):
+            xent_kernel.fused_xent_fwd(x, w, torch.empty(7, dtype=torch.int32, device="cuda"))
+        with pytest.raises(ValueError, match="w"):
+            xent_kernel.fused_xent_fwd(x, torch.empty(37, 15, device="cuda"), t)
+
+
+def test_k6_split_count_fills_one_wave():
+    assert xent_kernel.split_count(4096, 128256, 132) == 8  # 32 token blocks x 8
+    assert xent_kernel.split_count(2048, 65536, 132) == 16
+    assert xent_kernel.split_count(129, 1000, 132) == 8  # capped at the vocab tiles
+    assert xent_kernel.split_count(1 << 20, 1000, 132) == 1
+
+
+def test_xent_on_other_devices_raises():
+    x = torch.empty(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        xent_ops.fused_xent(x, torch.empty(5, 8, device="meta"),
+                            torch.empty(1, 4, dtype=torch.int32, device="meta"))

@@ -1,0 +1,180 @@
+"""K6's plain versions and the three training Functions against the reference.
+
+* The port's ``naive_xent``, ``chunked_xent`` and ``seq_chunked_xent`` (and
+  ``fused_xent`` on CPU tensors) against ``fused_xent(impl="pallas")`` (the
+  Pallas kernel in interpret mode) and the reference's refs, on
+  ``tests/test_kernel_xent.py``'s four cases, at rtol = atol = 1e-5.
+* ``FusedXent``, ``FlashAttention`` and ``WKV``, run with their plain
+  forward on CPU tensors, give the gradients of ``jax.grad`` through
+  ``fused_xent(impl="pallas")``, ``flash_attention(impl="pallas")`` and
+  ``wkv_chunked``, at rtol 1e-4, atol 1e-5, for a random linear functional
+  of their outputs.
+
+Inputs come from a numpy seed and go to both frameworks as arrays.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash import ops as ref_flash_ops
+from repro.kernels.xent import ops as ref_xent_ops
+from repro.kernels.xent import ref as ref_xent
+from repro.models import rwkv6 as ref_rwkv6
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.kernels.xent import ops as xent_ops
+from repro_torch.kernels.xent import ref as xent_ref
+
+TOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+
+# (B, S, D, V, softcap): tests/test_kernel_xent.py's cases
+CASES = [
+    (2, 64, 32, 512, 0.0),
+    (1, 128, 64, 1000, 0.0),   # V not divisible by a block
+    (2, 64, 32, 512, 30.0),    # softcapped
+    (1, 32, 16, 37, 0.0),      # tiny odd vocab
+]
+PLAIN_FORMS = {
+    "naive": lambda x, w, t, cap: xent_ref.naive_xent(x, w, t, softcap=cap),
+    "chunked": lambda x, w, t, cap: xent_ref.chunked_xent(x, w, t, chunk=128, softcap=cap),
+    "seq_chunked": lambda x, w, t, cap: xent_ref.seq_chunked_xent(x, w, t, chunk=16,
+                                                                  softcap=cap),
+    "fused_xent[cpu]": lambda x, w, t, cap: xent_ops.fused_xent(x, w, t, softcap=cap),
+}
+
+
+def _xent_inputs(case, seed):
+    B, S, D, V, _ = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    w = (rng.standard_normal((V, D)) * 0.1).astype(np.float32)
+    if case[4]:  # logits large enough for the softcap to bite
+        w *= 10
+    t = rng.integers(0, V, (B, S)).astype(np.int32)
+    t.reshape(-1)[:2] = [0, V - 1]
+    return x, w, t
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_ce(ci):
+    """(Pallas interpret CE, the reference's naive CE) of case ``ci``."""
+    x, w, t = _xent_inputs(CASES[ci], 500 + ci)
+    cap = CASES[ci][4]
+    args = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(t))
+    return (np.asarray(ref_xent_ops.fused_xent(*args, softcap=cap, impl="pallas")),
+            np.asarray(ref_xent.naive_xent(*args, softcap=cap)))
+
+
+@pytest.mark.parametrize("form", sorted(PLAIN_FORMS))
+@pytest.mark.parametrize("ci", range(len(CASES)))
+def test_plain_forms_match_pallas_and_reference(ci, form):
+    x, w, t = _xent_inputs(CASES[ci], 500 + ci)
+    got = PLAIN_FORMS[form](torch.as_tensor(x), torch.as_tensor(w), torch.as_tensor(t),
+                            CASES[ci][4]).numpy()
+    pallas, naive = _reference_ce(ci)
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, naive, rtol=TOL, atol=TOL)
+
+
+def test_seq_chunk_rule_matches_reference():
+    for S, chunk, want in ((64, 16, 16), (65, 16, 13), (13, 256, 13), (300, 256, 150)):
+        assert xent_ref.seq_chunk_for(S, chunk) == want
+
+
+def _functional(rng, *shapes):
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("case", [(1, 32, 16, 128, 0.0), (2, 40, 32, 300, 30.0),
+                                  (1, 300, 16, 37, 0.0)])
+def test_fused_xent_function_gradients_match_jax(case):
+    """S=300 runs the backward's sequence chunks (150 + 150)."""
+    x, w, t = _xent_inputs(case, 600)
+    (g,) = _functional(np.random.default_rng(601), t.shape)
+    cap = case[4]
+
+    def loss(x, w):
+        return jnp.sum(ref_xent_ops.fused_xent(x, w, jnp.asarray(t), softcap=cap,
+                                               impl="pallas") * g)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt = (torch.as_tensor(a).requires_grad_(True) for a in (x, w))
+    ce = xent_ops.FusedXent.apply(xt, wt, torch.as_tensor(t), cap)
+    assert type(ce.grad_fn).__name__.startswith("FusedXent")
+    got = torch.autograd.grad((ce * torch.as_tensor(g)).sum(), (xt, wt))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+# (B, S, H, K, h, window, softcap); S divides the Pallas kernel's block.
+FLASH_CASES = [(1, 128, 4, 2, 32, 0, 0.0), (1, 256, 4, 2, 32, 64, 0.0),
+               (2, 128, 2, 1, 64, 0, 20.0)]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_function_gradients_match_jax(case):
+    B, S, H, K, h, window, cap = case
+    rng = np.random.default_rng(700 + FLASH_CASES.index(case))
+    q, k, v, g = _functional(rng, (B, S, H, h), (B, S, K, h), (B, S, K, h), (B, S, H, h))
+    geom = dict(causal=True, window=window, scale=h ** -0.5, softcap=cap)
+
+    def loss(q, k, v):
+        return jnp.sum(ref_flash_ops.flash_attention(q, k, v, impl="pallas", **geom) * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.as_tensor(a).requires_grad_(True) for a in (q, k, v))
+    out = flash_ops.FlashAttention.apply(qt, kt, vt, True, window, h ** -0.5, cap)
+    assert type(out.grad_fn).__name__.startswith("FlashAttention")
+    got = torch.autograd.grad((out * torch.as_tensor(g)).sum(), (qt, kt, vt))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+# (B, S, H, hk, chunk): chunk a divisor of S, as wkv_ops.wkv passes it
+WKV_CASES = [(1, 32, 2, 8, 8), (2, 24, 2, 16, 8), (1, 13, 2, 8, 1)]
+
+
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv_function_gradients_match_jax(case):
+    """Gradients to r, k, v, logw and u through o and s_final."""
+    B, S, H, hk, chunk = case
+    rng = np.random.default_rng(800 + WKV_CASES.index(case))
+    r, k, v, go = _functional(rng, *[(B, S, H, hk)] * 4)
+    logw = -rng.uniform(0.02, 2.0, (B, S, H, hk)).astype(np.float32)
+    u, gs = _functional(rng, (H, hk), (B, H, hk, hk))
+
+    def loss(*a):
+        s0 = jnp.zeros((B, H, hk, hk), jnp.float32)
+        o, s = ref_rwkv6.wkv_chunked(*a, s0, chunk=chunk)
+        return jnp.sum(o * go) + jnp.sum(s * gs)
+
+    arrays = (r, k, v, logw, u)
+    want = jax.grad(loss, argnums=range(5))(*(jnp.asarray(a) for a in arrays))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in arrays]
+    o, s = wkv_ops.WKV.apply(*leaves, chunk)
+    assert type(o.grad_fn).__name__.startswith("WKV")
+    got = torch.autograd.grad((o * torch.as_tensor(go)).sum() + (s * torch.as_tensor(gs)).sum(),
+                              leaves)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_wkv_function_gradient_through_o_alone():
+    """s_final unused (as in training): its gradient is None, and u still
+    gets its gradient through o."""
+    rng = np.random.default_rng(900)
+    r, k, v, go = _functional(rng, *[(1, 16, 2, 8)] * 4)
+    logw = -rng.uniform(0.02, 2.0, (1, 16, 2, 8)).astype(np.float32)
+    (u,) = _functional(rng, (2, 8))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in (r, k, v, logw, u)]
+    o, _ = wkv_ops.WKV.apply(*leaves, 8)
+    got = torch.autograd.grad((o * torch.as_tensor(go)).sum(), leaves)
+    o2, _ = wkv_ops.wkv(*leaves, chunk=8)  # the CPU path: plain autograd
+    want = torch.autograd.grad((o2 * torch.as_tensor(go)).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
