@@ -10,11 +10,14 @@ holds their kernels against their plain PyTorch versions:
 1. builds kernels K1 (``src/repro_torch/csrc/conv_pool.cu``), K2
    (``conv_pool_q8.cu``), K3 (``conv_pool_dw.cu``), K4
    (``conv_pool_dw_q8.cu``), K5 (``flash_fwd.cu``), K6 (``xent_fwd.cu``)
-   and K7 (``wkv_fwd.cu``) with ``nvcc``, one process each, in parallel;
+   and K7 (``wkv_fwd.cu``) with ``nvcc``, one process each, in parallel,
+   and counts the tensor-core instructions (HGMMA, HMMA) in K5's SASS
+   (``cuobjdump --dump-sass``): none fails the run;
 2. holds each kernel against its plain version on the card: K1 on the
    reference's kernel test geometries plus an average-pool, a multi-tile
-   (128x128), a rectangular case and MobileNet's head (256->256 1x1, 256 KB
-   of f32 weights, avg 2x2, one launch), batches 1/8/16, f32 at
+   (128x128), a rectangular case, MobileNet's head (256->256 1x1, 256 KB
+   of f32 weights, avg 2x2, one launch) and DS-CNN-KWS's head (64->64 1x1
+   on 25x5, avg 25x5), batches 1/8/16, f32 at
    rtol=atol=1e-5 and bf16 at 5e-2; K2 bit-exact on the §5 CIFAR
    conv1-conv3 geometries, batches 1/4/16, max and average pools; K3 (f32
    1e-5, bf16 5e-2) and K4 (bit-exact, per-channel multipliers that make
@@ -23,8 +26,9 @@ holds their kernels against their plain PyTorch versions:
    ReLU, batches 1/8/16; plus one call of each kernel through strided arena
    views, as the executors make them; K5 on the Llama-3.2-1B attention
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
-   window, a softcap, h=128 and 256, and strided views (f32 2e-5, bf16
-   5e-2 and each row within 2e-2 of its largest value); K7 on the RWKV6-7B
+   window, a softcap, h=128 and 256, strided views and views whose rows
+   are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
+   of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
    inputs (o and s_final at rtol 1e-4, atol 1e-5 plus the f32 rounding of
    two summation orders, see ``k7_checks``); K6 on the two train shapes
@@ -73,7 +77,8 @@ holds their kernels against their plain PyTorch versions:
    gradient leaf at rtol 1e-3 and 1e-3 of the leaf's largest value, and
    the losses of 2 AdamW steps at 1e-5 relative;
 9. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
-   K5/K7 at S 128/512/1000, K6 at the two train shapes) with CUDA events
+   K5/K7 at S 128/512/1000, K5 also at Llama's train shape B 8 x S 512,
+   K6 at the two train shapes) with CUDA events
    and the profiler, beside its plain version, a PyTorch library call
    computing the same function where there is one, and its bound from the
    shapes.
@@ -122,6 +127,9 @@ K1_CASES = [
     # MobileNet-V1 0.25's head pw13+pool: 256*256 f32 weights (262,144 B)
     # exceed one CTA's shared memory, so K1 tiles the output channels
     (2, 2, 256, 256, 1, 1, 0, 2, 2, "avg"),
+    # DS-CNN-KWS's head pw4+pool: a 1x1 conv under one 25x5 average window,
+    # 125 conv values x 64 input channels per output
+    (25, 5, 64, 64, 1, 1, 0, (25, 5), (25, 5), "avg"),
 ]
 K1_BATCHES = (1, 8, 16)
 K2_BATCHES = (1, 4, 16)
@@ -242,6 +250,20 @@ def device_ms(torch, fn, iters: int = 50):
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
+def tensor_core_sass(path) -> dict:
+    """Counts of the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync)
+    in a built library's SASS, from the toolkit's ``cuobjdump``."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
+
+
 def build_phase(report) -> None:
     from repro_torch.kernels import build
 
@@ -253,9 +275,12 @@ def build_phase(report) -> None:
         text = log.read_text() if log.exists() else ""
         usage[name] = [ln.strip() for ln in text.splitlines()
                        if "registers" in ln or "spill" in ln]
+    k5_sass = tensor_core_sass(paths["flash_fwd"])
     report.emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
                  "libraries": {n: p.name for n, p in paths.items()},
-                 "ptxas": usage})
+                 "ptxas": usage, "k5_tensor_core_sass": k5_sass})
+    if sum(k5_sass.values()) == 0:
+        raise AssertionError("K5's library has no tensor-core instruction (HGMMA/HMMA)")
 
 
 def k1_checks(torch, np, report) -> None:
@@ -1000,9 +1025,24 @@ def k5_checks(torch, np, report) -> None:
     row_ok, row = _rows_close(y, y_ref, K5_BF16_ROW_REL)
     if not (ok and row_ok) or q.is_contiguous():
         raise AssertionError(f"K5 on strided views: max abs err {err}, worst row share {row}")
-    report.emit({"phase": "k5_vs_plain", "checks": n_checks + 1, "max_abs_err": worst,
-                 "bf16_worst_row_share": max(worst_row, row),
-                 "strided_views_max_abs_err": err, "tolerance": K5_TOL,
+    # views whose base and head stride are not 16-byte aligned (the head dim
+    # of a row of 65): K5 stages them by scalar loads in the same launch
+    base = torch.as_tensor(rng.standard_normal((2, 130, 48, 65)), dtype=torch.bfloat16,
+                           device="cuda")
+    q, k, v = base[:, :, :32, 1:], base[:, :, 32:40, 1:], base[:, :, 40:, 1:]
+    before = K5_LAUNCHES.count
+    y = flash_attention(q, k, v)
+    launches = K5_LAUNCHES.count - before
+    y_ref = attention_ref(q, k, v)
+    ok, mis_err = _close(torch, y, y_ref, K5_TOL["bf16"], K5_TOL["bf16"])
+    row_ok, mis_row = _rows_close(y, y_ref, K5_BF16_ROW_REL)
+    if not (ok and row_ok) or launches != 1 or q.data_ptr() % 16 == 0:
+        raise AssertionError(f"K5 on misaligned views: {launches} launches, max abs err "
+                             f"{mis_err}, worst row share {mis_row}")
+    report.emit({"phase": "k5_vs_plain", "checks": n_checks + 2, "max_abs_err": worst,
+                 "bf16_worst_row_share": max(worst_row, row, mis_row),
+                 "strided_views_max_abs_err": err,
+                 "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
                  "bf16_row_share_limit": K5_BF16_ROW_REL})
 
 
@@ -1274,9 +1314,10 @@ def _roofline(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lm_timing_phase(torch, np, report, lm_counts) -> list:
-    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000): event
-    ms, device ms, plain ms, the library yardstick for K5, the bound."""
+def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
+    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000), and
+    K5 at Llama's train shape (B 8, S 512): event ms, device ms, plain ms,
+    the library yardstick for K5, the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
@@ -1288,8 +1329,8 @@ def lm_timing_phase(torch, np, report, lm_counts) -> list:
     rng = np.random.default_rng(11)
     k5_launches = lm_counts["llama3.2-1b"]["K5"][0]
     k7_launches = lm_counts["rwkv6-7b"]["K7"][0]
-    for S in (128, 512, 1000):
-        q, k, v = (torch.as_tensor(rng.standard_normal((1, S, n, 64)), dtype=torch.bfloat16,
+    for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512)):
+        q, k, v = (torch.as_tensor(rng.standard_normal((B, S, n, 64)), dtype=torch.bfloat16,
                                    device="cuda") for n in (32, 8, 8))
         kern = lambda: flash_attention(q, k, v)
         plain = lambda: attention_ref(q, k, v)
@@ -1298,15 +1339,19 @@ def lm_timing_phase(torch, np, report, lm_counts) -> list:
                                                          enable_gqa=True)
         err = float((kern().float() - plain().float()).abs().max())
         t = _times(torch, kern, plain, library)
-        bms, bby = k5_bound(1, S, 32, 8, 64)
-        report.emit({"phase": "timing", "kernel": "K5", "shape": f"B=1 S={S} H=32 K=8 h=64 bf16",
+        bms, bby = k5_bound(B, S, 32, 8, 64)
+        report.emit({"phase": "timing", "kernel": "K5",
+                     "shape": f"B={B} S={S} H=32 K=8 h=64 bf16",
                      "max_abs_err": err, "bound_ms": bms, "bound_by": bby,
                      "library": "F.scaled_dot_product_attention(is_causal, enable_gqa), bf16",
                      **t})
+        train = B > 1
         entries.append({
-            "name": f"K5 flash_fwd_bf16 [llama3.2-1b prefill attention, S={S}]",
+            "name": (f"K5 flash_fwd_bf16 [llama3.2-1b train attention, B={B} S={S}]"
+                     if train else f"K5 flash_fwd_bf16 [llama3.2-1b prefill attention, S={S}]"),
             "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
-            "replaces": "src/repro/kernels/flash/kernel.py:28", "launches": k5_launches,
+            "replaces": "src/repro/kernels/flash/kernel.py:28",
+            "launches": train_counts["llama3.2-1b"]["K5"] if train else k5_launches,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bms, "bound_by": bby, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"]})
@@ -1565,7 +1610,7 @@ def lm_train_phase(torch, np, report) -> dict:
     (Llama), then one more step under the profiler for K6's device time and
     the device's busy time.  Before the run, step 1's gradients on the
     kernel path (every leaf nonzero and finite) and its loss and grad norm
-    against the plain path.  Returns {arch: K6 launches of the run}."""
+    against the plain path.  Returns {arch: {kernel: launches of the run}}."""
     from repro_torch.data import tokens as tok
     from repro_torch.launch.train import adamw_config
     from repro_torch.train import optimizer as opt
@@ -1606,7 +1651,7 @@ def lm_train_phase(torch, np, report) -> dict:
         opt_state = opt.init_state(params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step_ms, losses, launches, k6_launches = [], [], [], 0
+        step_ms, losses, launches = [], [], []
         for s, kind in enumerate(kinds):
             n_micro = 2 if kind == "micro" else 1
             step_fn = step_fns[n_micro]
@@ -1630,7 +1675,6 @@ def lm_train_phase(torch, np, report) -> dict:
                                      f"want {want}; loss {loss}")
             losses.append(loss)
             launches.append(counts)
-            k6_launches += counts["K6"]
         peak = torch.cuda.max_memory_allocated()
         p50_ms = _pct(np, step_ms[:steps], 50)
         tokens = B * S
@@ -1661,7 +1705,7 @@ def lm_train_phase(torch, np, report) -> dict:
             "mfu_flops_per_step": flops,
             "mfu": flops / (p50_ms / 1e3) / PEAK_BF16_OPS_PER_S,
         })
-        out[arch] = k6_launches
+        out[arch] = {k: sum(c[k] for c in launches) for k in counters}
         del model, params, opt_state
         torch.cuda.empty_cache()
     return out
@@ -1729,7 +1773,7 @@ def k6_bound(N, D, V):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k6_timing_phase(torch, np, report, k6_counts) -> list:
+def k6_timing_phase(torch, np, report, train_counts) -> list:
     """K6 at the two train shapes: CUDA-event ms and profiler device ms,
     beside its plain version (``seq_chunked_xent``), the library call
     ``F.cross_entropy(x @ w.T, t, reduction="none")`` (f32, TF32 off) and
@@ -1768,7 +1812,7 @@ def k6_timing_phase(torch, np, report, k6_counts) -> list:
             "name": f"K6 xent_fwd_f32 [{arch} train loss, N={N} D={D} V={V}]",
             "route": "cuda", "source": "src/repro_torch/csrc/xent_fwd.cu",
             "replaces": "src/repro/kernels/xent/kernel.py:23",
-            "launches": k6_counts[arch], "max_abs_err": err, "ms": t_["ms"],
+            "launches": train_counts[arch]["K6"], "max_abs_err": err, "ms": t_["ms"],
             "plain_ms": t_["plain_ms"], "bound_ms": bms, "bound_by": bby,
             "library_ms": t_["library_ms"], "device_ms": t_["device_ms"]})
         del x, w, t, tl
@@ -1819,11 +1863,11 @@ def main(argv=None) -> int:
     residual_phase(torch, np, report)
     lm_counts = lm_engine_phase(torch, np, report)
     lm_strict_phase(torch, np, report)
-    k6_counts = lm_train_phase(torch, np, report)
+    train_counts = lm_train_phase(torch, np, report)
     train_strict_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
-    entries += lm_timing_phase(torch, np, report, lm_counts)
-    entries += k6_timing_phase(torch, np, report, k6_counts)
+    entries += lm_timing_phase(torch, np, report, lm_counts, train_counts)
+    entries += k6_timing_phase(torch, np, report, train_counts)
     for net in engines:
         run = engines[net]["run"]
         report.emit({"phase": "serving", "net": net, "qps": run.qps,

@@ -4,41 +4,50 @@
 // by conv_pool_call, pallas_call at kernel.py:230; NCHW wrapper
 // ops.fused_conv_pool at ops.py:57).  Same function: a dense conv over an
 // NCHW input with per-axis kernel/stride/padding, bias, optional ReLU, then
-// a max or average pool with per-axis window and stride.  The conv map is
-// never stored: each pooled value is reduced in registers from the conv
-// values its window needs.
+// a max or average pool with per-axis window and stride.  The conv map never
+// reaches device memory: a CTA keeps the conv values its pool windows need
+// in shared memory.
 //
-// What bounds it on an H100: at the paper's shapes (LeNet-5 conv1 1->6 at
-// 32x32, conv2 6->16 at 14x14; at most 16 images) the work is a few MFLOP
-// and a few hundred KB, which the card moves in well under a microsecond,
-// so a launch (a few microseconds) bounds it.  Of the two roofline terms
-// the operations dominate: f32 on the CUDA cores (67 TFLOP/s), no tensor
-// cores, since TF32 would break the reference's 1e-5 tolerance.
+// What bounds it on an H100: at the main path's shapes (LeNet-5's two
+// steps, the DS-CNN-KWS and MobileNet-V1 0.25 heads; at most 16 images) the
+// work is at most 8.2 M multiply-adds and a few hundred KB, which the card
+// moves in well under a microsecond (0.004-0.245 us of f32 operations on the
+// CUDA cores; no tensor cores, since TF32 would break the 1e-5 tolerance).
+// So launch latency and parallelism bound it: the kernel has to spread a
+// call over the card and keep each thread's dependent chain short.
 //
-// Design, simple first:
-// * one CTA per (tile of pooled rows, image, tile of output channels); the
-//   weights of its channel tile are staged once per CTA in shared memory, as
-//   f32.  The host picks the channel tile so that they fit in 227 KB
-//   (kernel.py::cout_tile): all channels in one tile for the paper's layers
-//   (9.6 KB for LeNet conv2), two tiles of 128 for MobileNet's 256->256
-//   head (256 KB of f32 weights in all);
-// * one thread per (out channel, pooled column) walks the pooled rows of the
-//   tile; for each it accumulates in f32 over the conv positions its pool
-//   window needs, adds the bias, applies the ReLU and takes the max or sum
-//   in registers, then writes one value;
+// Design (a CTA per (tile of pooled rows, image, tile of output channels);
+// kernel.py::k1_tiling picks the tiles for occupancy and shared memory,
+// conv_pool_math.cuh holds the tile arithmetic):
+// * the channel tile's weights and the input rows and columns the tile's
+//   pool windows read (conv_pool_math.cuh::make_tile; padding staged as
+//   zeros) go to shared memory once, as f32, with 16-byte loads where the
+//   source is aligned (a whole image at once when the tile reads all of it,
+//   as the heads' tiles do);
+// * threads over (channel, conv position) each compute one conv value, the
+//   dot over cin x taps from shared memory in the order the earlier
+//   one-thread-per-output design used (cin outer, then kernel rows, then
+//   kernel columns), plus bias and ReLU, into a conv tile in shared memory;
+// * after one barrier, threads over (channel, pooled position) reduce each
+//   window from the conv tile in row-major order (the average by one
+//   correctly rounded divide) and write the output;
 // * the input is read straight from NCHW with a batch stride, and the output
 //   written with one, so a step can read from and write into the two banks
-//   of the ping-pong arena without copies;
-// * padding is bounds-checked zero taps, not a padded copy of the input.
-// Shared-memory halo tiles and tensor-core (wgmma) formulations are later
-// work.
+//   of the ping-pong arena without copies.
+// A zero padding tap adds fma(0, w, s) = s, so each value equals that
+// design's, which skipped such taps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #include "conv_pool_math.cuh"
 
 namespace {
+
+constexpr long long kMaxSmemBytes = 232448;  // what one CTA may have on Hopper
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -49,63 +58,141 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// Loads a thread keeps in flight while it stages: each staging loop issues
+// this many global loads before it stores any, so a thread waits for one
+// round trip to memory per kUnroll elements, not per element.
+constexpr int kUnroll = 4;
+
+// 16 loaded bytes of T, widened to f32, to dst (16-byte aligned).
+template <typename T> __device__ __forceinline__ void widen16(float* dst, uint4 u);
+template <> __device__ __forceinline__ void widen16<float>(float* dst, uint4 u) {
+  *reinterpret_cast<uint4*>(dst) = u;
+}
+template <> __device__ __forceinline__ void widen16<__nv_bfloat16>(float* dst, uint4 u) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// dst[0, count) = f32(src[0, count)), dst 16-byte aligned: 16-byte loads
+// when src is aligned too, coalesced scalar loads for the rest.
+template <typename T>
+__device__ void stage_flat(float* dst, const T* __restrict__ src, int count) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = count / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    for (int i0 = threadIdx.x; i0 < nv; i0 += kUnroll * blockDim.x) {
+      uint4 u[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i < nv) u[k] = __ldg(s4 + i);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i < nv) widen16<T>(dst + i * V, u[k]);
+      }
+    }
+    done = nv * V;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = to_f32(src[i]);
+}
+
 template <typename T>
 __global__ void conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                  const T* __restrict__ b, T* __restrict__ y,
                                  cp::Geom g, long long x_bstride, long long y_bstride,
                                  int rows_per_cta, int cout_tile, int relu, int avg) {
-  extern __shared__ float w_s[];  // (channels of this tile, cin, kh, kw) as f32
+  extern __shared__ float4 smem4[];
   const int taps = g.kh * g.kw;
   const int co0 = blockIdx.z * cout_tile;
   const int ct = min(cout_tile, g.cout - co0);
-  const int n_w = ct * g.cin * taps;
-  const T* wt = w + static_cast<long long>(co0) * g.cin * taps;
-  for (int i = threadIdx.x; i < n_w; i += blockDim.x) w_s[i] = to_f32(wt[i]);
+  const int img = blockIdx.y;
+  const int p0 = blockIdx.x * rows_per_cta;
+  const cp::Tile full = cp::make_tile(g, rows_per_cta);
+  const cp::Tile t = cp::make_tile(g, min(rows_per_cta, g.ph - p0));
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* x_s = w_s + cp::words16(static_cast<long long>(cout_tile) * g.cin * taps);
+  float* c_s = x_s + cp::words16(static_cast<long long>(g.cin) * full.hrows * full.wcols);
+
+  stage_flat(w_s, w + static_cast<long long>(co0) * g.cin * taps, ct * g.cin * taps);
+  const T* xi = x + img * x_bstride;
+  const int ih0 = cp::tile_in_row0(p0, g.psh, g.csh, g.padh);
+  const int plane = t.hrows * t.wcols;  // one staged input channel
+  if (ih0 == 0 && t.hrows == g.h && g.padw == 0 && t.wcols == g.w) {
+    stage_flat(x_s, xi, g.cin * plane);  // the tile reads the whole image
+  } else {
+    for (int e0 = threadIdx.x; e0 < g.cin * plane; e0 += kUnroll * blockDim.x) {
+      float v[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int e = e0 + k * blockDim.x;
+        const int ci = e / plane, rem = e % plane;
+        const int ih = ih0 + rem / t.wcols, iw = rem % t.wcols - g.padw;
+        v[k] = e < g.cin * plane && cp::in_bounds(ih, g.h) && cp::in_bounds(iw, g.w)
+                   ? to_f32(xi[(static_cast<long long>(ci) * g.h + ih) * g.w + iw])
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k)
+        if (e0 + k * blockDim.x < g.cin * plane) x_s[e0 + k * blockDim.x] = v[k];
+    }
+  }
   __syncthreads();
 
-  const int img = blockIdx.y;
-  const int pr0 = blockIdx.x * rows_per_cta;
-  const T* xi = x + img * x_bstride;
-  T* yi = y + img * y_bstride;
-  const int plane = g.h * g.w;
-  const int work = rows_per_cta * ct * g.pw;
-  const float identity = avg ? 0.0f : -INFINITY;
-
-  for (int t = threadIdx.x; t < work; t += blockDim.x) {
-    const int pc = t % g.pw;
-    const int rest = t / g.pw;
-    const int cl = rest % ct;
-    const int co = co0 + cl;
-    const int pr = pr0 + rest / ct;
-    if (pr >= g.ph) continue;
-    const float bias = b ? to_f32(b[co]) : 0.0f;
-    const float* wc0 = w_s + cl * g.cin * taps;
-    float red = identity;
-    for (int i = 0; i < g.pkh; ++i) {
-      const int ih0 = cp::in_origin(cp::conv_pos(pr, g.psh, i), g.csh, g.padh);
-      for (int j = 0; j < g.pkw; ++j) {
-        const int iw0 = cp::in_origin(cp::conv_pos(pc, g.psw, j), g.csw, g.padw);
-        float s = 0.0f;
-        for (int ci = 0; ci < g.cin; ++ci) {
-          const T* xc = xi + ci * plane;
-          const float* wc = wc0 + ci * taps;
-          for (int dz = 0; dz < g.kh; ++dz) {
-            const int ih = ih0 + dz;
-            if (!cp::in_bounds(ih, g.h)) continue;
-            for (int dt = 0; dt < g.kw; ++dt) {
-              const int iw = iw0 + dt;
-              if (!cp::in_bounds(iw, g.w)) continue;
-              s += to_f32(xc[ih * g.w + iw]) * wc[dz * g.kw + dt];
-            }
-          }
-        }
-        s += bias;
-        if (relu) s = fmaxf(s, 0.0f);
-        red = avg ? red + s : fmaxf(red, s);
+  // One conv value a thread: conv row r and column c of the tile.
+  const int cplane = t.crows * t.ccols;
+  for (int e = threadIdx.x; e < ct * cplane; e += blockDim.x) {
+    const int cl = e / cplane, rem = e % cplane;
+    const int r = rem / t.ccols, c = rem % t.ccols;
+    const float* xo = x_s + r * g.csh * t.wcols + c * g.csw;
+    const float* wc = w_s + cl * g.cin * taps;
+    float s = 0.0f;
+    if (taps == 1) {
+#pragma unroll 8
+      for (int ci = 0; ci < g.cin; ++ci) s = fmaf(xo[ci * plane], wc[ci], s);
+    } else {
+      for (int ci = 0; ci < g.cin; ++ci) {
+        const float* xc = xo + ci * plane;
+        const float* wk = wc + ci * taps;
+        for (int dz = 0; dz < g.kh; ++dz)
+          for (int dt = 0; dt < g.kw; ++dt)
+            s = fmaf(xc[dz * t.wcols + dt], wk[dz * g.kw + dt], s);
       }
     }
-    if (avg) red = __fdiv_rn(red, static_cast<float>(g.pkh * g.pkw));
-    yi[(co * g.ph + pr) * g.pw + pc] = from_f32<T>(red);
+    s += b ? to_f32(b[co0 + cl]) : 0.0f;
+    if (relu) s = fmaxf(s, 0.0f);
+    c_s[e] = s;
+  }
+  __syncthreads();
+
+  // One pooled value a thread, its window reduced in row-major order.
+  T* yi = y + img * y_bstride;
+  for (int e = threadIdx.x; e < ct * t.rows * g.pw; e += blockDim.x) {
+    const int pc = e % g.pw, rest = e / g.pw;
+    const int pr = rest % t.rows, cl = rest / t.rows;
+    const float* cw = c_s + cl * cplane + pr * g.psh * t.ccols + pc * g.psw;
+    float red;
+    if (avg) {
+      red = 0.0f;
+      for (int i = 0; i < g.pkh; ++i) {
+#pragma unroll 4
+        for (int j = 0; j < g.pkw; ++j) red += cw[i * t.ccols + j];
+      }
+      red = __fdiv_rn(red, static_cast<float>(g.pkh * g.pkw));
+    } else {
+      red = -INFINITY;
+      for (int i = 0; i < g.pkh; ++i) {
+#pragma unroll 4
+        for (int j = 0; j < g.pkw; ++j) red = fmaxf(red, cw[i * t.ccols + j]);
+      }
+    }
+    yi[(static_cast<long long>(co0 + cl) * g.ph + p0 + pr) * g.pw + pc] = from_f32<T>(red);
   }
 }
 
@@ -117,19 +204,22 @@ int launch(const void* x, const void* w, const void* b, void* y, int n, int cin,
            long long y_bstride, void* stream) {
   const cp::Geom g = cp::make_geom(n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                    padw, pkh, pkw, psh, psw);
-  const size_t smem = sizeof(float) * static_cast<size_t>(cout_tile) * cin * kh * kw;
+  const long long smem = cp::k1_smem_bytes(g, rows_per_cta, cout_tile);
+  if (rows_per_cta < 1 || cout_tile < 1 || smem > kMaxSmemBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(conv_pool_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int work = rows_per_cta * cout_tile * g.pw;
-  int threads = ((work + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
+  const cp::Tile t = cp::make_tile(g, rows_per_cta);
+  const int work = std::max(cout_tile * t.crows * t.ccols, cout_tile * rows_per_cta * g.pw);
+  const int threads = std::min(256, std::max(64, (work + 31) / 32 * 32));
   const dim3 grid((g.ph + rows_per_cta - 1) / rows_per_cta, n,
                   (cout + cout_tile - 1) / cout_tile);
-  conv_pool_kernel<T><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  conv_pool_kernel<T><<<grid, threads, static_cast<size_t>(smem),
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<T*>(y), g, x_bstride, y_bstride, rows_per_cta, cout_tile, relu, avg);
   return static_cast<int>(cudaGetLastError());

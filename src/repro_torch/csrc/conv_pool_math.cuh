@@ -1,7 +1,8 @@
 // Shared arithmetic of the fused conv+act+pool kernels (conv_pool.cu,
 // conv_pool_q8.cu, conv_pool_dw.cu, conv_pool_dw_q8.cu): output geometry,
-// the window index math, padding as bounds-checked taps, and the int8
-// requantization, per tensor and per channel.
+// the window index math, padding as bounds-checked taps, the int8
+// requantization, per tensor and per channel, and K1's tile (the input rows
+// and conv positions a run of pooled rows needs, and its shared memory).
 //
 // Everything here is __host__ __device__ so that a plain C++ compiler can
 // build the host side into a small library (conv_pool_math_host.cpp) and the
@@ -93,6 +94,57 @@ CP_HD Geom make_geom(int n, int cin, int h, int w, int cout, int kh, int kw,
   g.ph = pool_out(g.oh, pkh, psh);
   g.pw = pool_out(g.ow, pkw, psw);
   return g;
+}
+
+// ---- K1's tile: a run of pooled rows, all pooled columns ----------------
+//
+// A CTA of K1 takes pooled rows [p0, p0 + r).  It computes every conv value
+// those rows' windows read — conv rows [conv_pos(p0, psh, 0), + span) by
+// conv columns [0, span) — from the input rows and columns those conv
+// values read, staged once with the padding as zeros.
+
+// Conv (or input) positions that `n` consecutive windows of `k` at stride
+// `s` cover: (n - 1) * s + k.  Pooled rows -> conv rows with (pkh, psh);
+// conv rows -> input rows with (kh, csh); the same along columns.
+CP_HD int span(int n, int k, int s) { return (n - 1) * s + k; }
+
+// Where a tile's staged input starts (unpadded coordinates, may be
+// negative): row in_origin(conv_pos(p0, psh, 0)), column -padw.
+CP_HD int tile_in_row0(int p0, int psh, int csh, int padh) {
+  return in_origin(conv_pos(p0, psh, 0), csh, padh);
+}
+
+struct Tile {
+  int rows;   // pooled rows of this tile (the last tile may be shorter)
+  int crows;  // conv rows it computes
+  int ccols;  // conv columns it computes (the same for every tile)
+  int hrows;  // input rows it stages
+  int wcols;  // input columns it stages
+};
+
+CP_HD Tile make_tile(const Geom& g, int rows) {
+  Tile t;
+  t.rows = rows;
+  t.crows = span(rows, g.pkh, g.psh);
+  t.ccols = span(g.pw, g.pkw, g.psw);
+  t.hrows = span(t.crows, g.kh, g.csh);
+  t.wcols = span(t.ccols, g.kw, g.csw);
+  return t;
+}
+
+// f32 words rounded up to a whole 16-byte line, so each part of K1's
+// shared memory starts 16-byte aligned.
+CP_HD long long words16(long long n) { return (n + 3) / 4 * 4; }
+
+// K1's shared memory for tiles of `rows` pooled rows and `ct` output
+// channels, all f32 (bf16 is widened as it is staged): the channel tile's
+// weights, the staged input (cin x hrows x wcols) and the conv tile
+// (ct x crows x ccols).
+CP_HD long long k1_smem_bytes(const Geom& g, int rows, int ct) {
+  const Tile t = make_tile(g, rows);
+  return 4 * (words16(static_cast<long long>(ct) * g.cin * g.kh * g.kw) +
+              words16(static_cast<long long>(g.cin) * t.hrows * t.wcols) +
+              words16(static_cast<long long>(ct) * t.crows * t.ccols));
 }
 
 }  // namespace cp

@@ -40,4 +40,30 @@ void cp_pooled_row_span(int p, int kh, int csh, int padh, int pkh, int psh,
 }
 
 int cp_in_bounds(int i, int n) { return cp::in_bounds(i, n) ? 1 : 0; }
+
+// K1's tile of `rows` pooled rows starting at pooled row p0 (clipped to the
+// image's last pooled row, as the kernel clips it): out6 = (first conv row,
+// conv rows, conv columns, first input row, input rows, input columns).
+void cp_k1_tile(int h, int w, int kh, int kw, int csh, int csw, int padh, int padw,
+                int pkh, int pkw, int psh, int psw, int p0, int rows, int* out6) {
+  const cp::Geom g = cp::make_geom(1, 1, h, w, 1, kh, kw, csh, csw, padh, padw,
+                                   pkh, pkw, psh, psw);
+  const cp::Tile t = cp::make_tile(g, rows < g.ph - p0 ? rows : g.ph - p0);
+  out6[0] = cp::conv_pos(p0, psh, 0);
+  out6[1] = t.crows;
+  out6[2] = t.ccols;
+  out6[3] = cp::tile_in_row0(p0, psh, csh, padh);
+  out6[4] = t.hrows;
+  out6[5] = t.wcols;
+}
+
+// K1's shared memory in bytes for tiles of `rows` pooled rows and `ct`
+// output channels.
+long long cp_k1_smem_bytes(int cin, int h, int w, int cout, int kh, int kw, int csh,
+                           int csw, int padh, int padw, int pkh, int pkw, int psh,
+                           int psw, int rows, int ct) {
+  const cp::Geom g = cp::make_geom(1, cin, h, w, cout, kh, kw, csh, csw, padh, padw,
+                                   pkh, pkw, psh, psw);
+  return cp::k1_smem_bytes(g, rows, ct);
+}
 }

@@ -6,7 +6,7 @@ shape and layout, the output (allocated, or an ``out=`` view into an arena
 bank), the tiling of the grid over pooled rows and output channels, and the
 launch counters — shared by the whole family, so the four cannot diverge:
 
-* K1, dense float (``csrc/conv_pool.cu``);
+* K1, dense float (``csrc/conv_pool.cu``), tiled by :func:`k1_tiling`;
 * K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`);
 * K3, depthwise float (``csrc/conv_pool_dw.cu``,
   `repro_torch.kernels.conv_pool.depthwise`);
@@ -33,8 +33,13 @@ from repro_torch.kernels import build
 # 227 KB is what one CTA may have on Hopper.
 MAX_SMEM_BYTES = 232448
 # Aim for about this many CTAs (four per SM on 132 SMs) before tiling
-# several pooled rows into one CTA.
+# several pooled rows into one CTA (K2-K4).
 _TARGET_CTAS = 528
+# K1 splits its output channels until a call has one CTA per SM of an H100
+# (132), and tiles pooled rows past that; each CTA computes at least a
+# warp's worth of conv values.
+K1_TARGET_CTAS = 132
+K1_MIN_CONV_VALUES = 32
 
 
 class LaunchCounter:
@@ -93,6 +98,75 @@ def cout_tile(cout: int, w_elems_per_cout: int, elem_bytes: int) -> int:
     return -(-cout // tiles)
 
 
+def family_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
+                  pool_stride, elem_bytes) -> Tuple[int, int]:
+    """(pooled rows, output channels) per CTA of K2-K4: the fewest channel
+    tiles whose weights fit (:func:`cout_tile`), then :func:`rows_per_cta`."""
+    tile = cout_tile(cout, cin * kh * kw, elem_bytes)
+    _, _, ph, _ = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                            pool_k=pool_k, pool_stride=pool_stride)
+    return rows_per_cta(n * -(-cout // tile), ph), tile
+
+
+def _span(n: int, k: int, s: int) -> int:
+    """Positions that n consecutive windows of k at stride s cover
+    (``conv_pool_math.cuh::span``)."""
+    return (n - 1) * s + k
+
+
+def _words16(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def k1_smem_bytes(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
+                  rows, ct) -> int:
+    """K1's shared memory for tiles of ``rows`` pooled rows and ``ct``
+    output channels: the same sum as ``conv_pool_math.cuh::k1_smem_bytes``
+    (f32 weights, staged input, conv tile, each 16-byte aligned)."""
+    (csh, csw), (pkh, pkw), (psh, psw) = (_pair(conv_stride), _pair(pool_k),
+                                          _pair(pool_stride))
+    _, _, _, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                            pool_k=pool_k, pool_stride=pool_stride)
+    crows, ccols = _span(rows, pkh, psh), _span(pw, pkw, psw)
+    hrows, wcols = _span(crows, kh, csh), _span(ccols, kw, csw)
+    return 4 * (_words16(ct * cin * kh * kw) + _words16(cin * hrows * wcols)
+                + _words16(ct * crows * ccols))
+
+
+def k1_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
+              pool_stride) -> Tuple[int, int]:
+    """(pooled rows, output channels) per CTA of K1, one grid a call.
+
+    Pooled rows: one a CTA until ``n`` images' rows reach
+    ``K1_TARGET_CTAS``, then as many as keep the grid near it.  Channels:
+    split into as many tiles as it takes to reach that count, each tile
+    holding at least ``K1_MIN_CONV_VALUES`` conv values, in equal tiles (the
+    last may be shorter).  Then halve the larger share of shared memory
+    (weights: channels; staged input and conv tile: rows) until it fits.
+    Raises when one channel of one pooled row does not fit."""
+    (pkh, pkw), (psh, psw) = _pair(pool_k), _pair(pool_stride)
+    _, _, ph, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                             pool_k=pool_k, pool_stride=pool_stride)
+    n = max(n, 1)
+    rows = max(1, -(-ph // max(1, K1_TARGET_CTAS // n)))
+    tiles = min(cout, -(-K1_TARGET_CTAS // (n * -(-ph // rows))))
+    per_channel = _span(rows, pkh, psh) * _span(pw, pkw, psw)
+    ct = min(cout, max(-(-cout // tiles), -(-K1_MIN_CONV_VALUES // per_channel)))
+    geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
+                pool_stride=pool_stride)
+    while (smem := k1_smem_bytes(cin, h, w, kh, kw, rows=rows, ct=ct,
+                                 **geom)) > MAX_SMEM_BYTES:
+        weights = 4 * _words16(ct * cin * kh * kw)
+        if ct > 1 and (rows == 1 or 2 * weights >= smem):
+            ct = -(-ct // 2)
+        elif rows > 1:
+            rows = -(-rows // 2)
+        else:
+            raise ValueError(f"K1: one output channel of one pooled row needs "
+                             f"{smem} B of shared memory, over {MAX_SMEM_BYTES} B")
+    return rows, -(-cout // -(-cout // ct))
+
+
 def _image_contiguous(t: torch.Tensor) -> bool:
     """True iff every image of a (N, C, H, W) tensor is one dense block."""
     _, c, h, w = t.shape
@@ -118,6 +192,7 @@ def conv_pool_call(
     out: Optional[torch.Tensor] = None,
     depthwise: bool = False,
     extra_args: tuple = (),
+    tiling=None,
 ) -> torch.Tensor:
     """Check, allocate and launch one fused conv+act+pool kernel.
 
@@ -125,8 +200,10 @@ def conv_pool_call(
     or (C, 1, kh, kw) with Cout = Cin = C when ``depthwise`` — and ``b``
     (Cout,), contiguous on the same device.  ``extra_args`` are passed after
     the strides: ctypes values (K2's requant multiplier) or tensors, passed
-    as their device pointers (K4's per-channel multipliers).  Raises on
-    anything the kernel does not take; never falls back.
+    as their device pointers (K4's per-channel multipliers).  ``tiling``
+    gives (pooled rows, output channels) per CTA from the geometry;
+    :func:`family_tiling` when None.  Raises on anything the kernel does not
+    take; never falls back.
     """
     if x.device.type != "cuda":
         raise ValueError(f"{fn_name}: expected a CUDA tensor, got {x.device}")
@@ -161,9 +238,15 @@ def conv_pool_call(
                              pool_stride=pool_stride)
     if ph < 1 or pw < 1:
         raise ValueError(f"{fn_name}: geometry gives an empty output")
-    # The float kernels stage their weights as f32 (bf16 is widened), the
-    # int8 kernels as int8.
-    tile = cout_tile(cout, wcin * kh * kw, 1 if out_dtype == torch.int8 else 4)
+    geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
+                pool_stride=pool_stride)
+    if tiling is None:
+        # The float kernels stage their weights as f32 (bf16 is widened),
+        # the int8 kernels as int8.
+        rows, tile = family_tiling(n, wcin, h, wd, cout, kh, kw, **geom,
+                                   elem_bytes=1 if out_dtype == torch.int8 else 4)
+    else:
+        rows, tile = tiling(n, wcin, h, wd, cout, kh, kw, **geom)
     if out is None:
         out = torch.empty((n, cout, ph, pw), dtype=out_dtype, device=x.device)
     elif (tuple(out.shape) != (n, cout, ph, pw) or out.dtype != out_dtype
@@ -176,7 +259,6 @@ def conv_pool_call(
     # Build/load first: without nvcc or a card this raises before any
     # pointer is taken.
     fn = getattr(build.load(lib_name), fn_name)
-    rows = rows_per_cta(n * -(-cout // tile), ph)
     ints = (n, cin, h, wd, cout, kh, kw, csh, csw, padh, padw, pkh, pkw,
             psh, psw, int(activation == "relu"), int(pool == "avg"), rows, tile)
     args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
@@ -209,5 +291,5 @@ def conv_pool(x, w, b, *, conv_stride=1, padding=0, pool_k=2, pool_stride=2,
         fn_name, "conv_pool", K1_LAUNCHES, x, w, b, conv_stride=conv_stride,
         padding=padding, pool_k=pool_k, pool_stride=pool_stride,
         activation=activation, pool=pool, out_dtype=x.dtype,
-        bias_dtype=x.dtype, out=out,
+        bias_dtype=x.dtype, out=out, tiling=k1_tiling,
     )

@@ -1,11 +1,14 @@
 """K5's launch: checks, output allocation and the ``K5_LAUNCHES`` counter.
 
 The port's counterpart of ``repro/kernels/flash/kernel.py::flash_attention_fwd``
-(``pallas_call`` at ``kernel.py:112``), launching ``csrc/flash_fwd.cu``.
-Unlike the TPU entry point it takes any ``S`` and ``T`` (no divisibility by
-a block), and reads ``q``, ``k`` and ``v`` in their ``(B, S, n, h)`` layout
-with any batch, row and head strides, so views of a projection go in
-without a transposing copy; only the head dim must be contiguous.
+(``pallas_call`` at ``kernel.py:112``), launching ``csrc/flash_fwd.cu``:
+bf16 on the tensor cores, f32 on the CUDA cores.  Unlike the TPU entry
+point it takes any ``S`` and ``T`` (no divisibility by a block), and reads
+``q``, ``k`` and ``v`` in their ``(B, S, n, h)`` layout with any batch, row
+and head strides, so views of a projection go in without a transposing
+copy; only the head dim must be contiguous.  bf16 inputs whose pointers or
+strides are not 16-byte aligned are staged by scalar loads in the same
+launch.
 """
 from __future__ import annotations
 

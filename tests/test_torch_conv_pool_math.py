@@ -23,7 +23,7 @@ import pytest
 from repro.core import graph as ref_graph
 from repro.core import quantize as ref_quantize
 from repro.kernels.conv_pool.kernel import halo_window_rows
-from repro_torch.kernels.conv_pool.kernel import output_hw
+from repro_torch.kernels.conv_pool.kernel import k1_smem_bytes, output_hw
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
@@ -55,6 +55,9 @@ def lib():
     so.cp_pooled_row_span.argtypes = [ctypes.c_int] * 6 + [p]
     so.cp_in_bounds.argtypes = [ctypes.c_int, ctypes.c_int]
     so.cp_in_bounds.restype = ctypes.c_int
+    so.cp_k1_tile.argtypes = [ctypes.c_int] * 14 + [p]
+    so.cp_k1_smem_bytes.argtypes = [ctypes.c_int] * 16
+    so.cp_k1_smem_bytes.restype = ctypes.c_longlong
     return so
 
 
@@ -172,3 +175,79 @@ def test_host_geometry_matches_reference(lib, geom):
 def test_host_bounds_check_is_the_zero_padding(lib):
     assert [lib.cp_in_bounds(i, 5) for i in (-2**31, -1, 0, 4, 5, 2**31 - 1)] == \
         [0, 0, 1, 1, 0, 0]
+
+
+# K1's geometries: chip_smoke.py's K1_CASES (square, padded, overlapping and
+# gapped pools, conv stride 2, the rectangular DS-CNN stem) and the two heads,
+# (H, W, cin, (kh, kw), conv stride, padding, pool_k, pool_stride).
+K1_GEOMS = [
+    (32, 32, 1, (5, 5), (1, 1), (0, 0), (2, 2), (2, 2)),
+    (14, 14, 6, (5, 5), (1, 1), (0, 0), (2, 2), (2, 2)),
+    (32, 32, 3, (5, 5), (1, 1), (2, 2), (2, 2), (2, 2)),
+    (16, 16, 32, (5, 5), (1, 1), (2, 2), (2, 2), (2, 2)),
+    (16, 16, 4, (3, 3), (1, 1), (0, 0), (3, 3), (3, 3)),
+    (16, 16, 4, (3, 3), (1, 1), (0, 0), (3, 3), (2, 2)),  # overlapping pool
+    (20, 20, 2, (3, 3), (2, 2), (1, 1), (2, 2), (2, 2)),
+    (128, 128, 4, (3, 3), (1, 1), (0, 0), (2, 2), (2, 2)),
+    (49, 10, 1, (10, 4), (2, 2), (5, 1), (5, 1), (5, 1)),  # DS-CNN stem
+    (17, 13, 2, (3, 2), (1, 2), (1, 0), (2, 3), (3, 2)),  # pool stride > k
+    (25, 5, 64, (1, 1), (1, 1), (0, 0), (25, 5), (25, 5)),  # DS-CNN-KWS head
+    (2, 2, 256, (1, 1), (1, 1), (0, 0), (2, 2), (2, 2)),  # MobileNet head
+]
+
+
+def _tile_enumerated(geom, p0, rows):
+    """(conv rows, conv cols, input rows, input cols) a tile of pooled rows
+    [p0, p0 + rows) reads, each as a sorted numpy array, from the windows."""
+    H, W, _, (kh, kw), (csh, csw), (padh, padw), (pkh, pkw), (psh, psw) = geom
+    _, _, ph, pw = output_hw(H, W, kh, kw, conv_stride=(csh, csw),
+                             padding=(padh, padw), pool_k=(pkh, pkw),
+                             pool_stride=(psh, psw))
+    pr = np.arange(p0, min(p0 + rows, ph))
+    crow = np.unique((pr[:, None] * psh + np.arange(pkh)).ravel())
+    ccol = np.unique((np.arange(pw)[:, None] * psw + np.arange(pkw)).ravel())
+    irow = np.unique((crow[:, None] * csh - padh + np.arange(kh)).ravel())
+    icol = np.unique((ccol[:, None] * csw - padw + np.arange(kw)).ravel())
+    return crow, ccol, irow, icol
+
+
+@pytest.mark.parametrize("geom", K1_GEOMS)
+def test_host_k1_tile_covers_what_its_windows_read(lib, geom):
+    """Every tile (rows 1, 2, 3 and all) computes the conv rows and columns
+    its pool windows reduce, and stages the input rows and columns those
+    conv values read: the kernel's ranges are the numpy enumeration's
+    bounding boxes, and no wider."""
+    H, W, _, k, cs, pad, pk, ps = geom
+    _, _, ph, _ = output_hw(H, W, *k, conv_stride=cs, padding=pad, pool_k=pk,
+                            pool_stride=ps)
+    out6 = (ctypes.c_int * 6)()
+    for rows in sorted({1, 2, 3, ph}):
+        for p0 in range(0, ph, rows):
+            lib.cp_k1_tile(H, W, *k, *cs, *pad, *pk, *ps, p0, rows, out6)
+            crow0, crows, ccols, irow0, hrows, wcols = tuple(out6)
+            crow, ccol, irow, icol = _tile_enumerated(geom, p0, rows)
+            assert (crow0, crows) == (crow[0], crow[-1] - crow[0] + 1)
+            assert (0, ccols) == (ccol[0], ccol[-1] + 1)
+            assert (irow0, hrows) == (irow[0], irow[-1] - irow[0] + 1)
+            assert (-pad[1], wcols) == (icol[0], icol[-1] - icol[0] + 1)
+            # the conv positions lie inside the conv map
+            oh, ow, _, _ = output_hw(H, W, *k, conv_stride=cs, padding=pad,
+                                     pool_k=pk, pool_stride=ps)
+            assert crow[-1] < oh and ccol[-1] < ow
+
+
+@pytest.mark.parametrize("geom", K1_GEOMS)
+def test_host_k1_smem_matches_the_wrappers_sum(lib, geom):
+    """The launcher sizes shared memory with conv_pool_math.cuh's
+    k1_smem_bytes; the wrapper tiles with kernel.k1_smem_bytes: one sum."""
+    H, W, cin, k, cs, pad, pk, ps = geom
+    _, _, ph, _ = output_hw(H, W, *k, conv_stride=cs, padding=pad, pool_k=pk,
+                            pool_stride=ps)
+    for rows in sorted({1, 2, ph}):
+        for ct in (1, 3, 8, 29, 64):
+            want = lib.cp_k1_smem_bytes(cin, H, W, 64, *k, *cs, *pad, *pk, *ps,
+                                        rows, ct)
+            assert want % 16 == 0
+            assert k1_smem_bytes(cin, H, W, *k, conv_stride=cs, padding=pad,
+                                 pool_k=pk, pool_stride=ps, rows=rows,
+                                 ct=ct) == want

@@ -112,3 +112,66 @@ def test_strided_views_give_the_same_result():
     got = ops.flash_attention(q, k, v)
     want = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---- K5's bf16 tensor-core numerics, emulated on the CPU -----------------
+# chip_smoke.py's bf16 gate: rtol = atol = 5e-2, and each output row (one
+# query, one head) within 2e-2 of its largest |value|.
+K5_BF16_ROW_REL = 2e-2
+
+
+def _tc_emulation(q, k, v, *, causal=True, window=0, softcap=0.0, block=64):
+    """K5's bf16 path in plain torch: f32 scores of bf16 q, k (each product
+    exact in f32); per key block of ``block`` the scale, the softcap and the
+    mask, a running max per row, f32 probabilities summed into l and
+    rounded to bf16 as PV's operand, f32 accumulation and rescale; the
+    result divided by l (zeros where no key is visible) and rounded to
+    bf16.  A test helper: nothing on the main path calls it."""
+    B, S, H, h = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, S, K, H // K, h)
+    kf, vf = k.float(), v.float()
+    m = torch.full((B, K, H // K, S), float("-inf"))
+    l = torch.zeros((B, K, H // K, S))
+    acc = torch.zeros((B, K, H // K, S, h))
+    qi = torch.arange(S)[:, None]
+    for k0 in range(0, T, block):
+        kj = torch.arange(k0, min(k0 + block, T))[None, :]
+        s = torch.einsum("bskgh,btkh->bkgst", qf, kf[:, k0:k0 + block]) * (h ** -0.5)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        ok = torch.ones_like(kj == qi)
+        if causal:
+            ok &= kj <= qi
+        if window:
+            ok &= kj > qi - window
+        s = torch.where(ok, s, float("-inf"))
+        mnew = torch.maximum(m, s.amax(-1))
+        alpha = torch.where(m == float("-inf"), 0.0, torch.exp(m - mnew))
+        p = torch.where(s == float("-inf"), 0.0, torch.exp(s - mnew[..., None]))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgst,btkh->bkgsh", p.bfloat16().float(), vf[:, k0:k0 + block])
+        acc = acc * alpha[..., None] + pv
+        m = mnew
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, h).bfloat16()
+
+
+@pytest.mark.parametrize("S,window,softcap", [
+    (128, 0, 0.0), (77, 0, 0.0), (128, 48, 0.0), (77, 0, 30.0)])
+def test_tensor_core_numerics_pass_the_bf16_gate(S, window, softcap):
+    """On the Llama-3.2-1B head shape (H 32, K 8, h 64): the bf16 path's one
+    new rounding (P to bf16) and its block-wise max stay inside chip_smoke's
+    bf16 gate against the plain version, which the gate holds the kernel
+    to.  Each score is exact in f32; only the sums' order changes."""
+    q, k, v = _torch(*_qkv((1, S, 32, 8, 64), 500 + S + window), dtype=torch.bfloat16)
+    got = _tc_emulation(q, k, v, window=window, softcap=softcap)
+    want = ref.attention_ref(q, k, v, window=window, softcap=softcap)
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    err = (got.float() - want.float()).abs().amax(-1)
+    top = want.float().abs().amax(-1)
+    assert bool((err <= K5_BF16_ROW_REL * top).all())
+    # the rounding of P shows: the emulation is not the plain version itself
+    assert float(err.max()) > 0.0
+
