@@ -19,15 +19,18 @@
 // Design (a CTA per (tile of pooled rows, image, tile of output channels);
 // kernel.py::k1_tiling picks the tiles for occupancy and shared memory,
 // conv_pool_math.cuh holds the tile arithmetic):
-// * the channel tile's weights and the input rows and columns the tile's
-//   pool windows read (conv_pool_math.cuh::make_tile; padding staged as
-//   zeros) go to shared memory once, as f32, with 16-byte loads where the
+// * the channel tile's weights go to shared memory once, as f32, and the
+//   input rows and columns the tile's pool windows read
+//   (conv_pool_math.cuh::make_tile; padding staged as zeros) go there a
+//   chunk of input channels at a time (all of them in one chunk unless they
+//   do not fit: a wide layer at a large image), with 16-byte loads where the
 //   source is aligned (a whole image at once when the tile reads all of it,
 //   as the heads' tiles do);
 // * threads over (channel, conv position) each compute one conv value, the
 //   dot over cin x taps from shared memory in the order the earlier
 //   one-thread-per-output design used (cin outer, then kernel rows, then
-//   kernel columns), plus bias and ReLU, into a conv tile in shared memory;
+//   kernel columns), its partial sum kept in a conv tile in shared memory
+//   from one chunk to the next, then bias and ReLU;
 // * after one barrier, threads over (channel, pooled position) reduce each
 //   window from the conv tile in row-major order (the average by one
 //   correctly rounded divide) and write the output;
@@ -107,7 +110,8 @@ template <typename T>
 __global__ void conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                  const T* __restrict__ b, T* __restrict__ y,
                                  cp::Geom g, long long x_bstride, long long y_bstride,
-                                 int rows_per_cta, int cout_tile, int relu, int avg) {
+                                 int rows_per_cta, int cout_tile, int cin_chunk, int relu,
+                                 int avg) {
   extern __shared__ float4 smem4[];
   const int taps = g.kh * g.kw;
   const int co0 = blockIdx.z * cout_tile;
@@ -118,56 +122,69 @@ __global__ void conv_pool_kernel(const T* __restrict__ x, const T* __restrict__ 
   const cp::Tile t = cp::make_tile(g, min(rows_per_cta, g.ph - p0));
   float* w_s = reinterpret_cast<float*>(smem4);
   float* x_s = w_s + cp::words16(static_cast<long long>(cout_tile) * g.cin * taps);
-  float* c_s = x_s + cp::words16(static_cast<long long>(g.cin) * full.hrows * full.wcols);
+  float* c_s = x_s + cp::words16(static_cast<long long>(cin_chunk) * full.hrows * full.wcols);
 
   stage_flat(w_s, w + static_cast<long long>(co0) * g.cin * taps, ct * g.cin * taps);
   const T* xi = x + img * x_bstride;
   const int ih0 = cp::tile_in_row0(p0, g.psh, g.csh, g.padh);
   const int plane = t.hrows * t.wcols;  // one staged input channel
-  if (ih0 == 0 && t.hrows == g.h && g.padw == 0 && t.wcols == g.w) {
-    stage_flat(x_s, xi, g.cin * plane);  // the tile reads the whole image
-  } else {
-    for (int e0 = threadIdx.x; e0 < g.cin * plane; e0 += kUnroll * blockDim.x) {
-      float v[kUnroll];
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k) {
-        const int e = e0 + k * blockDim.x;
-        const int ci = e / plane, rem = e % plane;
-        const int ih = ih0 + rem / t.wcols, iw = rem % t.wcols - g.padw;
-        v[k] = e < g.cin * plane && cp::in_bounds(ih, g.h) && cp::in_bounds(iw, g.w)
-                   ? to_f32(xi[(static_cast<long long>(ci) * g.h + ih) * g.w + iw])
-                   : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kUnroll; ++k)
-        if (e0 + k * blockDim.x < g.cin * plane) x_s[e0 + k * blockDim.x] = v[k];
-    }
-  }
-  __syncthreads();
-
-  // One conv value a thread: conv row r and column c of the tile.
+  const bool whole = ih0 == 0 && t.hrows == g.h && g.padw == 0 && t.wcols == g.w;
   const int cplane = t.crows * t.ccols;
-  for (int e = threadIdx.x; e < ct * cplane; e += blockDim.x) {
-    const int cl = e / cplane, rem = e % cplane;
-    const int r = rem / t.ccols, c = rem % t.ccols;
-    const float* xo = x_s + r * g.csh * t.wcols + c * g.csw;
-    const float* wc = w_s + cl * g.cin * taps;
-    float s = 0.0f;
-    if (taps == 1) {
-#pragma unroll 8
-      for (int ci = 0; ci < g.cin; ++ci) s = fmaf(xo[ci * plane], wc[ci], s);
+
+  // The input channels in chunks of cin_chunk, each staged in turn: a conv
+  // value's partial sum waits in the conv tile between chunks, so the sum
+  // runs over the input channels in the same order as with one chunk.
+  for (int c0 = 0; c0 < g.cin; c0 += cin_chunk) {
+    const int cc = min(cin_chunk, g.cin - c0);
+    if (c0 > 0) __syncthreads();  // every thread is done with the last chunk
+    const T* xc0 = xi + static_cast<long long>(c0) * g.h * g.w;
+    if (whole) {
+      stage_flat(x_s, xc0, cc * plane);  // the tile reads the whole image
     } else {
-      for (int ci = 0; ci < g.cin; ++ci) {
-        const float* xc = xo + ci * plane;
-        const float* wk = wc + ci * taps;
-        for (int dz = 0; dz < g.kh; ++dz)
-          for (int dt = 0; dt < g.kw; ++dt)
-            s = fmaf(xc[dz * t.wcols + dt], wk[dz * g.kw + dt], s);
+      for (int e0 = threadIdx.x; e0 < cc * plane; e0 += kUnroll * blockDim.x) {
+        float v[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int e = e0 + k * blockDim.x;
+          const int ci = e / plane, rem = e % plane;
+          const int ih = ih0 + rem / t.wcols, iw = rem % t.wcols - g.padw;
+          v[k] = e < cc * plane && cp::in_bounds(ih, g.h) && cp::in_bounds(iw, g.w)
+                     ? to_f32(xc0[(static_cast<long long>(ci) * g.h + ih) * g.w + iw])
+                     : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k)
+          if (e0 + k * blockDim.x < cc * plane) x_s[e0 + k * blockDim.x] = v[k];
       }
     }
-    s += b ? to_f32(b[co0 + cl]) : 0.0f;
-    if (relu) s = fmaxf(s, 0.0f);
-    c_s[e] = s;
+    __syncthreads();
+
+    // One conv value a thread: conv row r and column c of the tile.
+    const bool last = c0 + cc == g.cin;
+    for (int e = threadIdx.x; e < ct * cplane; e += blockDim.x) {
+      const int cl = e / cplane, rem = e % cplane;
+      const int r = rem / t.ccols, c = rem % t.ccols;
+      const float* xo = x_s + r * g.csh * t.wcols + c * g.csw;
+      const float* wc = w_s + (static_cast<long long>(cl) * g.cin + c0) * taps;
+      float s = c0 == 0 ? 0.0f : c_s[e];
+      if (taps == 1) {
+#pragma unroll 8
+        for (int ci = 0; ci < cc; ++ci) s = fmaf(xo[ci * plane], wc[ci], s);
+      } else {
+        for (int ci = 0; ci < cc; ++ci) {
+          const float* xc = xo + ci * plane;
+          const float* wk = wc + ci * taps;
+          for (int dz = 0; dz < g.kh; ++dz)
+            for (int dt = 0; dt < g.kw; ++dt)
+              s = fmaf(xc[dz * t.wcols + dt], wk[dz * g.kw + dt], s);
+        }
+      }
+      if (last) {
+        s += b ? to_f32(b[co0 + cl]) : 0.0f;
+        if (relu) s = fmaxf(s, 0.0f);
+      }
+      c_s[e] = s;
+    }
   }
   __syncthreads();
 
@@ -200,12 +217,14 @@ template <typename T>
 int launch(const void* x, const void* w, const void* b, void* y, int n, int cin,
            int h, int w_, int cout, int kh, int kw, int csh, int csw, int padh,
            int padw, int pkh, int pkw, int psh, int psw, int relu, int avg,
-           int rows_per_cta, int cout_tile, long long x_bstride,
+           int rows_per_cta, int cout_tile, int cin_chunk, long long x_bstride,
            long long y_bstride, void* stream) {
   const cp::Geom g = cp::make_geom(n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                    padw, pkh, pkw, psh, psw);
-  const long long smem = cp::k1_smem_bytes(g, rows_per_cta, cout_tile);
-  if (rows_per_cta < 1 || cout_tile < 1 || smem > kMaxSmemBytes)
+  if (rows_per_cta < 1 || cout_tile < 1 || cin_chunk < 1 || cin_chunk > cin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = cp::k1_smem_bytes(g, rows_per_cta, cout_tile, cin_chunk);
+  if (smem > kMaxSmemBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(conv_pool_kernel<T>,
@@ -221,7 +240,8 @@ int launch(const void* x, const void* w, const void* b, void* y, int n, int cin,
   conv_pool_kernel<T><<<grid, threads, static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), g, x_bstride, y_bstride, rows_per_cta, cout_tile, relu, avg);
+      static_cast<T*>(y), g, x_bstride, y_bstride, rows_per_cta, cout_tile, cin_chunk, relu,
+      avg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,10 +251,10 @@ extern "C" int conv_pool_f32(const void* x, const void* w, const void* b, void* 
                              int n, int cin, int h, int w_, int cout, int kh, int kw,
                              int csh, int csw, int padh, int padw, int pkh, int pkw,
                              int psh, int psw, int relu, int avg, int rows_per_cta,
-                             int cout_tile, long long x_bstride, long long y_bstride,
-                             void* stream) {
+                             int cout_tile, int cin_chunk, long long x_bstride,
+                             long long y_bstride, void* stream) {
   return launch<float>(x, w, b, y, n, cin, h, w_, cout, kh, kw, csh, csw, padh, padw,
-                       pkh, pkw, psh, psw, relu, avg, rows_per_cta, cout_tile,
+                       pkh, pkw, psh, psw, relu, avg, rows_per_cta, cout_tile, cin_chunk,
                        x_bstride, y_bstride, stream);
 }
 
@@ -242,9 +262,9 @@ extern "C" int conv_pool_bf16(const void* x, const void* w, const void* b, void*
                               int n, int cin, int h, int w_, int cout, int kh, int kw,
                               int csh, int csw, int padh, int padw, int pkh, int pkw,
                               int psh, int psw, int relu, int avg, int rows_per_cta,
-                              int cout_tile, long long x_bstride, long long y_bstride,
-                              void* stream) {
+                              int cout_tile, int cin_chunk, long long x_bstride,
+                              long long y_bstride, void* stream) {
   return launch<__nv_bfloat16>(x, w, b, y, n, cin, h, w_, cout, kh, kw, csh, csw, padh,
                                padw, pkh, pkw, psh, psw, relu, avg, rows_per_cta,
-                               cout_tile, x_bstride, y_bstride, stream);
+                               cout_tile, cin_chunk, x_bstride, y_bstride, stream);
 }

@@ -101,7 +101,8 @@ CP_HD Geom make_geom(int n, int cin, int h, int w, int cout, int kh, int kw,
 // A CTA of K1 takes pooled rows [p0, p0 + r).  It computes every conv value
 // those rows' windows read — conv rows [conv_pos(p0, psh, 0), + span) by
 // conv columns [0, span) — from the input rows and columns those conv
-// values read, staged once with the padding as zeros.
+// values read, staged with the padding as zeros, a chunk of input channels
+// at a time.
 
 // Conv (or input) positions that `n` consecutive windows of `k` at stride
 // `s` cover: (n - 1) * s + k.  Pooled rows -> conv rows with (pkh, psh);
@@ -137,13 +138,14 @@ CP_HD Tile make_tile(const Geom& g, int rows) {
 CP_HD long long words16(long long n) { return (n + 3) / 4 * 4; }
 
 // K1's shared memory for tiles of `rows` pooled rows and `ct` output
-// channels, all f32 (bf16 is widened as it is staged): the channel tile's
-// weights, the staged input (cin x hrows x wcols) and the conv tile
+// channels staging `cc` input channels at a time, all f32 (bf16 is widened
+// as it is staged): the channel tile's weights over every input channel, one
+// chunk of staged input (cc x hrows x wcols) and the conv tile
 // (ct x crows x ccols).
-CP_HD long long k1_smem_bytes(const Geom& g, int rows, int ct) {
+CP_HD long long k1_smem_bytes(const Geom& g, int rows, int ct, int cc) {
   const Tile t = make_tile(g, rows);
   return 4 * (words16(static_cast<long long>(ct) * g.cin * g.kh * g.kw) +
-              words16(static_cast<long long>(g.cin) * t.hrows * t.wcols) +
+              words16(static_cast<long long>(cc) * t.hrows * t.wcols) +
               words16(static_cast<long long>(ct) * t.crows * t.ccols));
 }
 

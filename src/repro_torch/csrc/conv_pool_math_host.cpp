@@ -58,12 +58,12 @@ void cp_k1_tile(int h, int w, int kh, int kw, int csh, int csw, int padh, int pa
 }
 
 // K1's shared memory in bytes for tiles of `rows` pooled rows and `ct`
-// output channels.
+// output channels, staging `cc` input channels at a time.
 long long cp_k1_smem_bytes(int cin, int h, int w, int cout, int kh, int kw, int csh,
                            int csw, int padh, int padw, int pkh, int pkw, int psh,
-                           int psw, int rows, int ct) {
+                           int psw, int rows, int ct, int cc) {
   const cp::Geom g = cp::make_geom(1, cin, h, w, cout, kh, kw, csh, csw, padh, padw,
                                    pkh, pkw, psh, psw);
-  return cp::k1_smem_bytes(g, rows, ct);
+  return cp::k1_smem_bytes(g, rows, ct, cc);
 }
 }

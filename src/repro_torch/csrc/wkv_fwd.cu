@@ -1,8 +1,10 @@
-// K7: chunked RWKV6 wkv forward from the zero state.
+// K7: chunked RWKV6 wkv forward from a carried state (the zero state unless
+// one is given).
 //
 // Replaces the TPU kernel repro/kernels/wkv/kernel.py::_kernel (entry point
 // wkv_fwd, pallas_call at kernel.py:95).  Same function, per (batch, head):
-// with the state S (hk x hv) starting at zero and the sequence cut into
+// with the state S (hk x hv) starting at s0 (zero when none is given, as in
+// the TPU kernel) and the sequence cut into
 // chunks of C steps, each chunk computes, with la the cumulative log decay
 // over the chunk and la_prev = la - logw,
 //   o_t  = (r_t * exp(la_prev_t)) S                                (history)
@@ -35,8 +37,10 @@
 //   the bonus diagonal, the decayed r and k are formed in shared memory;
 //   each thread then owns outputs (t, j) and state entries (i, j) with j
 //   across the lanes;
-// * the incoming state is zero: this kernel serves prefill, never a step
-//   that carries state in.
+// * the incoming state is zero for a prefill, or s0 (B, H, hk, hv) f32 for
+//   a multi-token step that carries state in (a chunked prefill): it is
+//   loaded into the shared state before the first chunk, and nothing else
+//   changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,8 +60,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ logw, const float* __restrict__ u,
-               float* __restrict__ o, float* __restrict__ s_out, int S, int H, int hk, int hv,
-               int chunk) {
+               const float* __restrict__ s0, float* __restrict__ o, float* __restrict__ s_out,
+               int S, int H, int hk, int hv, int chunk) {
   extern __shared__ float smem[];
   float* A = smem;              // [C][kLD] pair term, s < t
   float* dg = A + kMax * kLD;   // [C] bonus diagonal
@@ -76,7 +80,8 @@ wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
   const long long rk0 = static_cast<long long>(b) * S * rk_row + static_cast<long long>(h) * hk;
   const long long v0 = static_cast<long long>(b) * S * v_row + static_cast<long long>(h) * hv;
 
-  for (int e = tid; e < hk * hv; e += kThreads) St[(e / hv) * kLD + e % hv] = 0.0f;
+  const float* si = s0 ? s0 + static_cast<long long>(blockIdx.x) * hk * hv : nullptr;
+  for (int e = tid; e < hk * hv; e += kThreads) St[(e / hv) * kLD + e % hv] = si ? si[e] : 0.0f;
   for (int i = tid; i < hk; i += kThreads) us[i] = u[h * hk + i];
 
   for (int c0 = 0; c0 < S; c0 += chunk) {
@@ -160,8 +165,8 @@ wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __rest
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* logw, const void* u,
-           void* o, void* s_out, int B, int S, int H, int hk, int hv, int chunk,
-           void* stream) {
+           const void* s0, void* o, void* s_out, int B, int S, int H, int hk, int hv,
+           int chunk, void* stream) {
   if (hk < 1 || hk > kMax || hv < 1 || hv > kMax || chunk < 1 || chunk > kMax ||
       S % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -171,21 +176,24 @@ int launch(const void* r, const void* k, const void* v, const void* logw, const 
   if (e != cudaSuccess) return static_cast<int>(e);
   wkv_fwd_kernel<T><<<B * H, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(logw), static_cast<const float*>(u), static_cast<float*>(o),
-      static_cast<float*>(s_out), S, H, hk, hv, chunk);
+      static_cast<const float*>(logw), static_cast<const float*>(u),
+      static_cast<const float*>(s0), static_cast<float*>(o), static_cast<float*>(s_out), S, H,
+      hk, hv, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// s0: (B, H, hk, hv) f32 incoming state, or null for the zero state.
 extern "C" int wkv_fwd_f32(const void* r, const void* k, const void* v, const void* logw,
-                           const void* u, void* o, void* s_out, int B, int S, int H, int hk,
-                           int hv, int chunk, void* stream) {
-  return launch<float>(r, k, v, logw, u, o, s_out, B, S, H, hk, hv, chunk, stream);
+                           const void* u, const void* s0, void* o, void* s_out, int B, int S,
+                           int H, int hk, int hv, int chunk, void* stream) {
+  return launch<float>(r, k, v, logw, u, s0, o, s_out, B, S, H, hk, hv, chunk, stream);
 }
 
 extern "C" int wkv_fwd_bf16(const void* r, const void* k, const void* v, const void* logw,
-                            const void* u, void* o, void* s_out, int B, int S, int H, int hk,
-                            int hv, int chunk, void* stream) {
-  return launch<__nv_bfloat16>(r, k, v, logw, u, o, s_out, B, S, H, hk, hv, chunk, stream);
+                            const void* u, const void* s0, void* o, void* s_out, int B, int S,
+                            int H, int hk, int hv, int chunk, void* stream) {
+  return launch<__nv_bfloat16>(r, k, v, logw, u, s0, o, s_out, B, S, H, hk, hv, chunk,
+                               stream);
 }

@@ -12,19 +12,57 @@ the kernel.
   (f32 accumulation; bf16 is widened first, the result cast back);
 * a CUDA tensor launches ``csrc/conv_pool_dw.cu`` (f32 or bf16) through the
   family's shared launch plumbing
-  (`repro_torch.kernels.conv_pool.kernel.conv_pool_call`), or raises;
+  (`repro_torch.kernels.conv_pool.kernel.conv_pool_call`), tiled by
+  :func:`k3_tiling`, or raises;
 * any other device raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import nn
-from repro_torch.kernels.conv_pool.kernel import LaunchCounter, conv_pool_call
+from repro_torch.kernels.conv_pool.kernel import (LaunchCounter, conv_pool_call,
+                                                  output_hw)
 
 K3_LAUNCHES = LaunchCounter()
+# K3 computes one output a thread, at most K3_MAX_THREADS a CTA, and splits
+# channels (then pooled rows) until a call has one CTA per SM of an H100
+# (132), as long as each CTA keeps a warp of outputs.
+K3_TARGET_CTAS = 132
+K3_MAX_THREADS = 256
+K3_MIN_OUTPUTS = 32
+
+
+def k3_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
+              pool_stride) -> Tuple[int, int]:
+    """(pooled rows, channels) per CTA of K3, one output a thread.
+
+    Starts from every pooled row and channel in one tile, then halves the
+    channels (while more than one) or else the rows, first until a tile
+    holds at most ``K3_MAX_THREADS`` outputs, then while the grid is under
+    ``K3_TARGET_CTAS`` and a tile holds at least two warps
+    (2 ``K3_MIN_OUTPUTS``) of outputs.  Tiles are equal (the last may be
+    shorter).  A tile of one row of one channel wider than
+    ``K3_MAX_THREADS`` has its threads loop over it."""
+    _, _, ph, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                             pool_k=pool_k, pool_stride=pool_stride)
+    n = max(n, 1)
+    rows, ct = ph, cout
+
+    def ctas():
+        return n * -(-ph // rows) * -(-cout // ct)
+
+    while (rows * ct * pw > K3_MAX_THREADS
+           or (ctas() < K3_TARGET_CTAS and rows * ct * pw >= 2 * K3_MIN_OUTPUTS)):
+        if ct > 1:
+            ct = -(-ct // 2)
+        elif rows > 1:
+            rows = -(-rows // 2)
+        else:
+            break
+    return -(-ph // -(-ph // rows)), -(-cout // -(-cout // ct))
 
 
 def depthwise_conv_pool_ref(x, w, b, *, conv_stride=1, padding=0, pool_k=1,
@@ -63,7 +101,7 @@ def depthwise_conv_pool(x, w, b, *, conv_stride=1, padding=0, pool_k=1,
         fn_name, "conv_pool_dw", K3_LAUNCHES, x, w, b, conv_stride=conv_stride,
         padding=padding, pool_k=pool_k, pool_stride=pool_stride,
         activation=activation, pool=pool, out_dtype=x.dtype,
-        bias_dtype=x.dtype, out=out, depthwise=True,
+        bias_dtype=x.dtype, out=out, depthwise=True, tiling=k3_tiling,
     )
 
 

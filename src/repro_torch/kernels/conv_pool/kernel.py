@@ -9,7 +9,7 @@ launch counters — shared by the whole family, so the four cannot diverge:
 * K1, dense float (``csrc/conv_pool.cu``), tiled by :func:`k1_tiling`;
 * K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`);
 * K3, depthwise float (``csrc/conv_pool_dw.cu``,
-  `repro_torch.kernels.conv_pool.depthwise`);
+  `repro_torch.kernels.conv_pool.depthwise`), tiled by its ``k3_tiling``;
 * K4, depthwise int8 (``csrc/conv_pool_dw_q8.cu``,
   `repro_torch.quant.kernel_q8`).
 
@@ -33,7 +33,7 @@ from repro_torch.kernels import build
 # 227 KB is what one CTA may have on Hopper.
 MAX_SMEM_BYTES = 232448
 # Aim for about this many CTAs (four per SM on 132 SMs) before tiling
-# several pooled rows into one CTA (K2-K4).
+# several pooled rows into one CTA (K2, K4).
 _TARGET_CTAS = 528
 # K1 splits its output channels until a call has one CTA per SM of an H100
 # (132), and tiles pooled rows past that; each CTA computes at least a
@@ -100,7 +100,7 @@ def cout_tile(cout: int, w_elems_per_cout: int, elem_bytes: int) -> int:
 
 def family_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
                   pool_stride, elem_bytes) -> Tuple[int, int]:
-    """(pooled rows, output channels) per CTA of K2-K4: the fewest channel
+    """(pooled rows, output channels) per CTA of K2 and K4: the fewest channel
     tiles whose weights fit (:func:`cout_tile`), then :func:`rows_per_cta`."""
     tile = cout_tile(cout, cin * kh * kw, elem_bytes)
     _, _, ph, _ = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
@@ -118,32 +118,48 @@ def _words16(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def k1_smem_bytes(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
-                  rows, ct) -> int:
-    """K1's shared memory for tiles of ``rows`` pooled rows and ``ct``
-    output channels: the same sum as ``conv_pool_math.cuh::k1_smem_bytes``
-    (f32 weights, staged input, conv tile, each 16-byte aligned)."""
+def _k1_shares(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
+               rows, ct, cc) -> Tuple[int, int, int]:
+    """K1's shared memory in bytes, by part: (f32 weights of ``ct`` output
+    channels over every input channel, one chunk of ``cc`` staged input
+    channels, the conv tile), each 16-byte aligned."""
     (csh, csw), (pkh, pkw), (psh, psw) = (_pair(conv_stride), _pair(pool_k),
                                           _pair(pool_stride))
     _, _, _, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
                             pool_k=pool_k, pool_stride=pool_stride)
     crows, ccols = _span(rows, pkh, psh), _span(pw, pkw, psw)
     hrows, wcols = _span(crows, kh, csh), _span(ccols, kw, csw)
-    return 4 * (_words16(ct * cin * kh * kw) + _words16(cin * hrows * wcols)
-                + _words16(ct * crows * ccols))
+    return (4 * _words16(ct * cin * kh * kw), 4 * _words16(cc * hrows * wcols),
+            4 * _words16(ct * crows * ccols))
+
+
+def k1_smem_bytes(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
+                  rows, ct, cc=None) -> int:
+    """K1's shared memory for tiles of ``rows`` pooled rows and ``ct``
+    output channels, staging ``cc`` input channels at a time (all ``cin``
+    when None): the same sum as ``conv_pool_math.cuh::k1_smem_bytes``."""
+    return sum(_k1_shares(cin, h, w, kh, kw, conv_stride=conv_stride,
+                          padding=padding, pool_k=pool_k, pool_stride=pool_stride,
+                          rows=rows, ct=ct, cc=cin if cc is None else cc))
 
 
 def k1_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
-              pool_stride) -> Tuple[int, int]:
-    """(pooled rows, output channels) per CTA of K1, one grid a call.
+              pool_stride) -> Tuple[int, int, int]:
+    """(pooled rows, output channels, input channels staged at a time) per
+    CTA of K1, one grid a call.
 
     Pooled rows: one a CTA until ``n`` images' rows reach
     ``K1_TARGET_CTAS``, then as many as keep the grid near it.  Channels:
     split into as many tiles as it takes to reach that count, each tile
     holding at least ``K1_MIN_CONV_VALUES`` conv values, in equal tiles (the
-    last may be shorter).  Then halve the larger share of shared memory
-    (weights: channels; staged input and conv tile: rows) until it fits.
-    Raises when one channel of one pooled row does not fit."""
+    last may be shorter).  Input channels: all at once.  Then, until it fits
+    shared memory, halve the output channels while their weights are half
+    of it or more, else the rows; at one row, halve the staged input
+    channels while the staged input is half of it or more, else the output
+    channels, else the staged input channels.  The CTA restages its input
+    chunk by chunk, so a layer of any width fits; raises only when one
+    output channel of one pooled row, one input channel at a time, does not.
+    Staged input chunks are equal (the last may be shorter)."""
     (pkh, pkw), (psh, psw) = _pair(pool_k), _pair(pool_stride)
     _, _, ph, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
                              pool_k=pool_k, pool_stride=pool_stride)
@@ -152,19 +168,26 @@ def k1_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
     tiles = min(cout, -(-K1_TARGET_CTAS // (n * -(-ph // rows))))
     per_channel = _span(rows, pkh, psh) * _span(pw, pkw, psw)
     ct = min(cout, max(-(-cout // tiles), -(-K1_MIN_CONV_VALUES // per_channel)))
+    cc = cin
     geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
                 pool_stride=pool_stride)
-    while (smem := k1_smem_bytes(cin, h, w, kh, kw, rows=rows, ct=ct,
-                                 **geom)) > MAX_SMEM_BYTES:
-        weights = 4 * _words16(ct * cin * kh * kw)
-        if ct > 1 and (rows == 1 or 2 * weights >= smem):
+    while (smem := sum(shares := _k1_shares(cin, h, w, kh, kw, rows=rows, ct=ct,
+                                            cc=cc, **geom))) > MAX_SMEM_BYTES:
+        weights, staged, _ = shares
+        if ct > 1 and 2 * weights >= smem:
             ct = -(-ct // 2)
         elif rows > 1:
             rows = -(-rows // 2)
+        elif cc > 1 and 2 * staged >= smem:
+            cc = -(-cc // 2)
+        elif ct > 1:
+            ct = -(-ct // 2)
+        elif cc > 1:
+            cc = -(-cc // 2)
         else:
             raise ValueError(f"K1: one output channel of one pooled row needs "
                              f"{smem} B of shared memory, over {MAX_SMEM_BYTES} B")
-    return rows, -(-cout // -(-cout // ct))
+    return rows, -(-cout // -(-cout // ct)), -(-cin // -(-cin // cc))
 
 
 def _image_contiguous(t: torch.Tensor) -> bool:
@@ -201,9 +224,11 @@ def conv_pool_call(
     (Cout,), contiguous on the same device.  ``extra_args`` are passed after
     the strides: ctypes values (K2's requant multiplier) or tensors, passed
     as their device pointers (K4's per-channel multipliers).  ``tiling``
-    gives (pooled rows, output channels) per CTA from the geometry;
-    :func:`family_tiling` when None.  Raises on anything the kernel does not
-    take; never falls back.
+    gives the tile sizes per CTA from the geometry, passed to the kernel in
+    order after the activation and pool flags: (pooled rows, output
+    channels) from :func:`family_tiling` when None, or the kernel's own
+    (K1's :func:`k1_tiling` adds the input channels staged at a time).
+    Raises on anything the kernel does not take; never falls back.
     """
     if x.device.type != "cuda":
         raise ValueError(f"{fn_name}: expected a CUDA tensor, got {x.device}")
@@ -243,10 +268,10 @@ def conv_pool_call(
     if tiling is None:
         # The float kernels stage their weights as f32 (bf16 is widened),
         # the int8 kernels as int8.
-        rows, tile = family_tiling(n, wcin, h, wd, cout, kh, kw, **geom,
-                                   elem_bytes=1 if out_dtype == torch.int8 else 4)
+        tiles = family_tiling(n, wcin, h, wd, cout, kh, kw, **geom,
+                              elem_bytes=1 if out_dtype == torch.int8 else 4)
     else:
-        rows, tile = tiling(n, wcin, h, wd, cout, kh, kw, **geom)
+        tiles = tiling(n, wcin, h, wd, cout, kh, kw, **geom)
     if out is None:
         out = torch.empty((n, cout, ph, pw), dtype=out_dtype, device=x.device)
     elif (tuple(out.shape) != (n, cout, ph, pw) or out.dtype != out_dtype
@@ -260,7 +285,7 @@ def conv_pool_call(
     # pointer is taken.
     fn = getattr(build.load(lib_name), fn_name)
     ints = (n, cin, h, wd, cout, kh, kw, csh, csw, padh, padw, pkh, pkw,
-            psh, psw, int(activation == "relu"), int(pool == "avg"), rows, tile)
+            psh, psw, int(activation == "relu"), int(pool == "avg"), *tiles)
     args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
             ctypes.c_void_p(b.data_ptr() if b is not None else 0),
             ctypes.c_void_p(out.data_ptr())]

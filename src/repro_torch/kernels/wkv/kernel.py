@@ -2,11 +2,13 @@
 
 The port's counterpart of ``repro/kernels/wkv/kernel.py::wkv_fwd``
 (``pallas_call`` at ``kernel.py:95``), launching ``csrc/wkv_fwd.cu``: the
-chunked wkv6 forward from the zero state, one CTA per (batch, head).
+chunked wkv6 forward from the zero state, as the TPU kernel's, or from a
+carried state ``s0``, one CTA per (batch, head).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,12 +21,13 @@ _FN = {torch.float32: "wkv_fwd_f32", torch.bfloat16: "wkv_fwd_bf16"}
 
 
 def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
-            u: torch.Tensor, *, chunk: int):
+            u: torch.Tensor, s0: Optional[torch.Tensor] = None, *, chunk: int):
     """K7 on the card.  r/k (B, S, H, hk) and v (B, S, H, hv), contiguous,
     one dtype (f32 or bf16); logw (B, S, H, hk) and u (H, hk) contiguous
-    f32; ``chunk`` divides S.  Returns (o (B, S, H, hv), s_final
-    (B, H, hk, hv)), both f32.  Raises on anything the kernel does not take;
-    never falls back."""
+    f32; ``s0`` the incoming state (B, H, hk, hv) contiguous f32, or None
+    for the zero state; ``chunk`` divides S.  Returns (o (B, S, H, hv),
+    s_final (B, H, hk, hv)), both f32.  Raises on anything the kernel does
+    not take; never falls back."""
     if r.device.type != "cuda":
         raise ValueError(f"wkv_fwd: expected CUDA tensors, got {r.device}")
     if r.ndim != 4 or v.ndim != 4:
@@ -45,17 +48,24 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tenso
                         f"{r.dtype}, {k.dtype}, {v.dtype}")
     if logw.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError(f"wkv_fwd: logw and u must be f32, got {logw.dtype}, {u.dtype}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u)):
-        if t.device != r.device or not t.is_contiguous():
+    if s0 is not None and (tuple(s0.shape) != (B, H, hk, hv) or s0.dtype != torch.float32):
+        raise TypeError(f"wkv_fwd: s0 must be ({B}, {H}, {hk}, {hv}) f32, got "
+                        f"{tuple(s0.shape)} {s0.dtype}")
+    named = (("r", r), ("k", k), ("v", v), ("logw", logw), ("u", u), ("s0", s0))
+    for name, t in named:
+        if t is not None and (t.device != r.device or not t.is_contiguous()):
             raise ValueError(f"wkv_fwd: {name} must be contiguous on {r.device}")
     o = torch.empty((B, S, H, hv), dtype=torch.float32, device=r.device)
     if B == 0 or S == 0:
-        return o, torch.zeros((B, H, hk, hv), dtype=torch.float32, device=r.device)
+        s_final = (torch.zeros((B, H, hk, hv), dtype=torch.float32, device=r.device)
+                   if s0 is None else s0.clone())
+        return o, s_final
     s_final = torch.empty((B, H, hk, hv), dtype=torch.float32, device=r.device)
     fn_name = _FN[r.dtype]
     fn = getattr(build.load("wkv_fwd"), fn_name)
     ptr = ctypes.c_void_p
-    args = [ptr(t.data_ptr()) for t in (r, k, v, logw, u, o, s_final)]
+    args = [ptr(t.data_ptr() if t is not None else 0)
+            for t in (r, k, v, logw, u, s0, o, s_final)]
     args += [ctypes.c_int(n) for n in (B, S, H, hk, hv, chunk)]
     args.append(ptr(torch.cuda.current_stream(r.device).cuda_stream))
     fn.restype = ctypes.c_int

@@ -1,16 +1,17 @@
-"""K7's plain version: the chunked wkv6 scan from the zero state.
+"""K7's plain version: the chunked wkv6 scan from a carried state.
 
 The port's counterpart of ``repro/models/rwkv6.py::wkv_chunked`` (the oracle
-of ``repro/kernels/wkv``), with the incoming state fixed at zero, as the TPU
-kernel's (``kernel.py:23-25``).  Only chunk-boundary states are carried;
-every exponent is a log-decay difference with t >= s, hence <= 0.
+of ``repro/kernels/wkv``), with the same meaning of ``s0``, the incoming
+state; None is the zero state, the TPU kernel's (``kernel.py:23-25``).  Only
+chunk-boundary states are carried; every exponent is a log-decay difference
+with t >= s, hence <= 0.
 
 Computed in f32 throughout, as the reference and K7 (``csrc/wkv_fwd.cu``)
 are; its sums round in PyTorch's order, K7's in a fixed sequential one.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,6 +22,7 @@ def wkv_chunked(
     v: torch.Tensor,  # (B, S, H, hv)
     logw: torch.Tensor,  # (B, S, H, hk) log decay, <= 0
     u: torch.Tensor,  # (H, hk) bonus
+    s0: Optional[torch.Tensor] = None,  # (B, H, hk, hv) incoming state; None: zero
     chunk: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o: (B, S, H, hv) f32, s_final: (B, H, hk, hv) f32)."""
@@ -37,7 +39,8 @@ def wkv_chunked(
     u = u.float()
     ci = torch.arange(chunk, device=r.device)
     mask_lt = (ci[:, None] > ci[None, :]).float()  # t > s strictly
-    s = torch.zeros((B, H, hk, hv), dtype=torch.float32, device=r.device)
+    s = (torch.zeros((B, H, hk, hv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
     outs = []
     for rb, kb, vb, wb in zip(rc, kc, vc, wc):  # (B, H, C, ·)
         la = torch.cumsum(wb, dim=2)  # cumulative log decay

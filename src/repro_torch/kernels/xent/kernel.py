@@ -21,7 +21,7 @@ from repro_torch.kernels.conv_pool.kernel import LaunchCounter
 K6_LAUNCHES = LaunchCounter()
 TOKENS_PER_CTA = 128  # csrc/xent_fwd.cu kBN
 VOCAB_PER_TILE = 128  # csrc/xent_fwd.cu kBV
-CTAS_PER_SM = 2  # the kernel's __launch_bounds__ minimum
+CTAS_PER_SM = 1  # the kernel's __launch_bounds__ minimum
 
 
 def split_count(N: int, V: int, sm_count: int) -> int:

@@ -7,13 +7,12 @@ S in R^{hk x hv}:
     o_t = r_t^T S_{t-1} + (r_t . (u * k_t)) v_t
     S_t = diag(w_t) S_{t-1} + k_t v_t^T,   w_t = exp(-exp(d + lora_w(x)))
 
-A multi-token time-mix from the zero state (prefill) runs K7 through
+A multi-token time-mix runs K7 through
 :func:`repro_torch.kernels.wkv.ops.wkv` (its plain version, the chunked
-scan, on the CPU); one token runs :func:`wkv_step`,
-plain PyTorch, as the reference computes it outside any kernel.  Whether the
-incoming state is zero is said by the caller (``state=None``), never tested
-on the device.  A multi-token step that carries a state in is not on any
-path of the port and raises.
+scan, on the CPU), from the zero state (prefill) or from a carried state (a
+chunked prefill); one token runs :func:`wkv_step`, plain PyTorch, as the
+reference computes it outside any kernel.  Whether the incoming state is
+zero is said by the caller (``state=None``), never tested on the device.
 """
 from __future__ import annotations
 
@@ -103,7 +102,8 @@ def wkv_step(r, k, v, logw, u, s):
 
 def _time_mix_inner(cfg, p, x, xprev, state, chunk):
     """The time-mix after the token-shift inputs are known.  ``state=None``
-    is the zero state."""
+    is the zero state; several tokens from a carried state (a chunked
+    prefill) run K7 from ``state``."""
     B, S, D = x.shape
     hd = cfg.rwkv_head_dim
     H = D // hd
@@ -120,12 +120,8 @@ def _time_mix_inner(cfg, p, x, xprev, state, chunk):
             (B, H, hd, hd), dtype=torch.float32, device=x.device)
         o, s_new = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["bonus_u"], s0)
         o = o[:, None]
-    elif state is None:
-        o, s_new = wkv_ops.wkv(r, k, v, logw, p["bonus_u"], chunk=chunk)
     else:
-        raise NotImplementedError(
-            "a multi-token time-mix from a carried state (chunked prefill) is not "
-            "ported: K7 starts from the zero state")
+        o, s_new = wkv_ops.wkv(r, k, v, logw, p["bonus_u"], chunk=chunk, s0=state)
 
     # per-head groupnorm
     o = o.reshape(B, S, H, hd)

@@ -56,7 +56,7 @@ def lib():
     so.cp_in_bounds.argtypes = [ctypes.c_int, ctypes.c_int]
     so.cp_in_bounds.restype = ctypes.c_int
     so.cp_k1_tile.argtypes = [ctypes.c_int] * 14 + [p]
-    so.cp_k1_smem_bytes.argtypes = [ctypes.c_int] * 16
+    so.cp_k1_smem_bytes.argtypes = [ctypes.c_int] * 17
     so.cp_k1_smem_bytes.restype = ctypes.c_longlong
     return so
 
@@ -194,6 +194,11 @@ K1_GEOMS = [
     (25, 5, 64, (1, 1), (1, 1), (0, 0), (25, 5), (25, 5)),  # DS-CNN-KWS head
     (2, 2, 256, (1, 1), (1, 1), (0, 0), (2, 2), (2, 2)),  # MobileNet head
 ]
+# Wide layers whose staged input K1 cuts into chunks of input channels.
+K1_WIDE_GEOMS = [
+    (112, 112, 128, (3, 3), (1, 1), (1, 1), (2, 2), (2, 2)),
+    (56, 56, 256, (3, 3), (1, 1), (1, 1), (2, 2), (2, 2)),
+]
 
 
 def _tile_enumerated(geom, p0, rows):
@@ -236,18 +241,20 @@ def test_host_k1_tile_covers_what_its_windows_read(lib, geom):
             assert crow[-1] < oh and ccol[-1] < ow
 
 
-@pytest.mark.parametrize("geom", K1_GEOMS)
+@pytest.mark.parametrize("geom", K1_GEOMS + K1_WIDE_GEOMS)
 def test_host_k1_smem_matches_the_wrappers_sum(lib, geom):
     """The launcher sizes shared memory with conv_pool_math.cuh's
-    k1_smem_bytes; the wrapper tiles with kernel.k1_smem_bytes: one sum."""
+    k1_smem_bytes; the wrapper tiles with kernel.k1_smem_bytes: one sum,
+    at every chunk of staged input channels."""
     H, W, cin, k, cs, pad, pk, ps = geom
     _, _, ph, _ = output_hw(H, W, *k, conv_stride=cs, padding=pad, pool_k=pk,
                             pool_stride=ps)
     for rows in sorted({1, 2, ph}):
         for ct in (1, 3, 8, 29, 64):
-            want = lib.cp_k1_smem_bytes(cin, H, W, 64, *k, *cs, *pad, *pk, *ps,
-                                        rows, ct)
-            assert want % 16 == 0
-            assert k1_smem_bytes(cin, H, W, *k, conv_stride=cs, padding=pad,
-                                 pool_k=pk, pool_stride=ps, rows=rows,
-                                 ct=ct) == want
+            for cc in sorted({1, -(-cin // 2), cin}):
+                want = lib.cp_k1_smem_bytes(cin, H, W, 64, *k, *cs, *pad, *pk, *ps,
+                                            rows, ct, cc)
+                assert want % 16 == 0
+                assert k1_smem_bytes(cin, H, W, *k, conv_stride=cs, padding=pad,
+                                     pool_k=pk, pool_stride=ps, rows=rows,
+                                     ct=ct, cc=cc) == want

@@ -461,8 +461,9 @@ def test_k6_wrapper_checks_before_launching():
 
 
 def test_k6_split_count_fills_one_wave():
-    assert xent_kernel.split_count(4096, 128256, 132) == 8  # 32 token blocks x 8
-    assert xent_kernel.split_count(2048, 65536, 132) == 16
+    """One CTA an SM (the kernel's 255-register budget): 132 slots."""
+    assert xent_kernel.split_count(4096, 128256, 132) == 4  # 32 token blocks x 4
+    assert xent_kernel.split_count(2048, 65536, 132) == 8
     assert xent_kernel.split_count(129, 1000, 132) == 8  # capped at the vocab tiles
     assert xent_kernel.split_count(1 << 20, 1000, 132) == 1
 

@@ -1,4 +1,5 @@
-"""K1's tiling (``kernel.k1_tiling``) and the K2-K4 tiling it leaves alone.
+"""K1's tiling (``kernel.k1_tiling``), K3's (``depthwise.k3_tiling``) and the
+K2/K4 tiling they leave alone.
 
 K1 launches one grid a call: (tiles of pooled rows, images, tiles of output
 channels).  Here, on the main path's layers (LeNet-5's two steps, the
@@ -6,8 +7,12 @@ DS-CNN-KWS and MobileNet-V1 0.25 heads) at every bucket of the serving
 ladder, the tiling must fit one CTA's shared memory (bf16 is widened to f32
 as it is staged, so both dtypes need the same bytes), cover every output
 once, and spread the DS-CNN-KWS head over at least 32 CTAs at one image.
-K2-K4 share ``conv_pool_call`` and keep their own tiling, pinned here.
+K2-K4 share ``conv_pool_call``; K3 tiles one output a thread over at least
+one CTA per SM where the call has a warp of outputs for each, and K2 and K4
+keep the family's tiling, pinned here.
 """
+import warnings
+
 import pytest
 
 from repro_torch.core import fusion, schedule
@@ -77,8 +82,9 @@ def test_the_main_path_has_the_k1_steps_named_in_the_plan():
 def test_k1_tiling_fits_and_covers_every_output_once(step, n):
     geom = STEPS[step]
     _, cin, H, W, cout, (kh, kw), kw_ = geom
-    rows, ct = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
-    assert launch.k1_smem_bytes(cin, H, W, kh, kw, rows=rows, ct=ct,
+    rows, ct, cc = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    assert cc == cin  # the nets' layers stage every input channel at once
+    assert launch.k1_smem_bytes(cin, H, W, kh, kw, rows=rows, ct=ct, cc=cc,
                                 **kw_) <= launch.MAX_SMEM_BYTES
     gx, gy, gz = _grid(geom, n, rows, ct)
     _, _, ph, _ = launch.output_hw(H, W, kh, kw, **kw_)
@@ -100,7 +106,7 @@ def test_k1_spreads_the_ds_cnn_kws_head_over_the_card(n, want_ctas):
     image K1's gives one CTA per output channel."""
     geom = STEPS[KWS_HEAD]
     _, cin, H, W, cout, (kh, kw), kw_ = geom
-    rows, ct = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    rows, ct, _ = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
     gx, gy, gz = _grid(geom, n, rows, ct)
     assert gx * gy * gz == want_ctas >= 32
 
@@ -109,37 +115,102 @@ def test_k1_splits_the_mobilenet_head_within_shared_memory():
     """256 x 256 f32 weights (262,144 B) exceed one CTA: channel tiles of 8
     at one image (32 CTAs), 29 at 16 (144 CTAs)."""
     _, cin, H, W, cout, (kh, kw), kw_ = STEPS[("mobilenet", "pw13+pool")]
-    assert launch.k1_tiling(1, cin, H, W, cout, kh, kw, **kw_) == (1, 8)
-    assert launch.k1_tiling(16, cin, H, W, cout, kh, kw, **kw_) == (1, 29)
+    assert launch.k1_tiling(1, cin, H, W, cout, kh, kw, **kw_) == (1, 8, 256)
+    assert launch.k1_tiling(16, cin, H, W, cout, kh, kw, **kw_) == (1, 29, 256)
 
 
 @pytest.mark.parametrize("geom,n,want", [
     # a large image: rows tile past one CTA per SM, the input halo fits
     ((4, 128, 128, 8, (3, 3), dict(conv_stride=1, padding=0, pool_k=2,
-                                   pool_stride=2)), 16, (8, 4)),
+                                   pool_stride=2)), 16, (8, 4, 4)),
     # 1000 channels of 500 f32 taps: 66 channel tiles fill the card at one
     # image; at 16, 5 tiles of 200 (400 KB) halve to 10 tiles of 100
     ((500, 4, 4, 1000, (1, 1), dict(conv_stride=1, padding=0, pool_k=2,
-                                    pool_stride=2)), 1, (1, 16)),
+                                    pool_stride=2)), 1, (1, 16, 500)),
     ((500, 4, 4, 1000, (1, 1), dict(conv_stride=1, padding=0, pool_k=2,
-                                    pool_stride=2)), 16, (1, 100)),
+                                    pool_stride=2)), 16, (1, 100, 500)),
     # 32 KB of weights a channel beside a 128 KB input: shared memory, not
     # the warp of conv values (8 channels), sets the tile
     ((8192, 2, 2, 64, (1, 1), dict(conv_stride=1, padding=0, pool_k=2,
-                                   pool_stride=2)), 1, (1, 2)),
+                                   pool_stride=2)), 1, (1, 2, 8192)),
 ])
 def test_k1_tiling_off_the_main_path(geom, n, want):
     cin, H, W, cout, (kh, kw), kw_ = geom
-    rows, ct = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
-    assert (rows, ct) == want
-    assert launch.k1_smem_bytes(cin, H, W, kh, kw, rows=rows, ct=ct,
+    rows, ct, cc = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    assert (rows, ct, cc) == want
+    assert launch.k1_smem_bytes(cin, H, W, kh, kw, rows=rows, ct=ct, cc=cc,
                                 **kw_) <= launch.MAX_SMEM_BYTES
 
 
 def test_k1_tiling_raises_when_one_channel_does_not_fit():
+    """60,000 f32 weights of one output channel (240,000 B): no tile of the
+    staged input can make room for them."""
     with pytest.raises(ValueError, match="shared memory"):
         launch.k1_tiling(1, 60000, 1, 1, 4, 1, 1, conv_stride=1, padding=0,
                          pool_k=1, pool_stride=1)
+
+
+# Wide layers at large images, 64 output channels, 3x3 pad 1, max pool 2:
+# one pooled row of every input channel, staged at once, exceeds a CTA's
+# shared memory (238,976 B and 247,232 B), so K1 stages the input channels
+# in chunks.  (cin, H, W, (rows, out channels, staged channels) at N = 1.)
+WIDE = [(128, 112, 112, (1, 11, 64)), (256, 56, 56, (1, 7, 128))]
+WIDE_GEOM = dict(conv_stride=1, padding=1, pool_k=2, pool_stride=2)
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+@pytest.mark.parametrize("cin,H,W,want", WIDE, ids=["cin128@112", "cin256@56"])
+def test_k1_tiling_chunks_the_input_channels_of_wide_layers(cin, H, W, want, n):
+    """The tiling returns and fits; its output tiles cover every output
+    once and its input chunks every input channel once; one whole chunk is
+    more than the limit allows."""
+    rows, ct, cc = launch.k1_tiling(n, cin, H, W, 64, 3, 3, **WIDE_GEOM)
+    if n == 1:
+        assert (rows, ct, cc) == want
+    assert launch.k1_smem_bytes(cin, H, W, 3, 3, rows=1, ct=1, **WIDE_GEOM) \
+        > launch.MAX_SMEM_BYTES
+    assert launch.k1_smem_bytes(cin, H, W, 3, 3, rows=rows, ct=ct, cc=cc,
+                                **WIDE_GEOM) <= launch.MAX_SMEM_BYTES
+    chunks = [range(c0, min(c0 + cc, cin)) for c0 in range(0, cin, cc)]
+    assert len(chunks) > 1 and sorted(c for ch in chunks for c in ch) == list(range(cin))
+    geom = (False, cin, H, W, 64, (3, 3), WIDE_GEOM)
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    _, _, ph, _ = launch.output_hw(H, W, 3, 3, **WIDE_GEOM)
+    assert (gx - 1) * rows < ph <= gx * rows and (gz - 1) * ct < 64 <= gz * ct
+    assert gy == n
+
+
+@pytest.mark.parametrize("cin,H,W,want", WIDE, ids=["cin128@112", "cin256@56"])
+def test_k1_chunked_input_keeps_one_launch(monkeypatch, cin, H, W, want):
+    """A call whose input is staged in chunks is one kernel call, handed
+    the tiling's three tile sizes: the chunks are restaged inside the CTA."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    calls = []
+
+    class Kernel:  # stands in for the library's function: takes restype/argtypes
+        def __call__(self, *args):
+            calls.append([getattr(a, "value", a) for a in args])
+            return 0
+
+    lib = type("Lib", (), {"conv_pool_f32": Kernel()})()
+    monkeypatch.setattr(launch.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    before = launch.K1_LAUNCHES.count
+    # fake tensors' data pointers are 0, with a warning (once a process)
+    with FakeTensorMode(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        x = torch.empty(1, cin, H, W, device="cuda")
+        w = torch.empty(64, cin, 3, 3, device="cuda")
+        b = torch.empty(64, device="cuda")
+        launch.conv_pool(x, w, b, padding=1)
+    assert launch.K1_LAUNCHES.count - before == 1 and len(calls) == 1
+    # (pointers, n, cin, h, w, cout, kh, kw, strides, paddings, pools, relu,
+    # avg, rows, out channels, staged channels, batch strides, stream)
+    assert calls[0][4:11] == [1, cin, H, W, 64, 3, 3]
+    assert tuple(calls[0][21:24]) == want
 
 
 # K2-K4's (pooled rows, channel tile) per CTA on the main path, as the
@@ -161,7 +232,7 @@ FAMILY_STEPS = sorted(key for key, g in STEPS.items() if key[0] != "lenet5")
 @pytest.mark.parametrize("step", FAMILY_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
 def test_k2_k4_tiling_is_unchanged(step, n):
     dw, cin, H, W, cout, (kh, kw), kw_ = STEPS[step]
-    if dw:  # K3 (f32 taps) and K4 (int8 taps): one tile of every channel
+    if dw:  # the family's tiling of K4 (int8 taps; f32 too): one tile of every channel
         for elem in (4, 1):
             assert launch.family_tiling(n, 1, H, W, cout, kh, kw, **kw_,
                                         elem_bytes=elem) == (1, cout)
@@ -176,17 +247,61 @@ def test_family_tiling_tiles_rows_past_the_target():
                                 pool_k=2, pool_stride=2, elem_bytes=1) == (2, 8)
 
 
+# K3's depthwise steps on the main path (DS-CNN-KWS and MobileNet-V1 0.25).
+K3_STEPS = sorted(key for key, g in STEPS.items()
+                  if g[0] and key[0] in ("ds_cnn_kws", "mobilenet"))
+
+
+def test_the_main_path_has_every_depthwise_step_3x3():
+    """All 4 + 13 depthwise steps take K3's unrolled 3x3 case."""
+    assert len(K3_STEPS) == 17
+    assert {STEPS[k][5] for k in K3_STEPS} == {(3, 3)}
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+@pytest.mark.parametrize("step", K3_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
+def test_k3_tiling_gives_one_output_a_thread_over_the_card(step, n):
+    """Each tile holds at most 256 outputs, one a thread; the tiles cover
+    every output once; the grid reaches 132 CTAs, or else each tile keeps
+    a warp of outputs."""
+    geom = STEPS[step]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    rows, ct = depthwise.k3_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    _, _, ph, pw = launch.output_hw(H, W, kh, kw, **kw_)
+    assert rows * ct * pw <= depthwise.K3_MAX_THREADS
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    assert (gx - 1) * rows < ph <= gx * rows and (gz - 1) * ct < cout <= gz * ct
+    assert gx * gy * gz >= depthwise.K3_TARGET_CTAS or \
+        rows * ct * pw >= depthwise.K3_MIN_OUTPUTS
+
+
+@pytest.mark.parametrize("n,want,ctas", [(1, (7, 1), 256), (16, (25, 2), 512)])
+def test_k3_spreads_the_ds_cnn_kws_depthwise_steps_over_the_card(n, want, ctas):
+    """64 channels of 25 x 5: the family's tiling gave one image 25 CTAs
+    (one pooled row of every channel each, 320 outputs on 256 threads); K3
+    splits channels, then rows."""
+    geom = STEPS[("ds_cnn_kws", "dw1")]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    assert launch.family_tiling(1, 1, H, W, cout, kh, kw, **kw_, elem_bytes=4) == (1, 64)
+    rows, ct = depthwise.k3_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    assert (rows, ct) == want
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    assert gx * gy * gz == ctas
+
+
 @pytest.mark.parametrize("call,want", [
     (lambda: launch.conv_pool(_x(), _x((4, 4, 3, 3)), None), launch.k1_tiling),
     (lambda: kernel_q8.conv_pool_q8(_x(q8=True), _x((4, 4, 3, 3), True), None,
                                     multiplier=0.5), None),
-    (lambda: depthwise.depthwise_conv_pool(_x(), _x((4, 1, 3, 3)), None), None),
+    (lambda: depthwise.depthwise_conv_pool(_x(), _x((4, 1, 3, 3)), None),
+     depthwise.k3_tiling),
     (lambda: kernel_q8.depthwise_conv_pool_q8(_x(q8=True), _x((4, 1, 3, 3), True),
                                               None, multiplier=0.5), None),
 ], ids=["K1", "K2", "K3", "K4"])
 def test_only_k1_takes_the_new_tiling(monkeypatch, call, want):
-    """K1's wrapper passes ``k1_tiling`` to the family's launcher; K2-K4
-    pass none, so they keep ``family_tiling``."""
+    """K1's wrapper passes ``k1_tiling`` to the family's launcher and K3's
+    its own ``k3_tiling``; K2 and K4 pass none, so they keep
+    ``family_tiling``."""
     seen = {}
 
     def record(*args, **kwargs):

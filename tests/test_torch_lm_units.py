@@ -198,8 +198,29 @@ def test_time_mix_from_the_zero_state(rwkv_setup, S):
 
 
 def test_time_mix_refuses_a_carried_state_over_several_tokens(rwkv_setup):
-    _, cfg, _, p, x, _, _ = rwkv_setup
-    s = torch.zeros((2, cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim,
-                     cfg.rwkv_head_dim))
-    with pytest.raises(NotImplementedError, match="zero state"):
-        rwkv6.time_mix(cfg, p, _t(x), s)
+    """Several tokens from a carried state (a chunked prefill) run K7's
+    plain version from that state, and agree with the reference's
+    ``time_mix(state=s)`` at 1e-4: S 6 (chunks of 3 by the reference's chunk
+    rule) and S 5 (prime: chunks of 1), the state that the first tokens of
+    the same sequence leave."""
+    rcfg, cfg, rp, p, x, last, _ = rwkv_setup
+    _, s, lx = ref_rwkv6.time_mix(rcfg, rp, jnp.asarray(x[:, :3]), None,
+                                  jnp.asarray(last), chunk=4)
+    assert float(jnp.abs(s).max()) > 0.1
+    for S in (6, 5):
+        xs = np.concatenate([x[:, 3:], x[:, :S - 3]], axis=1)
+        got = rwkv6.time_mix(cfg, p, _t(xs), _t(s), _t(lx), chunk=4)
+        want = ref_rwkv6.time_mix(rcfg, rp, jnp.asarray(xs), s, lx, chunk=4)
+        for g, w in zip(got, want):
+            _close(g, w)
+
+
+def test_time_mix_in_two_pieces_is_the_whole(rwkv_setup):
+    """A prefill of 6 tokens equals 3 tokens, then 3 more from the state
+    and last token the first 3 leave."""
+    _, cfg, _, p, x, last, _ = rwkv_setup
+    whole, s_whole, _ = rwkv6.time_mix(cfg, p, _t(x), None, _t(last), chunk=4)
+    o1, s1, l1 = rwkv6.time_mix(cfg, p, _t(x[:, :3]), None, _t(last), chunk=4)
+    o2, s2, _ = rwkv6.time_mix(cfg, p, _t(x[:, 3:]), s1, l1, chunk=4)
+    torch.testing.assert_close(torch.cat([o1, o2], 1), whole, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s2, s_whole, rtol=1e-4, atol=1e-4)

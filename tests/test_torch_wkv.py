@@ -92,3 +92,78 @@ def test_chunk_rule_is_the_references():
         for chunk in (8, 64):
             assert ops.chunk_for(S, chunk) == reference_rule(S, chunk)
     assert ops.chunk_for(509, 64) == 1 and ops.chunk_for(200, 64) == 50
+
+
+def _state(case, seed):
+    B, S, H, hk, hv, _ = case
+    return np.random.default_rng(seed).standard_normal((B, H, hk, hv)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_from_a_carried_state_matches_reference(case):
+    """``s0`` means what it means in the reference's ``wkv_chunked``."""
+    from repro.models import rwkv6 as ref_rwkv6
+
+    arrays, chunk = _inputs(case)
+    s0 = _state(case, 2000 + CASES.index(case))
+    c = ops.chunk_for(case[1], chunk)
+    o_r, s_r = ref_rwkv6.wkv_chunked(*(jnp.asarray(a) for a in arrays), jnp.asarray(s0),
+                                     chunk=c)
+    o, s = ops.wkv(*_torch(arrays), chunk=chunk, s0=torch.as_tensor(s0))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_r), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=2e-5, atol=2e-5)
+
+
+def test_plain_from_a_carried_state_matches_stepwise():
+    case = (1, 24, 2, 8, 8, 8)
+    arrays, chunk = _inputs(case)
+    r, k, v, logw, u = _torch(arrays)
+    s = torch.as_tensor(_state(case, 3000))
+    o_c, s_c = ops.wkv(r, k, v, logw, u, chunk=chunk, s0=s)
+    outs = []
+    for t in range(r.shape[1]):
+        o, s = rwkv6.wkv_step(r[:, t], k[:, t], v[:, t], logw[:, t], u, s)
+        outs.append(o)
+    torch.testing.assert_close(o_c, torch.stack(outs, 1), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s_c, s, rtol=1e-4, atol=1e-5)
+
+
+def test_plain_zero_state_is_no_state():
+    arrays, chunk = _inputs(CASES[1])
+    t = _torch(arrays)
+    o, s = ops.wkv(*t, chunk=chunk)
+    o0, s0 = ops.wkv(*t, chunk=chunk, s0=torch.zeros_like(s))
+    assert torch.equal(o, o0) and torch.equal(s, s0)
+
+
+@pytest.mark.parametrize("needs_ds0", [True, False])
+def test_function_gradient_reaches_the_carried_state(needs_ds0):
+    """The Function's plain-VJP backward (run here on the CPU) returns ds0
+    when ``s0`` requires grad, None otherwise, and the other gradients as
+    autograd through the plain version does."""
+    case = (1, 16, 2, 8, 8, 8)
+    arrays, chunk = _inputs(case)
+    rng = np.random.default_rng(4000)
+    go = torch.as_tensor(rng.standard_normal((1, 16, 2, 8)).astype(np.float32))
+    gs = torch.as_tensor(rng.standard_normal((1, 2, 8, 8)).astype(np.float32))
+    s0 = torch.as_tensor(_state(case, 4001))
+    leaves = [torch.as_tensor(a).requires_grad_(True) for a in arrays]
+    s_leaf = s0.clone().requires_grad_(needs_ds0)
+    o, s = ops.WKV.apply(*leaves, chunk, s_leaf)
+    got = torch.autograd.grad((o * go).sum() + (s * gs).sum(),
+                              leaves + ([s_leaf] if needs_ds0 else []))
+    leaves2 = [t.detach().clone().requires_grad_(True) for t in leaves]
+    s_leaf2 = s0.clone().requires_grad_(needs_ds0)
+    o2, s2 = ops.wkv(*leaves2, chunk=chunk, s0=s_leaf2)  # the CPU path: plain autograd
+    want = torch.autograd.grad((o2 * go).sum() + (s2 * gs).sum(),
+                               leaves2 + ([s_leaf2] if needs_ds0 else []))
+    assert len(got) == len(want) == 5 + needs_ds0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if needs_ds0:
+        assert float(got[-1].abs().max()) > 0
+    else:
+        # the backward hands autograd None for s0
+        o3, _ = ops.WKV.apply(*leaves, chunk, s0)
+        ctx_grads = o3.grad_fn.apply(go, None)
+        assert ctx_grads[-1] is None and ctx_grads[-2] is None

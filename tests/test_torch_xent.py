@@ -178,3 +178,72 @@ def test_wkv_function_gradient_through_o_alone():
     want = torch.autograd.grad((o2 * torch.as_tensor(go)).sum(), leaves)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# K6's gate on the card (chip_smoke.py: K6_RTOL, K6_ATOL, K6_EPS_UNITS):
+# per token |K6 - plain| <= 1e-5 |plain| + 1e-5 + 8 eps M, M = |x_n| max|w_v|.
+K6_RTOL, K6_ATOL, K6_EPS_UNITS = 1e-5, 1e-5, 8
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """To the nearest TF32 value (10 mantissa bits), ties away from zero."""
+    u = 2.0 ** -10  # one TF32 unit at 1
+    x = torch.tensor([1 + u / 2, -(1 + u / 2), 1 + u / 2 - 2.0 ** -20, 1 + 1.5 * u,
+                      2 - u / 4, 3.0e-3, -7.0])
+    # 3e-3 = 1.536 x 2^-9, and 1.536 x 2^10 = 1572.86 rounds to 1573
+    want = torch.tensor([1 + u, -(1 + u), 1.0, 1 + 2 * u, 2.0, 1573 * 2.0 ** -19, -7.0])
+    torch.testing.assert_close(xent_ref.tf32_rna(x), want, rtol=0, atol=0)
+    hi, lo = xent_ref.split_tf32(x)
+    assert torch.equal(xent_ref.tf32_rna(hi), hi) and torch.equal(xent_ref.tf32_rna(lo), lo)
+    assert float(((hi + lo) - x).abs().div(x.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("N,D,V,softcap,w_std", [
+    (64, 256, 4096, 0.0, None),   # logits ~ N(0, 1), as at the models' init
+    (64, 256, 4096, 30.0, 1.0),   # logits ~ N(0, 256): the softcap bites
+    (32, 37, 1000, 0.0, 0.1),     # D not a multiple of the k8 step: zero-padded
+])
+def test_k6_3xtf32_emulation_holds_the_k6_gate(N, D, V, softcap, w_std):
+    """K6's tensor-core arithmetic (TF32 hi/lo split, three products a k8
+    slice summed in f32) against the plain f32 version, within the gate
+    K6 is held to on the card, with half of its rounding allowance (4 eps M)
+    left for the card's own accumulation order."""
+    rng = np.random.default_rng(N + D + V + int(softcap))
+    x = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((V, D)) * (w_std or D ** -0.5),
+                        dtype=torch.float32)
+    t = torch.as_tensor(rng.integers(0, V, N).astype(np.int32))
+    plain = xent_ref.seq_chunked_xent(x[None], w, t[None], softcap=softcap)[0]
+    emu = xent_ref.xent_3xtf32(x, w, t, softcap=softcap, vocab_chunk=1024)
+    eps = torch.finfo(torch.float32).eps
+    M = x.norm(dim=1) * w.norm(dim=1).max()
+    diff = (emu - plain).abs()
+    assert bool((diff <= K6_RTOL * plain.abs() + K6_ATOL + K6_EPS_UNITS * eps * M).all())
+    assert float((diff / (eps * M)).max()) <= K6_EPS_UNITS / 2
+    # a single TF32 product (no low parts) is far outside the same share
+    one = xent_ref.tf32_rna(x) @ xent_ref.tf32_rna(w).T
+    one = torch.logsumexp(xent_ref._cap(one, softcap), -1) - xent_ref._cap(
+        one, softcap).gather(1, t.long()[:, None])[:, 0]
+    assert float(((one - plain).abs() / (eps * M)).max()) > K6_EPS_UNITS
+
+
+def test_k6_truncating_accumulation_needs_the_stage_partials():
+    """The card's tensor-core sums cut toward zero.  Modelled so, one chain
+    over all of D = 2,048 drifts several eps M from the f32 plain version;
+    K6's fresh partial a 64-deep stage, added in f32, stays within the
+    share the route was chosen for (4 eps M)."""
+    rng = np.random.default_rng(16)
+    N, D, V = 16, 2048, 512
+    x = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((V, D)) * D ** -0.5, dtype=torch.float32)
+    t = torch.as_tensor(rng.integers(0, V, N).astype(np.int32))
+    plain = xent_ref.seq_chunked_xent(x[None], w, t[None])[0]
+    eps = torch.finfo(torch.float32).eps
+    M = x.norm(dim=1) * w.norm(dim=1).max()
+
+    def share(**model):
+        got = xent_ref.xent_3xtf32(x, w, t, truncate=True, **model)
+        return float(((got - plain).abs() / (eps * M)).max())
+
+    staged, one_chain = share(stage=64), share(stage=D)
+    assert staged <= K6_EPS_UNITS / 2 < one_chain
