@@ -21,7 +21,10 @@ holds their kernels against their plain PyTorch versions:
    into chunks of input channels (128->64 at 112x112, 256->64 at 56x56,
    one launch each), batches 1/8/16, f32 at
    rtol=atol=1e-5 and bf16 at 5e-2; K2 bit-exact on the §5 CIFAR
-   conv1-conv3 geometries, batches 1/4/16, max and average pools; K3 (f32
+   conv1-conv3 geometries, the DS-CNN-KWS and MobileNet-V1 0.25 int8 heads
+   and K1's two wide layers (batches 1/4/16), and a wider layer whose
+   staged input K2 cuts into chunks (batches 1/4), max and average pools,
+   one launch a call; K3 (f32
    1e-5, bf16 5e-2) and K4 (bit-exact, per-channel multipliers that make
    ties and saturation) on every depthwise shape of DS-CNN-KWS and
    MobileNet-V1 0.25 plus stride 2, 2x2 max and avg pools, no bias and no
@@ -33,9 +36,9 @@ holds their kernels against their plain PyTorch versions:
    are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
    of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
-   inputs, from the zero state and (S 63/256) from a carried state (o and
-   s_final at rtol 1e-4, atol 1e-5 plus the f32 rounding of two summation
-   orders, see ``k7_checks``); K6 (3xTF32 on the tensor cores) on the two
+   inputs, from the zero state and (S 63/256/509) from a carried state,
+   and two other head shapes (o and s_final at rtol 1e-4, atol 1e-5 plus
+   the f32 rounding of two summation orders, see ``k7_checks``); K6 (3xTF32 on the tensor cores) on the two
    train shapes
    (N, D, V) = (4,096, 2,048, 128,256) and (2,048, 4,096, 65,536), an odd N
    with a vocab tail, a softcap of 30 and a vocab of 37, targets at 0, V-1
@@ -65,9 +68,13 @@ holds their kernels against their plain PyTorch versions:
    KV/state bytes (268,959,744 / 136,314,880 B), each prompt's logits
    against the plain path on the card (the same model with K5/K7 swapped
    for their plain versions, ``plain_kernels``), TTFT, prefill and decode
-   tokens/s;
+   tokens/s, and K5's / K7's device time over the served prompts' prefills;
 6. holds each architecture at full width, 2 layers, f32 compute, kernel
-   path against plain path: prefill and 4 decode steps at 1e-4;
+   path against plain path: prefill and 4 decode steps at 1e-4; then
+   RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
+   kernel path against plain path layer by layer, at f32 compute (final
+   logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
+   and with the weights in bf16 (recorded);
 7. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
    step of 2 microbatches, then a profiled step) and RWKV6-7B at full width
    with 2 layers (B 4 x S 512, 2 steps, then a profiled step): f32 params,
@@ -84,7 +91,9 @@ holds their kernels against their plain PyTorch versions:
    the losses of 2 AdamW steps at 1e-5 relative;
 9. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
    K3 at every distinct depthwise step of both nets beside cuDNN's chain,
-   K5/K7 at S 128/512/1000, K5 also at Llama's train shape B 8 x S 512,
+   K5 at S 128/512/1000, K7 at S 128/509/512/1000 (each of its two kernels
+   by name), K5 also at Llama's
+   train shape B 8 x S 512,
    K6 at the two train shapes) with CUDA events
    and the profiler, beside its plain version, a PyTorch library call
    computing the same function where there is one, and its bound from the
@@ -146,6 +155,18 @@ K1_CASES = [
 ]
 K1_BATCHES = (1, 8, 16)
 K2_BATCHES = (1, 4, 16)
+# K2 beyond CIFAR's steps, (H, W, cin, cout, k, conv_stride, padding, pool_k,
+# pool_stride, batches), max and avg pools each: the int8 heads of DS-CNN-KWS
+# (64->64 1x1 on 25x5 under one 25x5 window) and MobileNet-V1 0.25 (256->256
+# 1x1 on 2x2), K1's two wide layers, and a wider one whose staged input K2
+# cuts into chunks of input channels
+K2_EXTRA = [
+    (25, 5, 64, 64, 1, 1, 0, (25, 5), (25, 5), K2_BATCHES),
+    (2, 2, 256, 256, 1, 1, 0, 2, 2, K2_BATCHES),
+    (112, 112, 128, 64, 3, 1, 1, 2, 2, K2_BATCHES),
+    (56, 56, 256, 64, 3, 1, 1, 2, 2, K2_BATCHES),
+    (56, 56, 1024, 16, 3, 1, 1, 2, 2, (1, 4)),
+]
 DW_BATCHES = (1, 8, 16)
 # Depthwise cases beyond the nets' own steps, (C, H, W, stride, pool_k,
 # pool_stride, pool, activation, bias); every case has a 3x3 kernel, pad 1.
@@ -261,8 +282,40 @@ def device_ms(torch, fn, iters: int = 50):
             fn()
 
     _, kernels, _ = kernel_events(torch, fn, run)
-    total_us = sum(ev.self_device_time_total for ev in kernels)
-    return total_us / iters / 1e3 if total_us > 0 else None
+    total_us = sum(_per_call_us(ev, iters) for ev in kernels)
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def _per_call_us(ev, iters: int) -> float:
+    """A kernel's device µs per call of the traced function: its mean time
+    a launch times its launches a call.  The profiler can drop a few
+    launches' records, so the launches a call are the recorded count over
+    ``iters``, rounded (at least one), and a dropped record does not pull
+    the time down."""
+    if ev.count == 0:
+        return 0.0
+    return ev.self_device_time_total / ev.count * max(1, round(ev.count / iters))
+
+
+def device_ms_by_kernel(torch, fn, iters: int = 20) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by the kernel's
+    name (its template arguments and parameters cut), from the profiler."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    _, kernels, _ = kernel_events(torch, fn, run)
+    out = {}
+    for ev in kernels:
+        name = next((w for w in re.findall(r"([A-Za-z_]\w*)\s*[<(]", ev.key)
+                     if w != "void"), ev.key)
+        out[name] = out.get(name, 0.0) + _per_call_us(ev, iters) / 1e3
+    return out
 
 
 def tensor_core_sass(path) -> dict:
@@ -360,7 +413,9 @@ def k1_checks(torch, np, report) -> None:
 def k2_checks(torch, np, report) -> None:
     from repro_torch.core.graph import cifar_testnet
     from repro_torch.core.fusion import fuse
-    from repro_torch.quant.kernel_q8 import conv_pool_q8_ref, fused_conv_pool_q8
+    from repro_torch.kernels.conv_pool.kernel import k2_tiling
+    from repro_torch.quant.kernel_q8 import (K2_LAUNCHES, conv_pool_q8_ref,
+                                             fused_conv_pool_q8)
 
     layers = _fused_conv_layers(fuse(cifar_testnet()))
     n_checks = 0
@@ -390,6 +445,37 @@ def k2_checks(torch, np, report) -> None:
                         f"K2 {name} n={n} {pool}: not bit-exact, "
                         f"{int((y.int() - y_ref.int()).abs().max())} max diff")
                 n_checks += 1
+    # the int8 heads, the two wide layers and a layer whose staged input K2
+    # cuts into chunks, each call one launch
+    for ci, (H, W, cin, cout, k, cs, pad, pk, ps, batches) in enumerate(K2_EXTRA):
+        kh, kw = _pair(k)
+        # accumulators of ~N(0, (cin kh kw) 5,500^2): about 10 after requant
+        m = float(np.float32(3e-4 * (800 / (cin * kh * kw)) ** 0.5))
+        tiles = k2_tiling(max(batches), cin, H, W, cout, kh, kw, conv_stride=cs,
+                          padding=pad, pool_k=pk, pool_stride=ps)
+        for n in batches:
+            for pool in ("max", "avg"):
+                rng = np.random.default_rng(5000 + 100 * ci + n)
+                x = torch.as_tensor(rng.integers(-128, 128, (n, cin, H, W)),
+                                    dtype=torch.int8, device="cuda")
+                w = torch.as_tensor(rng.integers(-127, 128, (cout, cin, kh, kw)),
+                                    dtype=torch.int8, device="cuda")
+                b = torch.as_tensor(rng.integers(-4000, 4000, (cout,)),
+                                    dtype=torch.int32, device="cuda")
+                geom = dict(multiplier=m, conv_stride=cs, padding=pad, pool_k=pk,
+                            pool_stride=ps, activation="relu", pool=pool)
+                before = K2_LAUNCHES.count
+                y = fused_conv_pool_q8(x, w, b, **geom)
+                launches = K2_LAUNCHES.count - before
+                y_ref = conv_pool_q8_ref(x, w, b, **geom)
+                torch.cuda.synchronize()
+                if launches != 1 or y.dtype != torch.int8 or not torch.equal(y, y_ref):
+                    raise AssertionError(
+                        f"K2 {K2_EXTRA[ci]} n={n} {pool}: {launches} launches, not "
+                        f"bit-exact, {int((y.int() - y_ref.int()).abs().max())} max diff")
+                n_checks += 1
+        report.emit({"phase": "k2_case", "case": K2_EXTRA[ci][:9], "batches": batches,
+                     "tiling_at_largest_batch": tiles, "bit_exact": True})
     report.emit({"phase": "k2_vs_plain", "checks": n_checks, "bit_exact": True})
 
 
@@ -962,19 +1048,37 @@ K5_BF16_ROW_REL = 2e-2
 # K7 on the RWKV6-7B time-mix shapes (H=64, hk=hv=64)
 K7_SEQS = (2, 63, 64, 256, 509)
 K7_CHUNKS = (64, 8)
+# K7 off the RWKV6-7B head, ((B, H, hk, hv), S): a head size of 24 (the
+# kernels' general path, not the one unrolled for 64) and value widths that
+# are not whole 16-column slices (the carry's element-wise staging)
+K7_OTHER_SHAPES = [((1, 4, 24, 40), 63), ((2, 3, 64, 20), 200)]
 # K7 from a carried state (a chunked prefill's later pieces)
-K7_S0_SEQS = (63, 256)
+K7_S0_SEQS = (63, 256, 509)
 K7_RTOL, K7_ATOL = 1e-4, 1e-5  # tests/test_kernel_wkv.py:50
+# K7 timed at the served prompt lengths, 509 (prime) among them
+K7_TIMING_SEQS = (128, 509, 512, 1000)
+K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches both
 # Served prefill logits (bf16, the configs' own compute dtype), kernel path
 # against the plain path on the card: (max |difference|, |difference| /
 # |plain logits| in the 2-norm), per architecture.  Both paths sum in f32 in
 # different orders; 32 random-weight bf16 RWKV layers turn those last-bit
-# differences into flipped bf16 roundings that grow layer by layer, so
-# RWKV6-7B's limit only tells the same function from another (two unrelated
-# logit vectors differ by sqrt(2) in the relative 2-norm).  K7 is held
-# tightly by k7_checks and lm_strict_phase.  PERF.md gives the readings.
-LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (4.0, 1.0)}
+# differences into flipped bf16 roundings that grow layer by layer (at f32
+# the same 32 layers differ by ~1e-4: rwkv_drift_phase), so RWKV6-7B's
+# limit is set from its reading with headroom: 1.86 / 0.466 with the
+# earlier one-CTA-a-head K7 and 1.859 / 0.466 with the two-pass one, on an
+# H100 80GB HBM3 at 700 W (PERF.md section 6).  K7 is held tightly by
+# k7_checks, lm_strict_phase and rwkv_drift_phase.
+LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
+# RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
+# on the prompts below, at f32 compute: the final logits' (max |difference|,
+# relative 2-norm), and K7's own share of each layer's time-mix output (the
+# relative 2-norm on the plain path's input).  The earlier one-CTA-a-head K7
+# read 4.58e-4 / 1.19e-4 and a share of at most 4.38e-7 on an H100 80GB
+# HBM3 at 700 W (PERF.md section 6): about 8x and 20x headroom.
+RWKV_DRIFT_PROMPTS = (200, 509)
+RWKV_F32_DRIFT_TOL = (4e-3, 1e-3)
+RWKV_F32_K7_SHARE = 1e-5
 LM_ENGINES = {
     # arch: (seed, lanes, max_seq, max_new, fixed prompt lengths, (n, lo, hi)
     # drawn with np.random.default_rng(0).integers(lo, hi), kernel, per layer)
@@ -982,6 +1086,8 @@ LM_ENGINES = {
     "rwkv6-7b": (1, 4, 1024, 16, (2, 63, 64, 200, 256, 509), (2, 2, 257), "K7"),
 }
 LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880}
+# A name every kernel of K5 / K7 has in the profiler
+LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 
 
 def _close(torch, a, b, rtol, atol):
@@ -1093,11 +1199,12 @@ def k5_checks(torch, np, report) -> None:
                  "bf16_row_share_limit": K5_BF16_ROW_REL})
 
 
-def _wkv_inputs(torch, np, rng, B, S, H, h, dtype):
-    """r, k, v in ``dtype``, logw in [-2, -0.02] and u, f32, on the card (the
-    distributions of tests/test_kernel_wkv.py)."""
-    r, k, v = (torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=dtype,
-                               device="cuda") for _ in range(3))
+def _wkv_inputs(torch, np, rng, B, S, H, h, dtype, hv=None):
+    """r, k (head size h) and v (hv, h when None) in ``dtype``, logw in
+    [-2, -0.02] and u, f32, on the card (the distributions of
+    tests/test_kernel_wkv.py)."""
+    r, k, v = (torch.as_tensor(rng.standard_normal((B, S, H, d)), dtype=dtype, device="cuda")
+               for d in (h, h, hv or h))
     logw = torch.as_tensor(-rng.uniform(0.02, 2.0, (B, S, H, h)), dtype=torch.float32,
                            device="cuda")
     u = torch.as_tensor(rng.standard_normal((H, h)), dtype=torch.float32, device="cuda")
@@ -1119,30 +1226,37 @@ def k7_checks(torch, np, report) -> None:
     """K7 against its plain version (the chunked scan) at the RWKV6-7B
     shapes, chunk 64 and 8, r/k/v in f32 and bf16: o and s_final, from the
     zero state and (``K7_S0_SEQS``) from a carried state s0 ~ N(0, 1), as a
-    chunked prefill starts.  Both sum in f32 (K7 in a fixed sequential
-    order, the plain version in PyTorch's), so each element is held at rtol
-    1e-4, atol 1e-5 plus ``k7_round_units`` f32 epsilons of M, its terms'
-    magnitudes summed: the same scan on |r|, |k|, |v|, |u| and |s0|.  A
-    single misplaced term (|r k v| ~ 0.5) is ~25x that allowance at
-    M ~ 300."""
-    from repro_torch.kernels.wkv.kernel import K7_LAUNCHES
+    chunked prefill starts, and at ``K7_OTHER_SHAPES``; K7 through ``wkv``
+    (one launch), at its own tile, held to the allowance of the reference's
+    chunk.  Both sum in f32 (K7 in a fixed order, the plain version in
+    PyTorch's), so each element is held at rtol 1e-4, atol 1e-5 plus
+    ``k7_round_units`` f32 epsilons of M, its terms' magnitudes summed: the
+    same scan on |r|, |k|, |v|, |u| and |s0|.  A single misplaced term
+    (|r k v| ~ 0.5) is ~25x that allowance at M ~ 300.  Emits the worst
+    share of its own case's allowance, and that case."""
+    from repro_torch.kernels.wkv.kernel import K7_LAUNCHES, TILE
     from repro_torch.kernels.wkv.ops import chunk_for, wkv
     from repro_torch.kernels.wkv.ref import wkv_chunked
 
     eps = torch.finfo(torch.float32).eps
+    worst_share = (0.0, None)  # (share of its case's allowance, case)
     worst = {"o": 0.0, "s_final": 0.0}
     worst_units = {"o": 0.0, "s_final": 0.0}
     worst_s0 = {"o": 0.0, "s_final": 0.0}
     n_checks = n_s0 = 0
-    cases = [(S, chunk, False) for S in K7_SEQS for chunk in K7_CHUNKS]
-    cases += [(S, chunk, True) for S in K7_S0_SEQS for chunk in K7_CHUNKS]
-    for S, chunk, carried in cases:
+    rwkv = (1, 64, 64, 64)  # (B, H, hk, hv)
+    cases = [(rwkv, S, chunk, False) for S in K7_SEQS for chunk in K7_CHUNKS]
+    cases += [(rwkv, S, chunk, True) for S in K7_S0_SEQS for chunk in K7_CHUNKS]
+    cases += [(shape, S, 64, carried) for shape, S in K7_OTHER_SHAPES
+              for carried in (False, True)]
+    for (B, H, hk, hv), S, chunk, carried in cases:
         c = chunk_for(S, chunk)
-        units = k7_round_units(64, c)
+        units = k7_round_units(hk, c)
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            rng = np.random.default_rng(7000 + S * 10 + chunk + 5 * carried)
-            r, k, v, logw, u = _wkv_inputs(torch, np, rng, 1, S, 64, 64, dtype)
-            s0 = (torch.as_tensor(rng.standard_normal((1, 64, 64, 64)), dtype=torch.float32,
+            rng = np.random.default_rng(7000 + S * 10 + chunk + 5 * carried
+                                        + (0 if (B, H, hk, hv) == rwkv else hk + hv))
+            r, k, v, logw, u = _wkv_inputs(torch, np, rng, B, S, H, hk, dtype, hv)
+            s0 = (torch.as_tensor(rng.standard_normal((B, H, hk, hv)), dtype=torch.float32,
                                   device="cuda") if carried else None)
             before = K7_LAUNCHES.count
             got = wkv(r, k, v, logw, u, chunk=chunk, s0=s0)
@@ -1155,24 +1269,33 @@ def k7_checks(torch, np, report) -> None:
             msg = []
             for name, x, y, m in zip(("o", "s_final"), got, want, mags):
                 diff = (x - y).abs()
-                ok &= bool((diff <= K7_RTOL * y.abs() + K7_ATOL + units * eps * m).all())
+                allowed = K7_RTOL * y.abs() + K7_ATOL + units * eps * m
+                ok &= bool((diff <= allowed).all())
                 err = float(diff.max())
                 used = float((diff / (eps * m).clamp_min(1e-30)).max())
+                share = float((diff / allowed).max())
                 worst[name] = max(worst[name], err)
                 worst_units[name] = max(worst_units[name], used)
+                if share > worst_share[0]:
+                    worst_share = (share, f"{(B, H, hk, hv)} S={S} chunk={chunk} {kind} "
+                                          f"s0={carried} {name}: {used:.2f} of {units} eps of M")
                 if carried:
                     worst_s0[name] = max(worst_s0[name], err)
                 msg.append(f"{name} max abs err {err} ({used:.1f} eps of M)")
             if not ok:
-                raise AssertionError(f"K7 S={S} chunk={chunk} {kind} s0={carried}: "
+                raise AssertionError(f"K7 {(B, H, hk, hv)} S={S} chunk={chunk} {kind} "
+                                     f"s0={carried}: "
                                      f"{launches} launches, {', '.join(msg)}, allowed "
                                      f"{units} eps of M")
             n_checks += 1
             n_s0 += carried
     report.emit({"phase": "k7_vs_plain", "checks": n_checks, "carried_state_checks": n_s0,
-                 "max_abs_err": worst, "carried_state_max_abs_err": worst_s0,
-                 "worst_eps_of_M": worst_units, "rtol": K7_RTOL, "atol": K7_ATOL,
-                 "allowed_eps_of_M": "4 (hk + chunk)"})
+                 "tile": TILE, "max_abs_err": worst, "carried_state_max_abs_err": worst_s0,
+                 "worst_eps_of_M": worst_units,
+                 "worst_share_of_allowance": worst_share[0],
+                 "worst_share_case": worst_share[1],
+                 "rtol": K7_RTOL, "atol": K7_ATOL,
+                 "allowed_eps_of_M": "4 (hk + chunk), chunk the reference's"})
 
 
 def _lm_model(torch, arch, seed, **changes):
@@ -1256,12 +1379,19 @@ def lm_engine_phase(torch, np, report) -> dict:
             raise AssertionError(f"{arch}: kv_state_bytes {kv}, from the shapes {want}, "
                                  f"pinned {LM_KV_BYTES[arch]}")
         del engine
-        # each prompt's last-token logits: kernel path against plain path
+        # each prompt's last-token logits: kernel path against plain path.  The
+        # kernel pass repeats the served prefills, under the profiler, for the
+        # kernel's device time over the served run's prefills.
         max_abs, rel_rms = LM_LOGITS_TOL[arch]
         worst = {"max_abs": 0.0, "rel_rms": 0.0}
-        for req in reqs:
-            tok = {"tokens": torch.as_tensor(req.prompt[None], device="cuda")}
-            _, lk = model.prefill(params, tok, max_seq)
+        toks = [{"tokens": torch.as_tensor(r.prompt[None], device="cuda")} for r in reqs]
+        kernel_logits, events, _ = kernel_events(
+            torch, lambda: model.prefill(params, toks[0], max_seq),
+            lambda: [model.prefill(params, tok, max_seq)[1] for tok in toks])
+        kern_events = [ev for ev in events if LM_KERNEL_SYMBOL[kern] in ev.key]
+        kern_device_ms = sum(ev.self_device_time_total for ev in kern_events) / 1e3
+        kern_records = sum(ev.count for ev in kern_events)
+        for req, tok, lk in zip(reqs, toks, kernel_logits):
             before = {k: c.count for k, c in counters.items()}
             with plain_kernels():
                 _, lp = model.prefill(params, tok, max_seq)
@@ -1296,6 +1426,8 @@ def lm_engine_phase(torch, np, report) -> dict:
             "tokens_per_s": stats.tokens_per_s,
             **{f"{k.lower()}_launches": c for k, (c, _) in counts.items()},
             "plan_report": plan,
+            f"{kern.lower()}_device_ms_served_prefills": kern_device_ms,
+            f"{kern.lower()}_kernel_records_served_prefills": kern_records,
             "logits_vs_plain": worst, "logits_limit": {"max_abs": max_abs,
                                                        "rel_rms": rel_rms},
             "ttft_ms_p50": _pct(np, ttft_ms, 50), "ttft_ms_p99": _pct(np, ttft_ms, 99),
@@ -1344,6 +1476,105 @@ def lm_strict_phase(torch, np, report) -> None:
         torch.cuda.empty_cache()
 
 
+def _diff(torch, a, b):
+    """(max |a - b|, |a - b| / |b| in the 2-norm), in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()), float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _rwkv_drift_walk(torch, model, params, tokens):
+    """``Model.prefill``'s layer walk over an RWKV stack, run twice side by
+    side: the kernel path (K7) and the plain path (``plain_kernels``).  At
+    each layer it compares the two time-mix outputs (the drift carried so
+    far) and K7 against the plain scan on the plain path's own input (this
+    layer's share).  Returns ({"stream": [...], "local": [...]} per layer
+    as (max |Δ|, relative 2-norm), the kernel path's logits, the plain
+    path's)."""
+    from repro_torch.models import rwkv6
+    from repro_torch.models.common import apply_norm
+
+    cfg = model.cfg
+    xk = xp = model._embed(params, tokens)
+    stream, local = [], []
+    for p in params["layers"]:
+        hk_, hp = apply_norm(cfg, p["norm1"], xk), apply_norm(cfg, p["norm1"], xp)
+        ak, _, _ = rwkv6.time_mix(cfg, p["tm"], hk_, None, None, chunk=model.rwkv_chunk)
+        al, _, _ = rwkv6.time_mix(cfg, p["tm"], hp, None, None, chunk=model.rwkv_chunk)
+        with plain_kernels():
+            ap, _, _ = rwkv6.time_mix(cfg, p["tm"], hp, None, None, chunk=model.rwkv_chunk)
+        stream.append(_diff(torch, ak, ap))
+        local.append(_diff(torch, al, ap))
+        xk, xp = xk + ak, xp + ap
+        xk = xk + rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], xk))[0]
+        xp = xp + rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], xp))[0]
+    logits = [model._logits_last(params, apply_norm(cfg, params["final_norm"], x)[:, -1])
+              for x in (xk, xp)]
+    return {"stream": stream, "local": local}, logits[0], logits[1]
+
+
+def rwkv_drift_phase(torch, np, report) -> None:
+    """RWKV6-7B at full size (32 layers), the served model's weights (seed
+    1), kernel path against plain path on one prompt of 200 tokens and one
+    of 509 (chunks of 8 and of 1), first at f32 compute with TF32 off, then
+    with the same weights stored in bf16, the served dtype: the time-mix
+    output's drift at every layer and K7's own share of it, and the final
+    logits.  At f32 the logits are held at ``RWKV_F32_DRIFT_TOL`` and every
+    layer's K7 share at ``RWKV_F32_K7_SHARE``; at either dtype the kernel
+    walk's logits must equal ``Model.prefill``'s."""
+    import dataclasses
+
+    from repro_torch.models.transformer import Model, store_compute_dtype
+
+    model, params = _lm_model(torch, "rwkv6-7b", LM_ENGINES["rwkv6-7b"][0],
+                              compute_dtype="float32")
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, model.cfg.vocab_size, S).astype(np.int32)
+               for S in RWKV_DRIFT_PROMPTS]
+    failed = []
+    for dtype in ("float32", "bfloat16"):
+        if dtype != model.cfg.compute_dtype:
+            model = Model(dataclasses.replace(model.cfg, compute_dtype=dtype),
+                          rwkv_chunk=model.rwkv_chunk)
+            store_compute_dtype(params, getattr(torch, dtype))
+        for toks in prompts:
+            batch = torch.as_tensor(toks[None], device="cuda")
+            layers, lk, lp = _rwkv_drift_walk(torch, model, params, batch)
+            _, served = model.prefill(params, {"tokens": batch}, 1024)
+            torch.cuda.synchronize()
+            walk_vs_prefill = float((served - lk).abs().max())
+            err, rel = _diff(torch, lk, lp)
+            ok = bool(torch.isfinite(lk).all()) and walk_vs_prefill == 0.0
+            share = max(x[1] for x in layers["local"])
+            if dtype == "float32":
+                ok &= (err <= RWKV_F32_DRIFT_TOL[0] and rel <= RWKV_F32_DRIFT_TOL[1]
+                       and share <= RWKV_F32_K7_SHARE)
+            if not ok:
+                failed.append(f"{dtype} S={len(toks)}: logits max abs {err}, rel {rel} "
+                              f"(f32 limit {RWKV_F32_DRIFT_TOL}), K7's largest share "
+                              f"{share} (f32 limit {RWKV_F32_K7_SHARE}); walk vs "
+                              f"prefill {walk_vs_prefill}")
+            report.emit({"phase": "rwkv_drift", "arch": "rwkv6-7b",
+                         "layers": model.cfg.num_layers, "compute_dtype": dtype,
+                         "tf32": torch.backends.cuda.matmul.allow_tf32,
+                         "prompt": len(toks), "chunk": _chunk_for(len(toks)),
+                         "logits": {"max_abs": err, "rel": rel},
+                         "walk_vs_prefill_max_abs": walk_vs_prefill,
+                         "time_mix_stream": layers["stream"],
+                         "time_mix_k7_share": layers["local"],
+                         "f32_limit": {"logits": RWKV_F32_DRIFT_TOL,
+                                       "k7_share": RWKV_F32_K7_SHARE}})
+    del model, params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"rwkv drift: {'; '.join(failed)}")
+
+
+def _chunk_for(S):
+    from repro_torch.kernels.wkv.ops import chunk_for
+
+    return chunk_for(S, 64)
+
+
 def k5_bound(B, S, H, K, h, elem=2):
     """(ms, by): q/k/v read and o written once; 2 products of 2 h flops per
     visible (query, key) pair under the causal mask."""
@@ -1352,19 +1583,31 @@ def k5_bound(B, S, H, K, h, elem=2):
     return _roofline(nbytes, flops)
 
 
-def k7_bound(B, S, H, h, chunk, elem=2):
+def k7_ops(S, h, tile):
+    """Operations of the tiled scan at one head and tile (the last tile
+    ragged): the pair term's 2 flops and one exp per (t > s, channel), the
+    history read, the pair times v, the bonus and the state update (2 flops
+    a multiply-add)."""
+    ops = 0
+    for c0 in range(0, S, tile):
+        L = min(tile, S - c0)
+        ops += (3 * L * (L - 1) // 2 * h      # pair: r*k, *exp, +
+                + 2 * L * h * h               # history
+                + L * (L - 1) * h             # pair times v
+                + 5 * L * h                   # bonus
+                + 2 * L * h * h + 2 * h * h)  # state update
+    return ops
+
+
+def k7_bound(B, S, H, h, elem=2):
     """(ms, by): r/k/v (``elem`` bytes), logw, u, o and s_final (f32) once;
-    the pair term's 2 flops and one exp per (t > s, channel) of each chunk,
-    plus the history read, the pair times v, the bonus and the state update
-    (2 flops a multiply-add)."""
+    the function's least work, the fewest ``k7_ops`` over tiles of 1 to 64
+    (the pair term grows with the tile, the state updates shrink with it),
+    f32 on the CUDA cores, so at their peak."""
     nbytes = 3 * B * S * H * h * elem + 2 * B * S * H * h * 4 + H * h * 4 + B * H * h * h * 4
-    n = S // chunk
-    per_chunk = (3 * chunk * (chunk - 1) // 2 * h      # pair: r*k, *exp, +
-                 + 2 * chunk * h * h                    # history
-                 + chunk * (chunk - 1) * h              # pair times v
-                 + 5 * chunk * h                        # bonus
-                 + 2 * chunk * h * h + 2 * h * h)       # state update
-    return _roofline(nbytes, B * H * n * per_chunk)
+    ops = min(k7_ops(S, h, tile) for tile in range(1, min(S, 64) + 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * H * ops / PEAK_OPS_PER_S["f32"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _roofline(nbytes, ops):
@@ -1380,8 +1623,6 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
 
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref
-    from repro_torch.kernels.wkv.ops import chunk_for, wkv
-    from repro_torch.kernels.wkv.ref import wkv_chunked
 
     entries = []
     rng = np.random.default_rng(11)
@@ -1413,19 +1654,33 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bms, "bound_by": bby, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"]})
-    for S in (128, 512, 1000):
+    return entries + k7_timing_phase(torch, np, report, rng, k7_launches)
+
+
+def k7_timing_phase(torch, np, report, rng, k7_launches) -> list:
+    """K7 at the served shapes (bf16, B=1, ``K7_TIMING_SEQS``), each kernel
+    of the call by name."""
+    from repro_torch.kernels.wkv import kernel as wkv_kernel
+    from repro_torch.kernels.wkv.ops import chunk_for, wkv
+    from repro_torch.kernels.wkv.ref import wkv_chunked
+
+    entries = []
+    for S in K7_TIMING_SEQS:
         r, k, v, logw, u = _wkv_inputs(torch, np, rng, 1, S, 64, 64, torch.bfloat16)
         c = chunk_for(S, 64)
         kern = lambda: wkv(r, k, v, logw, u, chunk=64)
         plain = lambda: wkv_chunked(r, k, v, logw, u, chunk=c)
         err = float((kern()[0] - plain()[0]).abs().max())
         t = _times(torch, kern, plain, None)
-        bms, bby = k7_bound(1, S, 64, 64, c)
-        report.emit({"phase": "timing", "kernel": "K7",
-                     "shape": f"B=1 S={S} H=64 h=64 chunk={c} bf16", "max_abs_err": err,
-                     "bound_ms": bms, "bound_by": bby, "library": "no library call", **t})
+        bms, bby = k7_bound(1, S, 64, 64)
+        report.emit({"phase": "timing", "kernel": "K7", "kernels": K7_KERNELS,
+                     "shape": f"B=1 S={S} H=64 h=64 chunk={c} tile={wkv_kernel.TILE} bf16",
+                     "max_abs_err": err, "bound_ms": bms, "bound_by": bby,
+                     "library": "no library call", **t,
+                     "device_ms_by_kernel": device_ms_by_kernel(torch, kern)})
         entries.append({
-            "name": f"K7 wkv_fwd_bf16 [rwkv6-7b prefill time-mix, S={S}, chunk={c}]",
+            "name": (f"K7 wkv_fwd_bf16 ({' + '.join(K7_KERNELS)}) [rwkv6-7b prefill "
+                     f"time-mix, S={S}, chunk={c}, tile={wkv_kernel.TILE}]"),
             "route": "cuda", "source": "src/repro_torch/csrc/wkv_fwd.cu",
             "replaces": "src/repro/kernels/wkv/kernel.py:19", "launches": k7_launches,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1667,8 +1922,10 @@ def _profile_step(torch, fn):
     kernels with the most device time as [name, launches, ms])."""
     out, kernels, span = kernel_events(torch, lambda: torch.ones(1, device="cuda").add_(1),
                                        fn)
-    by = {name: sum(ev.self_device_time_total for ev in kernels if name in ev.key) / 1e3
-          for name in ("xent_fwd", "flash_fwd", "wkv_fwd")}
+    # by the names of K6's, K5's and K7's libraries (K7's two kernels: "wkv_")
+    by = {name: sum(ev.self_device_time_total for ev in kernels if key in ev.key) / 1e3
+          for name, key in (("xent_fwd", "xent_fwd"), ("flash_fwd", LM_KERNEL_SYMBOL["K5"]),
+                            ("wkv_fwd", LM_KERNEL_SYMBOL["K7"]))}
     top = sorted(kernels, key=lambda ev: -ev.self_device_time_total)[:10]
     return (out, by, sum(ev.self_device_time_total for ev in kernels) / 1e3, span,
             [[ev.key[:100], ev.count, ev.self_device_time_total / 1e3] for ev in top])
@@ -1947,6 +2204,7 @@ def main(argv=None) -> int:
     residual_phase(torch, np, report)
     lm_counts = lm_engine_phase(torch, np, report)
     lm_strict_phase(torch, np, report)
+    rwkv_drift_phase(torch, np, report)
     train_counts = lm_train_phase(torch, np, report)
     train_strict_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)

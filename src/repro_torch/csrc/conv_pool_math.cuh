@@ -1,8 +1,9 @@
 // Shared arithmetic of the fused conv+act+pool kernels (conv_pool.cu,
 // conv_pool_q8.cu, conv_pool_dw.cu, conv_pool_dw_q8.cu): output geometry,
 // the window index math, padding as bounds-checked taps, the int8
-// requantization, per tensor and per channel, and K1's tile (the input rows
-// and conv positions a run of pooled rows needs, and its shared memory).
+// requantization, per tensor and per channel, and K1's and K2's tile (the
+// input rows and conv positions a run of pooled rows needs, and its shared
+// memory).
 //
 // Everything here is __host__ __device__ so that a plain C++ compiler can
 // build the host side into a small library (conv_pool_math_host.cpp) and the
@@ -146,6 +147,28 @@ CP_HD long long k1_smem_bytes(const Geom& g, int rows, int ct, int cc) {
   const Tile t = make_tile(g, rows);
   return 4 * (words16(static_cast<long long>(ct) * g.cin * g.kh * g.kw) +
               words16(static_cast<long long>(cc) * t.hrows * t.wcols) +
+              words16(static_cast<long long>(ct) * t.crows * t.ccols));
+}
+
+// ---- K2's tile: K1's, staged as int8 with the channels innermost --------
+//
+// K2 stages its weights as (channels of the tile, taps, input channels) and
+// its input as (input rows, input columns, input channels), 4 int8 channels
+// a 32-bit word (zero-padded to whole words), so one __dp4a takes 4
+// channels; its conv tile holds int32 sums.
+
+// 32-bit words one staged input position takes for `cc` channels, made odd
+// so neighbouring positions fall in distinct shared-memory banks.
+CP_HD int k2_pos_words(int cc) { return ((cc + 3) / 4) | 1; }
+
+// K2's shared memory for tiles of `rows` pooled rows and `ct` output
+// channels staging `cc` input channels at a time: the tile's int8 weights
+// over every input channel, one chunk of staged int8 input and the int32
+// conv tile, each part 16-byte aligned.
+CP_HD long long k2_smem_bytes(const Geom& g, int rows, int ct, int cc) {
+  const Tile t = make_tile(g, rows);
+  return 4 * (words16(static_cast<long long>(ct) * g.kh * g.kw * ((g.cin + 3) / 4)) +
+              words16(static_cast<long long>(t.hrows) * t.wcols * k2_pos_words(cc)) +
               words16(static_cast<long long>(ct) * t.crows * t.ccols));
 }
 

@@ -66,4 +66,14 @@ long long cp_k1_smem_bytes(int cin, int h, int w, int cout, int kh, int kw, int 
                                    pkh, pkw, psh, psw);
   return cp::k1_smem_bytes(g, rows, ct, cc);
 }
+
+// K2's shared memory in bytes for tiles of `rows` pooled rows and `ct`
+// output channels, staging `cc` input channels at a time.
+long long cp_k2_smem_bytes(int cin, int h, int w, int cout, int kh, int kw, int csh,
+                           int csw, int padh, int padw, int pkh, int pkw, int psh,
+                           int psw, int rows, int ct, int cc) {
+  const cp::Geom g = cp::make_geom(1, cin, h, w, cout, kh, kw, csh, csw, padh, padw,
+                                   pkh, pkw, psh, psw);
+  return cp::k2_smem_bytes(g, rows, ct, cc);
+}
 }

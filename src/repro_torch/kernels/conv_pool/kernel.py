@@ -7,7 +7,8 @@ bank), the tiling of the grid over pooled rows and output channels, and the
 launch counters — shared by the whole family, so the four cannot diverge:
 
 * K1, dense float (``csrc/conv_pool.cu``), tiled by :func:`k1_tiling`;
-* K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`);
+* K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`),
+  tiled by :func:`k2_tiling`;
 * K3, depthwise float (``csrc/conv_pool_dw.cu``,
   `repro_torch.kernels.conv_pool.depthwise`), tiled by its ``k3_tiling``;
 * K4, depthwise int8 (``csrc/conv_pool_dw_q8.cu``,
@@ -33,11 +34,11 @@ from repro_torch.kernels import build
 # 227 KB is what one CTA may have on Hopper.
 MAX_SMEM_BYTES = 232448
 # Aim for about this many CTAs (four per SM on 132 SMs) before tiling
-# several pooled rows into one CTA (K2, K4).
+# several pooled rows into one CTA (K4).
 _TARGET_CTAS = 528
-# K1 splits its output channels until a call has one CTA per SM of an H100
-# (132), and tiles pooled rows past that; each CTA computes at least a
-# warp's worth of conv values.
+# K1 and K2 split their output channels until a call has one CTA per SM of
+# an H100 (132), and tile pooled rows past that; each CTA computes at least
+# a warp's worth of conv values.
 K1_TARGET_CTAS = 132
 K1_MIN_CONV_VALUES = 32
 
@@ -100,7 +101,7 @@ def cout_tile(cout: int, w_elems_per_cout: int, elem_bytes: int) -> int:
 
 def family_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
                   pool_stride, elem_bytes) -> Tuple[int, int]:
-    """(pooled rows, output channels) per CTA of K2 and K4: the fewest channel
+    """(pooled rows, output channels) per CTA of K4: the fewest channel
     tiles whose weights fit (:func:`cout_tile`), then :func:`rows_per_cta`."""
     tile = cout_tile(cout, cin * kh * kw, elem_bytes)
     _, _, ph, _ = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
@@ -114,8 +115,12 @@ def _span(n: int, k: int, s: int) -> int:
     return (n - 1) * s + k
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _words16(n: int) -> int:
-    return -(-n // 4) * 4
+    return _round_up(n, 4)
 
 
 def _k1_shares(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
@@ -168,26 +173,101 @@ def k1_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
     tiles = min(cout, -(-K1_TARGET_CTAS // (n * -(-ph // rows))))
     per_channel = _span(rows, pkh, psh) * _span(pw, pkw, psw)
     ct = min(cout, max(-(-cout // tiles), -(-K1_MIN_CONV_VALUES // per_channel)))
-    cc = cin
     geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
                 pool_stride=pool_stride)
-    while (smem := sum(shares := _k1_shares(cin, h, w, kh, kw, rows=rows, ct=ct,
-                                            cc=cc, **geom))) > MAX_SMEM_BYTES:
-        weights, staged, _ = shares
+    shares = lambda rows, ct, cc: _k1_shares(cin, h, w, kh, kw, rows=rows, ct=ct, cc=cc,
+                                             **geom)
+    rows, ct, cc = _shrink_to_fit("K1", shares, rows, ct, cin, unit=1)
+    return rows, -(-cout // -(-cout // ct)), -(-cin // -(-cin // cc))
+
+
+def _shrink_to_fit(name, shares, rows, ct, cc, *, unit):
+    """(rows, ct, cc) shrunk until ``sum(shares(rows, ct, cc))`` fits one
+    CTA: halve the output channels while their weights are half of it or
+    more, else the rows; at one row, halve the staged input channels (in
+    multiples of ``unit``) while the staged input is half of it or more,
+    else the output channels, else the staged input channels.  Raises when
+    one output channel of one pooled row, ``unit`` input channels at a
+    time, does not fit."""
+    halve_cc = lambda cc: _round_up(-(-cc // 2), unit)
+    while (smem := sum(parts := shares(rows, ct, cc))) > MAX_SMEM_BYTES:
+        weights, staged, _ = parts
         if ct > 1 and 2 * weights >= smem:
             ct = -(-ct // 2)
         elif rows > 1:
             rows = -(-rows // 2)
-        elif cc > 1 and 2 * staged >= smem:
-            cc = -(-cc // 2)
+        elif cc > unit and 2 * staged >= smem:
+            cc = halve_cc(cc)
         elif ct > 1:
             ct = -(-ct // 2)
-        elif cc > 1:
-            cc = -(-cc // 2)
+        elif cc > unit:
+            cc = halve_cc(cc)
         else:
-            raise ValueError(f"K1: one output channel of one pooled row needs "
+            raise ValueError(f"{name}: one output channel of one pooled row needs "
                              f"{smem} B of shared memory, over {MAX_SMEM_BYTES} B")
-    return rows, -(-cout // -(-cout // ct)), -(-cin // -(-cin // cc))
+    return rows, ct, cc
+
+
+def _k2_shares(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
+               rows, ct, cc) -> Tuple[int, int, int]:
+    """K2's shared memory in bytes, by part, each 16-byte aligned: the int8
+    weights of ``ct`` output channels over every input channel (channels
+    innermost, padded to whole 32-bit words of 4), one chunk of ``cc``
+    staged int8 input channels (a position's channels in ``k2_pos_words``
+    words) and the int32 conv tile (``conv_pool_math.cuh::k2_smem_bytes``)."""
+    (csh, csw), (pkh, pkw), (psh, psw) = (_pair(conv_stride), _pair(pool_k),
+                                          _pair(pool_stride))
+    _, _, _, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                            pool_k=pool_k, pool_stride=pool_stride)
+    crows, ccols = _span(rows, pkh, psh), _span(pw, pkw, psw)
+    hrows, wcols = _span(crows, kh, csh), _span(ccols, kw, csw)
+    return (4 * _words16(ct * kh * kw * -(-cin // 4)),
+            4 * _words16(hrows * wcols * k2_pos_words(cc)),
+            4 * _words16(ct * crows * ccols))
+
+
+def k2_pos_words(cc: int) -> int:
+    """32-bit words one staged input position of K2 takes for ``cc`` int8
+    channels: 4 a word, made odd so neighbouring positions fall in distinct
+    shared-memory banks (``conv_pool_math.cuh::k2_pos_words``)."""
+    return -(-cc // 4) | 1
+
+
+def k2_smem_bytes(cin, h, w, kh, kw, *, conv_stride, padding, pool_k, pool_stride,
+                  rows, ct, cc=None) -> int:
+    """K2's shared memory for tiles of ``rows`` pooled rows and ``ct``
+    output channels, staging ``cc`` input channels at a time (all ``cin``
+    when None): the same sum as ``conv_pool_math.cuh::k2_smem_bytes``."""
+    return sum(_k2_shares(cin, h, w, kh, kw, conv_stride=conv_stride,
+                          padding=padding, pool_k=pool_k, pool_stride=pool_stride,
+                          rows=rows, ct=ct, cc=cin if cc is None else cc))
+
+
+def k2_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
+              pool_stride) -> Tuple[int, int, int]:
+    """(pooled rows, output channels, input channels staged at a time) per
+    CTA of K2, one grid a call.
+
+    As :func:`k1_tiling`, with K2's int8 shares (:func:`_k2_shares`), and
+    channel tiles small enough that the grid reaches ``K1_TARGET_CTAS`` where
+    the channels allow (at least ``K1_MIN_CONV_VALUES`` conv values a tile).
+    Staged input chunks are all ``cin`` channels, or a multiple of 4 (whole
+    32-bit words of the weights), equal but for the last."""
+    (pkh, pkw), (psh, psw) = _pair(pool_k), _pair(pool_stride)
+    _, _, ph, pw = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
+                             pool_k=pool_k, pool_stride=pool_stride)
+    n = max(n, 1)
+    rows = max(1, -(-ph // max(1, K1_TARGET_CTAS // n)))
+    tiles = -(-K1_TARGET_CTAS // (n * -(-ph // rows)))
+    per_channel = _span(rows, pkh, psh) * _span(pw, pkw, psw)
+    ct = min(cout, max(cout // tiles, 1, -(-K1_MIN_CONV_VALUES // per_channel)))
+    geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
+                pool_stride=pool_stride)
+    shares = lambda rows, ct, cc: _k2_shares(cin, h, w, kh, kw, rows=rows, ct=ct, cc=cc,
+                                             **geom)
+    rows, ct, cc = _shrink_to_fit("K2", shares, rows, ct, cin, unit=min(4, cin))
+    chunks = -(-cin // cc)
+    return rows, -(-cout // -(-cout // ct)), cin if chunks == 1 else _round_up(-(-cin // chunks), 4)
 
 
 def _image_contiguous(t: torch.Tensor) -> bool:
@@ -227,7 +307,8 @@ def conv_pool_call(
     gives the tile sizes per CTA from the geometry, passed to the kernel in
     order after the activation and pool flags: (pooled rows, output
     channels) from :func:`family_tiling` when None, or the kernel's own
-    (K1's :func:`k1_tiling` adds the input channels staged at a time).
+    (K1's :func:`k1_tiling` and K2's :func:`k2_tiling` add the input
+    channels staged at a time).
     Raises on anything the kernel does not take; never falls back.
     """
     if x.device.type != "cuda":

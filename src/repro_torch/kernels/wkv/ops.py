@@ -7,7 +7,8 @@ above the one asked for, so a prime S runs chunks of 1.
 * a CPU tensor runs :func:`repro_torch.kernels.wkv.ref.wkv_chunked`,
   differentiable as it is;
 * a CUDA tensor runs :class:`WKV`, a ``torch.autograd.Function`` whose
-  forward launches K7 (``csrc/wkv_fwd.cu``) or raises, and whose backward
+  forward launches K7 (``csrc/wkv_fwd.cu``, which tiles S by its own tile
+  whatever the chunk) or raises, and whose backward
   is autograd through ``wkv_chunked`` recomputed from the saved inputs:
   the plain scan the reference differentiates in training
   (``repro/models/rwkv6.py:181``), so gradients reach r, k, v, logw and u,

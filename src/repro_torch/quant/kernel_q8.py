@@ -37,7 +37,7 @@ import torch
 from repro_torch.core import nn
 from repro_torch.core.graph import _pair
 from repro_torch.core.quantize import int_conv2d, requantize, requantize_per_channel
-from repro_torch.kernels.conv_pool.kernel import LaunchCounter, conv_pool_call
+from repro_torch.kernels.conv_pool.kernel import LaunchCounter, conv_pool_call, k2_tiling
 
 K2_LAUNCHES = LaunchCounter()
 K4_LAUNCHES = LaunchCounter()
@@ -87,7 +87,7 @@ def conv_pool_q8(x, w, b, *, multiplier, conv_stride=1, padding=0, pool_k=2,
         conv_stride=conv_stride, padding=padding, pool_k=pool_k,
         pool_stride=pool_stride, activation=activation, pool=pool,
         out_dtype=torch.int8, bias_dtype=torch.int32, out=out,
-        extra_args=(ctypes.c_float(float(m)),),
+        extra_args=(ctypes.c_float(float(m)),), tiling=k2_tiling,
     )
 
 

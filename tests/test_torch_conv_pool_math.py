@@ -23,7 +23,8 @@ import pytest
 from repro.core import graph as ref_graph
 from repro.core import quantize as ref_quantize
 from repro.kernels.conv_pool.kernel import halo_window_rows
-from repro_torch.kernels.conv_pool.kernel import k1_smem_bytes, output_hw
+from repro_torch.kernels.conv_pool.kernel import (k1_smem_bytes, k2_pos_words,
+                                                  k2_smem_bytes, output_hw)
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
@@ -58,6 +59,8 @@ def lib():
     so.cp_k1_tile.argtypes = [ctypes.c_int] * 14 + [p]
     so.cp_k1_smem_bytes.argtypes = [ctypes.c_int] * 17
     so.cp_k1_smem_bytes.restype = ctypes.c_longlong
+    so.cp_k2_smem_bytes.argtypes = [ctypes.c_int] * 17
+    so.cp_k2_smem_bytes.restype = ctypes.c_longlong
     return so
 
 
@@ -258,3 +261,28 @@ def test_host_k1_smem_matches_the_wrappers_sum(lib, geom):
                 assert k1_smem_bytes(cin, H, W, *k, conv_stride=cs, padding=pad,
                                      pool_k=pk, pool_stride=ps, rows=rows,
                                      ct=ct, cc=cc) == want
+
+
+@pytest.mark.parametrize("geom", K1_GEOMS + K1_WIDE_GEOMS)
+def test_host_k2_smem_matches_the_wrappers_sum(lib, geom):
+    """K2's launcher sizes shared memory with conv_pool_math.cuh's
+    k2_smem_bytes; its tiling uses kernel.k2_smem_bytes: one sum, at every
+    chunk of staged input channels (all of them, or whole words of 4)."""
+    H, W, cin, k, cs, pad, pk, ps = geom
+    _, _, ph, _ = output_hw(H, W, *k, conv_stride=cs, padding=pad, pool_k=pk,
+                            pool_stride=ps)
+    for rows in sorted({1, 2, ph}):
+        for ct in (1, 3, 8, 29, 64):
+            for cc in sorted({min(4, cin), -(-cin // 8) * 4, cin}):
+                want = lib.cp_k2_smem_bytes(cin, H, W, 64, *k, *cs, *pad, *pk, *ps,
+                                            rows, ct, cc)
+                assert want % 16 == 0
+                assert k2_smem_bytes(cin, H, W, *k, conv_stride=cs, padding=pad,
+                                     pool_k=pk, pool_stride=ps, rows=rows,
+                                     ct=ct, cc=cc) == want
+
+
+def test_k2_position_words_are_odd_and_hold_every_channel():
+    for cc in range(1, 300):
+        words = k2_pos_words(cc)
+        assert words % 2 == 1 and 4 * words >= cc and 4 * (words - 2) < cc

@@ -8,8 +8,9 @@ ladder, the tiling must fit one CTA's shared memory (bf16 is widened to f32
 as it is staged, so both dtypes need the same bytes), cover every output
 once, and spread the DS-CNN-KWS head over at least 32 CTAs at one image.
 K2-K4 share ``conv_pool_call``; K3 tiles one output a thread over at least
-one CTA per SM where the call has a warp of outputs for each, and K2 and K4
-keep the family's tiling, pinned here.
+one CTA per SM where the call has a warp of outputs for each; K2 takes its
+own ``k2_tiling`` (K1's, with int8 shares), whose values are pinned here,
+and K4 keeps the family's tiling, pinned too.
 """
 import warnings
 
@@ -213,32 +214,132 @@ def test_k1_chunked_input_keeps_one_launch(monkeypatch, cin, H, W, want):
     assert tuple(calls[0][21:24]) == want
 
 
-# K2-K4's (pooled rows, channel tile) per CTA on the main path, as the
-# family's tiling gives them, at N = 1 and 16: K2 on CIFAR's three steps and the two
-# heads in int8, K3/K4 on every depthwise step.
-FAMILY_PINNED = {
-    ("cifar", "conv1+maxpool1"): (1, 32),
-    ("cifar", "conv2+maxpool2"): (1, 16),
-    ("cifar", "conv3+maxpool3"): (1, 32),
-    KWS_HEAD: (1, 64),
-    ("mobilenet", "pw13+pool"): (1, 256),
+# K2's (pooled rows, channel tile, staged input channels) per CTA on the
+# main path, as k2_tiling gives them at N = 1 and 16: CIFAR's three steps
+# and the two heads in int8.  K4 keeps the family's tiling on every
+# depthwise step.
+K2_PINNED = {
+    (("cifar", "conv1+maxpool1"), 1): (1, 3, 3),
+    (("cifar", "conv1+maxpool1"), 16): (2, 16, 3),
+    (("cifar", "conv2+maxpool2"), 1): (1, 1, 32),
+    (("cifar", "conv2+maxpool2"), 16): (1, 8, 32),
+    (("cifar", "conv3+maxpool3"), 1): (1, 2, 16),
+    (("cifar", "conv3+maxpool3"), 16): (1, 8, 16),
+    (KWS_HEAD, 1): (1, 1, 64),
+    (KWS_HEAD, 16): (1, 7, 64),
+    (("mobilenet", "pw13+pool"), 1): (1, 8, 256),
+    (("mobilenet", "pw13+pool"), 16): (1, 26, 256),
 }
 
 
 FAMILY_STEPS = sorted(key for key, g in STEPS.items() if key[0] != "lenet5")
+K2_STEPS = sorted(key for key in FAMILY_STEPS if not STEPS[key][0])
 
 
 @pytest.mark.parametrize("n", (1, 16))
 @pytest.mark.parametrize("step", FAMILY_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
 def test_k2_k4_tiling_is_unchanged(step, n):
+    """K4 keeps the family's tiling; K2's own tiling is pinned."""
     dw, cin, H, W, cout, (kh, kw), kw_ = STEPS[step]
     if dw:  # the family's tiling of K4 (int8 taps; f32 too): one tile of every channel
         for elem in (4, 1):
             assert launch.family_tiling(n, 1, H, W, cout, kh, kw, **kw_,
                                         elem_bytes=elem) == (1, cout)
     else:  # K2
-        assert launch.family_tiling(n, cin, H, W, cout, kh, kw, **kw_,
-                                    elem_bytes=1) == FAMILY_PINNED[step]
+        assert launch.k2_tiling(n, cin, H, W, cout, kh, kw, **kw_) == K2_PINNED[step, n]
+
+
+def _covers_once(geom, n, rows, ct):
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    _, _, ph, _ = launch.output_hw(H, W, kh, kw, **kw_)
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    seen = {}
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                for p in range(bx * rows, min(bx * rows + rows, ph)):
+                    for c in range(bz * ct, min(bz * ct + ct, cout)):
+                        seen[by, p, c] = seen.get((by, p, c), 0) + 1
+    return (len(seen) == n * ph * cout and set(seen.values()) == {1}
+            and (gx - 1) * rows < ph and (gz - 1) * ct < cout)
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+@pytest.mark.parametrize("step", K2_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
+def test_k2_tiling_fits_and_covers_every_output_once(step, n):
+    geom = STEPS[step]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    rows, ct, cc = launch.k2_tiling(n, cin, H, W, cout, kh, kw, **kw_)
+    assert cc == cin  # the nets' layers stage every input channel at once
+    assert launch.k2_smem_bytes(cin, H, W, kh, kw, rows=rows, ct=ct, cc=cc,
+                                **kw_) <= launch.MAX_SMEM_BYTES
+    assert _covers_once(geom, n, rows, ct)
+
+
+@pytest.mark.parametrize("step,ctas", [(KWS_HEAD, 160), (("mobilenet", "pw13+pool"), 160)],
+                         ids=["ds_cnn_kws", "mobilenet"])
+def test_k2_spreads_the_int8_heads_over_the_card(step, ctas):
+    """At 16 images the family's tiling launched 16 CTAs, one a head's
+    image; K2's splits the output channels until every SM has one."""
+    geom = STEPS[step]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    assert launch.family_tiling(16, cin, H, W, cout, kh, kw, **kw_, elem_bytes=1)[1] == cout
+    rows, ct, _ = launch.k2_tiling(16, cin, H, W, cout, kh, kw, **kw_)
+    gx, gy, gz = _grid(geom, 16, rows, ct)
+    assert gx * gy * gz == ctas >= launch.K1_TARGET_CTAS
+
+
+# K1's two wide layers in int8 (one pooled row of every input channel is
+# 60,192 / 60,320 B staged as int8, so K2 needs no chunks), and a wider one
+# whose int8 staged input (238,496 B for one pooled row) K2 cuts into chunks
+# of input channels, whole words of 4.  (cin, H, W, cout, chunked)
+K2_WIDE = [(128, 112, 112, 64, False), (256, 56, 56, 64, False), (1024, 56, 56, 16, True)]
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+@pytest.mark.parametrize("cin,H,W,cout,chunked", K2_WIDE,
+                         ids=["cin128@112", "cin256@56", "cin1024@56"])
+def test_k2_tiling_of_wide_layers_fits_in_one_launch(cin, H, W, cout, chunked, n):
+    rows, ct, cc = launch.k2_tiling(n, cin, H, W, cout, 3, 3, **WIDE_GEOM)
+    assert launch.k2_smem_bytes(cin, H, W, 3, 3, rows=rows, ct=ct, cc=cc,
+                                **WIDE_GEOM) <= launch.MAX_SMEM_BYTES
+    assert (launch.k2_smem_bytes(cin, H, W, 3, 3, rows=1, ct=1, **WIDE_GEOM)
+            > launch.MAX_SMEM_BYTES) == chunked
+    assert (cc < cin) == chunked
+    if chunked:
+        assert cc % 4 == 0
+    chunks = [range(c0, min(c0 + cc, cin)) for c0 in range(0, cin, cc)]
+    assert sorted(c for ch in chunks for c in ch) == list(range(cin))
+    assert _covers_once((False, cin, H, W, cout, (3, 3), WIDE_GEOM), n, rows, ct)
+
+
+def test_k2_chunked_input_keeps_one_launch(monkeypatch):
+    """K2's call whose input is staged in chunks is one kernel call, handed
+    k2_tiling's three tile sizes and then the requant multiplier."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    calls = []
+
+    class Kernel:
+        def __call__(self, *args):
+            calls.append([getattr(a, "value", a) for a in args])
+            return 0
+
+    lib = type("Lib", (), {"conv_pool_q8": Kernel()})()
+    monkeypatch.setattr(launch.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    before = kernel_q8.K2_LAUNCHES.count
+    with FakeTensorMode(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        x = torch.empty(1, 1024, 56, 56, dtype=torch.int8, device="cuda")
+        w = torch.empty(16, 1024, 3, 3, dtype=torch.int8, device="cuda")
+        kernel_q8.conv_pool_q8(x, w, None, multiplier=0.5, padding=1)
+    assert kernel_q8.K2_LAUNCHES.count - before == 1 and len(calls) == 1
+    assert calls[0][4:11] == [1, 1024, 56, 56, 16, 3, 3]
+    assert tuple(calls[0][21:24]) == (1, 3, 512)
+    assert calls[0][26] == pytest.approx(0.5)
 
 
 def test_family_tiling_tiles_rows_past_the_target():
@@ -292,15 +393,15 @@ def test_k3_spreads_the_ds_cnn_kws_depthwise_steps_over_the_card(n, want, ctas):
 @pytest.mark.parametrize("call,want", [
     (lambda: launch.conv_pool(_x(), _x((4, 4, 3, 3)), None), launch.k1_tiling),
     (lambda: kernel_q8.conv_pool_q8(_x(q8=True), _x((4, 4, 3, 3), True), None,
-                                    multiplier=0.5), None),
+                                    multiplier=0.5), launch.k2_tiling),
     (lambda: depthwise.depthwise_conv_pool(_x(), _x((4, 1, 3, 3)), None),
      depthwise.k3_tiling),
     (lambda: kernel_q8.depthwise_conv_pool_q8(_x(q8=True), _x((4, 1, 3, 3), True),
                                               None, multiplier=0.5), None),
 ], ids=["K1", "K2", "K3", "K4"])
 def test_only_k1_takes_the_new_tiling(monkeypatch, call, want):
-    """K1's wrapper passes ``k1_tiling`` to the family's launcher and K3's
-    its own ``k3_tiling``; K2 and K4 pass none, so they keep
+    """K1's wrapper passes ``k1_tiling`` to the family's launcher, K2's
+    ``k2_tiling`` and K3's ``k3_tiling``; K4 passes none, so it keeps
     ``family_tiling``."""
     seen = {}
 

@@ -7,12 +7,15 @@ Inputs come from a numpy seed.  Tolerances are those of
 ``tests/test_kernel_wkv.py``: 2e-5 against the chunked forms, rtol 1e-4 /
 atol 1e-5 against the stepwise one, 5e-2 for bf16 inputs.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.wkv import ops as ref_ops
+from repro_torch.kernels.wkv import kernel as wkv_kernel
 from repro_torch.kernels.wkv import ops
 from repro_torch.models import rwkv6
 
@@ -167,3 +170,63 @@ def test_function_gradient_reaches_the_carried_state(needs_ds0):
         o3, _ = ops.WKV.apply(*leaves, chunk, s0)
         ctx_grads = o3.grad_fn.apply(go, None)
         assert ctx_grads[-1] is None and ctx_grads[-2] is None
+
+
+# K7's order (kernels/wkv/ref.py::wkv_two_pass) against the reference: the
+# RWKV6 head (hk = hv = 64, four 16-column state slices), S up to 509
+# (prime: the reference runs chunks of 1, K7 its own tiles, the last ragged).
+TWO_PASS_SEQS = (2, 63, 64, 200, 509)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("tile", [wkv_kernel.TILE, 64, 8])
+@pytest.mark.parametrize("S", TWO_PASS_SEQS)
+def test_two_pass_order_matches_reference(S, tile, carried, dtype):
+    from repro.models import rwkv6 as ref_rwkv6
+
+    from repro_torch.kernels.wkv.ref import wkv_two_pass
+
+    rng = np.random.default_rng(5000 + S + tile + carried)
+    H, h = 2, 64
+    r, k, v = (rng.standard_normal((1, S, H, h)).astype(np.float32) for _ in range(3))
+    if dtype == "bfloat16":  # both sides see the same bf16 values
+        r, k, v = (torch.as_tensor(a).to(torch.bfloat16).float().numpy() for a in (r, k, v))
+    logw = -rng.uniform(0.02, 2.0, (1, S, H, h)).astype(np.float32)
+    u = rng.standard_normal((H, h)).astype(np.float32)
+    s0 = rng.standard_normal((1, H, h, h)).astype(np.float32) if carried else None
+    c = ops.chunk_for(S, 64)
+    o_r, s_r = ref_rwkv6.wkv_chunked(
+        *(jnp.asarray(a) for a in (r, k, v, logw, u)),
+        jnp.asarray(s0 if carried else np.zeros((1, H, h, h), np.float32)), chunk=c)
+    tdt = getattr(torch, dtype)
+    o, s = wkv_two_pass(*(torch.as_tensor(a).to(tdt) for a in (r, k, v)),
+                        torch.as_tensor(logw), torch.as_tensor(u),
+                        None if s0 is None else torch.as_tensor(s0), tile=tile)
+    assert o.dtype == s.dtype == torch.float32
+    # rtol 1e-4, atol 1e-5 plus chip_smoke.k7_round_units(hk, chunk) f32
+    # epsilons of M, each element's terms' magnitudes summed (the same scan on
+    # |r|, |k|, |v|, |u|, |s0|): two f32 orders of one sum of 64 terms of
+    # size ~10 differ by more than 1e-5 near a zero of the sum.
+    mags = ref_rwkv6.wkv_chunked(
+        *(jnp.asarray(np.abs(a)) for a in (r, k, v)), jnp.asarray(logw),
+        jnp.asarray(np.abs(u)),
+        jnp.asarray(np.abs(s0) if carried else np.zeros((1, H, h, h), np.float32)), chunk=c)
+    eps = np.finfo(np.float32).eps
+    units = 4 * (h + c)
+    for name, got, want, m in zip(("o", "s_final"), (o, s), (o_r, s_r), mags):
+        want, m = np.asarray(want), np.asarray(m)
+        diff = np.abs(got.numpy() - want)
+        allowed = 1e-4 * np.abs(want) + 1e-5 + units * eps * m
+        # the worst reading in f32 epsilons of M, and the worst share of the
+        # whole allowance (shown with pytest -s)
+        used, share = float((diff / (eps * m)).max()), float((diff / allowed).max())
+        print(f"two-pass S={S} tile={tile} s0={carried} {dtype} {name}: "
+              f"{used:.2f} eps of M of {units} allowed, {share:.4f} of the allowance")
+        assert share <= 1.0, (used, units)
+
+
+def test_tile_matches_the_kernel_source():
+    # the wrapper sizes K7's per-tile scratch by TILE, the kernel tiles by kTile
+    src = (Path(wkv_kernel.__file__).parents[2] / "csrc" / "wkv_fwd.cu").read_text()
+    assert f"constexpr int kTile = {wkv_kernel.TILE};" in src
