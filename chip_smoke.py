@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--out FILE]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
-and the LM serving path, served, and the LM training path, trained — and
-holds their kernels against their plain PyTorch versions:
+and the LM serving path, served, the paper's train → fuse → plan → emit C
+→ gcc flow, and the LM training path, trained — and holds their kernels
+against their plain PyTorch versions:
 
 1. builds kernels K1 (``src/repro_torch/csrc/conv_pool.cu``), K2
    (``conv_pool_q8.cu``), K3 (``conv_pool_dw.cu``), K4
@@ -61,7 +62,16 @@ holds their kernels against their plain PyTorch versions:
    a batch (coalesce, stage, dispatch, device, complete);
 4. runs one batch of 16 of ``residual_cifar`` (joins and branches) through
    the DAG executor in f32 and int8 against the CPU path;
-5. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens) and
+5. emits C (``repro_torch.core.export_c``) for each of the six engines,
+   builds it with ``gcc -O2 -std=c99 -lm`` and feeds it the first 16
+   requests the engine served: int8 equal to the card's outputs bit for
+   bit, f32 within the reference's C tests' tolerances, each C arena the
+   plan's bytes; then the paper's flow: LeNet-5 trained on the card (150
+   AdamW steps on the synthetic digits), fused, planned (8,800 B),
+   emitted and built, its C engine held to the card's ``CNNEngine`` (K1)
+   on 16 held-out digits at rtol 1e-4, atol 1e-5, at least 7 right
+   (``c_export_phase``); no gcc fails the run;
+6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens) and
    RWKV6-7B (8 requests, 4 lanes, 16 new tokens) at full width and depth,
    bf16 compute, through ``Engine``, one model at a time: every request
    done, K5 = 16 launches per prefill and K7 = 32 (no other kernel), the
@@ -69,13 +79,13 @@ holds their kernels against their plain PyTorch versions:
    against the plain path on the card (the same model with K5/K7 swapped
    for their plain versions, ``plain_kernels``), TTFT, prefill and decode
    tokens/s, and K5's / K7's device time over the served prompts' prefills;
-6. holds each architecture at full width, 2 layers, f32 compute, kernel
+7. holds each architecture at full width, 2 layers, f32 compute, kernel
    path against plain path: prefill and 4 decode steps at 1e-4; then
    RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
    kernel path against plain path layer by layer, at f32 compute (final
    logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
    and with the weights in bf16 (recorded);
-7. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
+8. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
    step of 2 microbatches, then a profiled step) and RWKV6-7B at full width
    with 2 layers (B 4 x S 512, 2 steps, then a profiled step): f32 params,
    bf16 compute, remat, ``xent_impl="chunked"``, the launcher's AdamW,
@@ -85,20 +95,19 @@ holds their kernels against their plain PyTorch versions:
    step 1's loss and grad norm against the plain path (1e-2 and 5e-2
    relative); step ms, tokens/s, peak memory, K6's device ms per step,
    the device's idle share and MFU;
-8. holds both architectures at full width, 2 layers, f32 compute, kernel
+9. holds both architectures at full width, 2 layers, f32 compute, kernel
    path against plain path: step 1's loss at 1e-5 relative, every
    gradient leaf at rtol 1e-3 and 1e-3 of the leaf's largest value, and
    the losses of 2 AdamW steps at 1e-5 relative;
-9. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
-   K3 at every distinct depthwise step of both nets beside cuDNN's chain,
-   K5 at S 128/512/1000, K7 at S 128/509/512/1000 (each of its two kernels
-   by name), K5 also at Llama's
-   train shape B 8 x S 512,
-   K6 at the two train shapes) with CUDA events
-   and the profiler, beside its plain version, a PyTorch library call
-   computing the same function where there is one, and its bound from the
-   shapes (K6's on its route, 3xTF32 at the TF32 tensor-core peak, with the
-   f32 CUDA-core figure beside it).
+10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
+    K3 and K4 at every distinct depthwise step of both nets, beside
+    cuDNN's chain and the f64 chain, K5 at S 128/512/1000, K7 at S
+    128/509/512/1000 (each of its two kernels by name), K5 also at Llama's
+    train shape B 8 x S 512, K6 at the two train shapes) with CUDA events
+    and the profiler, beside its plain version, a PyTorch library call
+    computing the same function where there is one, and its bound from the
+    shapes (K6's on its route, 3xTF32 at the TF32 tensor-core peak, with
+    the f32 CUDA-core figure beside it).
 
 Prints one JSON object per line: the phases' results, then the card's
 ``nvidia-smi`` name and power limit, then ``{"kernels": [...]}``, and last
@@ -182,6 +191,20 @@ K3_OTHER_FILTERS = [(5, 2), ((3, 1), (1, 0))]
 BUCKETS = (1, 2, 4, 8, 16)
 N_REQUESTS, BURST = 64, 8
 DAG_F32_TOL = 1e-4  # rtol = atol; tests/test_rect_avgpool.py's for MobileNet
+# The emitted C engines get the first C_INPUTS requests each engine served.
+# Their f32 outputs are held to the card's at the reference's C tests'
+# (rtol, atol) for the network (tests/test_core_exec.py:88 for LeNet,
+# tests/test_rect_avgpool.py:416 for DS-CNN-KWS, tests/test_depthwise.py:397,
+# DS-CNN's depthwise ladder, for MobileNet); int8 bit for bit.
+C_INPUTS = 16
+C_F32_TOL = {"lenet5_f32": (1e-5, 1e-6), "ds_cnn_kws_f32": (1e-4, 1e-5),
+             "mobilenet_v1_0.25_f32": (1e-4, 1e-5)}
+# The paper's flow (tests/test_system.py::test_paper_pipeline_end_to_end):
+# LeNet-5 trained this many steps on the synthetic digits, its C engine held
+# to the card's engine at (rtol, atol), at least C_MIN_CORRECT of 16 right.
+LENET_TRAIN_STEPS = 150
+LENET_C_TOL = (1e-4, 1e-5)
+C_MIN_CORRECT = 7
 
 
 class Report:
@@ -744,10 +767,15 @@ def engine_phase(torch, np, report):
                                      f"{run.batches} batches (want {want})")
 
     def record(name, engine, plan, fused, run, counts, want_bytes, per_batch,
-               check):
+               check, model, served):
+        """``model``: the f32 params or the int8 model the engine serves;
+        ``served``: (inputs, the card's outputs) of its first C_INPUTS
+        requests, which ``c_export_phase`` feeds the emitted C engine."""
         check_launches(name, counts, run, per_batch)
         check_arena(engine, plan, name, want_bytes)
-        results[name] = {"run": run, "counts": counts, "fused": fused}
+        results[name] = {"run": run, "counts": counts, "fused": fused, "plan": plan,
+                         "model": model, "served": served,
+                         "arena_bytes": want_bytes}
         report.emit({"phase": "engine", "net": name, "requests": N_REQUESTS,
                      **check, "tf32": {
                          "cudnn": torch.backends.cudnn.allow_tf32,
@@ -776,7 +804,8 @@ def engine_phase(torch, np, report):
         if not np.allclose(y, y_plain, rtol=tol, atol=tol):
             raise AssertionError(f"{name} engine vs plain CPU path: max abs err {err}")
         record(name, engine, plan, fused, run, counts, want_bytes, per_batch,
-               {"max_abs_err_vs_cpu_plain": err, "tolerance": tol})
+               {"max_abs_err_vs_cpu_plain": err, "tolerance": tol}, params,
+               (images[:C_INPUTS], y[:C_INPUTS]))
 
     def int8_engine(name, qm, plan_q, in_shape, want_bytes, per_batch, simulate,
                     run_batch):
@@ -795,7 +824,8 @@ def engine_phase(torch, np, report):
             raise AssertionError(f"{name} int8 engine is not bit-exact vs the CPU "
                                  f"simulator and executor")
         record(name, engine, plan_q, qm.graph, run, counts, want_bytes,
-               per_batch, {"bit_exact_vs_cpu_simulator": True})
+               per_batch, {"bit_exact_vs_cpu_simulator": True}, qm,
+               (xq[:C_INPUTS], yq[:C_INPUTS]))
 
     # -- LeNet-5, f32 (paper §3) ---------------------------------------------
     g = lenet5()
@@ -876,6 +906,188 @@ def residual_phase(torch, np, report) -> None:
                  "int8_bit_exact_vs_cpu_simulator": True, "k1_launches": k1,
                  "k2_launches": k2, "arena_bytes_per_image":
                  {"f32": plan.arena_elems * 4, "int8": plan_q.arena_elems}})
+
+
+def _gcc_build(gcc, src: str, path: Path):
+    """Write one emitted engine to ``path`` (.c) and start gcc on it, as the
+    reference's C tests build theirs; returns (the binary, the process)."""
+    path.write_text(src)
+    binary = path.with_suffix("")
+    proc = subprocess.Popen([gcc, "-O2", "-std=c99", str(path), "-o", str(binary), "-lm"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return binary, proc
+
+
+def _gcc_wait(name, proc) -> None:
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"c_export {name}: gcc failed:\n{out[-4000:]}")
+
+
+def _c_outputs(np, binary: Path, xs, dtype):
+    """The C engine's output for each input: one run of its ``main()``
+    harness a request (stdin -> nn_forward -> stdout)."""
+    outs = []
+    for x in xs:
+        out = subprocess.run([str(binary)], input=np.ascontiguousarray(x).tobytes(),
+                             capture_output=True, timeout=60, check=True).stdout
+        outs.append(np.frombuffer(out, dtype))
+    return np.stack(outs)
+
+
+def _c_arena_bytes(src: str, elem: int) -> int:
+    """Bytes of the one static arena an emitted engine declares."""
+    import re
+
+    (elems,) = re.findall(r"^static (?:float|int8_t) arena\[(\d+)\];$", src, re.M)
+    return int(elems) * elem
+
+
+def _train_lenet(torch, np):
+    """LeNet-5 trained on the card on the synthetic digits, the reference's
+    recipe (``tests/test_system.py::_short_train``): batches of 32 drawn
+    from make_dataset(512, seed=0), the port's AdamW (peak 2e-3, 10 warmup
+    steps, no weight decay), plain autograd through ``nn.forward``.
+    Returns (graph, params on the card, final loss)."""
+    from repro_torch.core import nn
+    from repro_torch.core.graph import lenet5
+    from repro_torch.data.mnist_synth import make_dataset
+    from repro_torch.train import optimizer
+    from repro_torch.tree import leaves, unflatten_like
+
+    g = lenet5()
+    params = nn.init_params(g, torch.Generator().manual_seed(0), device="cuda")
+    imgs, labels = make_dataset(512, seed=0)
+    imgs, labels = torch.from_numpy(imgs).cuda(), torch.from_numpy(labels).long().cuda()
+    cfg = optimizer.AdamWConfig(lr_peak=2e-3, warmup_steps=10,
+                                total_steps=LENET_TRAIN_STEPS, weight_decay=0.0)
+    state = optimizer.init_state(params)
+    rng = np.random.default_rng(0)
+    loss = None
+    for _ in range(LENET_TRAIN_STEPS):
+        idx = torch.from_numpy(rng.integers(0, len(imgs), 32)).cuda()
+        flat = [p.requires_grad_(True) for p in leaves(params)]
+        logits = nn.forward(g, params, imgs[idx])
+        y = labels[idx]
+        loss = (torch.logsumexp(logits, -1) - logits.gather(1, y[:, None])[:, 0]).mean()
+        grads = unflatten_like(params, torch.autograd.grad(loss, flat))
+        params, state, _ = optimizer.apply_adamw(cfg, params, grads, state)
+    params = {k: {kk: v.detach() for kk, v in p.items()} for k, p in params.items()}
+    return g, params, float(loss.detach())
+
+
+def c_export_phase(torch, np, report, engines) -> None:
+    """The paper's deliverable on the port: C engines emitted by
+    `repro_torch.core.export_c`, built with gcc and held to the card.
+
+    1. Each of the six CNN engines (same graph, plan and weights as served)
+       is emitted, built, and fed the first C_INPUTS requests it served:
+       int8 equal to the card's outputs (K2/K4, K2 heads) bit for bit, f32
+       within C_F32_TOL; the C arena's bytes equal the plan's.
+    2. The paper's flow: LeNet-5 trained on the card, fused, planned
+       (8,800 B), emitted and built; its C engine agrees with the card's
+       CNNEngine (K1, every counter set to 0 just before and read just
+       after) on make_dataset(16, seed=42) within LENET_C_TOL, and gets at
+       least C_MIN_CORRECT right.
+    gcc is the host compiler nvcc needs; without it the phase raises."""
+    import shutil
+
+    from repro_torch.core import export_c, fusion, planner
+    from repro_torch.core.graph import DAGGraph
+    from repro_torch.data.mnist_synth import make_dataset
+    from repro_torch.serve.cnn_engine import CNNEngine, CoalescePolicy
+
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        raise AssertionError("c_export: no gcc on PATH (nvcc's host compiler)")
+    gcc_version = subprocess.run([gcc, "--version"], capture_output=True, text=True,
+                                 timeout=60, check=True).stdout.splitlines()[0]
+    out_dir = ROOT / "build" / "c_engines"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    builds = {}
+    for name, e in engines.items():
+        dag = isinstance(e["fused"], DAGGraph)
+        if name.endswith("_int8"):
+            emit = export_c.generate_c_int8_dag if dag else export_c.generate_c_int8
+            src = emit(e["model"], e["plan"], with_main=True)
+        else:
+            emit = export_c.generate_c_dag if dag else export_c.generate_c
+            src = emit(e["fused"], e["plan"], e["model"], with_main=True)
+        builds[name] = (src, *_gcc_build(gcc, src, out_dir / f"{name}.c"))
+    results = {}
+    for name, (src, binary, proc) in builds.items():
+        _gcc_wait(name, proc)
+        e = engines[name]
+        xs, y_card = e["served"]
+        int8 = name.endswith("_int8")
+        y_c = _c_outputs(np, binary, xs, np.int8 if int8 else np.float32)
+        y_card = y_card.reshape(len(xs), -1)
+        c_bytes = _c_arena_bytes(src, 1 if int8 else 4)
+        if c_bytes != e["arena_bytes"] or c_bytes != e["plan"].arena_bytes:
+            raise AssertionError(f"c_export {name}: C arena {c_bytes} B, plan "
+                                 f"{e['plan'].arena_bytes} B, engine {e['arena_bytes']} B")
+        err = float(np.abs(y_c.astype(np.float64) - y_card).max())
+        if int8:
+            ok, tol = np.array_equal(y_c, y_card), "bit-exact"
+        else:
+            rtol, atol = C_F32_TOL[name]
+            ok, tol = np.allclose(y_c, y_card, rtol=rtol, atol=atol), [rtol, atol]
+        if not ok:
+            raise AssertionError(f"c_export {name}: C engine vs the card: max abs "
+                                 f"err {err} (tolerance {tol})")
+        results[name] = {"inputs": len(xs), "max_abs_err_vs_card": err,
+                         "tolerance": tol, "c_arena_bytes": c_bytes,
+                         "plan_arena_bytes": e["plan"].arena_bytes,
+                         "c_source_bytes": len(src)}
+
+    # -- the paper's flow: train -> fuse -> plan -> emit C -> gcc ---------------
+    t1 = time.perf_counter()
+    g, params, final_loss = _train_lenet(torch, np)
+    train_s = time.perf_counter() - t1
+    if not final_loss < 2.3:  # uniform over 10 classes is ln 10 = 2.30
+        raise AssertionError(f"c_export: LeNet-5 did not learn (loss {final_loss})")
+    fused = fusion.fuse(g)
+    fp = fusion.rename_params(fused, params)
+    plan = planner.plan_pingpong(g)
+    planner.verify_plan(plan)
+    if plan.activation_bytes(4) != 8800:
+        raise AssertionError(f"c_export: LeNet-5 plan {plan.activation_bytes(4)} B, "
+                             f"not the paper's 8,800")
+    src = export_c.generate_c(fused, plan, fp, with_main=True)
+    binary, proc = _gcc_build(gcc, src, out_dir / "lenet5_trained.c")
+    imgs, labels = make_dataset(16, seed=42)
+    engine = CNNEngine.from_graph(fused, plan, fp, device="cuda", buckets=BUCKETS,
+                                  policy=CoalescePolicy(max_batch=BUCKETS[-1]))
+    counters = _counters()
+    with engine:
+        for c in counters.values():
+            c.reset()
+        reqs, run = engine.serve(imgs)
+        counts = {k: c.count for k, c in counters.items()}
+    y_card = np.stack([r.y for r in reqs]).reshape(len(imgs), -1)
+    if counts["K1"] != 2 * run.batches or sum(counts.values()) != counts["K1"]:
+        raise AssertionError(f"c_export: trained LeNet-5 engine launches {counts} "
+                             f"for {run.batches} batches (want K1 2 a batch)")
+    _gcc_wait("lenet5_trained", proc)
+    y_c = _c_outputs(np, binary, imgs, np.float32)
+    err = float(np.abs(y_c.astype(np.float64) - y_card).max())
+    rtol, atol = LENET_C_TOL
+    if not np.allclose(y_c, y_card, rtol=rtol, atol=atol):
+        raise AssertionError(f"c_export: trained LeNet-5 C engine vs the card's "
+                             f"engine: max abs err {err}")
+    correct = int((y_c.argmax(-1) == labels).sum())
+    if correct < C_MIN_CORRECT:
+        raise AssertionError(f"c_export: trained LeNet-5 C engine gets {correct}/16")
+    report.emit({"phase": "c_export", "gcc": gcc_version, "engines": results,
+                 "paper_flow": {
+                     "train_steps": LENET_TRAIN_STEPS, "train_s": train_s,
+                     "final_loss": final_loss, "plan_bytes": plan.activation_bytes(4),
+                     "c_arena_bytes": _c_arena_bytes(src, 4),
+                     "k1_launches": counts["K1"], "batches": run.batches,
+                     "max_abs_err_c_vs_card": err, "tolerance": [rtol, atol],
+                     "correct": correct, "of": len(imgs)},
+                 "seconds": time.perf_counter() - t0})
 
 
 # Per kernel: (function name, type, depthwise, engines of the main path it
@@ -2202,6 +2414,7 @@ def main(argv=None) -> int:
     grad_checks(torch, np, report)
     engines = engine_phase(torch, np, report)
     residual_phase(torch, np, report)
+    c_export_phase(torch, np, report, engines)
     lm_counts = lm_engine_phase(torch, np, report)
     lm_strict_phase(torch, np, report)
     rwkv_drift_phase(torch, np, report)

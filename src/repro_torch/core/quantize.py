@@ -244,6 +244,18 @@ def requantize(acc_i32: torch.Tensor, multiplier) -> torch.Tensor:
     return v.clamp_(-128, 127).to(torch.int8)
 
 
+# The same math as C, for the emitted int8 engines (`repro_torch.core.
+# export_c`): nearbyintf rounds half to even under the default FE_TONEAREST
+# mode, as torch.round in :func:`requantize` does.
+REQUANT_C = """
+static int8_t rq(int32_t acc, float m) {
+  float v = nearbyintf((float)acc * m);
+  if (v > 127.0f) return 127;
+  if (v < -128.0f) return -128;
+  return (int8_t)v;
+}"""
+
+
 def requantize_per_channel(acc_i32: torch.Tensor, multipliers) -> torch.Tensor:
     """Per-output-channel requantization (depthwise convs): ``acc_i32`` is
     ``(..., C, H, W)``, ``multipliers`` ``(C,)``, broadcast over the spatial

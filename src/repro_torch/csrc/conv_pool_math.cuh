@@ -69,7 +69,8 @@ CP_HD int8_t requant(int32_t acc, float m) {
 }
 
 // The reference's requantize_per_channel (repro/core/quantize.py:210):
-// channel c of an (N, C, H, W) accumulator is requantized with m[c].
+// channel c of an (N, C, H, W) accumulator is requantized with m[c].  K4
+// computes requant(acc, m[c]) with m[c] read once, before its input loads.
 CP_HD int8_t requant_per_channel(int32_t acc, const float* m, int c) {
   return requant(acc, m[c]);
 }

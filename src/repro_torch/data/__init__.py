@@ -1,1 +1,2 @@
-"""Synthetic token pipeline (the port of ``repro/data/tokens.py``)."""
+"""Synthetic data: the token pipeline (``tokens.py``) and the procedural
+digit set (``mnist_synth.py``), the ports of ``repro/data/``."""

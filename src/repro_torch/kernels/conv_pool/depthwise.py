@@ -27,9 +27,10 @@ from repro_torch.kernels.conv_pool.kernel import (LaunchCounter, conv_pool_call,
                                                   output_hw)
 
 K3_LAUNCHES = LaunchCounter()
-# K3 computes one output a thread, at most K3_MAX_THREADS a CTA, and splits
-# channels (then pooled rows) until a call has one CTA per SM of an H100
-# (132), as long as each CTA keeps a warp of outputs.
+# K3 (and K4, its int8 sibling) computes one output a thread, at most
+# K3_MAX_THREADS a CTA, and splits channels (then pooled rows) until a call
+# has one CTA per SM of an H100 (132), as long as each CTA keeps a warp of
+# outputs.
 K3_TARGET_CTAS = 132
 K3_MAX_THREADS = 256
 K3_MIN_OUTPUTS = 32
@@ -37,7 +38,7 @@ K3_MIN_OUTPUTS = 32
 
 def k3_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
               pool_stride) -> Tuple[int, int]:
-    """(pooled rows, channels) per CTA of K3, one output a thread.
+    """(pooled rows, channels) per CTA of K3 and of K4, one output a thread.
 
     Starts from every pooled row and channel in one tile, then halves the
     channels (while more than one) or else the rows, first until a tile

@@ -3,8 +3,9 @@
 The port's counterpart of ``repro/kernels/conv_pool/kernel.py``: everything
 dtype-independent about a launch — geometry, the checks on device, dtype,
 shape and layout, the output (allocated, or an ``out=`` view into an arena
-bank), the tiling of the grid over pooled rows and output channels, and the
-launch counters — shared by the whole family, so the four cannot diverge:
+bank), the launch of a grid over pooled rows and output channels sized by
+the kernel's own tiling, and the launch counters — shared by the four
+conv+pool kernels, so they cannot diverge:
 
 * K1, dense float (``csrc/conv_pool.cu``), tiled by :func:`k1_tiling`;
 * K2, dense int8 (``csrc/conv_pool_q8.cu``, `repro_torch.quant.kernel_q8`),
@@ -12,7 +13,8 @@ launch counters — shared by the whole family, so the four cannot diverge:
 * K3, depthwise float (``csrc/conv_pool_dw.cu``,
   `repro_torch.kernels.conv_pool.depthwise`), tiled by its ``k3_tiling``;
 * K4, depthwise int8 (``csrc/conv_pool_dw_q8.cu``,
-  `repro_torch.quant.kernel_q8`).
+  `repro_torch.quant.kernel_q8`), tiled by ``k3_tiling`` too: one output a
+  thread, as K3.
 
 Layout is NCHW, as in the paper and PyTorch.  Each image of ``x`` and of
 the output must be contiguous; the batch stride is free, so the executors
@@ -30,12 +32,9 @@ import torch
 from repro_torch.core.graph import _pair
 from repro_torch.kernels import build
 
-# A CTA holds the weights of its tile of output channels in shared memory;
-# 227 KB is what one CTA may have on Hopper.
+# K1 and K2 hold the weights of their tile of output channels in shared
+# memory; 227 KB is what one CTA may have on Hopper.
 MAX_SMEM_BYTES = 232448
-# Aim for about this many CTAs (four per SM on 132 SMs) before tiling
-# several pooled rows into one CTA (K4).
-_TARGET_CTAS = 528
 # K1 and K2 split their output channels until a call has one CTA per SM of
 # an H100 (132), and tile pooled rows past that; each CTA computes at least
 # a warp's worth of conv values.
@@ -77,36 +76,6 @@ def output_hw(h: int, w: int, kh: int, kw: int, *, conv_stride, padding,
     oh = (h + 2 * ph_ - kh) // csh + 1
     ow = (w + 2 * pw_ - kw) // csw + 1
     return oh, ow, (oh - pkh) // psh + 1, (ow - pkw) // psw + 1
-
-
-def rows_per_cta(n: int, ph: int) -> int:
-    """Pooled rows per CTA: 1 until the grid would exceed the target CTA
-    count, then as many as keep it near that count."""
-    per_image = max(1, _TARGET_CTAS // max(n, 1))
-    return max(1, -(-ph // per_image))
-
-
-def cout_tile(cout: int, w_elems_per_cout: int, elem_bytes: int) -> int:
-    """Output channels per CTA: all of them when their weights fit in one
-    CTA's shared memory, else the fewest equal tiles that fit (the last may
-    be shorter).  Raises when one channel's weights alone do not fit."""
-    per = w_elems_per_cout * elem_bytes
-    most = MAX_SMEM_BYTES // per
-    if most < 1:
-        raise ValueError(f"{per} B of weights per output channel exceed a "
-                         f"CTA's shared memory ({MAX_SMEM_BYTES} B)")
-    tiles = -(-cout // most)
-    return -(-cout // tiles)
-
-
-def family_tiling(n, cin, h, w, cout, kh, kw, *, conv_stride, padding, pool_k,
-                  pool_stride, elem_bytes) -> Tuple[int, int]:
-    """(pooled rows, output channels) per CTA of K4: the fewest channel
-    tiles whose weights fit (:func:`cout_tile`), then :func:`rows_per_cta`."""
-    tile = cout_tile(cout, cin * kh * kw, elem_bytes)
-    _, _, ph, _ = output_hw(h, w, kh, kw, conv_stride=conv_stride, padding=padding,
-                            pool_k=pool_k, pool_stride=pool_stride)
-    return rows_per_cta(n * -(-cout // tile), ph), tile
 
 
 def _span(n: int, k: int, s: int) -> int:
@@ -294,8 +263,8 @@ def conv_pool_call(
     bias_dtype: torch.dtype,
     out: Optional[torch.Tensor] = None,
     depthwise: bool = False,
+    tiling,
     extra_args: tuple = (),
-    tiling=None,
 ) -> torch.Tensor:
     """Check, allocate and launch one fused conv+act+pool kernel.
 
@@ -304,11 +273,11 @@ def conv_pool_call(
     (Cout,), contiguous on the same device.  ``extra_args`` are passed after
     the strides: ctypes values (K2's requant multiplier) or tensors, passed
     as their device pointers (K4's per-channel multipliers).  ``tiling``
-    gives the tile sizes per CTA from the geometry, passed to the kernel in
-    order after the activation and pool flags: (pooled rows, output
-    channels) from :func:`family_tiling` when None, or the kernel's own
-    (K1's :func:`k1_tiling` and K2's :func:`k2_tiling` add the input
-    channels staged at a time).
+    is the kernel's own tiling: it gives the tile sizes per CTA from the
+    geometry, passed to the kernel in order after the activation and pool
+    flags — (pooled rows, output channels) from K3's and K4's ``k3_tiling``,
+    and K1's :func:`k1_tiling` and K2's :func:`k2_tiling` add the input
+    channels staged at a time.
     Raises on anything the kernel does not take; never falls back.
     """
     if x.device.type != "cuda":
@@ -346,13 +315,7 @@ def conv_pool_call(
         raise ValueError(f"{fn_name}: geometry gives an empty output")
     geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
                 pool_stride=pool_stride)
-    if tiling is None:
-        # The float kernels stage their weights as f32 (bf16 is widened),
-        # the int8 kernels as int8.
-        tiles = family_tiling(n, wcin, h, wd, cout, kh, kw, **geom,
-                              elem_bytes=1 if out_dtype == torch.int8 else 4)
-    else:
-        tiles = tiling(n, wcin, h, wd, cout, kh, kw, **geom)
+    tiles = tiling(n, wcin, h, wd, cout, kh, kw, **geom)
     if out is None:
         out = torch.empty((n, cout, ph, pw), dtype=out_dtype, device=x.device)
     elif (tuple(out.shape) != (n, cout, ph, pw) or out.dtype != out_dtype

@@ -20,7 +20,8 @@ by ``pkh·pkw``, as every int8 backend of the reference does.
 K4 (``_kernel_dw_q8``, ``fused_depthwise_conv_pool_q8``) is the depthwise
 sibling: groups = C, one f32 requant multiplier per channel (a ``(C,)``
 array; for an average pool each is divided, in numpy float32 on the host,
-by ``pkh·pkw``), ``csrc/conv_pool_dw_q8.cu`` on CUDA.
+by ``pkh·pkw``), ``csrc/conv_pool_dw_q8.cu`` on CUDA, one output a thread
+over K3's tiling (`repro_torch.kernels.conv_pool.depthwise.k3_tiling`).
 
 The plain versions compute the convolution in float64: PyTorch has no
 integer convolution on CUDA, and float64 is exact here (every partial sum is
@@ -37,6 +38,7 @@ import torch
 from repro_torch.core import nn
 from repro_torch.core.graph import _pair
 from repro_torch.core.quantize import int_conv2d, requantize, requantize_per_channel
+from repro_torch.kernels.conv_pool.depthwise import k3_tiling
 from repro_torch.kernels.conv_pool.kernel import LaunchCounter, conv_pool_call, k2_tiling
 
 K2_LAUNCHES = LaunchCounter()
@@ -211,7 +213,7 @@ def depthwise_conv_pool_q8(x, w, b, *, multiplier, ms=None, conv_stride=1,
         conv_stride=conv_stride, padding=padding, pool_k=pool_k,
         pool_stride=pool_stride, activation=activation, pool=pool,
         out_dtype=torch.int8, bias_dtype=torch.int32, out=out, depthwise=True,
-        extra_args=(ms,),
+        extra_args=(ms,), tiling=k3_tiling,
     )
 
 

@@ -11,8 +11,8 @@ of their launch.
 * the ReLU fold of the DAG executors: ``requant(max(acc, 0))`` equals
   ``max(requant(acc), 0)`` for non-negative multipliers, ties and
   saturation included, and K4 refuses a negative one;
-* the output-channel tile of the launch (K1's repair for weights larger
-  than one CTA's shared memory).
+* K4's launch at every depthwise step of the int8 engines: one kernel call,
+  handed K3's tiling (one output a thread) and the device multipliers.
 
 The reference's Pallas path is never used (``pl.Unblocked`` is gone on this
 jax); the CUDA kernels themselves are checked on the card by
@@ -182,25 +182,46 @@ def test_k4_avg_multiplier_is_formed_in_f32_on_the_host():
                                       pool="max", pool_k=1), np.float32([0.5] * 3))
 
 
-@pytest.mark.parametrize("cout,per,elem,want", [
-    (6, 25, 4, 6),  # LeNet conv1: one tile
-    (16, 150, 4, 16),  # LeNet conv2
-    (256, 256, 4, 128),  # MobileNet pw13 f32: 256 KB -> two tiles of 128
-    (256, 256, 1, 256),  # the same layer in int8: 64 KB, one tile
-    (256, 9, 4, 256),  # MobileNet dw13
-    (1000, 100, 4, 500),  # 400 KB -> two tiles of 500
-    (1000, 500, 4, 112),  # 2 MB -> nine tiles, the last of 104
-])
-def test_cout_tile_fits_shared_memory(cout, per, elem, want):
-    tile = launch.cout_tile(cout, per, elem)
-    assert tile == want
-    assert tile * per * elem <= launch.MAX_SMEM_BYTES
-    tiles = -(-cout // tile)
-    # the fewest tiles that fit, and no tile can shrink without adding one
-    assert (tiles - 1) * (launch.MAX_SMEM_BYTES // (per * elem)) < cout
-    assert -(-cout // (tile - 1 or 1)) > tiles or tile == 1
+@pytest.mark.parametrize("n", (1, 16))
+@pytest.mark.parametrize("case", NET_SHAPES, ids=[c[0] for c in NET_SHAPES])
+def test_k4_launches_once_with_k3_tiling(monkeypatch, case, n):
+    """K4's wrapper at a depthwise step of the int8 engines makes one kernel
+    call, handed the step's geometry, K3's tiling and then the device copy
+    of the per-channel multipliers."""
+    import ctypes
+    import warnings
 
+    from torch._subclasses.fake_tensor import FakeTensorMode
 
-def test_cout_tile_raises_when_one_channel_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        launch.cout_tile(4, launch.MAX_SMEM_BYTES // 4 + 1, 4)
+    from repro_torch.kernels.conv_pool.depthwise import k3_tiling
+
+    _, c, h, w, stride = case
+    calls = []
+
+    class Kernel:
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    lib = type("Lib", (), {"conv_pool_dw_q8": Kernel()})()
+    monkeypatch.setattr(launch.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    before = kernel_q8.K4_LAUNCHES.count
+    with FakeTensorMode(), warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        x = torch.empty(n, c, h, w, dtype=torch.int8, device="cuda")
+        wq = torch.empty(c, 1, 3, 3, dtype=torch.int8, device="cuda")
+        b = torch.empty(c, dtype=torch.int32, device="cuda")
+        ms = torch.empty(c, dtype=torch.float32, device="cuda")
+        y = kernel_q8.depthwise_conv_pool_q8(x, wq, b, multiplier=np.float32([0.5] * c),
+                                             ms=ms, conv_stride=stride, padding=1)
+    assert kernel_q8.K4_LAUNCHES.count - before == 1 and len(calls) == 1
+    args = [getattr(a, "value", a) for a in calls[0]]
+    geom = dict(conv_stride=stride, padding=(1, 1), pool_k=(1, 1), pool_stride=(1, 1))
+    ph, pw = launch.output_hw(h, w, 3, 3, **geom)[2:]
+    assert tuple(y.shape) == (n, c, ph, pw)
+    assert args[4:21] == [n, c, h, w, c, 3, 3, *stride, 1, 1, 1, 1, 1, 1, 1, 0]
+    assert tuple(args[21:23]) == k3_tiling(n, 1, h, w, c, 3, 3, **geom)
+    assert args[23:25] == [c * h * w, c * ph * pw]
+    assert isinstance(calls[0][25], ctypes.c_void_p) and len(calls[0]) == 27

@@ -78,6 +78,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/train/step.py",
             "src/repro_torch/train/loop.py",
             "src/repro_torch/data/tokens.py",
+            "src/repro_torch/data/mnist_synth.py",
+            "src/repro_torch/core/export_c.py",
             "src/repro_torch/checkpoint/ckpt.py",
             "src/repro_torch/ft/resilience.py",
             "src/repro_torch/launch/train.py"} <= names

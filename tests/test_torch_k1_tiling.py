@@ -1,5 +1,5 @@
-"""K1's tiling (``kernel.k1_tiling``), K3's (``depthwise.k3_tiling``) and the
-K2/K4 tiling they leave alone.
+"""K1's tiling (``kernel.k1_tiling``), K2's (``kernel.k2_tiling``), and K3's
+(``depthwise.k3_tiling``), which K4 takes too.
 
 K1 launches one grid a call: (tiles of pooled rows, images, tiles of output
 channels).  Here, on the main path's layers (LeNet-5's two steps, the
@@ -7,10 +7,10 @@ DS-CNN-KWS and MobileNet-V1 0.25 heads) at every bucket of the serving
 ladder, the tiling must fit one CTA's shared memory (bf16 is widened to f32
 as it is staged, so both dtypes need the same bytes), cover every output
 once, and spread the DS-CNN-KWS head over at least 32 CTAs at one image.
-K2-K4 share ``conv_pool_call``; K3 tiles one output a thread over at least
-one CTA per SM where the call has a warp of outputs for each; K2 takes its
-own ``k2_tiling`` (K1's, with int8 shares), whose values are pinned here,
-and K4 keeps the family's tiling, pinned too.
+K2-K4 share ``conv_pool_call``; K3 and K4 tile one output a thread over at
+least one CTA per SM where the call has a warp of outputs for each; K2
+takes its own ``k2_tiling`` (K1's, with int8 shares); the values of K2's and
+K4's are pinned here.
 """
 import warnings
 
@@ -103,8 +103,8 @@ def test_k1_tiling_fits_and_covers_every_output_once(step, n):
 
 @pytest.mark.parametrize("n,want_ctas", [(1, 64), (16, 128)])
 def test_k1_spreads_the_ds_cnn_kws_head_over_the_card(n, want_ctas):
-    """The family's tiling launches 1-16 CTAs of 64 threads here; at one
-    image K1's gives one CTA per output channel."""
+    """One tile of every channel would launch 1-16 CTAs of 64 threads here;
+    at one image K1's tiling gives one CTA per output channel."""
     geom = STEPS[KWS_HEAD]
     _, cin, H, W, cout, (kh, kw), kw_ = geom
     rows, ct, _ = launch.k1_tiling(n, cin, H, W, cout, kh, kw, **kw_)
@@ -216,8 +216,7 @@ def test_k1_chunked_input_keeps_one_launch(monkeypatch, cin, H, W, want):
 
 # K2's (pooled rows, channel tile, staged input channels) per CTA on the
 # main path, as k2_tiling gives them at N = 1 and 16: CIFAR's three steps
-# and the two heads in int8.  K4 keeps the family's tiling on every
-# depthwise step.
+# and the two heads in int8.
 K2_PINNED = {
     (("cifar", "conv1+maxpool1"), 1): (1, 3, 3),
     (("cifar", "conv1+maxpool1"), 16): (2, 16, 3),
@@ -232,6 +231,33 @@ K2_PINNED = {
 }
 
 
+# K4's tiling (K3's: pooled rows, channels) at N 1 and 16, by the depthwise
+# step's (C, H, W, stride): one output a thread, so DS-CNN-KWS's 64 x 25 x 5
+# runs on 256 CTAs at one image, MobileNet's 256 x 2 x 2 on 32.
+K4_PINNED = {
+    ((64, 25, 5, 1), 1): (7, 1), ((64, 25, 5, 1), 16): (25, 2),
+    ((8, 32, 32, 1), 1): (1, 1), ((8, 32, 32, 1), 16): (8, 1),
+    ((16, 32, 32, 2), 1): (2, 1), ((16, 32, 32, 2), 16): (16, 1),
+    ((32, 16, 16, 1), 1): (2, 1), ((32, 16, 16, 1), 16): (16, 1),
+    ((32, 16, 16, 2), 1): (4, 1), ((32, 16, 16, 2), 16): (8, 2),
+    ((64, 8, 8, 1), 1): (4, 1), ((64, 8, 8, 1), 16): (8, 4),
+    ((64, 8, 8, 2), 1): (4, 2), ((64, 8, 8, 2), 16): (4, 4),
+    ((128, 4, 4, 1), 1): (4, 2), ((128, 4, 4, 1), 16): (4, 8),
+    ((128, 4, 4, 2), 1): (2, 8), ((128, 4, 4, 2), 16): (2, 8),
+    ((256, 2, 2, 1), 1): (2, 8), ((256, 2, 2, 1), 16): (2, 16),
+}
+
+
+def _k4_tiling():
+    """The tiling K4's wrapper hands the launcher."""
+    seen = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernel_q8, "conv_pool_call", lambda *a, **kw: seen.update(kw))
+        kernel_q8.depthwise_conv_pool_q8(_x(q8=True), _x((4, 1, 3, 3), True), None,
+                                         multiplier=0.5)
+    return seen["tiling"]
+
+
 FAMILY_STEPS = sorted(key for key, g in STEPS.items() if key[0] != "lenet5")
 K2_STEPS = sorted(key for key in FAMILY_STEPS if not STEPS[key][0])
 
@@ -239,12 +265,11 @@ K2_STEPS = sorted(key for key in FAMILY_STEPS if not STEPS[key][0])
 @pytest.mark.parametrize("n", (1, 16))
 @pytest.mark.parametrize("step", FAMILY_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
 def test_k2_k4_tiling_is_unchanged(step, n):
-    """K4 keeps the family's tiling; K2's own tiling is pinned."""
+    """K4's tiling (K3's) and K2's own tiling are pinned."""
     dw, cin, H, W, cout, (kh, kw), kw_ = STEPS[step]
-    if dw:  # the family's tiling of K4 (int8 taps; f32 too): one tile of every channel
-        for elem in (4, 1):
-            assert launch.family_tiling(n, 1, H, W, cout, kh, kw, **kw_,
-                                        elem_bytes=elem) == (1, cout)
+    if dw:  # K4, one output a thread
+        key = (cout, H, W, kw_["conv_stride"][0])
+        assert _k4_tiling()(n, 1, H, W, cout, kh, kw, **kw_) == K4_PINNED[key, n]
     else:  # K2
         assert launch.k2_tiling(n, cin, H, W, cout, kh, kw, **kw_) == K2_PINNED[step, n]
 
@@ -279,11 +304,10 @@ def test_k2_tiling_fits_and_covers_every_output_once(step, n):
 @pytest.mark.parametrize("step,ctas", [(KWS_HEAD, 160), (("mobilenet", "pw13+pool"), 160)],
                          ids=["ds_cnn_kws", "mobilenet"])
 def test_k2_spreads_the_int8_heads_over_the_card(step, ctas):
-    """At 16 images the family's tiling launched 16 CTAs, one a head's
-    image; K2's splits the output channels until every SM has one."""
+    """At 16 images K2's tiling splits the output channels of each int8
+    head until every SM has a CTA (one tile of every channel gave 16)."""
     geom = STEPS[step]
     _, cin, H, W, cout, (kh, kw), kw_ = geom
-    assert launch.family_tiling(16, cin, H, W, cout, kh, kw, **kw_, elem_bytes=1)[1] == cout
     rows, ct, _ = launch.k2_tiling(16, cin, H, W, cout, kh, kw, **kw_)
     gx, gy, gz = _grid(geom, 16, rows, ct)
     assert gx * gy * gz == ctas >= launch.K1_TARGET_CTAS
@@ -342,12 +366,6 @@ def test_k2_chunked_input_keeps_one_launch(monkeypatch):
     assert calls[0][26] == pytest.approx(0.5)
 
 
-def test_family_tiling_tiles_rows_past_the_target():
-    """A large image at 16 images: K2's rows per CTA past 528 CTAs."""
-    assert launch.family_tiling(16, 4, 128, 128, 8, 3, 3, conv_stride=1, padding=0,
-                                pool_k=2, pool_stride=2, elem_bytes=1) == (2, 8)
-
-
 # K3's depthwise steps on the main path (DS-CNN-KWS and MobileNet-V1 0.25).
 K3_STEPS = sorted(key for key, g in STEPS.items()
                   if g[0] and key[0] in ("ds_cnn_kws", "mobilenet"))
@@ -378,14 +396,41 @@ def test_k3_tiling_gives_one_output_a_thread_over_the_card(step, n):
 
 @pytest.mark.parametrize("n,want,ctas", [(1, (7, 1), 256), (16, (25, 2), 512)])
 def test_k3_spreads_the_ds_cnn_kws_depthwise_steps_over_the_card(n, want, ctas):
-    """64 channels of 25 x 5: the family's tiling gave one image 25 CTAs
-    (one pooled row of every channel each, 320 outputs on 256 threads); K3
-    splits channels, then rows."""
+    """64 channels of 25 x 5: one pooled row of every channel a CTA would
+    give one image 25 CTAs of 320 outputs on 256 threads; K3 splits
+    channels, then rows."""
     geom = STEPS[("ds_cnn_kws", "dw1")]
     _, cin, H, W, cout, (kh, kw), kw_ = geom
-    assert launch.family_tiling(1, 1, H, W, cout, kh, kw, **kw_, elem_bytes=4) == (1, 64)
     rows, ct = depthwise.k3_tiling(n, cin, H, W, cout, kh, kw, **kw_)
     assert (rows, ct) == want
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    assert gx * gy * gz == ctas
+
+
+@pytest.mark.parametrize("n", BUCKETS)
+@pytest.mark.parametrize("step", K3_STEPS, ids=lambda s: f"{s[0]}/{s[1]}")
+def test_k4_tiling_gives_one_output_a_thread_over_the_card(step, n):
+    """K4's tiling, as its wrapper passes it, at every depthwise step of the
+    int8 engines and every bucket: at most 256 outputs a tile, every output
+    covered once, and 132 CTAs, or else a warp of outputs a tile."""
+    geom = STEPS[step]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    rows, ct = _k4_tiling()(n, 1, H, W, cout, kh, kw, **kw_)
+    _, _, _, pw = launch.output_hw(H, W, kh, kw, **kw_)
+    assert rows * ct * pw <= depthwise.K3_MAX_THREADS
+    assert _covers_once(geom, n, rows, ct)
+    gx, gy, gz = _grid(geom, n, rows, ct)
+    assert gx * gy * gz >= depthwise.K3_TARGET_CTAS or \
+        rows * ct * pw >= depthwise.K3_MIN_OUTPUTS
+
+
+@pytest.mark.parametrize("n,ctas", [(1, 256), (16, 512)])
+def test_k4_spreads_the_ds_cnn_kws_depthwise_steps_over_the_card(n, ctas):
+    """DS-CNN-KWS's int8 64 x 25 x 5 step: 256 CTAs at one image, where one
+    pooled row of every channel a CTA gave 25."""
+    geom = STEPS[("ds_cnn_kws", "dw1")]
+    _, cin, H, W, cout, (kh, kw), kw_ = geom
+    rows, ct = _k4_tiling()(n, 1, H, W, cout, kh, kw, **kw_)
     gx, gy, gz = _grid(geom, n, rows, ct)
     assert gx * gy * gz == ctas
 
@@ -397,12 +442,11 @@ def test_k3_spreads_the_ds_cnn_kws_depthwise_steps_over_the_card(n, want, ctas):
     (lambda: depthwise.depthwise_conv_pool(_x(), _x((4, 1, 3, 3)), None),
      depthwise.k3_tiling),
     (lambda: kernel_q8.depthwise_conv_pool_q8(_x(q8=True), _x((4, 1, 3, 3), True),
-                                              None, multiplier=0.5), None),
+                                              None, multiplier=0.5), depthwise.k3_tiling),
 ], ids=["K1", "K2", "K3", "K4"])
 def test_only_k1_takes_the_new_tiling(monkeypatch, call, want):
-    """K1's wrapper passes ``k1_tiling`` to the family's launcher, K2's
-    ``k2_tiling`` and K3's ``k3_tiling``; K4 passes none, so it keeps
-    ``family_tiling``."""
+    """K1's wrapper passes ``k1_tiling`` to the shared launcher, K2's
+    ``k2_tiling``, and K3's and K4's ``k3_tiling``: each kernel its own."""
     seen = {}
 
     def record(*args, **kwargs):
