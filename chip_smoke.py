@@ -29,7 +29,9 @@ against their plain PyTorch versions:
    1e-5, bf16 5e-2) and K4 (bit-exact, per-channel multipliers that make
    ties and saturation) on every depthwise shape of DS-CNN-KWS and
    MobileNet-V1 0.25 plus stride 2, 2x2 max and avg pools, no bias and no
-   ReLU, batches 1/8/16, and K3 with 5x5 and 3x1 filters; plus one call
+   ReLU, batches 1/8/16, the streaming row blocks (64 channels, 3-9 rows
+   of a width-5 map padded to 7, padding 0), and K3 with 5x5 and 3x1
+   filters; plus one call
    of each kernel through strided arena views, as the executors make
    them; K5 on the Llama-3.2-1B attention
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
@@ -60,6 +62,18 @@ against their plain PyTorch versions:
    the plan's per image (8,800 / 11,264 / 64,000 / 16,000 / 98,304 /
    24,576 B); the engines' span tracer gives the host time of each stage of
    a batch (coalesce, stage, dispatch, device, complete);
+   then streams keyword spotting (``stream_phase``): DS-CNN and DS-CNN-KWS,
+   f32 and int8, through ``StreamServer``, 4 streams opened at once and 256
+   synthetic MFCC frames each pushed in turn, against the sliding
+   full-window oracle on the card's plain path (int8 bit-exact at every
+   emission, f32 at 1e-4, smoothed labels equal), K3 or K4 12 launches an
+   emission, 4 an open, 0 a non-emitting frame, ring state and ring arena
+   bytes pinned; push µs (p50 / p99), µs a frame against a batch-1 full
+   recompute, and one profiled emission recorded; and times each compiled
+   segment of the five report workloads, f32 and int8, with CUDA events
+   (``report_phase``, `repro_torch.obs.report.workload_report`): each
+   arena timeline's peak equal to its plan's bytes, DS-CNN's 2,539,840
+   MACs;
 4. runs one batch of 16 of ``residual_cifar`` (joins and branches) through
    the DAG executor in f32 and int8 against the CPU path;
 5. emits C (``repro_torch.core.export_c``) for each of the six engines,
@@ -188,6 +202,22 @@ DW_EXTRA = [
 ]
 # K3 filters that are not 3x3, (kernel, padding): its loop over taps
 K3_OTHER_FILTERS = [(5, 2), ((3, 1), (1, 0))]
+# Streaming keyword spotting (``stream_phase``): on each net, f32 and int8,
+# STREAMS streams opened at once take STREAM_FRAMES frames each, pushed in
+# turn (one frame a stream a tick).
+STREAM_NETS = ("ds_cnn", "ds_cnn_kws")
+STREAMS, STREAM_FRAMES = 4, 256
+STREAM_F32_TOL = 1e-4  # rtol = atol, tests/test_streaming.py:157
+FRAME_PERIOD_MS = 20.0  # one 10-value MFCC frame every 20 ms (examples/stream_kws.py)
+# (ring arena bytes, ring state bytes) by (net, bytes an element)
+STREAM_BYTES = {("ds_cnn", 1): (65450, 53930), ("ds_cnn", 4): (261800, 215720),
+                ("ds_cnn_kws", 1): (57770, 45290), ("ds_cnn_kws", 4): (231080, 181160)}
+# K3 (f32) or K4 (int8) launches: 4 depthwise layers x (new rows, top patch,
+# bottom patch) an emission; 4 to open a stream (the full-window warm start)
+STREAM_DW_PER_EMISSION, STREAM_DW_PER_OPEN = 12, 4
+FULL_RECOMPUTE_CALLS = 100  # batch-1 DagArenaExecutor calls, the comparison
+REPORT_ITERS = 5  # timed_segments: best of this many runs a segment
+PCTS = (("p50", 50), ("p99", 99))
 BUCKETS = (1, 2, 4, 8, 16)
 N_REQUESTS, BURST = 64, 8
 DAG_F32_TOL = 1e-4  # rtol = atol; tests/test_rect_avgpool.py's for MobileNet
@@ -511,16 +541,37 @@ def _dw_steps(net):
             if s.layer.kind == "DepthwiseConv2d"]
 
 
+def _stream_row_blocks():
+    """(C, H, W) of every depthwise row block the streaming executor runs on
+    ds_cnn and ds_cnn_kws: the new rows and both edge patches of each
+    depthwise ring, padded by 1 on W and run at padding 0."""
+    from repro_torch.core import graph, streaming
+
+    blocks = set()
+    for net in STREAM_NETS:
+        for r in streaming.plan_streaming(getattr(graph, net)()).rings:
+            if r.kind != "DepthwiseConv2d":
+                continue
+            for rows in {r.new_rows, r.top, r.bottom} - {0}:
+                blocks.add((r.channels, (rows - 1) * r.stride + r.kernel,
+                            r.width + 2 * r.padding))
+    return sorted(blocks)
+
+
 def dw_cases():
-    """(label, C, H, W, stride, pool_k, pool_stride, pool, activation, bias)
-    for K3/K4: every depthwise step of both nets (as the executors run it,
-    its ReLU folded), then DW_EXTRA."""
+    """(label, C, H, W, stride, padding, pool_k, pool_stride, pool,
+    activation, bias) for K3/K4: every depthwise step of both nets (as the
+    executors run it, its ReLU folded), DW_EXTRA, then the streaming row
+    blocks (padding 0)."""
     cases = []
     for net in ("ds_cnn_kws", "mobilenet_v1"):
         for name, layer, (c, h, w) in _dw_steps(net):
-            cases.append((f"{net}/{name}", c, h, w, layer.stride[0], 1, 1, "max",
+            cases.append((f"{net}/{name}", c, h, w, layer.stride[0], 1, 1, 1, "max",
                           "relu", True))
-    cases += [(f"extra{i}", *e) for i, e in enumerate(DW_EXTRA)]
+    cases += [(f"extra{i}", e[0], e[1], e[2], e[3], 1, *e[4:])
+              for i, e in enumerate(DW_EXTRA)]
+    cases += [(f"stream/{c}x{h}x{w}", c, h, w, 1, 0, 1, 1, "max", "relu", True)
+              for c, h, w in _stream_row_blocks()]
     return cases
 
 
@@ -540,8 +591,8 @@ def dw_checks(torch, np, report) -> None:
 
     worst = {"f32": 0.0, "bf16": 0.0}
     n3 = n4 = ties = saturated = 0
-    for ci, (label, c, h, w, s, pk, ps, pool, act, bias) in enumerate(dw_cases()):
-        geom = dict(conv_stride=s, padding=1, pool_k=pk, pool_stride=ps,
+    for ci, (label, c, h, w, s, pad, pk, ps, pool, act, bias) in enumerate(dw_cases()):
+        geom = dict(conv_stride=s, padding=pad, pool_k=pk, pool_stride=ps,
                     activation=act, pool=pool)
         for n in DW_BATCHES:
             rng = np.random.default_rng(5000 + 10 * ci + n)
@@ -906,6 +957,282 @@ def residual_phase(torch, np, report) -> None:
                  "int8_bit_exact_vs_cpu_simulator": True, "k1_launches": k1,
                  "k2_launches": k2, "arena_bytes_per_image":
                  {"f32": plan.arena_elems * 4, "int8": plan_q.arena_elems}})
+
+
+def synthetic_mfcc(np, n_frames, seed, f=3.0):
+    """A fake utterance: sine-modulated cepstral noise, (n, 1, 10) f32 (the
+    function of ``examples/stream_kws.py``)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_frames)[:, None, None] / n_frames
+    env = np.sin(np.pi * t) * np.cos(2 * np.pi * f * t)
+    return np.asarray(env * rng.standard_normal((n_frames, 1, 10)), np.float32)
+
+
+def _state_bytes(state) -> int:
+    """Device bytes a stream's ring state holds: the storage behind its
+    input ring and every layer ring."""
+    tensors = [state["frames"], *state["rings"].values()]
+    return sum(t.untyped_storage().nbytes() for t in tensors)
+
+
+def _stream_push_times(torch, np, srv, frames):
+    """Push ``frames`` into one fresh warm stream: (host µs of each push,
+    emitted flags, µs a frame over the whole run, the last synchronize
+    included)."""
+    sid = "timed"
+    srv.open(sid)
+    for t in range(8):  # warm the stream's own tensors
+        srv.push(sid, frames[t])
+    torch.cuda.synchronize()
+    times, emitted = [], []
+    t_start = time.perf_counter()
+    for fr in frames:
+        t0 = time.perf_counter()
+        out = srv.push(sid, fr)
+        times.append((time.perf_counter() - t0) * 1e6)
+        emitted.append(out is not None)
+    torch.cuda.synchronize()
+    per_frame_us = (time.perf_counter() - t_start) * 1e6 / len(frames)
+    srv.close(sid)
+    return np.asarray(times), np.asarray(emitted), per_frame_us
+
+
+def _emission_profile(torch, srv, frames):
+    """One emission of a warm stream under the profiler, a non-emitting
+    push then an emitting one: kernel and memcpy records, K3/K4 device µs,
+    all device µs."""
+    sid = "profiled"
+    srv.open(sid)
+    srv.push(sid, frames[0])
+    srv.push(sid, frames[1])
+
+    def two():
+        assert srv.push(sid, frames[2]) is None
+        assert srv.push(sid, frames[3]) is not None
+
+    _, events, _ = kernel_events(torch, two, two)
+    srv.close(sid)
+    kern = [ev for ev in events if not ev.key.startswith(("Memcpy", "Memset"))]
+    n_kern = sum(ev.count for ev in kern)
+    return {"kernel_records": n_kern,
+            "memcpy_records": sum(ev.count for ev in events) - n_kern,
+            "dw_kernel_device_us": sum(ev.self_device_time_total for ev in kern
+                                       if "conv_pool_dw" in ev.key),
+            "device_us": sum(ev.self_device_time_total for ev in events)}
+
+
+def _full_recompute(torch, np, g, params_cpu, int8, rng):
+    """The per-frame cost without streaming: one batch-1 call of the
+    DagArenaExecutor on the fused graph's plan, its output downloaded, as a
+    frame's classification needs (host µs: mean and p50; device µs from the
+    profiler)."""
+    from repro_torch.core import fusion, pingpong, quantize, schedule
+    from repro_torch.quant import exec as qexec
+
+    fused = schedule.fuse_dag_priced(g)
+    p_fused = fusion.rename_params(fused, params_cpu)
+    in_shape = tuple(g.nodes[0].layer.shape)
+    x = torch.as_tensor(rng.standard_normal((1, *in_shape)), dtype=torch.float32)
+    if int8:
+        calib = torch.as_tensor(rng.standard_normal((8, *in_shape)), dtype=torch.float32)
+        qmf = quantize.quantize_dag(fused, p_fused, calib)
+        ex, params = qexec.make_int8_executor(qmf, schedule.plan_dag(g, io_dtype_bytes=1),
+                                              device="cuda")
+        x = quantize.quantize_input(qmf, x)
+    else:
+        ex = pingpong.make_dag_executor(fused, schedule.plan_dag(g))
+        params = {k: {kk: v.cuda() for kk, v in p.items()} for k, p in p_fused.items()}
+    x = x.cuda()
+
+    def call():
+        return ex(params, x).cpu()
+
+    for _ in range(5):
+        call()
+    times = []
+    for _ in range(FULL_RECOMPUTE_CALLS):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e6)
+    dev = device_ms(torch, lambda: ex(params, x), iters=20)
+    return {"us_mean": float(np.mean(times)), "us_p50": float(np.percentile(times, 50)),
+            "device_us": None if dev is None else dev * 1e3}
+
+
+def stream_phase(torch, np, report) -> list:
+    """Streaming keyword spotting on the card through ``StreamServer``:
+    ds_cnn and ds_cnn_kws, f32 and int8, STREAMS interleaved streams of
+    STREAM_FRAMES frames, held against the sliding full-window oracle on the
+    card's plain path (``nn.forward_dag`` / ``simulate_int8_dag_forward``,
+    each stream's windows one batch): int8 bit-exact at every emission and
+    every non-emitting push ``None``, f32 within STREAM_F32_TOL, the int8
+    emissions' smoothed labels (``PosteriorSmoother``, window 3, mean and
+    vote) those of the oracle's.  Launches pinned (K3 or K4: 12 an emission,
+    4 an open, 0 a non-emitting frame; no other kernel), ring state and
+    arena bytes pinned; push times, the full recompute and one profiled
+    emission recorded."""
+    from repro_torch.core import graph, nn, quantize, streaming
+    from repro_torch.serve.cnn_engine import StreamServer
+
+    counters = _counters()
+    rows = []
+    for ni, net in enumerate(STREAM_NETS):
+        g = getattr(graph, net)()
+        params = nn.init_params(g, torch.Generator().manual_seed(20 + ni), device="cpu")
+        calib = torch.from_numpy(synthetic_mfcc(np, 49 * 8, 90 + ni).reshape(8, 1, 49, 10))
+        qm = quantize.quantize_dag(g, params, calib)
+        for int8 in (False, True):
+            dtype, dw, db = ("int8", "K4", 1) if int8 else ("f32", "K3", 4)
+            utts = [synthetic_mfcc(np, STREAM_FRAMES, 100 * ni + i, f=3.0 + 2 * i)
+                    for i in range(STREAMS)]
+            if int8:
+                srv = StreamServer.from_quantized(qm, device="cuda")
+                frames = [quantize.quantize_input(qm, torch.from_numpy(u)).numpy()
+                          for u in utts]
+                oracle = lambda _, w: quantize.simulate_int8_dag_forward(qm, w)  # noqa: E731
+            else:
+                srv = StreamServer.from_graph(g, params, device="cuda")
+                frames = utts
+                oracle = lambda p, w: nn.forward_dag(g, p, w)  # noqa: E731
+            splan = srv.executor.splan
+            want_arena, want_state = STREAM_BYTES[(net, db)]
+            if (splan.plan.arena_bytes, splan.ring_elems * db) != (want_arena, want_state):
+                raise AssertionError(f"stream {net} {dtype}: arena / state "
+                                     f"{splan.plan.arena_bytes} / {splan.ring_elems * db} B")
+            # -- the served run: every count set to 0 just before, read after
+            sids = [f"s{i}" for i in range(STREAMS)]
+            for c in counters.values():
+                c.reset()
+            for sid in sids:
+                srv.open(sid)
+            opened = {k: c.count for k, c in counters.items()}
+            for c in counters.values():
+                c.reset()
+            got = {sid: [] for sid in sids}
+            bad = None
+            for t in range(STREAM_FRAMES):
+                for i, sid in enumerate(sids):
+                    before = counters[dw].count
+                    out = srv.push(sid, frames[i][t])
+                    launched = counters[dw].count - before
+                    want = STREAM_DW_PER_EMISSION if out is not None else 0
+                    if launched != want and bad is None:
+                        bad = f"{launched} launches on frame {t} of {sid} (want {want})"
+                    got[sid].append(out)
+            counts = {k: c.count for k, c in counters.items()}
+            torch.cuda.synchronize()
+            if bad is not None:
+                raise AssertionError(f"stream {net} {dtype}: {dw} {bad}")
+            emissions = sum(o is not None for sid in sids for o in got[sid])
+            want_counts = {k: 0 for k in counters}
+            want_counts[dw] = STREAM_DW_PER_EMISSION * emissions
+            want_open = {k: 0 for k in counters}
+            want_open[dw] = STREAM_DW_PER_OPEN * STREAMS
+            if counts != want_counts or opened != want_open:
+                raise AssertionError(f"stream {net} {dtype}: launches {counts} for "
+                                     f"{emissions} emissions (want {want_counts}), "
+                                     f"opens {opened} (want {want_open})")
+            state_bytes = {sid: _state_bytes(srv._states[sid]) for sid in sids}
+            if set(state_bytes.values()) != {want_state}:
+                raise AssertionError(f"stream {net} {dtype}: ring state on the card "
+                                     f"{state_bytes} B, want {want_state}")
+            # -- against the sliding full-window oracle on the card
+            worst = 0.0
+            for i, sid in enumerate(sids):
+                ref, ref_em = streaming.sliding_window_reference(
+                    g, srv.params, frames[i], forward_fn=oracle, device="cuda")
+                if [o is not None for o in got[sid]] != ref_em.tolist():
+                    raise AssertionError(f"stream {net} {dtype} {sid}: emissions on "
+                                         f"other frames than the oracle's")
+                mine, theirs = np.stack([o for o in got[sid] if o is not None]), ref[ref_em]
+                if int8:
+                    if mine.dtype != np.int8 or not np.array_equal(mine, theirs):
+                        raise AssertionError(f"stream {net} int8 {sid}: not bit-exact "
+                                             f"against the sliding oracle")
+                    for mode in ("mean", "vote"):
+                        sm_a, sm_b = (streaming.PosteriorSmoother(window=3, mode=mode)
+                                      for _ in range(2))
+                        if [sm_a.update(e) for e in mine] != [sm_b.update(e) for e in theirs]:
+                            raise AssertionError(f"stream {net} int8 {sid}: smoothed "
+                                                 f"labels ({mode}) differ")
+                else:
+                    err = float(np.abs(mine - theirs).max())
+                    worst = max(worst, err)
+                    if not np.isfinite(mine).all() or not np.allclose(
+                            mine, theirs, rtol=STREAM_F32_TOL, atol=STREAM_F32_TOL):
+                        raise AssertionError(f"stream {net} f32 {sid}: max abs err {err} "
+                                             f"against the sliding oracle")
+            for sid in sids:
+                srv.close(sid)
+            # -- recorded, not gated
+            push_us, em, per_frame_us = _stream_push_times(torch, np, srv, frames[0])
+            prof = _emission_profile(torch, srv, frames[1])
+            full = _full_recompute(torch, np, g, params, int8, np.random.default_rng(ni))
+            row = {"phase": "stream", "net": net, "dtype": dtype, "streams": STREAMS,
+                   "frames_per_stream": STREAM_FRAMES, "emissions": emissions,
+                   "emit_stride": splan.emit_stride,
+                   **({"bit_exact": True, "smoothed_labels_equal": True} if int8 else
+                      {"max_abs_err": worst, "tolerance": STREAM_F32_TOL}),
+                   f"{dw.lower()}_launches": counts[dw],
+                   f"{dw.lower()}_per_emission": STREAM_DW_PER_EMISSION,
+                   f"{dw.lower()}_per_open": opened[dw] // STREAMS,
+                   "ring_arena_bytes": splan.plan.arena_bytes,
+                   "ring_state_bytes_on_card": want_state, "prewarm_s": srv.prewarm_s,
+                   "push_us_emitting": {q: _pct(np, push_us[em], n) for q, n in PCTS},
+                   "push_us_not_emitting": {q: _pct(np, push_us[~em], n)
+                                            for q, n in PCTS},
+                   "us_per_frame": per_frame_us,
+                   "full_recompute_us_per_frame": full["us_mean"],
+                   "full_recompute_us_p50": full["us_p50"],
+                   "full_recompute_device_us": full["device_us"],
+                   "full_over_stream": full["us_mean"] / per_frame_us,
+                   "emission_profile": prof,
+                   # the device's busy share of an emitting push (p50)
+                   "device_share_of_emitting_push":
+                       prof["device_us"] / _pct(np, push_us[em], 50),
+                   "frame_period_ms": FRAME_PERIOD_MS,
+                   "tf32": torch.backends.cudnn.allow_tf32}
+            report.emit(row)
+            rows.append(row)
+    return rows
+
+
+def report_phase(torch, np, report) -> list:
+    """``obs.report.workload_report(timed=True)`` for the five workloads in
+    f32 and int8 on the card: the arena timeline's peak equals the plan's
+    bytes for each, ds_cnn totals 2,539,840 MACs, every segment timed with
+    CUDA events; the three slowest segments and the three furthest from
+    their MAC share printed."""
+    from repro_torch.obs.report import WORKLOADS, workload_report
+
+    def brief(seg_rows):
+        return [{"segment": f"{x['first']}..{x['last']}", "kind": x["kind"],
+                 "us": x["measured_s"] * 1e6, "measured_frac": x["measured_frac"],
+                 "model_frac": x["model_frac"]} for x in seg_rows[:3]]
+
+    rows = []
+    for name in WORKLOADS:
+        for int8 in (False, True):
+            r = workload_report(name, int8=int8, timed=True, iters=REPORT_ITERS,
+                                device="cuda")
+            arena, seg, timing = r["arena"], r["segments"], r["timing"]
+            if arena["peak_bytes"] != arena["arena_bytes"]:
+                raise AssertionError(f"report {name} {r['dtype']}: timeline peak "
+                                     f"{arena['peak_bytes']} != {arena['arena_bytes']} B")
+            if name == "ds_cnn" and seg["total_macs"] != 2_539_840:
+                raise AssertionError(f"report ds_cnn: {seg['total_macs']} MACs")
+            if timing["clock"] != "cuda-events" or len(timing["by_time"]) != seg["n_segments"]:
+                raise AssertionError(f"report {name} {r['dtype']}: {timing['clock']}, "
+                                     f"{len(timing['by_time'])} timed segments")
+            row = {"phase": "report", "workload": name, "dtype": r["dtype"],
+                   "arena_bytes": arena["arena_bytes"], "peak_bytes": arena["peak_bytes"],
+                   "n_segments": seg["n_segments"], "segments_by_kind": seg["segments_by_kind"],
+                   "total_macs": seg["total_macs"], "total_us": timing["total_s"] * 1e6,
+                   "slowest": brief(timing["by_time"]),
+                   "largest_discrepancy": brief(timing["by_discrepancy"])}
+            report.emit(row)
+            rows.append(row)
+    return rows
 
 
 def _gcc_build(gcc, src: str, path: Path):
@@ -2413,6 +2740,8 @@ def main(argv=None) -> int:
     k7_checks(torch, np, report)
     grad_checks(torch, np, report)
     engines = engine_phase(torch, np, report)
+    stream_phase(torch, np, report)
+    report_phase(torch, np, report)
     residual_phase(torch, np, report)
     c_export_phase(torch, np, report, engines)
     lm_counts = lm_engine_phase(torch, np, report)

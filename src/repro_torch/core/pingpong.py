@@ -24,9 +24,9 @@ DAG graphs, on the reordered plans of `repro_torch.core.schedule.plan_dag`
 * :class:`DagArenaExecutor` (:func:`make_dag_executor`) — the executor:
   one ``(N, arena_elems)`` arena per batch size; each step reads its inputs
   as views of their planned buffers and writes its own buffer in place.
-  Steps run one after the other in plan order: the isomorphic branches the
-  reference batches into one ``vmap`` run apart, and the segment partition
-  is kept for the stats;
+  Steps run one after the other in plan order, segment by segment through
+  :func:`apply_dag_segment`: the isomorphic branches the reference batches
+  into one ``vmap`` run apart;
 * :func:`run_batch_dag_with_arena` — N images through one DAG plan.
 
 The sequential executors are parametric in ``apply_layer_fn(layer, params,
@@ -349,6 +349,27 @@ def run_step(apply_node_fn, step, p, xs, out: Optional[torch.Tensor] = None):
     return y
 
 
+def apply_dag_segment(steps, seg, params, vals, *, apply_node_fn=apply_node,
+                      out: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
+    """Run one compiled segment's steps; returns the values they produced,
+    by step name.
+
+    ``steps`` maps step name → schedule step, ``vals`` holds the values the
+    segment reads, and ``out(name)``, when given, is the view a step writes
+    (its planned buffer).  Segments tile the schedule, and a segment's names
+    are in schedule order, so running the segments in turn is running the
+    plan: :class:`DagArenaExecutor` does, and `repro_torch.obs.report` times
+    one segment at a time through the same function.
+    """
+    produced: Dict[str, torch.Tensor] = {}
+    for name in seg.names:
+        s = steps[name]
+        xs = [produced[src] if src in produced else vals[src] for src in s.inputs]
+        produced[name] = run_step(apply_node_fn, s, params.get(name, {}), xs,
+                                  out=None if out is None else out(name))
+    return produced
+
+
 def _layer_shape(step, in_shape):
     """A step's output shape before its views (what its kernel writes)."""
     if isinstance(step.layer, Input):
@@ -418,6 +439,9 @@ class DagArenaExecutor(ArenaExecutor):
         steps = {s.name: s for s in mat.steps}
         self.bufs = {b.name: b for b in plan.buffers}
         self.order = [steps[n] for n in order]
+        self.steps = steps
+        if [n for seg in self.segments for n in seg.names] != list(order[1:]):
+            raise ValueError("the segments do not tile the plan's schedule")
         self.output = mat.output
         self.layer_shapes = {s.name: _layer_shape(s, self.in_shape)
                              for s in self.order}
@@ -448,10 +472,13 @@ class DagArenaExecutor(ArenaExecutor):
         cur.copy_(xb)
         vals = {first.name: run_step(self.apply_node_fn, first, {}, [cur], out=cur)
                 if first.views else cur}
-        for s in self.order[1:]:
-            dst = self._buf(arena, s.name, self.layer_shapes[s.name])
-            vals[s.name] = run_step(self.apply_node_fn, s, params.get(s.name, {}),
-                                    [vals[src] for src in s.inputs], out=dst)
+
+        def dst(name):
+            return self._buf(arena, name, self.layer_shapes[name])
+
+        for seg in self.segments:
+            vals.update(apply_dag_segment(self.steps, seg, params, vals,
+                                          apply_node_fn=self.apply_node_fn, out=dst))
         y = vals[self.output].clone()
         return y if nbatch else y[0]
 

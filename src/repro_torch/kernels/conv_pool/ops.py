@@ -42,9 +42,9 @@ def fused_conv_pool(
     """
     squeeze = x.ndim == 3
     if squeeze:
-        x = x[None]
+        x = x.unsqueeze(0)
         if out is not None:
-            out = out[None]
+            out = out.unsqueeze(0)
     geom = dict(conv_stride=conv_stride, padding=padding, pool_k=pool_k,
                 pool_stride=pool_stride, activation=activation, pool=pool)
     if x.device.type == "cpu":
@@ -54,4 +54,4 @@ def fused_conv_pool(
         y = _k.conv_pool(x, w, b, out=out, **geom)
     else:
         raise ValueError(f"fused_conv_pool: no implementation for {x.device}")
-    return y[0] if squeeze else y
+    return y.squeeze(0) if squeeze else y

@@ -138,8 +138,7 @@ def apply_int8_layer(layer, p, x: torch.Tensor,
         acc = int_conv2d(x, p["w"], layer.stride, layer.padding)
         if "b" in p:
             bias = p["b"]
-            acc = acc + (bias[:, None, None] if acc.ndim == 3
-                         else bias[None, :, None, None])
+            acc = acc + bias.view(-1, 1, 1)  # broadcasts over a batch too
         y = requantize(acc, p["m"])
     elif isinstance(layer, (Linear, FusedLinear)):
         acc = int_linear(x, p["w"])
@@ -181,6 +180,26 @@ def make_int8_executor(qm: QuantizedModel, plan: MemoryPlan, *,
         ex = pingpong.make_scan_executor(qm.graph, plan,
                                          apply_layer_fn=apply_int8_layer)
     return ex, params
+
+
+def make_int8_streaming_executor(qm: QuantizedModel, splan=None, *, device="cuda"):
+    """``(StreamingExecutor, params)``: the int8 per-frame streaming step on
+    ``device``, the third execution regime.
+
+    `repro_torch.core.streaming` supplies the ring-buffer machinery; this
+    wires in :func:`apply_int8_node` (every depthwise row block on K4 for a
+    CUDA state) and the int8 params.  Int8 sums are exact, so the streamed
+    rows are bit-exact against the sliding full-window oracle
+    ``quantize.simulate_int8_dag_forward``, warm-up included.  ``splan``
+    defaults to ``plan_streaming(qm.graph, io_dtype_bytes=1)``.
+    """
+    from repro_torch.core import streaming
+
+    if splan is None:
+        splan = streaming.plan_streaming(qm.graph, io_dtype_bytes=1)
+    ex = streaming.StreamingExecutor(qm.graph, splan, apply_node_fn=apply_int8_node,
+                                     dtype=torch.int8, device=device)
+    return ex, int8_params(qm, device)
 
 
 def _check_int8(x: torch.Tensor) -> None:

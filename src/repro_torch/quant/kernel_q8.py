@@ -111,9 +111,9 @@ def fused_conv_pool_q8(
     given, receives the result (on CUDA the kernel writes it directly)."""
     squeeze = x.ndim == 3
     if squeeze:
-        x = x[None]
+        x = x.unsqueeze(0)
         if out is not None:
-            out = out[None]
+            out = out.unsqueeze(0)
     geom = dict(multiplier=multiplier, conv_stride=conv_stride,
                 padding=padding, pool_k=pool_k, pool_stride=pool_stride,
                 activation=activation, pool=pool)
@@ -124,7 +124,7 @@ def fused_conv_pool_q8(
         y = conv_pool_q8(x, w, b, out=out, **geom)
     else:
         raise ValueError(f"fused_conv_pool_q8: no implementation for {x.device}")
-    return y[0] if squeeze else y
+    return y.squeeze(0) if squeeze else y
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +238,9 @@ def fused_depthwise_conv_pool_q8(
     :func:`depthwise_conv_pool_q8`)."""
     squeeze = x.ndim == 3
     if squeeze:
-        x = x[None]
+        x = x.unsqueeze(0)
         if out is not None:
-            out = out[None]
+            out = out.unsqueeze(0)
     geom = dict(multiplier=multiplier, conv_stride=conv_stride,
                 padding=padding, pool_k=pool_k, pool_stride=pool_stride,
                 activation=activation, pool=pool)
@@ -255,4 +255,4 @@ def fused_depthwise_conv_pool_q8(
         y = depthwise_conv_pool_q8(x, w, b, ms=ms, out=out, **geom)
     else:
         raise ValueError(f"fused_depthwise_conv_pool_q8: no implementation for {x.device}")
-    return y[0] if squeeze else y
+    return y.squeeze(0) if squeeze else y

@@ -24,6 +24,9 @@ and their arenas resident across steps.
 * **Coalescing policy** — take the first queued request, then keep draining
   until ``max_batch`` requests are in hand or ``max_wait_s`` has passed.
 
+:class:`StreamServer` is the session mode of keyword spotting: one ring state
+per open audio stream, one MFCC frame a push (`repro_torch.core.streaming`).
+
 Numerics are the wrapped executor's: engine outputs equal the executor's at
 the same bucket, and padding lanes never change a real lane.  There is no
 CUDA graph capture yet: a replay would not tick the kernels' launch
@@ -474,3 +477,124 @@ class CNNEngine:
             for r in batch:
                 self.metrics.observe("engine.latency_s", r.latency_s)
             self._inflight.task_done()
+
+
+# ---------------------------------------------------------------------------
+# Streaming session mode (per-frame KWS serving)
+# ---------------------------------------------------------------------------
+
+
+class StreamServer:
+    """Session-mode serving for the streaming executor.
+
+    A KWS deployment holds one open audio stream per client and consumes
+    one MFCC frame at a time, so the unit of serving state is a *session*:
+    this server keeps one ring state per stream id on ``device``, and every
+    stream shares the one prewarmed per-frame step
+    (``StreamingExecutor.aot_step``, run at construction).  Opening a stream
+    costs one ``init_state`` (a full-window pass); ``push`` uploads one frame
+    and returns the new classification on emitting frames (every
+    ``emit_stride``-th, 2 for ``ds_cnn()``), downloading it, and ``None``
+    in between, with no synchronisation; ``peek`` reads the held output.
+
+    Numerics follow the wrapped executor: :meth:`from_quantized` serves the
+    int8 step (int8 frames on the wire, quantized with
+    ``quantize.quantize_input``), :meth:`from_graph` the float step.
+    """
+
+    def __init__(self, executor, params, *, device="cuda", prewarm: bool = True,
+                 metrics: Optional[MetricsRegistry] = None,
+                 persistent_cache_dir: Optional[str] = None):
+        if persistent_cache_dir is not None:
+            raise NotImplementedError(
+                "persistent_cache_dir= waits for the mesh item "
+                "(ROADMAP.md queue 1, item 5)")
+        self.device = resolve(device)
+        if executor.device != self.device:
+            raise ValueError(f"executor runs on {executor.device}, server on {self.device}")
+        self.executor = executor
+        self.params = params
+        self.np_dtype = _NUMPY_DTYPES[executor.dtype]
+        self.metrics = metrics or MetricsRegistry("stream_server")
+        t0 = time.perf_counter()
+        self._step = executor.aot_step(params) if prewarm else executor.step
+        self.prewarm_s = time.perf_counter() - t0 if prewarm else 0.0
+        self.metrics.set_gauge("stream.prewarm_s", self.prewarm_s)
+        self._states: Dict[str, dict] = {}
+        self._lock = threading.Lock()
+
+    # -- constructors ----------------------------------------------------------
+
+    @classmethod
+    def from_graph(cls, graph, params, *, splan=None, device="cuda",
+                   **kw) -> "StreamServer":
+        """Float streaming server for a chain graph on ``device`` (plans the
+        ring arena with ``streaming.plan_streaming`` unless ``splan`` is
+        given)."""
+        from repro_torch.core import streaming
+
+        dev = resolve(device)
+        params = {k: {kk: v.to(dev) for kk, v in p.items()} for k, p in params.items()}
+        ex = streaming.make_streaming_executor(graph, splan, device=dev)
+        return cls(ex, params, device=dev, **kw)
+
+    @classmethod
+    def from_quantized(cls, qm, *, splan=None, device="cuda", **kw) -> "StreamServer":
+        """Int8 streaming server: int8 frames in, int8 logits out, bit-exact
+        against the sliding full-window oracle."""
+        from repro_torch.quant.exec import make_int8_streaming_executor
+
+        dev = resolve(device)
+        ex, params = make_int8_streaming_executor(qm, splan, device=dev)
+        return cls(ex, params, device=dev, **kw)
+
+    # -- session API -----------------------------------------------------------
+
+    @property
+    def streams(self) -> Tuple[str, ...]:
+        with self._lock:
+            return tuple(self._states)
+
+    def open(self, stream_id: str) -> None:
+        """Open a stream with the zero-history warm-start state."""
+        with self._lock:
+            if stream_id in self._states:
+                raise ValueError(f"stream {stream_id!r} already open")
+            self._states[stream_id] = self.executor.init_state(self.params)
+        self.metrics.inc("stream.opened")
+
+    def push(self, stream_id: str, frame: np.ndarray) -> Optional[np.ndarray]:
+        """Feed one (C, W) frame; returns the new output on emitting frames,
+        ``None`` otherwise.  Unknown stream ids are opened implicitly."""
+        with self._lock:
+            state = self._states.get(stream_id)
+        if state is None:
+            self.open(stream_id)
+            with self._lock:
+                state = self._states[stream_id]
+        x = torch.from_numpy(np.array(frame, self.np_dtype))
+        if self.device.type == "cuda":
+            # pinned, so the copy does not wait for the card's queued work;
+            # the caching host allocator keeps the block until it is done
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        state, out, emitted = self._step(self.params, state, x)
+        with self._lock:
+            self._states[stream_id] = state
+        self.metrics.inc("stream.frames")
+        if emitted:
+            self.metrics.inc("stream.emissions")
+            return out.cpu().numpy()
+        return None
+
+    def peek(self, stream_id: str) -> np.ndarray:
+        """The stream's held output (last emission; the zero window's head
+        output before the first)."""
+        with self._lock:
+            return self._states[stream_id]["out"].cpu().numpy()
+
+    def close(self, stream_id: str) -> np.ndarray:
+        """Close a stream, returning its final held output."""
+        with self._lock:
+            state = self._states.pop(stream_id)
+        self.metrics.inc("stream.closed")
+        return state["out"].cpu().numpy()
