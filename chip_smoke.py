@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--mesh-only]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
 and the LM serving path, served, the paper's train → fuse → plan → emit C
@@ -35,7 +35,9 @@ against their plain PyTorch versions:
    of each kernel through strided arena views, as the executors make
    them; K5 on the Llama-3.2-1B attention
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
-   window, a softcap, h=128 and 256, strided views and views whose rows
+   window, a softcap, h=128 and 256, RecurrentGemma-9B's and
+   Qwen2-MoE's served shapes at S 509 and RecurrentGemma's at S 1000
+   under a window of 256, strided views and views whose rows
    are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
    of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
@@ -61,7 +63,18 @@ against their plain PyTorch versions:
    13 + K2 1; no other kernel), and that each executor's arena is exactly
    the plan's per image (8,800 / 11,264 / 64,000 / 16,000 / 98,304 /
    24,576 B); the engines' span tracer gives the host time of each stage of
-   a batch (coalesce, stage, dispatch, device, complete);
+   a batch (coalesce, stage, dispatch, device, complete); then
+   (``mesh_phase``) serves the same six engines 64 requests in bursts of
+   16 four ways: without a mesh, with ``mesh=make_data_mesh()`` (the one
+   card), with a mesh of 4 shards over the one card and with
+   ``persistent_cache_dir=`` a fresh directory: outputs bit-equal to the
+   engine without a mesh, launches per batch equal (x4 on the shards),
+   arenas the plan's bytes an image, and times each executor on one batch
+   of 4,096 and one of 32,768 without a mesh, over 4 shards of the card
+   and, on a machine of several cards, over them all, with each card's
+   busy span (``--mesh-only`` stops after this phase);
+   a second process loads K1-K4 from that directory and launches them
+   with no ``nvcc`` run;
    then streams keyword spotting (``stream_phase``): DS-CNN and DS-CNN-KWS,
    f32 and int8, through ``StreamServer``, 4 streams opened at once and 256
    synthetic MFCC frames each pushed in turn, against the sliding
@@ -85,16 +98,19 @@ against their plain PyTorch versions:
    emitted and built, its C engine held to the card's ``CNNEngine`` (K1)
    on 16 held-out digits at rtol 1e-4, atol 1e-5, at least 7 right
    (``c_export_phase``); no gcc fails the run;
-6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens) and
-   RWKV6-7B (8 requests, 4 lanes, 16 new tokens) at full width and depth,
-   bf16 compute, through ``Engine``, one model at a time: every request
-   done, K5 = 16 launches per prefill and K7 = 32 (no other kernel), the
-   KV/state bytes (268,959,744 / 136,314,880 B), each prompt's logits
-   against the plain path on the card (the same model with K5/K7 swapped
-   for their plain versions, ``plain_kernels``), TTFT, prefill and decode
-   tokens/s, and K5's / K7's device time over the served prompts' prefills;
-7. holds each architecture at full width, 2 layers, f32 compute, kernel
-   path against plain path: prefill and 4 decode steps at 1e-4; then
+6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
+   RecurrentGemma-9B and Qwen2-MoE-A2.7B (8 requests, 4 lanes, 16 new
+   tokens each) at full width and depth, bf16 compute, through ``Engine``,
+   one model at a time: every request done, K5 = 16 / K7 = 32 / K5 = 12 /
+   K5 = 24 launches per prefill (no other kernel), the KV/state bytes
+   (268,959,744 / 136,314,880 / 54,788,096 / 805,699,584 B), each prompt's
+   logits against the plain path on the card (the same model with K5/K7
+   swapped for their plain versions, ``plain_kernels``), TTFT, prefill and
+   decode tokens/s, peak memory, and the device time of K5 / K7, the
+   RG-LRU scan and the MoE einsums over the served prompts' prefills;
+7. holds each architecture at full width, 2 layers (RecurrentGemma 3),
+   f32 compute, kernel path against plain path: prefill and 4 decode
+   steps at 1e-4; then
    RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
    kernel path against plain path layer by layer, at f32 compute (final
    logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
@@ -115,7 +131,8 @@ against their plain PyTorch versions:
    the losses of 2 AdamW steps at 1e-5 relative;
 10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
     K3 and K4 at every distinct depthwise step of both nets, beside
-    cuDNN's chain and the f64 chain, K5 at S 128/512/1000, K7 at S
+    cuDNN's chain and the f64 chain, K5 at S 128/512/1000 and at
+    RecurrentGemma-9B's and Qwen2-MoE's served shapes at S 509, K7 at S
     128/509/512/1000 (each of its two kernels by name), K5 also at Llama's
     train shape B 8 x S 512, K6 at the two train shapes) with CUDA events
     and the profiler, beside its plain version, a PyTorch library call
@@ -301,14 +318,10 @@ def event_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def kernel_events(torch, warm, run):
-    """(``run()``'s result, its kernel events from the profiler, the device
-    ms its step spans).  The profiler first traces one ``warm()`` in its
-    warmup step and drops it: a kernel launched as tracing starts can go
-    unrecorded.  Only the kernels' own events are kept: an operator's self
-    device time repeats its kernels', and the step's ``ProfilerStep#``
-    annotation, mirrored on the device, spans them."""
-    from torch.autograd import DeviceType
+def profiled(torch, warm, run):
+    """(``run()``'s result, the profiler's ``key_averages()`` of it).  The
+    profiler first traces one ``warm()`` in its warmup step and drops it: a
+    kernel launched as tracing starts can go unrecorded."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -319,10 +332,61 @@ def kernel_events(torch, warm, run):
         out = run()
         torch.cuda.synchronize()
         prof.step()
-    device = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+    return out, prof.key_averages()
+
+
+def kernel_events(torch, warm, run):
+    """(``run()``'s result, its kernel events from the profiler, the device
+    ms its step spans).  Only the kernels' own events are kept: an
+    operator's self device time repeats its kernels', and the step's
+    ``ProfilerStep#`` annotation, mirrored on the device, spans them."""
+    from torch.autograd import DeviceType
+
+    out, averages = profiled(torch, warm, run)
+    device = [ev for ev in averages if ev.device_type == DeviceType.CUDA]
     step = [ev for ev in device if ev.key.startswith("ProfilerStep")]
     return (out, [ev for ev in device if not ev.key.startswith("ProfilerStep")],
             sum(ev.device_time_total for ev in step) / 1e3)
+
+
+@contextlib.contextmanager
+def profiler_ranges(torch):
+    """Inside, each function of ``LM_RANGES`` runs under a
+    ``record_function`` range of its name, so a profile can total the
+    kernels it launches."""
+    import importlib
+
+    saved = []
+    for module, fn_name, label in LM_RANGES:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, fn_name)
+
+        def ranged(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, ranged)
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def range_device_ms(averages, label):
+    """{"kernel_ms": the device time of the kernels launched inside every
+    ``label`` range, "span_ms": the ranges' spans on the device, idle gaps
+    included}, from ``key_averages()``; None when no range ran."""
+    from torch.autograd import DeviceType
+
+    host = [ev for ev in averages if ev.key == label and ev.device_type == DeviceType.CPU]
+    if not host:
+        return None
+    dev = [ev for ev in averages if ev.key == label and ev.device_type == DeviceType.CUDA]
+    return {"kernel_ms": sum(ev.device_time_total for ev in host) / 1e3,
+            "span_ms": sum(ev.device_time_total for ev in dev) / 1e3,
+            "calls": sum(ev.count for ev in host)}
 
 
 def device_ms(torch, fn, iters: int = 50):
@@ -915,6 +979,286 @@ def engine_phase(torch, np, report):
                     quantize.simulate_int8_dag_forward,
                     qexec.run_batch_int8_dag_with_arena)
     return results
+
+
+# The mesh phase: the same 64 requests through each engine four ways, in
+# bursts of 16 that each close into one batch of 16 (a burst is submitted
+# within microseconds; the coalescer waits up to a second for the 16th), so
+# every way runs the same rows together.  f32 rows are then bit-equal
+# across the ways as long as the card's f32 kernels are batch-invariant
+# between a batch of 16 and the 4-shard mesh's shards of 4, which the phase
+# records (``_batch_invariance``): with TF32 off, on an H100 80GB HBM3 at
+# 700 W, the three f32 nets' rows were equal at 2, 4 and 8 rows a call
+# against 16, and not at 1 (cuBLAS's one-row path).
+MESH_SHARDS = 4
+MESH_BURST = 16
+MESH_WAYS = ("no_mesh", "mesh_all_cards", f"shards_{MESH_SHARDS}", "persistent_cache")
+MESH_OVERLAP_BATCHES = (4096, 32768)
+MESH_OVERLAP_REPS = 7
+
+
+def mesh_phase(torch, np, report, engines) -> None:
+    """The six CNN engines without a mesh, with ``mesh=make_data_mesh()``
+    (every card: the one card when run as the smoke run is), with a mesh of
+    ``MESH_SHARDS`` shards over card 0 (the splitting, pad lanes and gather
+    on the card) and with ``persistent_cache_dir=`` a fresh directory;
+    outputs bit-equal to the engine without a mesh, launches per batch
+    times the mesh's size, arenas the plan's bytes an image.  Then a second process
+    loads K1-K4 from that directory and launches them without running
+    ``nvcc``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import quantize
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+    from repro_torch.serve.cnn_engine import CNNEngine, CoalescePolicy
+    from repro_torch.serve.step import enable_persistent_cache
+
+    counters = {k: c for k, c in _counters().items() if k in ("K1", "K2", "K3", "K4")}
+    policy = CoalescePolicy(max_batch=MESH_BURST, max_wait_s=1.0)
+    home = build.BUILD_DIR
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = Path(tempfile.mkdtemp(prefix="kernel-cache-", dir=ROOT / "build"))
+    rng = np.random.default_rng(20)
+    kw_by_way = {"no_mesh": {}, "mesh_all_cards": {"mesh": make_data_mesh()},
+                 f"shards_{MESH_SHARDS}": {
+                     "mesh": DataMesh((torch.device("cuda", 0),) * MESH_SHARDS)},
+                 "persistent_cache": {"persistent_cache_dir": str(cache_dir)}}
+    size = {way: len(kw["mesh"].devices) if "mesh" in kw else 1
+            for way, kw in kw_by_way.items()}
+    build.NVCC_RUNS.reset()
+    filled = False
+    try:
+        for net, e in engines.items():
+            int8 = net.endswith("int8")
+            in_shape = tuple(e["fused"].layers[0].shape)
+            xs = rng.standard_normal((N_REQUESTS, *in_shape)).astype(np.float32)
+            if int8:
+                xs = quantize.quantize_input(e["model"], torch.from_numpy(xs)).numpy()
+            ways = {}
+            for way in MESH_WAYS:
+                if way == "persistent_cache" and not filled:
+                    # K1-K4 into the fresh directory, all four at once (the
+                    # engines would build each at its first launch)
+                    enable_persistent_cache(cache_dir)
+                    build.build(["conv_pool", "conv_pool_q8", "conv_pool_dw",
+                                 "conv_pool_dw_q8"])
+                    filled = True
+                kw = dict(device="cuda", buckets=BUCKETS, policy=policy, **kw_by_way[way])
+                engine = (CNNEngine.from_quantized(e["model"], e["plan"], **kw) if int8
+                          else CNNEngine.from_graph(e["fused"], e["plan"], e["model"], **kw))
+                with engine:
+                    for c in counters.values():
+                        c.reset()
+                    served = [engine.serve(xs[i:i + MESH_BURST])
+                              for i in range(0, N_REQUESTS, MESH_BURST)]
+                    counts = {k: c.count for k, c in counters.items()}
+                ys = [r.y for reqs, _ in served for r in reqs]
+                lat = [r.latency_s * 1e3 for reqs, _ in served for r in reqs]
+                stats = engine.stats.snapshot()
+                arenas = {n: a.shape[1] * a.element_size()
+                          for n, a in engine.executor.arenas.items()}
+                ways[way] = {"y": np.stack(ys), "mesh_size": size[way],
+                             "batches": stats.batches,
+                             "burst_ms_median": _pct(np, [1e3 * run.wall_s
+                                                          for _, run in served], 50),
+                             "latency_ms_p50": _pct(np, lat, 50),
+                             "bucket_hist": dict(stats.bucket_hist),
+                             "launches_per_batch": {k: c / stats.batches
+                                                    for k, c in counts.items() if c},
+                             "arena_bytes_per_image": arenas}
+            base = ways["no_mesh"]
+            for way, w in ways.items():
+                mult = size[way]
+                want_arenas = sorted(b // mult for b in BUCKETS if b % mult == 0)
+                want_launches = {k: v * mult for k, v in base["launches_per_batch"].items()}
+                if w["bucket_hist"] != {MESH_BURST: N_REQUESTS // MESH_BURST}:
+                    raise AssertionError(f"mesh {net} {way}: batches {w['bucket_hist']}, not "
+                                         f"{N_REQUESTS // MESH_BURST} of {MESH_BURST}")
+                if not (w["y"].dtype == base["y"].dtype and np.array_equal(w["y"], base["y"])):
+                    err = float(np.abs(w["y"].astype(np.float64) - base["y"]).max())
+                    raise AssertionError(f"mesh {net} {way}: outputs not bit-equal to the "
+                                         f"engine without a mesh (max abs diff {err})")
+                if w["launches_per_batch"] != want_launches:
+                    raise AssertionError(f"mesh {net} {way}: launches per batch "
+                                         f"{w['launches_per_batch']}, want {want_launches}")
+                if (sorted(w["arena_bytes_per_image"]) != want_arenas
+                        or set(w["arena_bytes_per_image"].values()) != {e["arena_bytes"]}):
+                    raise AssertionError(f"mesh {net} {way}: arenas "
+                                         f"{w['arena_bytes_per_image']}, want {want_arenas} "
+                                         f"of {e['arena_bytes']} B")
+            report.emit({"phase": "mesh", "net": net, "requests": N_REQUESTS,
+                         "burst": MESH_BURST, "bit_equal": True,
+                         "batch_invariance": _batch_invariance(torch, np, e, xs),
+                         **{way: {k: v for k, v in w.items() if k != "y"}
+                            for way, w in ways.items()}})
+            for line in _mesh_overlap(torch, np, net, e):
+                report.emit(line)
+        built = build.NVCC_RUNS.count
+        enable_persistent_cache(home)
+        child = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             f"sys.exit(chip_smoke.persistent_cache_child({str(cache_dir)!r}))"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"persistent-cache process exited {child.returncode}:\n"
+                                 f"{child.stdout[-2000:]}\n{child.stderr[-4000:]}")
+        loaded = json.loads(child.stdout.strip().splitlines()[-1])
+        if loaded["nvcc_runs"] != 0 or min(loaded["launches"].values()) < 1:
+            raise AssertionError(f"persistent-cache process: {loaded}")
+        report.emit({"phase": "mesh_persistent_cache", "nvcc_runs_filling": built,
+                     "second_process": loaded})
+    finally:
+        enable_persistent_cache(home)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _executor(torch, e):
+    """(executor, params on card 0) for one of ``engine_phase``'s engines."""
+    from repro_torch.core import pingpong
+    from repro_torch.core.graph import DAGGraph
+    from repro_torch.quant.exec import make_int8_executor
+
+    if isinstance(e["model"], dict):
+        make = (pingpong.make_dag_executor if isinstance(e["fused"], DAGGraph)
+                else pingpong.make_scan_executor)
+        return make(e["fused"], e["plan"]), e["model"]
+    return make_int8_executor(e["model"], e["plan"], device="cuda")
+
+
+def _sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+class _BusySpans:
+    """An arena executor that records a CUDA event pair around each call, on
+    the current stream of the current card (``wrap_batched`` makes a shard's
+    card and stream current); its replicas, one a card, log to one list."""
+
+    def __init__(self, torch, fn, log):
+        self.torch, self.fn, self.log = torch, fn, log
+
+    def replica(self):
+        return _BusySpans(self.torch, self.fn.replica(), self.log)
+
+    def __call__(self, params, x):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        y = self.fn(params, x)
+        ev[1].record()
+        self.log.append(ev)
+        return y
+
+
+def _mesh_overlap(torch, np, net, e) -> list:
+    """Recorded, not gated: each executor on one batch of each of
+    ``MESH_OVERLAP_BATCHES`` images, without a mesh, over ``MESH_SHARDS``
+    shards of card 0 and, where the machine has more than one card, over
+    every card (``make_data_mesh()``).  For each way: the wall ms (median of
+    ``MESH_OVERLAP_REPS`` calls, every card synchronised), the host ms until
+    the call returns (a host that waits for a card returns late), the sum over its
+    cards of each card's busy span (CUDA events around its shard, median
+    over the calls) and its max |difference| from the run without a mesh.
+    A busy sum above the wall time means the cards' spans overlapped."""
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+    from repro_torch.sharding.policy import DataParallelPolicy
+
+    fn, params = _executor(torch, e)
+    log = []
+    timed = _BusySpans(torch, fn, log)
+    in_shape = tuple(e["fused"].layers[0].shape)
+    meshes = {f"shards_{MESH_SHARDS}": DataMesh((torch.device("cuda", 0),) * MESH_SHARDS)}
+    if torch.cuda.device_count() > 1:
+        meshes["mesh_all_cards"] = make_data_mesh()
+    ways = {"no_mesh": (timed, params)}
+    for way, mesh in meshes.items():
+        pol = DataParallelPolicy(mesh)
+        ways[way] = (pol.wrap_batched(timed), pol.replicate(params))
+    lines = []
+    for batch in MESH_OVERLAP_BATCHES:
+        x = torch.randn((batch, *in_shape), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(batch))
+        if not isinstance(e["model"], dict):
+            from repro_torch.core import quantize
+            x = quantize.quantize_input(e["model"], x)
+        out = {"phase": "mesh_overlap", "net": net, "batch": batch,
+               "reps": MESH_OVERLAP_REPS, "cards": torch.cuda.device_count()}
+        y0 = None
+        for way, (run, weights) in ways.items():
+            y = run(weights, x)
+            _sync_all(torch)
+            walls, hosts, busy = [], [], []
+            for _ in range(MESH_OVERLAP_REPS):
+                log.clear()
+                t = time.perf_counter()
+                run(weights, x)
+                hosts.append(1e3 * (time.perf_counter() - t))
+                _sync_all(torch)
+                walls.append(1e3 * (time.perf_counter() - t))
+                busy.append(sum(a.elapsed_time(b) for a, b in log))
+            y0 = y if y0 is None else y0
+            out[way] = {"wall_ms_median": _pct(np, walls, 50),
+                        "host_ms_median": _pct(np, hosts, 50),
+                        "busy_ms_sum_median": _pct(np, busy, 50),
+                        "max_abs_diff": float((y.double() - y0.double()).abs().max())}
+            del y
+        lines.append(out)
+        del x, y0
+    torch.cuda.empty_cache()
+    return lines
+
+
+def _batch_invariance(torch, np, e, xs):
+    """Recorded, not gated: {m: max |difference|} between the rows of one
+    batch of 16 through the engine's executor and the same rows run m at a
+    time, the property the f32 bit-equality of a sharded engine rests on
+    (int8 sums are exact in any grouping)."""
+    fn, params = _executor(torch, e)
+    x = torch.as_tensor(xs[:MESH_BURST], device="cuda")
+    y = fn(params, x).double()
+    return {m: float((torch.cat([fn(params, x[i:i + m]) for i in range(0, MESH_BURST, m)])
+                      .double() - y).abs().max()) for m in (1, 2, 4, 8)}
+
+
+def persistent_cache_child(cache_dir: str) -> int:
+    """A fresh process's view of a persistent kernel cache: DS-CNN-KWS f32
+    (K3, K1) and int8 (K4, K2) engines built with ``persistent_cache_dir``
+    and served 16 requests each; prints {"nvcc_runs", "launches", "libraries"}
+    as JSON (``mesh_phase`` holds nvcc_runs at 0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nn, quantize, schedule
+    from repro_torch.core.graph import ds_cnn_kws
+    from repro_torch.kernels import build
+    from repro_torch.serve.cnn_engine import CNNEngine
+
+    g = ds_cnn_kws()
+    fused = schedule.fuse_dag_priced(g)
+    params = nn.init_params(fused, torch.Generator().manual_seed(2), device="cuda")
+    xs = np.random.default_rng(21).standard_normal((16, 1, 49, 10)).astype(np.float32)
+    cpu = {k: {kk: v.cpu() for kk, v in p.items()} for k, p in params.items()}
+    qm = quantize.quantize_dag(fused, cpu, torch.from_numpy(xs[:8]))
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    with CNNEngine.from_graph(fused, schedule.plan_dag(g), params, device="cuda",
+                              persistent_cache_dir=cache_dir) as eng:
+        eng.serve(xs)
+    with CNNEngine.from_quantized(qm, schedule.plan_dag(g, io_dtype_bytes=1),
+                                  device="cuda", persistent_cache_dir=cache_dir) as eng:
+        eng.serve(quantize.quantize_input(qm, torch.from_numpy(xs)).numpy())
+    torch.cuda.synchronize()
+    names = ("conv_pool", "conv_pool_q8", "conv_pool_dw", "conv_pool_dw_q8")
+    print(json.dumps({
+        "nvcc_runs": build.NVCC_RUNS.count,
+        "launches": {k: counters[k].count for k in ("K1", "K2", "K3", "K4")},
+        "libraries": [str(build.library_path(n).relative_to(ROOT)) for n in names],
+        "in_cache_dir": all(build.library_path(n).parent == Path(cache_dir).resolve()
+                            and build.library_path(n).exists() for n in names)}))
+    return 0
 
 
 def residual_phase(torch, np, report) -> None:
@@ -1578,7 +1922,12 @@ PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # (B, S, H, K, h, window, softcap)
 K5_SEQS = (1, 17, 128, 129, 512, 1000)
 K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
-            (2, 129, 4, 1, 128, 0, 0.0), (1, 300, 2, 1, 256, 0, 0.0)]
+            (2, 129, 4, 1, 128, 0, 0.0), (1, 300, 2, 1, 256, 0, 0.0),
+            # the served shapes of RecurrentGemma-9B's local layers (h 256,
+            # 16 query heads over one KV head, window 2048) and Qwen2-MoE's
+            # (h 128, 16 / 16), and RecurrentGemma's where the window bites
+            (1, 509, 16, 1, 256, 2048, 0.0), (1, 509, 16, 16, 128, 0, 0.0),
+            (1, 1000, 16, 1, 256, 256, 0.0)]
 K5_TOL = {"f32": 2e-5, "bf16": 5e-2}  # rtol = atol, tests/test_kernel_flash.py
 # bf16 also per output row (one query, one head): max |diff| within this
 # share of the row's largest |value|.  Two roundings to bf16 of nearly
@@ -1606,8 +1955,12 @@ K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches bo
 # limit is set from its reading with headroom: 1.86 / 0.466 with the
 # earlier one-CTA-a-head K7 and 1.859 / 0.466 with the two-pass one, on an
 # H100 80GB HBM3 at 700 W (PERF.md section 6).  K7 is held tightly by
-# k7_checks, lm_strict_phase and rwkv_drift_phase.
-LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75)}
+# k7_checks, lm_strict_phase and rwkv_drift_phase.  RecurrentGemma-9B's and
+# Qwen2-MoE-A2.7B's limits are their first readings on an H100 80GB HBM3 at
+# 700 W, 0.141 / 0.0319 and 0.266 / 0.0678, with ~3.5x / 3x headroom (the
+# paths differ in K5's 12 / 24 layers; at f32 lm_strict holds both at 1e-4).
+LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75),
+                 "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
 # RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
 # on the prompts below, at f32 compute: the final logits' (max |difference|,
@@ -1620,13 +1973,30 @@ RWKV_F32_DRIFT_TOL = (4e-3, 1e-3)
 RWKV_F32_K7_SHARE = 1e-5
 LM_ENGINES = {
     # arch: (seed, lanes, max_seq, max_new, fixed prompt lengths, (n, lo, hi)
-    # drawn with np.random.default_rng(0).integers(lo, hi), kernel, per layer)
+    # drawn with np.random.default_rng(0).integers(lo, hi), kernel, per layer
+    # of its kind)
     "llama3.2-1b": (0, 8, 1024, 32, (1, 128, 129, 509), (12, 2, 513), "K5"),
     "rwkv6-7b": (1, 4, 1024, 16, (2, 63, 64, 200, 256, 509), (2, 2, 257), "K7"),
+    # 26 RG-LRU layers (the doubling scan, plain PyTorch) and 12 local
+    # attention layers (K5, h 256, GQA 16:1; the window of 2048 is past
+    # max_seq, so their caches are linear, not rings)
+    "recurrentgemma-9b": (2, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
+    # 24 attention layers (K5, h 128, 16 KV heads, q/k/v bias), each with
+    # 60 routed experts (top 4) and 4 shared ones (the GShard einsums)
+    "qwen2-moe-a2.7b": (3, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
 }
-LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880}
+LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880,
+               "recurrentgemma-9b": 54_788_096, "qwen2-moe-a2.7b": 805_699_584}
 # A name every kernel of K5 / K7 has in the profiler
 LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
+# Plain-PyTorch parts of the served prefills timed as profiler ranges:
+# (module, function, range name)
+LM_RANGES = (("repro_torch.models.griffin", "rg_lru", "rg_lru_scan"),
+             ("repro_torch.models.moe", "expert_mix", "moe_expert_einsums"))
+# lm_strict: (arch, seed, prompt, layers); RecurrentGemma takes its first
+# 3 layers, (rglru, rglru, local), so that K5 runs in the strict pass
+LM_STRICT = (("llama3.2-1b", 10, 129, 2), ("rwkv6-7b", 11, 200, 2),
+             ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2))
 
 
 def _close(torch, a, b, rtol, atol):
@@ -1862,9 +2232,33 @@ def _pct(np, xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
+def lm_state_bytes(cfg, lanes: int, max_seq: int) -> int:
+    """The lanes' KV/state bytes from the config (bf16 compute): K/V and
+    positions of each attention layer's cache (a ring of ``window`` slots
+    or ``max_seq``), (s, tm_x, cm_x) of each RWKV layer, (h, conv) of each
+    RG-LRU layer."""
+    from repro_torch.models.attention import cache_spec
+
+    total = 0
+    for kind in cfg.blocks():
+        if kind == "rwkv":
+            H = cfg.d_model // cfg.rwkv_head_dim
+            total += lanes * H * cfg.rwkv_head_dim ** 2 * 4 + 2 * lanes * cfg.d_model * 2
+        elif kind == "rglru":
+            rw = cfg.lru_width or cfg.d_model
+            total += lanes * rw * 4 + lanes * (cfg.conv1d_width - 1) * rw * 2
+        else:
+            L = cache_spec(cfg, kind, max_seq).length
+            total += 2 * lanes * L * cfg.num_kv_heads * cfg.head_dim * 2 + lanes * L * 4
+    return total
+
+
 def lm_engine_phase(torch, np, report) -> dict:
-    """Serve Llama-3.2-1B and RWKV6-7B at full width and depth through
-    ``Engine``; returns {arch: launch counts by key} for the kernels line."""
+    """Serve Llama-3.2-1B, RWKV6-7B, RecurrentGemma-9B and Qwen2-MoE-A2.7B
+    at full width and depth through ``Engine``, one at a time; returns
+    {arch: launch counts by key} for the kernels line."""
+    from torch.autograd import DeviceType
+
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Engine, Request, cache_bytes
 
@@ -1899,7 +2293,8 @@ def lm_engine_phase(torch, np, report) -> dict:
         if not all(r.done and len(r.out_tokens) == max_new for r in reqs):
             raise AssertionError(f"{arch}: not every request is done with {max_new} tokens")
         per_layer = {k: 0 for k in counters}
-        per_layer[kern] = cfg.num_layers
+        kinds = ("rwkv",) if kern == "K7" else ("attn", "swa", "local")
+        per_layer[kern] = sum(kind in kinds for kind in cfg.blocks())
         for k, (count, _) in counts.items():
             if count != per_layer[k] * stats.prefills:
                 raise AssertionError(f"{arch}: {k} launched {count} times for "
@@ -1907,13 +2302,7 @@ def lm_engine_phase(torch, np, report) -> dict:
                                      f"{per_layer[k] * stats.prefills})")
         plan = engine.plan_report()
         kv = plan["kv_state_bytes"]
-        if cfg.block_pattern == ("rwkv",):
-            H = cfg.d_model // cfg.rwkv_head_dim
-            want = cfg.num_layers * (lanes * H * cfg.rwkv_head_dim ** 2 * 4
-                                     + 2 * lanes * cfg.d_model * 2)
-        else:
-            want = cfg.num_layers * (2 * lanes * max_seq * cfg.num_kv_heads
-                                     * cfg.head_dim * 2 + lanes * max_seq * 4)
+        want = lm_state_bytes(cfg, lanes, max_seq)
         if not kv == want == cache_bytes(engine.cache) == LM_KV_BYTES[arch]:
             raise AssertionError(f"{arch}: kv_state_bytes {kv}, from the shapes {want}, "
                                  f"pinned {LM_KV_BYTES[arch]}")
@@ -1924,10 +2313,13 @@ def lm_engine_phase(torch, np, report) -> dict:
         max_abs, rel_rms = LM_LOGITS_TOL[arch]
         worst = {"max_abs": 0.0, "rel_rms": 0.0}
         toks = [{"tokens": torch.as_tensor(r.prompt[None], device="cuda")} for r in reqs]
-        kernel_logits, events, _ = kernel_events(
-            torch, lambda: model.prefill(params, toks[0], max_seq),
-            lambda: [model.prefill(params, tok, max_seq)[1] for tok in toks])
-        kern_events = [ev for ev in events if LM_KERNEL_SYMBOL[kern] in ev.key]
+        with profiler_ranges(torch):
+            kernel_logits, averages = profiled(
+                torch, lambda: model.prefill(params, toks[0], max_seq),
+                lambda: [model.prefill(params, tok, max_seq)[1] for tok in toks])
+        ranges = {label: range_device_ms(averages, label) for _, _, label in LM_RANGES}
+        kern_events = [ev for ev in averages if ev.device_type == DeviceType.CUDA
+                       and LM_KERNEL_SYMBOL[kern] in ev.key]
         kern_device_ms = sum(ev.self_device_time_total for ev in kern_events) / 1e3
         kern_records = sum(ev.count for ev in kern_events)
         for req, tok, lk in zip(reqs, toks, kernel_logits):
@@ -1967,6 +2359,7 @@ def lm_engine_phase(torch, np, report) -> dict:
             "plan_report": plan,
             f"{kern.lower()}_device_ms_served_prefills": kern_device_ms,
             f"{kern.lower()}_kernel_records_served_prefills": kern_records,
+            **{f"{label}_served_prefills": r for label, r in ranges.items() if r},
             "logits_vs_plain": worst, "logits_limit": {"max_abs": max_abs,
                                                        "rel_rms": rel_rms},
             "ttft_ms_p50": _pct(np, ttft_ms, 50), "ttft_ms_p99": _pct(np, ttft_ms, 99),
@@ -1985,11 +2378,11 @@ def lm_engine_phase(torch, np, report) -> dict:
 
 
 def lm_strict_phase(torch, np, report) -> None:
-    """Each architecture at full width, 2 layers, f32 compute, TF32 off: the
-    kernel path against the plain path on the card, prefill logits and 4
-    teacher-forced decode steps, at LM_STRICT_TOL."""
-    for arch, seed, S in (("llama3.2-1b", 10, 129), ("rwkv6-7b", 11, 200)):
-        model, params = _lm_model(torch, arch, seed, num_layers=2,
+    """Each architecture at full width, 2 layers (RecurrentGemma 3), f32
+    compute, TF32 off: the kernel path against the plain path on the card,
+    prefill logits and 4 teacher-forced decode steps, at LM_STRICT_TOL."""
+    for arch, seed, S, layers in LM_STRICT:
+        model, params = _lm_model(torch, arch, seed, num_layers=layers,
                                   compute_dtype="float32")
         rng = np.random.default_rng(seed)
         toks = rng.integers(0, model.cfg.vocab_size, S + 4).astype(np.int32)
@@ -2006,7 +2399,7 @@ def lm_strict_phase(torch, np, report) -> None:
         torch.cuda.synchronize()
         if not all(ok for ok, _ in errs):
             raise AssertionError(f"{arch} strict: max abs errs {[e for _, e in errs]}")
-        report.emit({"phase": "lm_strict", "arch": arch, "layers": 2, "prompt": S,
+        report.emit({"phase": "lm_strict", "arch": arch, "layers": layers, "prompt": S,
                      "compute_dtype": "float32", "tf32": False,
                      "max_abs_err": {"prefill": errs[0][1],
                                      "decode": [e for _, e in errs[1:]]},
@@ -2155,9 +2548,10 @@ def _roofline(nbytes, ops):
 
 
 def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
-    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000), and
-    K5 at Llama's train shape (B 8, S 512): event ms, device ms, plain ms,
-    the library yardstick for K5, the bound."""
+    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
+    also at RecurrentGemma-9B's and Qwen2-MoE's, S 509), and K5 at Llama's
+    train shape (B 8, S 512): event ms, device ms, plain ms, the library
+    yardstick for K5, the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
@@ -2165,11 +2559,17 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
 
     entries = []
     rng = np.random.default_rng(11)
-    k5_launches = lm_counts["llama3.2-1b"]["K5"][0]
     k7_launches = lm_counts["rwkv6-7b"]["K7"][0]
-    for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512)):
-        q, k, v = (torch.as_tensor(rng.standard_normal((B, S, n, 64)), dtype=torch.bfloat16,
-                                   device="cuda") for n in (32, 8, 8))
+    # (arch, B, S, H, K, h, train): Llama's served and train shapes, and the
+    # two new families' served shapes at their longest prompt (RecurrentGemma's
+    # window of 2048 is past S, so causal attention is its function here)
+    cases = [("llama3.2-1b", B, S, 32, 8, 64, B > 1)
+             for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512))]
+    cases += [("recurrentgemma-9b", 1, 509, 16, 1, 256, False),
+              ("qwen2-moe-a2.7b", 1, 509, 16, 16, 128, False)]
+    for arch, B, S, H, K, h, train in cases:
+        q, k, v = (torch.as_tensor(rng.standard_normal((B, S, n, h)), dtype=torch.bfloat16,
+                                   device="cuda") for n in (H, K, K))
         kern = lambda: flash_attention(q, k, v)
         plain = lambda: attention_ref(q, k, v)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -2177,19 +2577,19 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
                                                          enable_gqa=True)
         err = float((kern().float() - plain().float()).abs().max())
         t = _times(torch, kern, plain, library)
-        bms, bby = k5_bound(B, S, 32, 8, 64)
-        report.emit({"phase": "timing", "kernel": "K5",
-                     "shape": f"B={B} S={S} H=32 K=8 h=64 bf16",
+        bms, bby = k5_bound(B, S, H, K, h)
+        report.emit({"phase": "timing", "kernel": "K5", "arch": arch,
+                     "shape": f"B={B} S={S} H={H} K={K} h={h} bf16",
                      "max_abs_err": err, "bound_ms": bms, "bound_by": bby,
                      "library": "F.scaled_dot_product_attention(is_causal, enable_gqa), bf16",
                      **t})
-        train = B > 1
         entries.append({
-            "name": (f"K5 flash_fwd_bf16 [llama3.2-1b train attention, B={B} S={S}]"
-                     if train else f"K5 flash_fwd_bf16 [llama3.2-1b prefill attention, S={S}]"),
+            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}]" if train
+                     else f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} "
+                          f"K={K} h={h}]"),
             "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
             "replaces": "src/repro/kernels/flash/kernel.py:28",
-            "launches": train_counts["llama3.2-1b"]["K5"] if train else k5_launches,
+            "launches": train_counts[arch]["K5"] if train else lm_counts[arch]["K5"][0],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bms, "bound_by": bby, "library_ms": t["library_ms"],
             "device_ms": t["device_ms"]})
@@ -2710,6 +3110,9 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every JSON line to this file")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, serve the six CNN engines, run the mesh phase and "
+                         "stop (on a machine of several cards: the mesh over them all)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2740,6 +3143,13 @@ def main(argv=None) -> int:
     k7_checks(torch, np, report)
     grad_checks(torch, np, report)
     engines = engine_phase(torch, np, report)
+    mesh_phase(torch, np, report, engines)
+    if args.mesh_only:
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     stream_phase(torch, np, report)
     report_phase(torch, np, report)
     residual_phase(torch, np, report)

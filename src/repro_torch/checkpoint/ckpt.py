@@ -15,7 +15,7 @@ layout:
 Tree paths join the keys of the port's dict / list / NamedTuple tree with
 ``/``.  bf16 leaves are stored as f32 (numpy has no bf16) and cast back on
 restore.  The reference's ``shardings=`` (elastic restore onto another
-mesh) waits for the mesh item (ROADMAP.md queue 1, item 5).
+mesh) waits for the sharded train step (ROADMAP.md queue 1, item 6c).
 """
 from __future__ import annotations
 

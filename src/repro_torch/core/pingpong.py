@@ -47,6 +47,7 @@ wrapper refuses a negative multiplier.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -219,6 +220,14 @@ class ArenaExecutor:
             "buffers": len(self.plan.buffers),
             **segments_mod.segment_stats(self.segments),
         }
+
+    def replica(self) -> "ArenaExecutor":
+        """The same executor with arenas of its own, for another device
+        (``DataParallelPolicy.wrap_batched``: calls on two devices are not
+        ordered against each other, so they must not share an arena)."""
+        other = copy.copy(self)
+        other.arenas = {}
+        return other
 
     def arena(self, n: int, dtype: torch.dtype, device) -> torch.Tensor:
         a = self.arenas.get(n)

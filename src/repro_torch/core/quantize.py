@@ -227,10 +227,15 @@ def requant_multiplier(in_scale: float, w_scale: float, out_scale: float) -> flo
     return in_scale * w_scale / out_scale
 
 
-def _f32(multiplier, device) -> torch.Tensor:
+def _f32(multiplier, device):
+    """The multiplier in f32: a tensor on ``device``, or, for one value, a
+    Python float holding the f32 value, which an f32 tensor op takes as an
+    f32 operand with no copy to the card (a copy from pageable host memory
+    would wait for the card's queue to drain)."""
     if isinstance(multiplier, torch.Tensor):
         return multiplier.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(multiplier, np.float32), device=device)
+    m = np.asarray(multiplier, np.float32)
+    return float(m) if m.ndim == 0 else torch.as_tensor(m, device=device)
 
 
 def requantize(acc_i32: torch.Tensor, multiplier) -> torch.Tensor:

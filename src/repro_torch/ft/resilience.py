@@ -3,8 +3,8 @@
 The port's counterpart of ``repro/ft/resilience.py``: planned preemptions
 (SIGTERM → checkpoint now and exit cleanly), stragglers (a step, or a host,
 slower than ``factor`` x the median) and the step timer the train loop
-laps.  ``reshard_tree`` (elastic re-mesh) waits for the mesh item
-(ROADMAP.md queue 1, item 5).
+laps.  ``reshard_tree`` (elastic re-mesh) waits for the sharded train step
+(ROADMAP.md queue 1, item 6c).
 """
 from __future__ import annotations
 

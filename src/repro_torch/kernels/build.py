@@ -8,7 +8,10 @@ per missing library, all at once, and waits for them together.
 
 Nothing is built or loaded at import time; the first launch of a kernel
 builds it.  A build that fails raises with the compiler's output: there is
-no fallback to a plain version.
+no fallback to a plain version.  :func:`use_build_dir` points the process
+at another directory (``serve.step.enable_persistent_cache``: a replica
+that finds its kernels there runs no ``nvcc``; :data:`NVCC_RUNS` counts the
+builds a process makes).
 """
 from __future__ import annotations
 
@@ -46,6 +49,33 @@ _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
+class LaunchCounter:
+    """A plain integer count of kernel launches, plus the same count broken
+    down by a key (the launch geometry), so a run can show which kernel the
+    main path went through and at which shapes.  :data:`NVCC_RUNS` counts
+    builds the same way."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.count = 0
+        self.by_key: dict = {}
+
+    def add(self, key) -> None:
+        with self._lock:
+            self.count += 1
+            self.by_key[key] = self.by_key.get(key, 0) + 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+            self.by_key = {}
+
+
+# Every nvcc this process runs, keyed by library name: a process that loads
+# what another built (``use_build_dir``) counts none.
+NVCC_RUNS = LaunchCounter()
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on ``PATH``, else under PyTorch's
     ``CUDA_HOME``.  Raises when neither exists."""
@@ -57,6 +87,23 @@ def nvcc_path() -> str:
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+def use_build_dir(path) -> bool:
+    """Build into and load from ``path`` from now on (process-global).
+    Libraries loaded before stay loaded, but the next launch of each loads
+    it again from ``path``, building it there if it is missing, so an
+    earlier process's builds in ``path`` are reused and this process's land
+    there.  Returns False, doing nothing, when ``path`` is already the
+    build directory."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    with _LOCK:
+        if path == BUILD_DIR:
+            return False
+        BUILD_DIR = path
+        _LOADED.clear()
+    return True
 
 
 def library_path(name: str) -> Path:
@@ -86,6 +133,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / SOURCES[n])]
+        NVCC_RUNS.add(n)
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     failures = []

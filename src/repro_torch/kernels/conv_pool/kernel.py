@@ -24,13 +24,13 @@ bank and writes the other in place.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.graph import _pair
 from repro_torch.kernels import build
+from repro_torch.kernels.build import LaunchCounter
 
 # K1 and K2 hold the weights of their tile of output channels in shared
 # memory; 227 KB is what one CTA may have on Hopper.
@@ -40,27 +40,6 @@ MAX_SMEM_BYTES = 232448
 # a warp's worth of conv values.
 K1_TARGET_CTAS = 132
 K1_MIN_CONV_VALUES = 32
-
-
-class LaunchCounter:
-    """A plain integer count of kernel launches, plus the same count broken
-    down by a key (the launch geometry), so a run can show which kernel the
-    main path went through and at which shapes."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.count = 0
-        self.by_key: dict = {}
-
-    def add(self, key) -> None:
-        with self._lock:
-            self.count += 1
-            self.by_key[key] = self.by_key.get(key, 0) + 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0
-            self.by_key = {}
 
 
 # One counter per kernel; each wrapper adds one where it launches, and

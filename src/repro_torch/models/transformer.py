@@ -1,16 +1,20 @@
-"""LM assembly: embeddings, a stack of attention or RWKV6 blocks, logits.
+"""LM assembly: embeddings, a stack of attention, RG-LRU or RWKV6 blocks,
+logits.
 
 The port's counterpart of ``repro/models/transformer.py`` for serving:
 ``Model.init_params``, ``init_cache``, ``prefill``, ``decode_step``,
 ``_embed`` and ``_logits_last``, over block kinds ``attn``, ``swa``,
-``local`` and ``rwkv``.  Layers run as a plain Python loop in place of the
+``local`` (with a dense or a MoE FFN), ``rglru`` (Griffin) and ``rwkv``.
+Layers run as a plain Python loop in place of the
 reference's ``lax.scan`` over pattern groups, so params and caches are
 per-layer lists; :func:`repro_torch.convert.lm_params_from_numpy` and the
 tests unstack the reference's group-stacked layout.
 
 Training (``train_loss`` / ``_xent``) follows the reference
 (``transformer.py:334-379``): the mean cross-entropy over masked positions
-plus the (here always zero) auxiliary loss.  Three CE paths:
+plus the auxiliary loss, zero for the families it trains (dense attention
+and RWKV; the ``rglru`` and MoE families are served only, their training
+waits for item 6c).  Three CE paths:
 
 * ``naive`` materializes (B, S, V) logits in the compute dtype;
 * ``chunked`` and ``seq_chunked`` go through
@@ -25,11 +29,13 @@ backward pass runs each layer's forward again.
 
 Every prefill or training attention runs K5 and every multi-token RWKV
 time-mix K7 (on the card, each inside a ``torch.autograd.Function`` whose
-backward is the plain VJP; their plain versions on the CPU).
+backward is the plain VJP; their plain versions on the CPU).  The RG-LRU
+scan and the MoE dispatch are plain PyTorch, as they are XLA ops in the
+reference.
 
-Not ported yet (ROADMAP.md queue 1): the ``rglru``, MoE, enc-dec,
-frontend, M-RoPE and ``kv_dtype="int8"`` model families, and
-``remat_policy="dots"``.
+Not ported yet (ROADMAP.md queue 1, item 6b, in this order): enc-dec,
+``kv_dtype="int8"``, M-RoPE and the vision/audio frontends; and (item 6c)
+training the ``rglru`` and MoE families and ``remat_policy="dots"``.
 """
 from __future__ import annotations
 
@@ -42,22 +48,22 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.kernels.xent import ops as xent_ops
-from repro_torch.models import attention, mlp, rwkv6
+from repro_torch.models import attention, griffin, mlp, moe, rwkv6
 from repro_torch.models.common import apply_norm, cdt, embed_init, make_norm_params, pdt
 
 ATTN_KINDS = ("attn", "swa", "local")
 # Leaves the reference reads in f32 whatever the compute dtype: norm scales
-# and biases, RWKV's decay base, bonus and group-norm affine.
-F32_LEAVES = frozenset({"scale", "bias", "decay_base", "bonus_u", "gn_scale", "gn_bias"})
+# and biases, RWKV's decay base, bonus and group-norm affine, the RG-LRU's
+# gate products and Λ (griffin.py:114-116) and the MoE router (moe.py:68).
+F32_LEAVES = frozenset({"scale", "bias", "decay_base", "bonus_u", "gn_scale", "gn_bias",
+                        "w_a", "b_a", "w_x", "b_x", "lam", "router"})
 
 
 def _check_ported(cfg: ModelConfig, kv_dtype: str) -> None:
-    later = "is not ported yet (ROADMAP.md queue 1, 'LM families')"
+    later = "is not ported yet (ROADMAP.md queue 1, 'LM families', item 6b)"
     for kind in set(cfg.blocks()):
-        if kind not in (*ATTN_KINDS, "rwkv"):
+        if kind not in (*ATTN_KINDS, "rglru", "rwkv"):
             raise NotImplementedError(f"{cfg.name}: block kind {kind!r} {later}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE {later}")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder {later}")
     if cfg.frontend != "none":
@@ -91,6 +97,11 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device) -> di
     if kind in ATTN_KINDS:
         p["attn"] = attention.init_attn_params(cfg, gen, device)
         p["norm2"] = make_norm_params(cfg, d, device)
+        p["ffn"] = (moe.init_moe_params(cfg, gen, device) if cfg.moe is not None
+                    else mlp.init_mlp_params(cfg, gen, device))
+    elif kind == "rglru":
+        p["rec"] = griffin.init_griffin_params(cfg, gen, device)
+        p["norm2"] = make_norm_params(cfg, d, device)
         p["ffn"] = mlp.init_mlp_params(cfg, gen, device)
     elif kind == "rwkv":
         p["tm"] = rwkv6.init_rwkv_params(cfg, gen, device)
@@ -113,11 +124,21 @@ def _train_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     return x + c
 
 
+def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The FFN after attention: the MoE layer (its aux loss dropped, as in
+    serving) or the dense MLP."""
+    if "router" in p:
+        return moe.apply_moe(cfg, p, x)[0]
+    return mlp.apply_mlp(cfg, p, x)
+
+
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
                       device) -> dict:
     if kind in ATTN_KINDS:
         spec = attention.cache_spec(cfg, kind, max_seq)
         return attention.init_kv_cache(cfg, spec, batch, dtype, device)
+    if kind == "rglru":
+        return griffin.init_griffin_state(cfg, batch, device)
     if kind == "rwkv":
         H = cfg.d_model // cfg.rwkv_head_dim
         hd = cfg.rwkv_head_dim
@@ -210,8 +231,13 @@ class Model:
     def train_loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
         """(loss, {"ce", "aux"}) of ``batch["tokens"]`` (B, S) against
         ``batch["targets"]``, weighted by ``batch["mask"]`` (default all
-        ones).  ``aux`` is zero: no ported family has an auxiliary loss."""
+        ones).  ``aux`` is zero: no family trained here has an auxiliary
+        loss.  The ``rglru`` and MoE families raise (item 6c)."""
         cfg = self.cfg
+        if "rglru" in cfg.blocks() or cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training the rglru and MoE families is not ported "
+                "yet (ROADMAP.md queue 1, item 6c); they are served only")
         tokens, targets = batch["tokens"], batch["targets"]
         x = self._embed(params, tokens)
         B, S = tokens.shape
@@ -233,7 +259,7 @@ class Model:
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> List[dict]:
         """One state dict per layer: K/V/pos for attention (ring buffers for
-        windowed layers), (s, tm_x, cm_x) for RWKV."""
+        windowed layers), (h, conv) for RG-LRU, (s, tm_x, cm_x) for RWKV."""
         dev = resolve(device)
         return [_init_block_state(self.cfg, kind, batch, max_seq, cdt(self.cfg), dev)
                 for kind in self.cfg.blocks()]
@@ -241,7 +267,7 @@ class Model:
     def prefill(self, params, batch: dict, max_seq: int) -> Tuple[List[dict], torch.Tensor]:
         """Process a prompt (``batch["tokens"]``: (B, S)), build the caches
         and return (cache, last-token logits).  Caches start from the zero
-        state, so RWKV layers run K7."""
+        state, so RWKV layers run K7, and RG-LRU layers the doubling scan."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -255,6 +281,10 @@ class Model:
                 a, k, v = attention.attend_prefill(cfg, p["attn"], h, kind, positions)
                 attention.fill_kv_cache(state, attention.cache_spec(cfg, kind, max_seq),
                                         k, v, positions)
+                x = x + a
+                x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+            elif kind == "rglru":
+                a, state = griffin.griffin_block(cfg, p["rec"], h, state)
                 x = x + a
                 x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             else:
@@ -284,6 +314,10 @@ class Model:
             if kind in ATTN_KINDS:
                 spec = attention.cache_spec(cfg, kind, max_seq)
                 a, state = attention.attend_decode(cfg, p["attn"], h, state, kind, pos, spec)
+                x = x + a
+                x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+            elif kind == "rglru":
+                a, state = griffin.griffin_block(cfg, p["rec"], h, state)
                 x = x + a
                 x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             else:

@@ -23,6 +23,21 @@ and their arenas resident across steps.
   handoff queue holds at most one batch in flight.
 * **Coalescing policy** — take the first queued request, then keep draining
   until ``max_batch`` requests are in hand or ``max_wait_s`` has passed.
+* **Data-parallel mesh** — pass ``mesh=`` (a
+  `repro_torch.launch.mesh.DataMesh`) to the constructors to split every
+  bucket's batch over the mesh's devices
+  (`repro_torch.sharding.policy.DataParallelPolicy`): weights replicate
+  once, buckets round **up** to mesh-size multiples (1/2/4/8/16 on 4
+  devices → 4/8/16), each device runs the whole arena executor on its
+  shard, and the outputs gather onto the mesh's first device, the engine's
+  device.  The extra lanes are ordinary padding lanes, which never change
+  a real row.  Outputs are bit-exact against the engine without a mesh in
+  int8, and in f32 where the device's kernels give a row the same bits in
+  a shard as in the whole batch (``chip_smoke.py``'s ``mesh`` phase records
+  this on the card; the CPU's BLAS differs below 6 rows).
+* **Persistent kernel cache** — ``persistent_cache_dir=`` keeps the built
+  kernels in a directory (`repro_torch.serve.step.enable_persistent_cache`),
+  so a fresh replica loads them without running ``nvcc``.
 
 :class:`StreamServer` is the session mode of keyword spotting: one ring state
 per open audio stream, one MFCC frame a push (`repro_torch.core.streaming`).
@@ -49,7 +64,7 @@ from repro_torch.core.graph import DAGGraph
 from repro_torch.device import resolve
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Tracer
-from repro_torch.serve.step import BucketedExecutorCache
+from repro_torch.serve.step import BucketedExecutorCache, enable_persistent_cache
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
 _NUMPY_DTYPES = {torch.float32: np.float32, torch.int8: np.int8}
@@ -181,7 +196,9 @@ class CNNEngine:
     ``executor_fn`` is a ``(params, x) -> y`` executor from
     ``pingpong.make_scan_executor``, ``pingpong.make_dag_executor`` or
     ``quant.exec.make_int8_executor``;
-    ``params`` live on ``device``.  Use as a context manager, or call
+    ``params`` live on ``device``.  ``data_parallel`` (a
+    ``DataParallelPolicy`` whose mesh's first device is ``device``) splits
+    each batch over its mesh.  Use as a context manager, or call
     :meth:`start` / :meth:`stop`.
     """
 
@@ -198,7 +215,12 @@ class CNNEngine:
         prewarm: bool = True,
         tracer: Optional[Tracer] = None,
         metrics: Optional[MetricsRegistry] = None,
+        data_parallel=None,
+        persistent_cache_dir: Optional[str] = None,
     ):
+        # Before the ladder is prepared, so its kernels load from the cache.
+        if persistent_cache_dir is not None:
+            enable_persistent_cache(persistent_cache_dir)
         self.device = resolve(device)
         self.in_shape = tuple(int(d) for d in in_shape)
         self.dtype = dtype
@@ -209,6 +231,16 @@ class CNNEngine:
         self.tracer = tracer or NULL_TRACER
         self.metrics = metrics or MetricsRegistry("cnn_engine")
         self.executor = executor_fn
+        self.data_parallel = data_parallel
+        if data_parallel is not None:
+            if data_parallel.devices[0] != self.device:
+                raise ValueError(f"the mesh gathers on {data_parallel.devices[0]}, "
+                                 f"the engine runs on {self.device}")
+            params = data_parallel.replicate(params)
+            buckets = tuple(data_parallel.padded_batch(b) for b in buckets)
+            self._run = data_parallel.wrap_batched(executor_fn)
+        else:
+            self._run = executor_fn
         self.params = params
         buckets = tuple(sorted({int(b) for b in buckets}))
         if self.policy.max_batch > buckets[-1]:
@@ -244,12 +276,31 @@ class CNNEngine:
 
     # -- constructors ----------------------------------------------------------
 
+    @staticmethod
+    def _placement(device, mesh):
+        """(engine device, policy or None) for ``device`` and ``mesh``: with
+        a mesh, the engine runs on (and gathers onto) the mesh's first
+        device, which must be of ``device``'s type."""
+        dev = resolve(device)
+        if mesh is None:
+            return dev, None
+        from repro_torch.sharding.policy import DataParallelPolicy
+
+        dp = DataParallelPolicy(mesh)
+        if dp.devices[0].type != dev.type:
+            raise ValueError(f"mesh on {dp.devices[0]} for an engine on {dev}")
+        return dp.devices[0], dp
+
     @classmethod
-    def from_graph(cls, graph, plan, params, *, device="cuda", **kw) -> "CNNEngine":
+    def from_graph(cls, graph, plan, params, *, device="cuda", mesh=None,
+                   **kw) -> "CNNEngine":
         """Float engine for a (graph, plan) pair on ``device``: a DAG graph
         through the DAG arena executor (its plan from ``schedule.plan_dag``),
-        a sequential one through the sequential arena executor."""
-        dev = resolve(device)
+        a sequential one through the sequential arena executor.  ``mesh``
+        splits every bucket's batch over a ``("data",)`` device mesh
+        (``launch.mesh.make_data_mesh()``); ``persistent_cache_dir=`` keeps
+        the built kernels in a directory."""
+        dev, dp = cls._placement(device, mesh)
         params = {k: {kk: v.to(dev) for kk, v in p.items()}
                   for k, p in params.items()}
         if isinstance(graph, DAGGraph):
@@ -257,18 +308,20 @@ class CNNEngine:
         else:
             fn = pingpong.make_scan_executor(graph, plan)
         return cls(fn, params, tuple(graph.layers[0].shape), torch.float32,
-                   device=dev, **kw)
+                   device=dev, data_parallel=dp, **kw)
 
     @classmethod
-    def from_quantized(cls, qm, plan, *, device="cuda", **kw) -> "CNNEngine":
+    def from_quantized(cls, qm, plan, *, device="cuda", mesh=None,
+                       **kw) -> "CNNEngine":
         """Int8 engine for a quantized model (sequential or DAG): int8 wire
-        format and int8 arena banks, at a quarter of the float bytes."""
+        format and int8 arena banks, at a quarter of the float bytes.
+        ``mesh`` and ``persistent_cache_dir`` as in :meth:`from_graph`."""
         from repro_torch.quant.exec import make_int8_executor
 
-        dev = resolve(device)
+        dev, dp = cls._placement(device, mesh)
         fn, params = make_int8_executor(qm, plan, device=dev)
         return cls(fn, params, tuple(qm.graph.layers[0].shape), torch.int8,
-                   device=dev, **kw)
+                   device=dev, data_parallel=dp, **kw)
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -283,10 +336,10 @@ class CNNEngine:
         x = torch.zeros((bucket, *self.in_shape), dtype=self.dtype,
                         device=self.device)
         with self._on_stream():
-            self.executor(self.params, x)
+            self._run(self.params, x)
         if self._stream is not None:
             self._stream.synchronize()
-        return self.executor
+        return self._run
 
     def start(self) -> "CNNEngine":
         if self._threads:
@@ -500,15 +553,15 @@ class StreamServer:
     Numerics follow the wrapped executor: :meth:`from_quantized` serves the
     int8 step (int8 frames on the wire, quantized with
     ``quantize.quantize_input``), :meth:`from_graph` the float step.
+    ``persistent_cache_dir=`` keeps the built kernels in a directory, as
+    :class:`CNNEngine`'s does.
     """
 
     def __init__(self, executor, params, *, device="cuda", prewarm: bool = True,
                  metrics: Optional[MetricsRegistry] = None,
                  persistent_cache_dir: Optional[str] = None):
         if persistent_cache_dir is not None:
-            raise NotImplementedError(
-                "persistent_cache_dir= waits for the mesh item "
-                "(ROADMAP.md queue 1, item 5)")
+            enable_persistent_cache(persistent_cache_dir)
         self.device = resolve(device)
         if executor.device != self.device:
             raise ValueError(f"executor runs on {executor.device}, server on {self.device}")

@@ -2,9 +2,10 @@
 the LM prefill and decode steps.
 
 The port's counterpart of ``repro/serve/step.py``: ``bucket_for`` and
-``BucketedExecutorCache`` (``step.py:68-140``), ``make_prefill_step`` and
-``make_decode_step``.  ``jit_*_step`` and ``enable_persistent_cache`` wait
-for the mesh item (PyTorch runs eagerly; nothing is compiled).
+``BucketedExecutorCache`` (``step.py:68-140``), ``enable_persistent_cache``
+(``step.py:34-60``), ``make_prefill_step`` and ``make_decode_step``.
+PyTorch runs eagerly, so ``jit_*_step`` have no counterpart; their sharded
+placements go with the sharded train step (ROADMAP.md queue 1, item 6c).
 
 Requests pad up to the nearest bucket, so an executor only ever sees the
 batch sizes on the ladder; in the port, preparing a bucket means running its
@@ -16,6 +17,22 @@ import time
 from typing import Any, Callable, Dict, Sequence, Tuple
 
 import torch
+
+from repro_torch.kernels import build
+
+
+def enable_persistent_cache(cache_dir) -> str:
+    """Keep the compiled kernels in ``cache_dir``, across processes.
+
+    The port has no XLA compile: its compiled artifacts are the
+    ``nvcc``-built kernel libraries (`repro_torch.kernels.build`).  From
+    now on they are built into and loaded from ``cache_dir``, so a fresh
+    process (a replica spawning) that finds them there loads them without
+    running ``nvcc``.  Process-global, as the reference's cache; calling
+    again with the same directory does nothing, with a different one
+    repoints it.  Returns ``cache_dir``."""
+    build.use_build_dir(cache_dir)
+    return str(cache_dir)
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:

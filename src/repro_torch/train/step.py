@@ -12,7 +12,7 @@ The port's counterpart of ``repro/train/step.py::make_train_step``:
 Metrics: ``loss``, ``grad_norm`` (before clipping) and ``lr``, plus ``ce``
 and ``aux`` from the model when there is one microbatch (the reference
 drops them when it accumulates).  ``jit_train_step`` (sharded in/out
-placements) waits for the mesh item (ROADMAP.md queue 1, item 5).
+placements) waits for ``ShardingPolicy`` (ROADMAP.md queue 1, item 6c).
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.core import fusion, graph, nn, pingpong, planner, quantize, schedule
 from repro_torch.core.quantize import QuantizedLayer, QuantizedModel
 from repro_torch.configs import base as cfgbase
+from repro_torch.kernels import build
 from repro_torch.kernels.conv_pool import depthwise, ops, ref
 from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
 from repro_torch.kernels.flash import kernel as flash_kernel
@@ -36,6 +37,7 @@ from repro_torch.kernels.xent import ref as xent_ref
 from repro_torch.data import tokens as tok
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models import attention, rwkv6
 from repro_torch.models.transformer import Model
 from repro_torch.quant import exec as qexec
@@ -82,7 +84,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/core/export_c.py",
             "src/repro_torch/checkpoint/ckpt.py",
             "src/repro_torch/ft/resilience.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/sharding/policy.py",
+            "src/repro_torch/models/griffin.py",
+            "src/repro_torch/models/moe.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -166,6 +172,9 @@ ENTRY_POINTS = {
     "lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
         {"embed": np.zeros((4, 2), np.float32)}, _llama()),
     "launch.serve.main": lambda: launch_serve.main(["--arch", "llama3.2-1b"]),
+    "launch.serve.main[griffin]": lambda: launch_serve.main(["--arch", "recurrentgemma-9b"]),
+    "launch.serve.main[moe]": lambda: launch_serve.main(["--arch", "qwen2-moe-a2.7b"]),
+    "make_data_mesh": lambda: make_data_mesh(),
     "launch.train.main": lambda: launch_train.main(["--arch", "llama3.2-1b"]),
     "data.device_batch": lambda: tok.device_batch(
         tok.TokenPipelineConfig(vocab_size=16, seq_len=4, global_batch=2), 0),
@@ -341,6 +350,54 @@ def test_k5_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
         with pytest.raises(RuntimeError):
             attention.attend_train(dataclasses.replace(cfg, head_dim=64), p, x, "attn", pos)
     assert flash_kernel.K5_LAUNCHES.count == before
+
+
+# (B, S, H, K, h, window) of each new family's prefill attention at full size
+NEW_FAMILY_ATTENTION = {"recurrentgemma-9b": (1, 37, 16, 1, 256, 2048),
+                        "qwen2-moe-a2.7b": (1, 37, 16, 16, 128, 0),
+                        "mixtral-8x7b": (1, 37, 32, 8, 128, 4096)}
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_FAMILY_ATTENTION))
+def test_new_families_attention_goes_through_k5(arch, monkeypatch):
+    """Every attention layer of a Griffin or MoE prefill calls
+    ``flash_attention`` (reduced config, CPU, counted), and a CUDA call at
+    the family's full attention shape goes to K5's wrapper, which reaches
+    the kernel's build (no nvcc here: a stand-in raises there), never the
+    plain version."""
+    _no_cuda()
+    cfg = cfgbase.get_reduced_config(arch)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    calls = []
+    attend = flash_ops.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append(tuple(q.shape))
+        return attend(q, k, v, **kw)
+
+    monkeypatch.setattr(flash_ops, "flash_attention", counted)
+    tokens = torch.zeros((1, 20), dtype=torch.int32)
+    cache, _ = model.prefill(params, {"tokens": tokens}, 32)
+    n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    assert n_attn >= 1 and len(calls) == n_attn
+    model.decode_step(params, cache, tokens[:, :1], 20, 32)
+    assert len(calls) == n_attn  # decode attention is plain in the reference too
+
+    def reached(name):
+        raise RuntimeError(f"reached the build of {name}")
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(build, "load", reached)
+    monkeypatch.setattr(flash_ref, "attention_ref", forbidden)
+    B, S, H, K, h, window = NEW_FAMILY_ATTENTION[arch]
+    with FakeTensorMode():
+        q = torch.empty(B, S, H, h, dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty(B, S, K, h, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(RuntimeError, match="reached the build of flash_fwd"):
+            attend(q, kv, kv, window=window)
 
 
 def test_k7_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):

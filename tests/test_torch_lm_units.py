@@ -1,12 +1,15 @@
 """The port's LM building blocks against the reference's, at f32 compute.
 
 Norms, RoPE, the four MLP activations, decode attention over a ring cache,
-the RWKV6 token-shift mix, decay, single step and channel mix.  Inputs and
+the RWKV6 token-shift mix, decay, single step and channel mix, the Griffin
+block's causal conv, RG-LRU scan and step, and the MoE layer's capacity,
+routing (the keep mask of dropped tokens), output and aux loss.  Inputs and
 weights come from a numpy seed and go to both frameworks as arrays; every
 comparison is at rtol = atol = 1e-5.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,10 +18,12 @@ import torch
 from repro.configs import base as ref_base
 from repro.models import attention as ref_attention
 from repro.models import common as ref_common
+from repro.models import griffin as ref_griffin
 from repro.models import mlp as ref_mlp
+from repro.models import moe as ref_moe
 from repro.models import rwkv6 as ref_rwkv6
 from repro_torch.configs import base
-from repro_torch.models import attention, common, mlp, rwkv6
+from repro_torch.models import attention, common, griffin, mlp, moe, rwkv6
 
 TOL = 1e-5
 
@@ -224,3 +229,161 @@ def test_time_mix_in_two_pieces_is_the_whole(rwkv_setup):
     o2, s2, _ = rwkv6.time_mix(cfg, p, _t(x[:, 3:]), s1, l1, chunk=4)
     torch.testing.assert_close(torch.cat([o1, o2], 1), whole, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s2, s_whole, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Griffin (RG-LRU) block
+# ---------------------------------------------------------------------------
+def _griffin_params(cfg, rng):
+    d, rw, W = cfg.d_model, cfg.lru_width, cfg.conv1d_width
+    p = {k: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+         for k, s in (("w_gate", (d, rw)), ("w_rec", (d, rw)), ("conv_w", (W, rw)),
+                      ("w_a", (rw, rw)), ("w_x", (rw, rw)), ("w_out", (rw, d)))}
+    for k in ("conv_b", "b_a", "b_x"):
+        p[k] = (rng.standard_normal(rw) * 0.1).astype(np.float32)
+    a = np.linspace(0.9, 0.999, rw, dtype=np.float32)
+    p["lam"] = np.log(np.expm1(-np.log(a) / 8.0)).astype(np.float32)
+    return p
+
+
+@pytest.mark.parametrize("with_tail", [False, True])
+def test_causal_conv1d(with_tail):
+    rng = _rng(5)
+    x = rng.standard_normal((2, 7, 16)).astype(np.float32)
+    w = rng.standard_normal((4, 16)).astype(np.float32)
+    b = rng.standard_normal(16).astype(np.float32)
+    tail = rng.standard_normal((2, 3, 16)).astype(np.float32) if with_tail else None
+    y, t = griffin.causal_conv1d(_t(x), _t(w), _t(b), None if tail is None else _t(tail))
+    ry, rt = ref_griffin.causal_conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                       None if tail is None else jnp.asarray(tail))
+    _close(y, ry)
+    _close(t, rt)
+
+
+def _lru_inputs(rng, B, S, rw):
+    xi = rng.standard_normal((B, S, rw)).astype(np.float32)
+    r = 1 / (1 + np.exp(-rng.standard_normal((B, S, rw)))).astype(np.float32)
+    i = 1 / (1 + np.exp(-rng.standard_normal((B, S, rw)))).astype(np.float32)
+    lam = np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, rw)) / 8.0)).astype(np.float32)
+    log_a_base = (-8.0 * np.logaddexp(lam, 0)).astype(np.float32)
+    return xi, r.astype(np.float32), i.astype(np.float32), log_a_base
+
+
+@pytest.mark.parametrize("S", [1, 2, 37, 128])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rg_lru_scan(S, with_h0):
+    """The doubling scan against ``jax.lax.associative_scan``: two sum
+    orders of decays <= 1, within 1e-5 (the worst found: 2.1e-6, at S 128
+    from h0, |h| up to 2.3)."""
+    rng = _rng(6 + S)
+    xi, r, i, lab = _lru_inputs(rng, 2, S, 24)
+    h0 = rng.standard_normal((2, 24)).astype(np.float32) if with_h0 else None
+    h, last = griffin.rg_lru(_t(xi), _t(r), _t(i), _t(lab), None if h0 is None else _t(h0))
+    rh, rlast = ref_griffin.rg_lru(jnp.asarray(xi), jnp.asarray(r), jnp.asarray(i),
+                                   jnp.asarray(lab), None if h0 is None else jnp.asarray(h0))
+    _close(h, rh)
+    _close(last, rlast)
+
+
+def test_rg_lru_step():
+    rng = _rng(7)
+    xi, r, i, lab = _lru_inputs(rng, 3, 1, 24)
+    h = rng.standard_normal((3, 24)).astype(np.float32)
+    got = griffin.rg_lru_step(_t(xi[:, 0]), _t(r[:, 0]), _t(i[:, 0]), _t(lab), _t(h))
+    want = ref_griffin.rg_lru_step(jnp.asarray(xi[:, 0]), jnp.asarray(r[:, 0]),
+                                   jnp.asarray(i[:, 0]), jnp.asarray(lab), jnp.asarray(h))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("S,carried", [(9, False), (9, True), (1, True)])
+def test_griffin_block(S, carried):
+    """A prefill from the zero state and from a carried (h, conv) state,
+    and a decode step (one token and a state: ``rg_lru_step``)."""
+    rcfg, cfg = _cfgs("recurrentgemma-9b")
+    rng = _rng(8)
+    p = _griffin_params(cfg, rng)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    state = None
+    if carried:
+        state = {"h": rng.standard_normal((2, cfg.lru_width)).astype(np.float32),
+                 "conv": rng.standard_normal((2, cfg.conv1d_width - 1, cfg.lru_width))
+                 .astype(np.float32)}
+    y, st = griffin.griffin_block(cfg, {k: _t(v) for k, v in p.items()}, _t(x),
+                                  None if state is None else {k: _t(v) for k, v in state.items()})
+    ry, rst = ref_griffin.griffin_block(
+        rcfg, {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        None if state is None else {k: jnp.asarray(v) for k, v in state.items()})
+    _close(y, ry)
+    for k in ("h", "conv"):
+        _close(st[k], rst[k])
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+def test_capacity():
+    _, cfg = _cfgs("qwen2-moe-a2.7b")
+    rcfg = ref_base.get_config("qwen2-moe-a2.7b")
+    full = base.get_config("qwen2-moe-a2.7b")
+    for c, rc in ((cfg, ref_base.get_reduced_config("qwen2-moe-a2.7b")), (full, rcfg)):
+        for n in (1, 5, 16, 100, 509, 1024):
+            for f in (0.25, 1.0, 1.25, 2.0):
+                assert moe.capacity(c, n, f) == ref_moe.capacity(rc, n, f), (n, f)
+    assert moe.capacity(full, 509) == 48 and moe.capacity(full, 1) == 8
+
+
+def _moe_params(cfg, rng):
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    p = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
+         "wi": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "wg": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "wo": rng.standard_normal((E, f, d)) / np.sqrt(f)}
+    if m.d_ff_shared:
+        fs = m.d_ff_shared
+        p["shared"] = {"wi": rng.standard_normal((d, fs)) / np.sqrt(d),
+                       "wg": rng.standard_normal((d, fs)) / np.sqrt(d),
+                       "wo": rng.standard_normal((fs, d)) / np.sqrt(fs)}
+        p["shared_gate"] = rng.standard_normal((d, 1)) / np.sqrt(d)
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), p)
+
+
+def _ref_keep(rcfg, rp, x, C):
+    """The reference's keep mask (``moe.py:66-77``, which it does not
+    return): top-k of the f32 router, each choice's slot in the flattened
+    (S·k) order, kept below C."""
+    m = rcfg.moe
+    B, S, _ = x.shape
+    probs = jax.nn.softmax(x.astype(jnp.float32) @ rp["router"], axis=-1)
+    _, idx = jax.lax.top_k(probs, m.top_k)
+    flat = jax.nn.one_hot(idx, m.num_experts, dtype=jnp.float32).reshape(B, S * m.top_k, -1)
+    pos = jnp.sum((jnp.cumsum(flat, axis=1) - flat) * flat, axis=-1)
+    return np.asarray(pos.reshape(B, S, m.top_k).astype(jnp.int32) < C)
+
+
+@pytest.mark.parametrize("arch,factor,group", [("qwen2-moe-a2.7b", 1.25, 4096),
+                                               ("qwen2-moe-a2.7b", 0.25, 4096),
+                                               ("mixtral-8x7b", 0.25, 4096),
+                                               ("mixtral-8x7b", 0.25, 12)])
+def test_apply_moe(arch, factor, group):
+    """Output, aux loss and keep mask, with shared experts (Qwen2-MoE) and
+    without (Mixtral); at factor 0.25 the 8 slots an expert drop tokens,
+    and with groups of 12 each of the 2 groups a row has its own slots."""
+    rcfg, cfg = _cfgs(arch)
+    rng = _rng(9)
+    p = _moe_params(cfg, rng)
+    x = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    pt = jax.tree.map(_t, p)
+    rp = jax.tree.map(jnp.asarray, p)
+    out, aux = moe.apply_moe(cfg, pt, _t(x), factor, group)
+    rout, raux = ref_moe.apply_moe(rcfg, rp, jnp.asarray(x), factor, group)
+    _close(out, rout)
+    _close(aux, raux)
+    S = min(group, x.shape[1])
+    xs = x.reshape(-1, S, cfg.d_model)
+    C = moe.capacity(cfg, S, factor)
+    keep = moe.route(cfg, pt, _t(xs), C)["keep"].numpy()
+    want = _ref_keep(rcfg, rp, jnp.asarray(xs), C)
+    assert np.array_equal(keep, want)
+    assert keep.all() == (factor == 1.25)

@@ -37,6 +37,7 @@ from repro.quant import exec as ref_qexec
 from repro_torch import convert
 from repro_torch.core import graph, nn, quantize, streaming
 from repro_torch.core.planner import verify_plan
+from repro_torch.kernels import build
 from repro_torch.kernels.conv_pool import depthwise
 from repro_torch.obs import report
 from repro_torch.quant import exec as qexec
@@ -353,7 +354,7 @@ def test_stream_server_implicit_open_and_peek():
         srv.open("s")
 
 
-def test_stream_server_default_device_and_cache_dir():
+def test_stream_server_default_device_and_cache_dir(tmp_path, monkeypatch):
     s = _net("ds_cnn")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
@@ -362,8 +363,11 @@ def test_stream_server_default_device_and_cache_dir():
             StreamServer.from_graph(s["g"], s["params"])
         with pytest.raises(RuntimeError, match="cuda"):
             streaming.make_streaming_executor(s["g"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        StreamServer.from_quantized(s["qm"], device="cpu", persistent_cache_dir="x")
+    # persistent_cache_dir= keeps the kernels built in that directory
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setattr(build, "_LOADED", {})
+    StreamServer.from_quantized(s["qm"], device="cpu", persistent_cache_dir=str(tmp_path))
+    assert build.library_path("conv_pool_dw_q8").parent == tmp_path.resolve()
 
 
 # ---------------------------------------------------------------------------
