@@ -37,7 +37,9 @@ against their plain PyTorch versions:
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
    window, a softcap, h=128 and 256, RecurrentGemma-9B's and
    Qwen2-MoE's served shapes at S 509 and RecurrentGemma's at S 1000
-   under a window of 256, strided views and views whose rows
+   under a window of 256, without the causal mask at Seamless-M4T's
+   encoder (S = T = 1,000) and cross-attention shapes (S 8 / 16 over T
+   509 / 1,000), strided views and views whose rows
    are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
    of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
@@ -99,18 +101,33 @@ against their plain PyTorch versions:
    on 16 held-out digits at rtol 1e-4, atol 1e-5, at least 7 right
    (``c_export_phase``); no gcc fails the run;
 6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
-   RecurrentGemma-9B and Qwen2-MoE-A2.7B (8 requests, 4 lanes, 16 new
-   tokens each) at full width and depth, bf16 compute, through ``Engine``,
-   one model at a time: every request done, K5 = 16 / K7 = 32 / K5 = 12 /
-   K5 = 24 launches per prefill (no other kernel), the KV/state bytes
-   (268,959,744 / 136,314,880 / 54,788,096 / 805,699,584 B), each prompt's
+   RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B and Nemotron-4-15B (8
+   requests, 4 lanes, 16 new tokens each) at full width and depth, bf16
+   compute (each layer's weights stored in bf16 as it is drawn), through
+   ``Engine``, one model at a time: every request done, K5 = 16 / K7 = 32
+   / K5 = 12 / K5 = 24 / K5 = 32 / K5 = 32 launches per prefill (no other
+   kernel), the KV/state bytes (268,959,744 / 136,314,880 / 54,788,096 /
+   805,699,584 / 537,395,200 / 537,395,200 B), each prompt's
    logits against the plain path on the card (the same model with K5/K7
    swapped for their plain versions, ``plain_kernels``), TTFT, prefill and
    decode tokens/s, peak memory, and the device time of K5 / K7, the
    RG-LRU scan and the MoE einsums over the served prompts' prefills;
-7. holds each architecture at full width, 2 layers (RecurrentGemma 3),
-   f32 compute, kernel path against plain path: prefill and 4 decode
-   steps at 1e-4; then
+   then Seamless-M4T-large-v2 at full size (``encdec_phase``): two batches
+   of 4 utterances (509 frames and 8-token prompts, 1,000 frames and
+   16-token prompts), each ``encode`` -> ``prefill(memory=)`` -> 32 greedy
+   steps of ``make_decode_step`` with ``memory``, K5 72 launches a batch
+   (24 encoder and 24 cross without the mask, 24 causal) and none a decode
+   step, the prefill logits against the plain path (``LM_LOGITS_TOL``),
+   encode / prefill /
+   TTFT ms, ms a decode step, tokens/s and K5's device ms; then
+   Llama-3.2-1B through ``Engine`` with ``kv_dtype="int8"`` and the bf16
+   cache (``kv_int8_phase``): 143,130,624 against 268,959,744 state bytes,
+   the first prefill's and decode step's logits within
+   tests/test_kv_quant.py's tolerances, ms a decode step both ways;
+7. holds each architecture at full width, 2 layers (RecurrentGemma 3;
+   Seamless 2 encoder and 2 decoder layers over 200 frames, its training
+   loss and gradients too, at step 9's limits), f32 compute, kernel path
+   against plain path: prefill and 4 decode steps at 1e-4; then
    RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
    kernel path against plain path layer by layer, at f32 compute (final
    logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
@@ -131,8 +148,10 @@ against their plain PyTorch versions:
    the losses of 2 AdamW steps at 1e-5 relative;
 10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
     K3 and K4 at every distinct depthwise step of both nets, beside
-    cuDNN's chain and the f64 chain, K5 at S 128/512/1000 and at
-    RecurrentGemma-9B's and Qwen2-MoE's served shapes at S 509, K7 at S
+    cuDNN's chain and the f64 chain, K5 at S 128/512/1000, at
+    RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and Nemotron-4-15B's
+    served shapes at S 509 and at Seamless-M4T's batch of 4 at 1,000
+    frames (encoder and cross-attention without the mask, decoder), K7 at S
     128/509/512/1000 (each of its two kernels by name), K5 also at Llama's
     train shape B 8 x S 512, K6 at the two train shapes) with CUDA events
     and the profiler, beside its plain version, a PyTorch library call
@@ -1927,7 +1946,16 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             # 16 query heads over one KV head, window 2048) and Qwen2-MoE's
             # (h 128, 16 / 16), and RecurrentGemma's where the window bites
             (1, 509, 16, 1, 256, 2048, 0.0), (1, 509, 16, 16, 128, 0, 0.0),
-            (1, 1000, 16, 1, 256, 256, 0.0)]
+            (1, 1000, 16, 1, 256, 256, 0.0),
+            # Seamless-M4T's decoder self-attention at its served prompts
+            (4, 8, 16, 16, 64, 0, 0.0), (4, 16, 16, 16, 64, 0, 0.0)]
+# K5 without the causal mask, (B, S, H, K, h, T): Seamless-M4T's encoder
+# self-attention over 1,000 frames (S = T), one utterance and its served
+# batches of 4 at 509 and 1,000 frames, and its decoder's cross-attention
+# from prompts of 8 and 16 tokens over 509 and 1,000 frames (S != T)
+K5_NONCAUSAL = [(1, 1000, 16, 16, 64, 1000), (4, 509, 16, 16, 64, 509),
+                (4, 1000, 16, 16, 64, 1000), (4, 8, 16, 16, 64, 509),
+                (4, 16, 16, 16, 64, 1000)]
 K5_TOL = {"f32": 2e-5, "bf16": 5e-2}  # rtol = atol, tests/test_kernel_flash.py
 # bf16 also per output row (one query, one head): max |diff| within this
 # share of the row's largest |value|.  Two roundings to bf16 of nearly
@@ -1959,8 +1987,16 @@ K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches bo
 # Qwen2-MoE-A2.7B's limits are their first readings on an H100 80GB HBM3 at
 # 700 W, 0.141 / 0.0319 and 0.266 / 0.0678, with ~3.5x / 3x headroom (the
 # paths differ in K5's 12 / 24 layers; at f32 lm_strict holds both at 1e-4).
+# Llama-3-8B's and Nemotron-4-15B's are their first readings on an H100
+# 80GB HBM3 at 700 W, 0.0703 / 0.0165 and 0.0781 / 0.0188, with ~3.5x / 3x
+# headroom (K5 in all 32 layers).  Seamless-M4T-large-v2's (encdec_phase,
+# the prefill's logits after encode, both batches) are its first readings
+# on an H100 80GB HBM3 at 700 W, 0.0586 / 0.0127 at 509 frames and 0.0547 /
+# 0.0124 at 1,000, with ~3.5x / 3x headroom (K5 in 72 launches a batch).
 LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75),
-                 "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2)}
+                 "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2),
+                 "llama3-8b": (0.25, 0.05), "nemotron-4-15b": (0.3, 0.06),
+                 "seamless-m4t-large-v2": (0.2, 0.04)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
 # RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
 # on the prompts below, at f32 compute: the final logits' (max |difference|,
@@ -1974,7 +2010,9 @@ RWKV_F32_K7_SHARE = 1e-5
 LM_ENGINES = {
     # arch: (seed, lanes, max_seq, max_new, fixed prompt lengths, (n, lo, hi)
     # drawn with np.random.default_rng(0).integers(lo, hi), kernel, per layer
-    # of its kind)
+    # of its kind).  Llama-3-8B and Nemotron-4-15B (32 attention layers, h
+    # 128, GQA 32:8 / 48:8; Nemotron's squared-ReLU MLP) are served on
+    # RecurrentGemma-9B's traffic.
     "llama3.2-1b": (0, 8, 1024, 32, (1, 128, 129, 509), (12, 2, 513), "K5"),
     "rwkv6-7b": (1, 4, 1024, 16, (2, 63, 64, 200, 256, 509), (2, 2, 257), "K7"),
     # 26 RG-LRU layers (the doubling scan, plain PyTorch) and 12 local
@@ -1984,9 +2022,12 @@ LM_ENGINES = {
     # 24 attention layers (K5, h 128, 16 KV heads, q/k/v bias), each with
     # 60 routed experts (top 4) and 4 shared ones (the GShard einsums)
     "qwen2-moe-a2.7b": (3, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
+    "llama3-8b": (4, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
+    "nemotron-4-15b": (5, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
 }
 LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880,
-               "recurrentgemma-9b": 54_788_096, "qwen2-moe-a2.7b": 805_699_584}
+               "recurrentgemma-9b": 54_788_096, "qwen2-moe-a2.7b": 805_699_584,
+               "llama3-8b": 537_395_200, "nemotron-4-15b": 537_395_200}
 # A name every kernel of K5 / K7 has in the profiler
 LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 # Plain-PyTorch parts of the served prefills timed as profiler ranges:
@@ -1994,9 +2035,26 @@ LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 LM_RANGES = (("repro_torch.models.griffin", "rg_lru", "rg_lru_scan"),
              ("repro_torch.models.moe", "expert_mix", "moe_expert_einsums"))
 # lm_strict: (arch, seed, prompt, layers); RecurrentGemma takes its first
-# 3 layers, (rglru, rglru, local), so that K5 runs in the strict pass
+# 3 layers, (rglru, rglru, local), so that K5 runs in the strict pass;
+# Seamless-M4T 2 encoder and 2 decoder layers over LM_STRICT_SRC frames
 LM_STRICT = (("llama3.2-1b", 10, 129, 2), ("rwkv6-7b", 11, 200, 2),
-             ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2))
+             ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2),
+             ("seamless-m4t-large-v2", 14, 16, 2), ("llama3-8b", 15, 200, 2),
+             ("nemotron-4-15b", 16, 200, 2))
+LM_STRICT_SRC = 200
+# Seamless-M4T-large-v2 served (encdec_phase): (frames, prompt tokens) of
+# each batch of ENCDEC_LANES utterances of one length (the reference has no
+# memory mask, so a batch pads nothing), ENCDEC_STEPS greedy decode steps.
+# 1,000 frames are 20 s of speech at the speech encoder's 50 Hz.
+ENCDEC_BATCHES = ((509, 8), (1000, 16))
+ENCDEC_LANES, ENCDEC_STEPS, ENCDEC_MAX_SEQ = 4, 32, 64
+# kv_int8: Llama-3.2-1B served with an int8 and with a bf16 KV cache on one
+# set of prompts; state bytes pinned; the first prefill's and decode step's
+# logits held at tests/test_kv_quant.py's (rtol, atol) and their argmax
+# agreeing on at least KV_INT8_ARGMAX_AGREE of the rows.
+KV_INT8_BYTES = 143_130_624
+KV_INT8_PREFILL_TOL, KV_INT8_DECODE_TOL = (0.2, 0.15), (0.25, 0.2)
+KV_INT8_ARGMAX_AGREE = 0.5
 
 
 def _close(torch, a, b, rtol, atol):
@@ -2044,23 +2102,28 @@ def plain_kernels():
 
 def k5_checks(torch, np, report) -> None:
     """K5 against its plain version: the Llama shapes at every S and batch,
-    a window, a softcap, head dims 128 and 256, and strided views."""
+    a window, a softcap, head dims 128 and 256, the non-causal shapes
+    (``K5_NONCAUSAL``: T = S and T != S), and strided views."""
     from repro_torch.kernels.flash.kernel import K5_LAUNCHES
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref
 
-    cases = [(B, S, 32, 8, 64, 0, 0.0) for S in K5_SEQS for B in (1, 2)] + K5_EXTRA
+    # (B, S, T, H, K, h, window, softcap, causal)
+    cases = [(B, S, S, H, K, h, window, softcap, True) for B, S, H, K, h, window, softcap in
+             [(B, S, 32, 8, 64, 0, 0.0) for S in K5_SEQS for B in (1, 2)] + K5_EXTRA]
+    cases += [(B, S, T, H, K, h, 0, 0.0, False) for B, S, H, K, h, T in K5_NONCAUSAL]
     worst = {"f32": 0.0, "bf16": 0.0}
+    worst_nc = {"f32": 0.0, "bf16": 0.0}
     worst_row = 0.0
     n_checks = 0
-    for ci, (B, S, H, K, h, window, softcap) in enumerate(cases):
+    for ci, (B, S, T, H, K, h, window, softcap, causal) in enumerate(cases):
         rng = np.random.default_rng(9000 + ci)
         q = rng.standard_normal((B, S, H, h))
-        k = rng.standard_normal((B, S, K, h))
-        v = rng.standard_normal((B, S, K, h))
+        k = rng.standard_normal((B, T, K, h))
+        v = rng.standard_normal((B, T, K, h))
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             qt, kt, vt = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (q, k, v))
-            geom = dict(causal=True, window=window, softcap=softcap)
+            geom = dict(causal=causal, window=window, softcap=softcap)
             before = K5_LAUNCHES.count
             y = flash_attention(qt, kt, vt, **geom)
             launches = K5_LAUNCHES.count - before
@@ -2070,10 +2133,12 @@ def k5_checks(torch, np, report) -> None:
             row_ok, row = (_rows_close(y, y_ref, K5_BF16_ROW_REL)
                            if kind == "bf16" else (True, 0.0))
             if launches != 1 or y.dtype != dtype or not (ok and row_ok):
-                raise AssertionError(f"K5 {(B, S, H, K, h, window, softcap)} {kind}: "
-                                     f"{launches} launches, max abs err {err}, "
+                raise AssertionError(f"K5 {(B, S, T, H, K, h, window, softcap, causal)} "
+                                     f"{kind}: {launches} launches, max abs err {err}, "
                                      f"worst row share {row}")
             worst[kind] = max(worst[kind], err)
+            if not causal:
+                worst_nc[kind] = max(worst_nc[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2102,6 +2167,8 @@ def k5_checks(torch, np, report) -> None:
         raise AssertionError(f"K5 on misaligned views: {launches} launches, max abs err "
                              f"{mis_err}, worst row share {mis_row}")
     report.emit({"phase": "k5_vs_plain", "checks": n_checks + 2, "max_abs_err": worst,
+                 "non_causal_checks": 2 * len(K5_NONCAUSAL),
+                 "non_causal_max_abs_err": worst_nc,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2209,17 +2276,19 @@ def k7_checks(torch, np, report) -> None:
 
 def _lm_model(torch, arch, seed, **changes):
     """(model, params): the registry config at full width (``changes``
-    applied), random weights from a seeded generator on the card, stored
-    once in the compute dtype."""
+    applied), random weights from a seeded generator on the card, each
+    layer stored in the compute dtype as soon as it is drawn
+    (``init_params(store_dtype=)``: Nemotron-4-15B's 62.5 GB of f32
+    weights never exist at once)."""
     import dataclasses
 
     from repro_torch.configs import base as cfgbase
-    from repro_torch.models.transformer import Model, store_compute_dtype
+    from repro_torch.models.transformer import Model
 
     cfg = dataclasses.replace(cfgbase.get_config(arch), **changes)
     model = Model(cfg, rwkv_chunk=64)
-    params = model.init_params(torch.Generator("cuda").manual_seed(seed), device="cuda")
-    store_compute_dtype(params, getattr(torch, cfg.compute_dtype))
+    params = model.init_params(torch.Generator("cuda").manual_seed(seed),
+                               store_dtype=getattr(torch, cfg.compute_dtype))
     return model, params
 
 
@@ -2254,9 +2323,9 @@ def lm_state_bytes(cfg, lanes: int, max_seq: int) -> int:
 
 
 def lm_engine_phase(torch, np, report) -> dict:
-    """Serve Llama-3.2-1B, RWKV6-7B, RecurrentGemma-9B and Qwen2-MoE-A2.7B
-    at full width and depth through ``Engine``, one at a time; returns
-    {arch: launch counts by key} for the kernels line."""
+    """Serve each of ``LM_ENGINES`` at full width and depth through
+    ``Engine``, one at a time; returns {arch: launch counts by key} for the
+    kernels line."""
     from torch.autograd import DeviceType
 
     from repro_torch.obs.trace import Tracer
@@ -2377,34 +2446,271 @@ def lm_engine_phase(torch, np, report) -> dict:
     return out
 
 
-def lm_strict_phase(torch, np, report) -> None:
-    """Each architecture at full width, 2 layers (RecurrentGemma 3), f32
-    compute, TF32 off: the kernel path against the plain path on the card,
-    prefill logits and 4 teacher-forced decode steps, at LM_STRICT_TOL."""
-    for arch, seed, S, layers in LM_STRICT:
-        model, params = _lm_model(torch, arch, seed, num_layers=layers,
-                                  compute_dtype="float32")
-        rng = np.random.default_rng(seed)
-        toks = rng.integers(0, model.cfg.vocab_size, S + 4).astype(np.int32)
-        batch = {"tokens": torch.as_tensor(toks[None, :S], device="cuda")}
-        ck, lk = model.prefill(params, batch, 512)
+def encdec_phase(torch, np, report) -> dict:
+    """Serve Seamless-M4T-large-v2 at full width and depth (24 encoder and
+    24 decoder layers, bf16 compute) the way its encoder is driven: for each
+    batch of ``ENCDEC_BATCHES``, ENCDEC_LANES utterances of one length,
+    ``encode`` -> ``prefill(memory=)`` -> ENCDEC_STEPS greedy steps of
+    ``make_decode_step`` with ``memory``, every launch counter set to 0
+    just before.  K5 runs once a layer and stack in the encoder and the
+    prefill (24 non-causal encoder, 24 causal decoder, 24 non-causal cross
+    launches: 72 a batch) and never in a decode step, no other kernel runs;
+    the prefill's logits, finite, are held against the plain path's on the
+    same inputs within ``LM_LOGITS_TOL``.  Records encode, prefill and TTFT
+    ms, decode ms a step (p50 / p99), tokens/s, peak memory and K5's device
+    ms over encode and prefill.  Returns K5's launch counts by key over the served batches."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.serve.step import make_decode_step
+
+    counters = _counters()
+    model, params = _lm_model(torch, "seamless-m4t-large-v2", 40)
+    cfg = model.cfg
+    decode = make_decode_step(model, ENCDEC_MAX_SEQ)
+    max_abs, rel_rms = LM_LOGITS_TOL[cfg.name]
+    k5_by_key = {}
+    per_batch = {k: 0 for k in counters}
+    per_batch["K5"] = cfg.encoder_layers + 2 * cfg.num_layers
+    for bi, (T, S) in enumerate(ENCDEC_BATCHES):
+        gen = torch.Generator("cuda").manual_seed(41 + bi)
+        src = torch.randn((ENCDEC_LANES, T, cfg.d_model), generator=gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab_size, (ENCDEC_LANES, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+
+        def serve_prompt():
+            memory = model.encode(params, src)
+            return memory, *model.prefill(params, {"tokens": tokens}, ENCDEC_MAX_SEQ,
+                                          memory=memory)
+
+        serve_prompt()  # warm-up: cuBLAS handles, kernel libraries
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        memory = model.encode(params, src)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, logits = model.prefill(params, {"tokens": tokens}, ENCDEC_MAX_SEQ,
+                                      memory=memory)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        prompt_counts = {k: c.count for k, c in counters.items()}
+        for key, n in counters["K5"].by_key.items():
+            k5_by_key[key] = k5_by_key.get(key, 0) + n
+        out, step_ms, step_counts = [tok], [], []
+        for t in range(ENCDEC_STEPS):
+            before = {k: c.count for k, c in counters.items()}
+            ts = time.perf_counter()
+            tok, _, cache = decode(params, cache, tok, S + t, memory)
+            out.append(tok)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+            step_counts.append({k: c.count - before[k] for k, c in counters.items()})
+        peak = torch.cuda.max_memory_allocated()
+        seq = torch.cat(out, dim=1)
+
+        # -- checks ------------------------------------------------------------
+        if prompt_counts != per_batch or any(any(c.values()) for c in step_counts):
+            raise AssertionError(f"encdec T={T}: launches {prompt_counts} over encode and "
+                                 f"prefill (want {per_batch}), decode steps "
+                                 f"{[c for c in step_counts if any(c.values())][:2]} (want none)")
+        if tuple(seq.shape) != (ENCDEC_LANES, ENCDEC_STEPS + 1) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"encdec T={T}: tokens {tuple(seq.shape)}, logits finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
         with plain_kernels():
-            cp, lp = model.prefill(params, batch, 512)
+            _, _, lp = serve_prompt()
+        err, rel = _diff(torch, logits, lp)
+        kern = [ev for ev in profiled(torch, serve_prompt, serve_prompt)[1]
+                if ev.device_type == DeviceType.CUDA and LM_KERNEL_SYMBOL["K5"] in ev.key]
+        encode_ms, prefill_ms = 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+        decode_s = sum(step_ms) / 1e3
+        report.emit({
+            "phase": "encdec", "arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.compute_dtype, "lanes": ENCDEC_LANES, "frames": T,
+            "prompt": S, "decode_steps": ENCDEC_STEPS,
+            "tokens_per_lane": ENCDEC_STEPS, "k5_launches_encode_prefill": prompt_counts["K5"],
+            "k5_launches_per_decode_step": max(c["K5"] for c in step_counts),
+            "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+            "ttft_ms": encode_ms + prefill_ms,
+            "decode_step_ms_p50": _pct(np, step_ms, 50),
+            "decode_step_ms_p99": _pct(np, step_ms, 99),
+            "decode_tokens_per_s": ENCDEC_LANES * ENCDEC_STEPS / decode_s,
+            "tokens_per_s": ENCDEC_LANES * (ENCDEC_STEPS + 1) / (t2 - t0 + decode_s),
+            "max_memory_allocated": peak,
+            "k5_device_ms_encode_prefill": sum(ev.self_device_time_total for ev in kern) / 1e3,
+            "k5_kernel_records": sum(ev.count for ev in kern),
+            "logits_vs_plain": {"max_abs": err, "rel": rel},
+            "logits_tolerance": {"max_abs": max_abs, "rel": rel_rms},
+        })
+        if not (err <= max_abs and rel <= rel_rms):
+            raise AssertionError(f"encdec T={T}: prefill logits against the plain path max abs "
+                                 f"{err}, rel {rel} (allowed {max_abs}, {rel_rms})")
+        del cache, memory
+    del model, params
+    torch.cuda.empty_cache()
+    return k5_by_key
+
+
+def kv_int8_phase(torch, np, report) -> None:
+    """Llama-3.2-1B at full size served through ``Engine`` with
+    ``kv_dtype="int8"`` and with the bf16 cache, on one set of 8 prompts, 8
+    lanes, ``max_seq`` 1,024 (LM_ENGINES' Llama traffic cut to 8 requests
+    and 16 new tokens): state bytes pinned (KV_INT8_BYTES, LM_KV_BYTES).
+    Before, on the first 8 prompts cut to 128 tokens as one batch, the two
+    caches' prefill logits and first decode step's logits held at
+    tests/test_kv_quant.py's tolerances, argmax agreeing on at least half
+    the rows.  Records ms a decode step both ways and how many served tokens
+    agree."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.engine import Engine, Request, cache_bytes
+
+    arch = "llama3.2-1b"
+    seed, _, max_seq, _, fixed, drawn, _ = LM_ENGINES[arch]
+    lanes, max_new = 8, 16
+    model_fp, params = _lm_model(torch, arch, seed)
+    model_q = Model(model_fp.cfg, kv_dtype="int8", rwkv_chunk=model_fp.rwkv_chunk)
+    cfg = model_fp.cfg
+    lens = _prompt_lengths(np, fixed, drawn)[:lanes]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    batch = torch.as_tensor(rng.integers(0, cfg.vocab_size, (lanes, 128)), dtype=torch.int32,
+                            device="cuda")
+    logits, caches = {}, {}
+    for name, m in (("int8", model_q), ("compute", model_fp)):
+        caches[name], logits[name] = m.prefill(params, {"tokens": batch}, max_seq)
+    nxt = torch.argmax(logits["compute"], -1)[:, None].to(torch.int32)
+    dec = {name: m.decode_step(params, caches[name], nxt, 128, max_seq)[0]
+           for name, m in (("int8", model_q), ("compute", model_fp))}
+    checks = {}
+    for what, got, want, (rtol, atol) in (
+            ("prefill", logits["int8"], logits["compute"], KV_INT8_PREFILL_TOL),
+            ("decode", dec["int8"], dec["compute"], KV_INT8_DECODE_TOL)):
+        ok, err = _close(torch, got, want, rtol, atol)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        if not ok or agree < KV_INT8_ARGMAX_AGREE:
+            raise AssertionError(f"kv_int8 {what}: logits max abs err {err} against the "
+                                 f"bf16 cache (rtol {rtol}, atol {atol}), argmax agreeing "
+                                 f"on {agree} of the rows")
+        checks[what] = {"max_abs_err": err, "argmax_agree": agree, "rtol": rtol, "atol": atol}
+    del caches, logits, dec
+    served = {}
+    for name, m in (("int8", model_q), ("compute", model_fp)):
+        tracer = Tracer()
+        engine = Engine(m, params, lanes=lanes, max_seq=max_seq, device="cuda", tracer=tracer)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+        stats = engine.run(reqs)
+        torch.cuda.synchronize()
+        kv = engine.plan_report()["kv_state_bytes"]
+        want = KV_INT8_BYTES if name == "int8" else LM_KV_BYTES[arch]
+        if not (kv == cache_bytes(engine.cache) == want
+                and all(r.done and len(r.out_tokens) == max_new for r in reqs)):
+            raise AssertionError(f"kv_int8 {name}: kv_state_bytes {kv}, pinned {want}; "
+                                 f"every request done: {all(r.done for r in reqs)}")
+        dec_ms = [d / 1e3 for _, d, _ in tracer.spans("decode")]
+        served[name] = {"kv_state_bytes": kv, "decode_steps": stats.decode_steps,
+                        "decode_step_ms_p50": _pct(np, dec_ms, 50),
+                        "decode_step_ms_p99": _pct(np, dec_ms, 99),
+                        "tokens": [r.out_tokens for r in reqs]}
+        del engine
+    tokens = [served[n].pop("tokens") for n in ("int8", "compute")]
+    same = sum(a == b for ta, tb in zip(*tokens) for a, b in zip(ta, tb))
+    report.emit({"phase": "kv_int8", "arch": arch, "lanes": lanes, "max_seq": max_seq,
+                 "max_new": max_new, "prompt_lens": lens, "compute_dtype": cfg.compute_dtype,
+                 "first_batch": checks, "served": served,
+                 "served_tokens_equal": f"{same}/{sum(len(t) for t in tokens[0])}",
+                 "bytes_ratio": served["int8"]["kv_state_bytes"]
+                 / served["compute"]["kv_state_bytes"]})
+    del model_fp, model_q, params
+    torch.cuda.empty_cache()
+
+
+def lm_strict_phase(torch, np, report) -> None:
+    """Each architecture at full width, 2 layers (RecurrentGemma 3; Seamless
+    2 encoder and 2 decoder layers over LM_STRICT_SRC frames), f32 compute,
+    TF32 off: the kernel path against the plain path on the card, prefill
+    logits (and Seamless's encoder memory) and 4 teacher-forced decode
+    steps, at LM_STRICT_TOL.  Seamless's training loss (K5 forward in both
+    stacks, K6, the plain VJPs) and every gradient leaf too, at the
+    train_strict limits."""
+    from repro_torch.train.step import value_and_grad
+
+    for arch, seed, S, layers in LM_STRICT:
+        changes = {"num_layers": layers, "compute_dtype": "float32"}
+        if arch == "seamless-m4t-large-v2":
+            changes["encoder_layers"] = layers
+        model, params = _lm_model(torch, arch, seed, **changes)
+        cfg = model.cfg
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, S + 4).astype(np.int32)
+        batch = {"tokens": torch.as_tensor(toks[None, :S], device="cuda")}
+        out = {}
+        if cfg.is_encdec:
+            batch["src_embeds"] = torch.as_tensor(
+                rng.standard_normal((1, LM_STRICT_SRC, cfg.d_model)), dtype=torch.float32,
+                device="cuda")
+        for side in ("kernel", "plain"):
+            with plain_kernels() if side == "plain" else contextlib.nullcontext():
+                memory = model.encode(params, batch["src_embeds"]) if cfg.is_encdec else None
+                cache, logits = model.prefill(params, batch, 512, memory=memory)
+                steps = []
+                for t in range(4):
+                    tok = torch.as_tensor(toks[None, S + t: S + t + 1], device="cuda")
+                    lt, cache = model.decode_step(params, cache, tok, S + t, 512, memory=memory)
+                    steps.append(lt)
+            out[side] = (memory, logits, steps)
+            del cache
+        (mk, lk, dk), (mp, lp, dp) = out["kernel"], out["plain"]
         errs = [_close(torch, lk, lp, LM_STRICT_TOL, LM_STRICT_TOL)]
-        for t in range(4):
-            tok = torch.as_tensor(toks[None, S + t: S + t + 1], device="cuda")
-            lk, ck = model.decode_step(params, ck, tok, S + t, 512)
-            lp, cp = model.decode_step(params, cp, tok, S + t, 512)
-            errs.append(_close(torch, lk, lp, LM_STRICT_TOL, LM_STRICT_TOL))
+        errs += [_close(torch, a, b, LM_STRICT_TOL, LM_STRICT_TOL) for a, b in zip(dk, dp)]
+        if cfg.is_encdec:
+            errs.append(_close(torch, mk, mp, LM_STRICT_TOL, LM_STRICT_TOL))
         torch.cuda.synchronize()
         if not all(ok for ok, _ in errs):
             raise AssertionError(f"{arch} strict: max abs errs {[e for _, e in errs]}")
-        report.emit({"phase": "lm_strict", "arch": arch, "layers": layers, "prompt": S,
-                     "compute_dtype": "float32", "tf32": False,
-                     "max_abs_err": {"prefill": errs[0][1],
-                                     "decode": [e for _, e in errs[1:]]},
-                     "tolerance": LM_STRICT_TOL})
-        del model, params, ck, cp
+        line = {"phase": "lm_strict", "arch": arch, "layers": layers, "prompt": S,
+                "compute_dtype": "float32", "tf32": False,
+                "max_abs_err": {"prefill": errs[0][1],
+                                "decode": [e for _, e in errs[1:5]]},
+                "tolerance": LM_STRICT_TOL}
+        if cfg.is_encdec:
+            line["encoder_layers"] = layers
+            line["source_frames"] = LM_STRICT_SRC
+            line["max_abs_err"]["memory"] = errs[5][1]
+            del out
+            tb = {"src_embeds": torch.as_tensor(
+                      rng.standard_normal((2, LM_STRICT_SRC, cfg.d_model)),
+                      dtype=torch.float32, device="cuda"),
+                  **{k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)),
+                                        dtype=torch.int32, device="cuda")
+                     for k in ("tokens", "targets")}}
+            counters = _counters()
+            before = {k: c.count for k, c in counters.items()}
+            loss_k, _, gk = value_and_grad(model, params, tb)
+            launches = {k: c.count - before[k] for k, c in counters.items()}
+            with plain_kernels():
+                loss_p, _, gp = value_and_grad(model, params, tb)
+            loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+            worst, bad = _grads_close(torch, gk, gp)
+            # remat: each stack's K5 forward runs twice; K6 once
+            want = {k: 0 for k in counters}
+            want.update(K5=2 * (cfg.encoder_layers + 2 * cfg.num_layers), K6=1)
+            if bad or loss_rel > STRICT_LOSS_RTOL or launches != want:
+                raise AssertionError(f"{arch} strict train: loss rel {loss_rel}, launches "
+                                     f"{launches} (want {want}), leaves off {bad[:5]}")
+            line["train"] = {"batch": 2, "seq": 64, "loss": float(loss_k),
+                             "loss_rel_err": loss_rel, "worst_leaf_err_of_max": worst,
+                             "launches": launches,
+                             "limits": {"loss_rtol": STRICT_LOSS_RTOL,
+                                        "grad_rtol": STRICT_GRAD_RTOL,
+                                        "grad_atol": f"{STRICT_GRAD_RTOL} x max |leaf|"}}
+            del gk, gp
+        report.emit(line)
+        del model, params
         torch.cuda.empty_cache()
 
 
@@ -2507,12 +2813,14 @@ def _chunk_for(S):
     return chunk_for(S, 64)
 
 
-def k5_bound(B, S, H, K, h, elem=2):
-    """(ms, by): q/k/v read and o written once; 2 products of 2 h flops per
-    visible (query, key) pair under the causal mask."""
-    nbytes = (2 * B * S * H * h + 2 * B * S * K * h) * elem
-    flops = 4 * h * B * H * S * (S + 1) // 2
-    return _roofline(nbytes, flops)
+def k5_bound(B, S, H, K, h, elem=2, causal=True, T=None):
+    """(ms, by): q and o (B, S, H, h), k and v (B, T, K, h) moved once; 2
+    products of 2 h flops per visible (query, key) pair: S (S + 1) / 2 of
+    them under the causal mask (T = S), S T without it."""
+    T = S if T is None else T
+    nbytes = (2 * B * S * H * h + 2 * B * T * K * h) * elem
+    pairs = S * (S + 1) // 2 if causal else S * T
+    return _roofline(nbytes, 4 * h * B * H * pairs)
 
 
 def k7_ops(S, h, tile):
@@ -2547,11 +2855,15 @@ def _roofline(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
+def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> list:
     """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
-    also at RecurrentGemma-9B's and Qwen2-MoE's, S 509), and K5 at Llama's
-    train shape (B 8, S 512): event ms, device ms, plain ms, the library
-    yardstick for K5, the bound."""
+    also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
+    Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
+    frames: the encoder's and the cross-attention's, without the mask, and
+    the decoder's), and K5 at Llama's train shape (B 8, S 512): event ms,
+    device ms, plain ms, the library yardstick for K5 (SDPA, causal or
+    not as K5), the bound.  ``encdec_k5``: K5's launches by key in the
+    served enc-dec batches."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
@@ -2560,39 +2872,56 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts) -> list:
     entries = []
     rng = np.random.default_rng(11)
     k7_launches = lm_counts["rwkv6-7b"]["K7"][0]
-    # (arch, B, S, H, K, h, train): Llama's served and train shapes, and the
-    # two new families' served shapes at their longest prompt (RecurrentGemma's
-    # window of 2048 is past S, so causal attention is its function here)
-    cases = [("llama3.2-1b", B, S, 32, 8, 64, B > 1)
+    # (name, arch, B, S, T, H, K, h, causal, launches): Llama's served and
+    # train shapes, the other families' served shapes at their longest
+    # prompt (RecurrentGemma's window of 2048 is past S, so causal attention
+    # is its function here), and Seamless's three modes at 1,000 frames
+    cases = [("train" if B > 1 else "prefill", "llama3.2-1b", B, S, S, 32, 8, 64, True,
+              train_counts["llama3.2-1b"]["K5"] if B > 1 else lm_counts["llama3.2-1b"]["K5"][0])
              for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512))]
-    cases += [("recurrentgemma-9b", 1, 509, 16, 1, 256, False),
-              ("qwen2-moe-a2.7b", 1, 509, 16, 16, 128, False)]
-    for arch, B, S, H, K, h, train in cases:
-        q, k, v = (torch.as_tensor(rng.standard_normal((B, S, n, h)), dtype=torch.bfloat16,
-                                   device="cuda") for n in (H, K, K))
-        kern = lambda: flash_attention(q, k, v)
-        plain = lambda: attention_ref(q, k, v)
+    cases += [("prefill", arch, 1, 509, 509, H, K, h, True, lm_counts[arch]["K5"][0])
+              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
+                                    ("qwen2-moe-a2.7b", 16, 16, 128),
+                                    ("llama3-8b", 32, 8, 128),
+                                    ("nemotron-4-15b", 48, 8, 128))]
+    T, S = ENCDEC_BATCHES[-1]
+    cases += [(mode, "seamless-m4t-large-v2", ENCDEC_LANES, sq, tk, 16, 16, 64, causal,
+               sum(n for key, n in encdec_k5.items() if key[1:8] == (ENCDEC_LANES, sq, tk, 16,
+                                                                     16, 64, causal)))
+              for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
+                                           ("decoder", S, S, True))]
+    for mode, arch, B, S, T, H, K, h, causal, launches in cases:
+        q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
+                            device="cuda")
+        k, v = (torch.as_tensor(rng.standard_normal((B, T, K, h)), dtype=torch.bfloat16,
+                                device="cuda") for _ in range(2))
+        kern = lambda: flash_attention(q, k, v, causal=causal)
+        plain = lambda: attention_ref(q, k, v, causal=causal)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                          enable_gqa=True)
         err = float((kern().float() - plain().float()).abs().max())
         t = _times(torch, kern, plain, library)
-        bms, bby = k5_bound(B, S, H, K, h)
-        report.emit({"phase": "timing", "kernel": "K5", "arch": arch,
-                     "shape": f"B={B} S={S} H={H} K={K} h={h} bf16",
-                     "max_abs_err": err, "bound_ms": bms, "bound_by": bby,
-                     "library": "F.scaled_dot_product_attention(is_causal, enable_gqa), bf16",
+        bms, bby = k5_bound(B, S, H, K, h, causal=causal, T=T)
+        report.emit({"phase": "timing", "kernel": "K5", "arch": arch, "mode": mode,
+                     "shape": f"B={B} S={S} T={T} H={H} K={K} h={h} causal={causal} bf16",
+                     "launches": launches, "max_abs_err": err, "bound_ms": bms,
+                     "bound_by": bby,
+                     "library": f"F.scaled_dot_product_attention(is_causal={causal}, "
+                                f"enable_gqa), bf16",
                      **t})
         entries.append({
-            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}]" if train
-                     else f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} "
-                          f"K={K} h={h}]"),
+            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}]"
+                     if mode == "train" else
+                     f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
+                     if mode == "prefill" else
+                     f"K5 flash_fwd_bf16 [{arch} {mode} attention, B={B} S={S} T={T}, "
+                     f"{'causal' if causal else 'no mask'}]"),
             "route": "cuda", "source": "src/repro_torch/csrc/flash_fwd.cu",
             "replaces": "src/repro/kernels/flash/kernel.py:28",
-            "launches": train_counts[arch]["K5"] if train else lm_counts[arch]["K5"][0],
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bms, "bound_by": bby, "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"]})
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bms, "bound_by": bby,
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
     return entries + k7_timing_phase(torch, np, report, rng, k7_launches)
 
 
@@ -2979,6 +3308,23 @@ def lm_train_phase(torch, np, report) -> dict:
     return out
 
 
+def _grads_close(torch, gk, gp):
+    """(worst max |difference| over max |plain| of a leaf, the leaves off
+    STRICT_GRAD_RTOL as (path, max |difference|, max |plain|)): each
+    gradient leaf of the kernel path within rtol and atol STRICT_GRAD_RTOL
+    of the leaf's largest |value| of the plain path's."""
+    from repro_torch.tree import flatten_with_paths
+
+    worst, bad = 0.0, []
+    for (path, a), (_, b) in zip(flatten_with_paths(gk), flatten_with_paths(gp)):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not torch.allclose(a, b, rtol=STRICT_GRAD_RTOL, atol=STRICT_GRAD_RTOL * scale):
+            bad.append(("/".join(map(str, path)), err, scale))
+    return worst, bad
+
+
 def train_strict_phase(torch, np, report) -> None:
     """Both architectures at full width, 2 layers, f32 compute, TF32 off:
     step 1's loss and every gradient leaf, then the losses of 2 AdamW steps,
@@ -2988,7 +3334,6 @@ def train_strict_phase(torch, np, report) -> None:
     from repro_torch.launch.train import adamw_config
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
-    from repro_torch.tree import flatten_with_paths
 
     for arch, seed in (("llama3.2-1b", 30), ("rwkv6-7b", 31)):
         model, params_k, cfg = _train_model(torch, arch, seed, 2, "float32")
@@ -2999,13 +3344,7 @@ def train_strict_phase(torch, np, report) -> None:
         loss_k, _, gk = value_and_grad(model, params_k, b0)
         with plain_kernels():
             loss_p, _, gp = value_and_grad(model, params_p, b0)
-        worst, bad = 0.0, []
-        for (path, a), (_, b) in zip(flatten_with_paths(gk), flatten_with_paths(gp)):
-            scale = float(b.abs().max())
-            err = float((a - b).abs().max())
-            worst = max(worst, err / max(scale, 1e-30))
-            if not torch.allclose(a, b, rtol=STRICT_GRAD_RTOL, atol=STRICT_GRAD_RTOL * scale):
-                bad.append(("/".join(map(str, path)), err, scale))
+        worst, bad = _grads_close(torch, gk, gp)
         del gk, gp
         losses = {"kernel": [], "plain": []}
         for side, params in (("kernel", params_k), ("plain", params_p)):
@@ -3155,12 +3494,14 @@ def main(argv=None) -> int:
     residual_phase(torch, np, report)
     c_export_phase(torch, np, report, engines)
     lm_counts = lm_engine_phase(torch, np, report)
+    encdec_k5 = encdec_phase(torch, np, report)
+    kv_int8_phase(torch, np, report)
     lm_strict_phase(torch, np, report)
     rwkv_drift_phase(torch, np, report)
     train_counts = lm_train_phase(torch, np, report)
     train_strict_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
-    entries += lm_timing_phase(torch, np, report, lm_counts, train_counts)
+    entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5)
     entries += k6_timing_phase(torch, np, report, train_counts)
     for net in engines:
         run = engines[net]["run"]

@@ -67,7 +67,10 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg, device="cuda",
     pattern groups (``g{i}``: a leading group axis on every leaf) and keeps
     the remainder layers as ``r{i}``; the port keeps one dict per layer in
     ``params["layers"]``, layer ``g * P + i`` being group ``g`` of ``g{i}``.
-    ``embed``, ``unembed`` and ``final_norm`` carry over as they are.
+    An enc-dec config's encoder, stacked over its ``encoder_layers`` as
+    ``enc_g0``, becomes ``params["enc_layers"]``; its decoder layers carry
+    their ``norm_x`` and ``cross`` leaves as any other.  ``embed``,
+    ``unembed`` and ``final_norm`` carry over as they are.
 
     ``compute_dtype`` (a torch dtype or its name), when given, stores every
     weight the model casts to the compute dtype at use in that dtype once
@@ -93,6 +96,9 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg, device="cuda",
     out = {k: tensors(params_np[k]) for k in ("embed", "unembed", "final_norm")
            if k in params_np}
     out["layers"] = layers
+    if cfg.is_encdec:
+        out["enc_layers"] = [tensors(params_np["enc_g0"], li)
+                             for li in range(cfg.encoder_layers)]
     if compute_dtype is not None:
         store_compute_dtype(out, getattr(torch, compute_dtype)
                             if isinstance(compute_dtype, str) else compute_dtype)
@@ -103,7 +109,8 @@ def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     """The inverse of :func:`lm_params_from_numpy`: the port's params (or any
     tree of the same structure, such as AdamW's m or v) restacked into the
     reference's layout as numpy — ``g{i}`` holding position ``i`` of the
-    pattern with a leading group axis, ``r{i}`` the remainder layers."""
+    pattern with a leading group axis, ``r{i}`` the remainder layers,
+    ``enc_g0`` an enc-dec config's encoder layers."""
     def arrays(tree):
         if isinstance(tree, Mapping):
             return {k: arrays(v) for k, v in tree.items()}
@@ -117,7 +124,9 @@ def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
     P = len(cfg.block_pattern)
     n_groups, rem = divmod(cfg.num_layers, P)
     layers = [arrays(layer) for layer in params["layers"]]
-    out = {k: arrays(v) for k, v in params.items() if k != "layers"}
+    out = {k: arrays(v) for k, v in params.items() if k not in ("layers", "enc_layers")}
+    if "enc_layers" in params:
+        out["enc_g0"] = stack([arrays(layer) for layer in params["enc_layers"]])
     if n_groups:
         out.update({f"g{i}": stack([layers[g * P + i] for g in range(n_groups)])
                     for i in range(P)})

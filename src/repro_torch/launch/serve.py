@@ -4,8 +4,12 @@
 
 The port's counterpart of ``repro/launch/serve.py``, with ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).  Weights are
-random from a seeded ``torch.Generator``; with ``--full`` they are stored
-once in the config's compute dtype.
+random from a seeded ``torch.Generator``; with ``--full`` each layer is
+stored in the config's compute dtype as soon as it is drawn.  As in the
+reference, an enc-dec config (Seamless-M4T) serves its text decoder alone:
+``Engine`` has no memory argument.  To drive the encoder, call ``Model.encode``, then
+``Model.prefill(..., memory=)`` and the steps of
+``serve.step.make_decode_step(model, max_seq)`` with ``memory``.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.device import resolve
-from repro_torch.models.transformer import Model, store_compute_dtype
+from repro_torch.models.transformer import Model
 from repro_torch.serve.engine import Engine, Request
 
 
@@ -33,10 +37,12 @@ def main(argv=None):
 
     dev = resolve(args.device)
     cfg = cfgbase.get_config(args.arch) if args.full else cfgbase.get_reduced_config(args.arch)
+    if cfg.is_encdec:
+        print(f"note: {cfg.name} serves its text decoder; frontends are stubs")
     model = Model(cfg, rwkv_chunk=8)
-    params = model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
-    if args.full:
-        store_compute_dtype(params, getattr(torch, cfg.compute_dtype))
+    params = model.init_params(torch.Generator(dev).manual_seed(0), device=dev,
+                               store_dtype=getattr(torch, cfg.compute_dtype) if args.full
+                               else None)
 
     rng = np.random.default_rng(0)
     reqs = [

@@ -7,7 +7,9 @@ The port's counterpart of ``repro/launch/train.py``, with ``--device``
 ``--full`` (the published config; default the reduced one).  Params are
 f32 (``param_dtype``) from a seeded ``torch.Generator``, compute in the
 config's dtype; AdamW as :func:`adamw_config` sets it; batches from the
-synthetic token pipeline; checkpoints every 10 steps.
+synthetic token pipeline (an enc-dec config also gets ``src_embeds``, the
+one-hot of each token id modulo ``d_model``, the reference's stand-in for
+its stub audio frontend); checkpoints every 10 steps.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import argparse
 import tempfile
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.data import tokens as tok
@@ -59,9 +62,16 @@ def main(argv=None):
         params = model.init_params(torch.Generator(dev).manual_seed(0), device=dev)
         return LoopState(step=0, params=params, opt_state=opt.init_state(params))
 
+    def batch_at(s):
+        batch = tok.device_batch(pipe, s, dev)
+        if cfg.is_encdec:
+            batch["src_embeds"] = F.one_hot(batch["tokens"].long() % cfg.d_model,
+                                            cfg.d_model).float()
+        return batch
+
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix=f"repro-torch-{args.arch}-")
     lcfg = LoopConfig(total_steps=args.steps, ckpt_dir=ckpt_dir, ckpt_every=10, log_every=5)
-    state = run(lcfg, step, init_state, lambda s: tok.device_batch(pipe, s, dev))
+    state = run(lcfg, step, init_state, batch_at)
     print(f"done at step {state.step}; checkpoints in {ckpt_dir}")
     return state
 

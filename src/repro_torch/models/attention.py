@@ -1,14 +1,21 @@
-"""GQA attention: causal / sliding-window, prefill + decode.
+"""GQA attention: causal / sliding-window / encoder / cross, prefill +
+decode, with a float or an int8 KV cache.
 
-The port's counterpart of ``repro/models/attention.py``.  Prefill attention
-(:func:`attend_train`) always goes through
+The port's counterpart of ``repro/models/attention.py``.  Every attention
+over more than one query row goes through
 :func:`repro_torch.kernels.flash.ops.flash_attention`: K5 on the card, its
-plain version on the CPU.  Decode
-attention (:func:`attend_decode`) runs outside any kernel in the reference
-too and stays plain PyTorch here.
+plain version on the CPU.  That covers the causal kinds, the encoder's
+``"enc"`` kind and the decoder's cross-attention over the encoder's memory
+(:func:`attend_cross`), the last two with ``causal=False``; the reference
+sends only the causal kinds to its flash kernel and computes the other two
+with ``_sdpa_ref``, which is the same function.  Decode attention
+(:func:`attend_decode`, and :func:`attend_cross` at one query row) runs
+outside any kernel in the reference too and stays plain PyTorch here.
 
 The KV cache for windowed layers is a ring buffer of exactly ``window``
-slots with absolute-position tracking, as in the reference.
+slots with absolute-position tracking, as in the reference.  A quantized
+cache (``init_kv_cache(quantized=True)``) holds int8 K/V with one f32 scale
+per (row, slot, KV head), as the reference's ``kv_dtype="int8"`` does.
 
 Two reference quirks, kept: ``attend_train`` in the reference calls flash
 without ``cfg.attn_softcap`` (``attention.py:126``) while its ``ref`` path
@@ -17,7 +24,12 @@ reference's default ``ref`` path.  And ``_sdpa_ref`` casts the softmax
 weights to ``q.dtype`` before the PV product, where K5 keeps them in f32, so
 in bf16 the two are not bit-equal.
 
-Waiting for later slices: the int8 KV path, ``attend_cross`` and M-RoPE.
+Two more, from the reference's cross-attention: its params have no q/k/v
+bias even when ``cfg.attn_bias`` is set, and it applies neither RoPE, nor a
+softcap, nor a memory mask (``attention.py:38,133-145``), so utterances of
+different lengths padded into one batch attend to the padding.
+
+Waiting for a later slice: M-RoPE (item 6b).
 """
 from __future__ import annotations
 
@@ -33,7 +45,8 @@ from repro_torch.models.common import apply_rope, cdt, dense_init, pdt
 NEG_INF = -2.3819763e38  # large negative for masked logits (bf16-safe)
 
 
-def init_attn_params(cfg, gen: torch.Generator, device) -> dict:
+def init_attn_params(cfg, gen: torch.Generator, device, cross: bool = False) -> dict:
+    """wq/wk/wv/wo, and q/k/v biases under ``cfg.attn_bias`` unless ``cross``."""
     d, H, K, h = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(gen, (d, H, h), pdt(cfg), device, fan_in=d),
@@ -41,7 +54,7 @@ def init_attn_params(cfg, gen: torch.Generator, device) -> dict:
         "wv": dense_init(gen, (d, K, h), pdt(cfg), device, fan_in=d),
         "wo": dense_init(gen, (H, h, d), pdt(cfg), device, fan_in=H * h),
     }
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         p["bq"] = torch.zeros((H, h), dtype=pdt(cfg), device=device)
         p["bk"] = torch.zeros((K, h), dtype=pdt(cfg), device=device)
         p["bv"] = torch.zeros((K, h), dtype=pdt(cfg), device=device)
@@ -103,29 +116,51 @@ def _window(cfg, kind: str) -> int:
     return cfg.window if kind in ("swa", "local") else 0
 
 
+def _out_proj(cfg, p, out: torch.Tensor) -> torch.Tensor:
+    cd = cdt(cfg)
+    return torch.einsum("bsnh,nhd->bsd", out.to(cd), p["wo"].to(cd))
+
+
 def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str,
                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention over a whole prompt; returns (y, k, v) with k after
-    RoPE, the values a KV cache holds (the reference projects them a second
-    time in ``_prefill_cache``; the numbers are the same)."""
-    if kind not in ("attn", "swa", "local"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported yet "
-                                  f"(ROADMAP.md queue 1, 'LM families')")
+    """Self-attention over a whole prompt, through K5; returns (y, k, v)
+    with k after RoPE, the values a KV cache holds (the reference projects
+    them a second time in ``_prefill_cache``; the numbers are the same).
+    The causal kinds ``attn``, ``swa`` and ``local``, and the encoder's
+    ``enc``, which sees every position (``causal=False``)."""
+    if kind not in ("attn", "swa", "local", "enc"):
+        raise ValueError(f"unknown attention kind {kind!r}")
     q, k, v = _project_qkv(cfg, p, x, x)
     q = _rope(cfg, q, positions, kind)
     k = _rope(cfg, k, positions, kind)
-    out = flash_ops.flash_attention(q, k, v, causal=True, window=_window(cfg, kind),
+    out = flash_ops.flash_attention(q, k, v, causal=kind != "enc",
+                                    window=_window(cfg, kind),
                                     scale=1.0 / np.sqrt(cfg.head_dim),
                                     softcap=cfg.attn_softcap)
-    cd = cdt(cfg)
-    y = torch.einsum("bsnh,nhd->bsd", out.to(cd), p["wo"].to(cd))
-    return y, k, v
+    return _out_proj(cfg, p, out), k, v
 
 
 def attend_train(cfg, p: dict, x: torch.Tensor, kind: str,
                  positions: torch.Tensor) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill), through K5."""
+    """Self-attention over a full sequence (training, prefill), through K5."""
     return attend_prefill(cfg, p, x, kind, positions)[0]
+
+
+def attend_cross(cfg, p: dict, x: torch.Tensor,  # (B, S, D) decoder side
+                 memory: torch.Tensor,  # (B, T, D) encoder output
+                 ) -> torch.Tensor:
+    """The decoder's attention over the encoder's memory: q from ``x``, k/v
+    from ``memory``, no RoPE, no mask, no softcap (reference
+    ``attention.py:133-145``).  More than one query row goes through K5
+    (``causal=False``, S != T); one row, a decode step, through the plain
+    ``_sdpa_ref``, as :func:`attend_decode` does."""
+    q, k, v = _project_qkv(cfg, p, x, memory)
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    if x.shape[1] > 1:
+        out = flash_ops.flash_attention(q, k, v, causal=False, window=0, scale=scale)
+    else:
+        out = _sdpa_ref(q, k, v, None, scale)
+    return _out_proj(cfg, p, out)
 
 
 # ----------------------------------------------------------------------------
@@ -145,32 +180,65 @@ def cache_spec(cfg, kind: str, max_seq: int) -> KVCacheSpec:
     return KVCacheSpec(length=max_seq, ring=False)
 
 
-def init_kv_cache(cfg, spec: KVCacheSpec, batch: int, dtype, device) -> dict:
-    """K/V in ``dtype`` and the absolute position of each slot (-1 = empty)."""
+def init_kv_cache(cfg, spec: KVCacheSpec, batch: int, dtype, device,
+                  quantized: bool = False) -> dict:
+    """K/V in ``dtype`` (``quantized``: int8 K/V and f32 ``k_scale`` /
+    ``v_scale`` per (row, slot, KV head)) and the absolute position of each
+    slot (-1 = empty)."""
     K, h = cfg.num_kv_heads, cfg.head_dim
-    return {
-        "pos": torch.full((batch, spec.length), -1, dtype=torch.int32, device=device),
-        "k": torch.zeros((batch, spec.length, K, h), dtype=dtype, device=device),
-        "v": torch.zeros((batch, spec.length, K, h), dtype=dtype, device=device),
-    }
+    shape = (batch, spec.length, K, h)
+    cache = {"pos": torch.full((batch, spec.length), -1, dtype=torch.int32, device=device)}
+    if quantized:
+        cache["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["v"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def _quantize_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, K, h) → (int8 values, f32 scale per (B, S, K)): absmax / 127
+    with a floor of 1e-8, rounded half to even, clipped to ±127."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _write_slots(cache: dict, index, k: torch.Tensor, v: torch.Tensor) -> None:
+    """``cache[name][index] = value`` for K and V, quantizing them (and
+    writing their scales) in an int8 cache."""
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = _quantize_heads(k), _quantize_heads(v)
+        cache["k"][index], cache["k_scale"][index] = kq, ks
+        cache["v"][index], cache["v_scale"][index] = vq, vs
+    else:
+        cache["k"][index] = k.to(cache["k"].dtype)
+        cache["v"][index] = v.to(cache["v"].dtype)
 
 
 def fill_kv_cache(cache: dict, spec: KVCacheSpec, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor) -> dict:
     """Write a prompt's K/V (B, S, K, h) into a fresh cache, in place: a ring
     keeps the last ``length`` positions at their slots, a linear cache the
-    prompt in its first S slots."""
+    prompt in its first S slots.  An int8 cache stores them quantized, and
+    its slots past the prompt take the scale the reference's quantization of
+    its zero padding gives, the floor 1e-8 (``transformer.py:179-182``)."""
     S = k.shape[1]
     if spec.ring and S >= spec.length:
         keep = slice(S - spec.length, S)
         slots = (positions[0, keep] % spec.length).long()
-        cache["k"][:, slots] = k[:, keep].to(cache["k"].dtype)
-        cache["v"][:, slots] = v[:, keep].to(cache["v"].dtype)
+        _write_slots(cache, (slice(None), slots), k[:, keep], v[:, keep])
         cache["pos"][:, slots] = positions[:, keep].to(torch.int32)
     else:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        _write_slots(cache, (slice(None), slice(0, S)), k, v)
         cache["pos"][:, :S] = positions.to(torch.int32)
+        if "k_scale" in cache:
+            cache["k_scale"][:, S:] = 1e-8
+            cache["v_scale"][:, S:] = 1e-8
     return cache
 
 
@@ -179,9 +247,11 @@ def attend_decode(cfg, p: dict, x: torch.Tensor,  # (B,1,D) current token
                   pos: torch.Tensor,  # (B,) int32, per-row absolute positions
                   spec: KVCacheSpec) -> Tuple[torch.Tensor, dict]:
     """One decode step: write this token's K/V into the ring/linear cache
-    (in place: the cache is not copied each step) and attend over it.
-    Positions are per batch row (serving lanes decode at different depths).
-    Returns (y, cache)."""
+    (in place: the cache is not copied each step) and attend over it.  An
+    int8 cache takes the token quantized and is read dequantized in the
+    compute dtype (reference ``attention.py:213-221``).  Positions are per
+    batch row (serving lanes decode at different depths).  Returns (y,
+    cache)."""
     B = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, x)
     positions = pos[:, None].to(torch.int32)  # (B,1)
@@ -190,10 +260,13 @@ def attend_decode(cfg, p: dict, x: torch.Tensor,  # (B,1,D) current token
 
     slot = (pos % spec.length if spec.ring else pos).long()  # (B,)
     rows = torch.arange(B, device=x.device)
-    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-    ck[rows, slot] = k[:, 0].to(ck.dtype)
-    cv[rows, slot] = v[:, 0].to(cv.dtype)
+    _write_slots(cache, (rows, slot), k[:, 0], v[:, 0])
+    cpos = cache["pos"]
     cpos[rows, slot] = pos.to(torch.int32)
+    ck, cv = cache["k"], cache["v"]
+    if "k_scale" in cache:
+        ck = ck.to(k.dtype) * cache["k_scale"][..., None].to(k.dtype)
+        cv = cv.to(v.dtype) * cache["v_scale"][..., None].to(v.dtype)
 
     # Valid slots: filled, causal, and (for windows) within the window.
     valid = (cpos >= 0) & (cpos <= pos[:, None])
@@ -202,6 +275,4 @@ def attend_decode(cfg, p: dict, x: torch.Tensor,  # (B,1,D) current token
     mask = valid[:, None, None, :]  # (B,1,1,T)
 
     out = _sdpa_ref(q, ck, cv, mask, 1.0 / np.sqrt(cfg.head_dim), cfg.attn_softcap)
-    cd = cdt(cfg)
-    y = torch.einsum("bsnh,nhd->bsd", out.to(cd), p["wo"].to(cd))
-    return y, cache
+    return _out_proj(cfg, p, out), cache

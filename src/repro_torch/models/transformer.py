@@ -1,20 +1,38 @@
 """LM assembly: embeddings, a stack of attention, RG-LRU or RWKV6 blocks,
-logits.
+an optional encoder, logits.
 
-The port's counterpart of ``repro/models/transformer.py`` for serving:
-``Model.init_params``, ``init_cache``, ``prefill``, ``decode_step``,
-``_embed`` and ``_logits_last``, over block kinds ``attn``, ``swa``,
-``local`` (with a dense or a MoE FFN), ``rglru`` (Griffin) and ``rwkv``.
-Layers run as a plain Python loop in place of the
-reference's ``lax.scan`` over pattern groups, so params and caches are
-per-layer lists; :func:`repro_torch.convert.lm_params_from_numpy` and the
-tests unstack the reference's group-stacked layout.
+The port's counterpart of ``repro/models/transformer.py``:
+``Model.init_params``, ``init_cache``, ``encode``, ``prefill``,
+``decode_step``, ``train_loss``, ``_embed`` and ``_logits_last``, over
+block kinds ``attn``, ``swa``, ``local`` (with a dense or a MoE FFN),
+``rglru`` (Griffin) and ``rwkv``, and the encoder's ``enc``.  Layers run as
+a plain Python loop in place of the reference's ``lax.scan`` over pattern
+groups, so params and caches are per-layer lists;
+:func:`repro_torch.convert.lm_params_from_numpy` and the tests unstack the
+reference's group-stacked layout.
+
+Encoder-decoder configs (``cfg.encoder_layers > 0``, Seamless-M4T) keep
+the encoder's layers in ``params["enc_layers"]`` (kind ``enc``: attention
+over every position, a dense MLP) and give each decoder layer a
+cross-attention sub-block (``norm_x``, ``cross``) after its
+self-attention.  :meth:`Model.encode` turns frame embeddings
+(``src_embeds``: the audio frontend is a stub in the reference too) into
+the memory the decoder attends to; ``prefill`` and ``decode_step`` take it
+as ``memory=``.  Without a memory the cross sub-blocks are skipped and the
+decoder runs as a plain LM, which is how the reference's ``Engine`` serves
+it.  Two reference quirks, kept: ``encode`` applies the decoder's
+``final_norm`` to the encoder's output (there is no encoder norm), and the
+enc-dec training loss reads the decoder's output without it
+(``transformer.py:394-396,427``).
+
+``kv_dtype="int8"`` keeps the attention caches in int8 with a scale per
+(row, slot, KV head) (:func:`repro_torch.models.attention.init_kv_cache`).
 
 Training (``train_loss`` / ``_xent``) follows the reference
-(``transformer.py:334-379``): the mean cross-entropy over masked positions
-plus the auxiliary loss, zero for the families it trains (dense attention
-and RWKV; the ``rglru`` and MoE families are served only, their training
-waits for item 6c).  Three CE paths:
+(``transformer.py:334-398``): the mean cross-entropy over masked positions
+plus the auxiliary loss, zero for the families it trains (dense attention,
+RWKV and enc-dec; the ``rglru`` and MoE families are served only, their
+training waits for item 6c).  Three CE paths:
 
 * ``naive`` materializes (B, S, V) logits in the compute dtype;
 * ``chunked`` and ``seq_chunked`` go through
@@ -23,24 +41,26 @@ waits for item 6c).  Three CE paths:
   form the reference uses (vocab chunks of ``xent_chunk``, or sequence
   chunks of ``xent_seq_chunk``).
 
-With ``remat`` each layer runs under ``torch.utils.checkpoint`` (the
-reference's ``remat_policy="block"``: nothing saved inside a layer), so the
-backward pass runs each layer's forward again.
+With ``remat`` each layer (of both stacks) runs under
+``torch.utils.checkpoint`` (the reference's ``remat_policy="block"``:
+nothing saved inside a layer), so the backward pass runs each layer's
+forward again.
 
-Every prefill or training attention runs K5 and every multi-token RWKV
-time-mix K7 (on the card, each inside a ``torch.autograd.Function`` whose
-backward is the plain VJP; their plain versions on the CPU).  The RG-LRU
-scan and the MoE dispatch are plain PyTorch, as they are XLA ops in the
-reference.
+Every prefill or training attention over more than one query row runs K5
+(causal, or not for the encoder and the cross-attention) and every
+multi-token RWKV time-mix K7 (on the card, each inside a
+``torch.autograd.Function`` whose backward is the plain VJP; their plain
+versions on the CPU).  The RG-LRU scan and the MoE dispatch are plain
+PyTorch, as they are XLA ops in the reference.
 
-Not ported yet (ROADMAP.md queue 1, item 6b, in this order): enc-dec,
-``kv_dtype="int8"``, M-RoPE and the vision/audio frontends; and (item 6c)
-training the ``rglru`` and MoE families and ``remat_policy="dots"``.
+Not ported yet (ROADMAP.md queue 1, item 6b): M-RoPE and the vision
+frontend; and (item 6c) training the ``rglru`` and MoE families and
+``remat_policy="dots"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -64,14 +84,12 @@ def _check_ported(cfg: ModelConfig, kv_dtype: str) -> None:
     for kind in set(cfg.blocks()):
         if kind not in (*ATTN_KINDS, "rglru", "rwkv"):
             raise NotImplementedError(f"{cfg.name}: block kind {kind!r} {later}")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder {later}")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "audio"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend {later}")
     if cfg.mrope_sections:
         raise NotImplementedError(f"{cfg.name}: M-RoPE {later}")
-    if kv_dtype != "compute":
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} (int8 KV cache) {later}")
+    if kv_dtype not in ("compute", "int8"):
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
 
 
 def store_compute_dtype(params: Dict[str, Any], dtype) -> Dict[str, Any]:
@@ -91,13 +109,17 @@ def store_compute_dtype(params: Dict[str, Any], dtype) -> Dict[str, Any]:
     return params
 
 
-def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device) -> dict:
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
+                cross: bool = False) -> dict:
+    """One layer's params; ``cross`` adds a decoder layer's cross-attention
+    (``norm_x``, ``cross``) and keeps its FFN dense, as an ``enc`` layer's."""
     d = cfg.d_model
     p: Dict[str, Any] = {"norm1": make_norm_params(cfg, d, device)}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind == "enc":
         p["attn"] = attention.init_attn_params(cfg, gen, device)
         p["norm2"] = make_norm_params(cfg, d, device)
-        p["ffn"] = (moe.init_moe_params(cfg, gen, device) if cfg.moe is not None
+        p["ffn"] = (moe.init_moe_params(cfg, gen, device)
+                    if cfg.moe is not None and not cross and kind != "enc"
                     else mlp.init_mlp_params(cfg, gen, device))
     elif kind == "rglru":
         p["rec"] = griffin.init_griffin_params(cfg, gen, device)
@@ -108,15 +130,30 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device) -> di
         p["norm2"] = make_norm_params(cfg, d, device)
     else:
         raise ValueError(kind)
+    if cross:
+        p["norm_x"] = make_norm_params(cfg, d, device)
+        p["cross"] = attention.init_attn_params(cfg, gen, device, cross=True)
     return p
 
 
-def _train_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, rwkv_chunk: int) -> torch.Tensor:
-    """One layer of the training forward (no cache, the zero RWKV state)."""
+def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, memory) -> torch.Tensor:
+    """The cross sub-block after self-attention: a residual attention over
+    ``memory`` in decoder layers when there is one (reference
+    ``transformer.py:124-126``); ``x`` as it is otherwise."""
+    if memory is None or "cross" not in p:
+        return x
+    return x + attention.attend_cross(cfg, p["cross"], apply_norm(cfg, p["norm_x"], x), memory)
+
+
+def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, rwkv_chunk: int,
+                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer over a whole sequence with no cache (the training forward
+    and the encoder; RWKV from the zero state)."""
     h = apply_norm(cfg, p["norm1"], x)
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS or kind == "enc":
         x = x + attention.attend_train(cfg, p["attn"], h, kind, positions)
+        x = _cross(cfg, p, x, memory)
         return x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
     a, _, _ = rwkv6.time_mix(cfg, p["tm"], h, None, None, chunk=rwkv_chunk)
     x = x + a
@@ -133,10 +170,10 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
-                      device) -> dict:
+                      device, kv_quant: bool = False) -> dict:
     if kind in ATTN_KINDS:
         spec = attention.cache_spec(cfg, kind, max_seq)
-        return attention.init_kv_cache(cfg, spec, batch, dtype, device)
+        return attention.init_kv_cache(cfg, spec, batch, dtype, device, quantized=kv_quant)
     if kind == "rglru":
         return griffin.init_griffin_state(cfg, batch, device)
     if kind == "rwkv":
@@ -159,7 +196,7 @@ class Model:
     remat: bool = True
     remat_policy: str = "block"  # "dots" waits (ROADMAP.md queue 1, item 6c)
     rwkv_chunk: int = 64
-    kv_dtype: str = "compute"  # "int8" waits (ROADMAP.md queue 1)
+    kv_dtype: str = "compute"  # "compute" | "int8" (the quantized KV cache)
 
     def __post_init__(self):
         _check_ported(self.cfg, self.kv_dtype)
@@ -173,19 +210,35 @@ class Model:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
     # -- params ---------------------------------------------------------------
-    def init_params(self, generator: torch.Generator, device="cuda") -> dict:
+    def init_params(self, generator: torch.Generator, device="cuda",
+                    store_dtype=None) -> dict:
         """Random params in ``param_dtype``, drawn from ``generator`` on its
-        own device and placed on ``device``."""
+        own device and placed on ``device``.  With ``store_dtype`` each
+        embedding and layer is stored in it (:func:`store_compute_dtype`)
+        as soon as it is drawn: the same draws and values as storing the
+        whole tree afterwards, but no more than one layer's or embedding's
+        ``param_dtype`` weights exist at a time."""
         cfg = self.cfg
         dev = resolve(device)
+
+        def stored(tree):
+            return tree if store_dtype is None else store_compute_dtype(tree, store_dtype)
+
+        def embed():
+            w = embed_init(generator, (cfg.vocab_size, cfg.d_model), pdt(cfg), dev)
+            return w if store_dtype is None else w.to(store_dtype)
+
         params: Dict[str, Any] = {
-            "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), pdt(cfg), dev),
+            "embed": embed(),
             "final_norm": make_norm_params(cfg, cfg.d_model, dev),
         }
         if not cfg.tie_embeddings:
-            params["unembed"] = embed_init(generator, (cfg.vocab_size, cfg.d_model),
-                                           pdt(cfg), dev)
-        params["layers"] = [_init_block(cfg, kind, generator, dev) for kind in cfg.blocks()]
+            params["unembed"] = embed()
+        params["layers"] = [stored(_init_block(cfg, kind, generator, dev, cross=cfg.is_encdec))
+                            for kind in cfg.blocks()]
+        if cfg.is_encdec:
+            params["enc_layers"] = [stored(_init_block(cfg, "enc", generator, dev))
+                                    for _ in range(cfg.encoder_layers)]
         return params
 
     # -- embedding ------------------------------------------------------------
@@ -228,27 +281,42 @@ class Model:
                                  seq_chunk=self.xent_seq_chunk)
         return (ce * mask).sum() / denom
 
+    def _stack(self, layers, kinds, x: torch.Tensor, memory=None,
+               remat: bool = False) -> torch.Tensor:
+        """One stack of layers over whole sequences with no cache, each layer
+        under ``checkpoint`` when ``remat``."""
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        for kind, p in zip(kinds, layers):
+            args = (self.cfg, kind, p, x, positions, self.rwkv_chunk, memory)
+            x = (checkpoint(_sequence_block, *args, use_reentrant=False) if remat
+                 else _sequence_block(*args))
+        return x
+
     def train_loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
         """(loss, {"ce", "aux"}) of ``batch["tokens"]`` (B, S) against
         ``batch["targets"]``, weighted by ``batch["mask"]`` (default all
-        ones).  ``aux`` is zero: no family trained here has an auxiliary
-        loss.  The ``rglru`` and MoE families raise (item 6c)."""
+        ones); an enc-dec config also takes ``batch["src_embeds"]`` (B, T,
+        D), encoded with remat as the decoder is, and its decoder's output
+        goes to the loss without ``final_norm``, as in the reference
+        (``transformer.py:381-398``).  ``aux`` is zero: no family trained
+        here has an auxiliary loss.  The ``rglru`` and MoE families raise
+        (item 6c)."""
         cfg = self.cfg
         if "rglru" in cfg.blocks() or cfg.moe is not None:
             raise NotImplementedError(
                 f"{cfg.name}: training the rglru and MoE families is not ported "
                 "yet (ROADMAP.md queue 1, item 6c); they are served only")
         tokens, targets = batch["tokens"], batch["targets"]
-        x = self._embed(params, tokens)
-        B, S = tokens.shape
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        for kind, p in zip(cfg.blocks(), params["layers"]):
-            if self.remat:
-                x = checkpoint(_train_block, cfg, kind, p, x, positions, self.rwkv_chunk,
-                               use_reentrant=False)
-            else:
-                x = _train_block(cfg, kind, p, x, positions, self.rwkv_chunk)
-        x = apply_norm(cfg, params["final_norm"], x)
+        memory = None
+        if cfg.is_encdec:
+            memory = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
+                                 batch["src_embeds"].to(cdt(cfg)), remat=self.remat)
+            memory = apply_norm(cfg, params["final_norm"], memory)
+        x = self._stack(params["layers"], cfg.blocks(), self._embed(params, tokens), memory,
+                        remat=self.remat)
+        if not cfg.is_encdec:
+            x = apply_norm(cfg, params["final_norm"], x)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
@@ -258,17 +326,39 @@ class Model:
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> List[dict]:
-        """One state dict per layer: K/V/pos for attention (ring buffers for
-        windowed layers), (h, conv) for RG-LRU, (s, tm_x, cm_x) for RWKV."""
+        """One state dict per (decoder) layer: K/V/pos for attention (ring
+        buffers for windowed layers; int8 K/V and their scales with
+        ``kv_dtype="int8"``), (h, conv) for RG-LRU, (s, tm_x, cm_x) for
+        RWKV."""
         dev = resolve(device)
-        return [_init_block_state(self.cfg, kind, batch, max_seq, cdt(self.cfg), dev)
-                for kind in self.cfg.blocks()]
+        return [self._block_state(kind, batch, max_seq, dev) for kind in self.cfg.blocks()]
 
-    def prefill(self, params, batch: dict, max_seq: int) -> Tuple[List[dict], torch.Tensor]:
+    def _block_state(self, kind: str, batch: int, max_seq: int, device) -> dict:
+        return _init_block_state(self.cfg, kind, batch, max_seq, cdt(self.cfg), device,
+                                 kv_quant=self.kv_dtype == "int8")
+
+    def encode(self, params, src_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder (enc-dec configs): frame embeddings (B, T, D) → the
+        memory (B, T, D) the decoder attends to, through the ``enc`` layers
+        (K5, ``causal=False``) and the decoder's ``final_norm``, as in the
+        reference (``transformer.py:417-427``)."""
+        cfg = self.cfg
+        x = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
+                        src_embeds.to(cdt(cfg)))
+        return apply_norm(cfg, params["final_norm"], x)
+
+    def prefill(self, params, batch: dict, max_seq: int,
+                memory: Optional[torch.Tensor] = None) -> Tuple[List[dict], torch.Tensor]:
         """Process a prompt (``batch["tokens"]``: (B, S)), build the caches
         and return (cache, last-token logits).  Caches start from the zero
-        state, so RWKV layers run K7, and RG-LRU layers the doubling scan."""
+        state, so RWKV layers run K7, and RG-LRU layers the doubling scan.
+        An enc-dec config's decoder attends to ``memory`` (from
+        :meth:`encode`), or to the encoding of ``batch["src_embeds"]`` when
+        no memory is given; with neither, it runs without its cross
+        sub-blocks."""
         cfg = self.cfg
+        if cfg.is_encdec and memory is None and "src_embeds" in batch:
+            memory = self.encode(params, batch["src_embeds"])
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -276,12 +366,12 @@ class Model:
         states = []
         for kind, p in zip(cfg.blocks(), params["layers"]):
             h = apply_norm(cfg, p["norm1"], x)
-            state = _init_block_state(cfg, kind, B, max_seq, cdt(cfg), x.device)
+            state = self._block_state(kind, B, max_seq, x.device)
             if kind in ATTN_KINDS:
                 a, k, v = attention.attend_prefill(cfg, p["attn"], h, kind, positions)
                 attention.fill_kv_cache(state, attention.cache_spec(cfg, kind, max_seq),
                                         k, v, positions)
-                x = x + a
+                x = _cross(cfg, p, x + a, memory)
                 x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             elif kind == "rglru":
                 a, state = griffin.griffin_block(cfg, p["rec"], h, state)
@@ -300,10 +390,13 @@ class Model:
         return states, self._logits_last(params, x[:, -1])
 
     def decode_step(self, params, states: List[dict], tokens: torch.Tensor,
-                    pos, max_seq: int) -> Tuple[torch.Tensor, List[dict]]:
+                    pos, max_seq: int,
+                    memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[dict]]:
         """One token for the whole batch.  tokens: (B, 1); pos: an int or a
-        (B,) tensor of per-lane absolute positions.  KV caches are updated
-        in place.  Returns (logits (B, V) f32, states)."""
+        (B,) tensor of per-lane absolute positions; ``memory``: an enc-dec
+        config's encoder output, whose cross K/V each step projects anew, as
+        the reference's does.  KV caches are updated in place.  Returns
+        (logits (B, V) f32, states)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         B = tokens.shape[0]
@@ -314,7 +407,7 @@ class Model:
             if kind in ATTN_KINDS:
                 spec = attention.cache_spec(cfg, kind, max_seq)
                 a, state = attention.attend_decode(cfg, p["attn"], h, state, kind, pos, spec)
-                x = x + a
+                x = _cross(cfg, p, x + a, memory)
                 x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
             elif kind == "rglru":
                 a, state = griffin.griffin_block(cfg, p["rec"], h, state)

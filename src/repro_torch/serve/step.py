@@ -105,10 +105,11 @@ class BucketedExecutorCache:
 
 
 def make_decode_step(model, max_seq: int):
-    """``(params, cache, tokens, pos) -> (next_tok (B, 1) int32, logits,
-    cache)``: one decode step with greedy sampling in-step."""
-    def decode_step(params, cache, tokens, pos):
-        logits, cache = model.decode_step(params, cache, tokens, pos, max_seq)
+    """``(params, cache, tokens, pos, memory=None) -> (next_tok (B, 1)
+    int32, logits, cache)``: one decode step with greedy sampling in-step;
+    an enc-dec config takes its encoder output as ``memory``."""
+    def decode_step(params, cache, tokens, pos, memory=None):
+        logits, cache = model.decode_step(params, cache, tokens, pos, max_seq, memory=memory)
         next_tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         return next_tok, logits, cache
 

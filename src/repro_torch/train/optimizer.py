@@ -82,12 +82,16 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
 
 def decay_mask_like_reference(cfg, params) -> Any:
     """The reference's default decay mask, on the port's tree: True for
-    every leaf of a layer that sits in a pattern group, ``ndim >= 2`` for
-    remainder layers and top-level leaves."""
+    every leaf of a layer that sits in a pattern group (an enc-dec config's
+    encoder layers all do: the reference stacks them in ``enc_g0``),
+    ``ndim >= 2`` for remainder layers and top-level leaves."""
     in_groups = cfg.num_layers // len(cfg.block_pattern) * len(cfg.block_pattern)
-    out = {k: tree_map(lambda p: p.ndim >= 2, v) for k, v in params.items() if k != "layers"}
+    out = {k: tree_map(lambda p: p.ndim >= 2, v) for k, v in params.items()
+           if k not in ("layers", "enc_layers")}
     out["layers"] = [tree_map(lambda p, grouped=li < in_groups: grouped or p.ndim >= 2, layer)
                      for li, layer in enumerate(params["layers"])]
+    if "enc_layers" in params:
+        out["enc_layers"] = tree_map(lambda p: True, params["enc_layers"])
     return out
 
 
