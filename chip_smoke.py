@@ -37,17 +37,19 @@ against their plain PyTorch versions:
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
    window, a softcap, h=128 and 256, RecurrentGemma-9B's and
    Qwen2-MoE's served shapes at S 509 and RecurrentGemma's at S 1000
-   under a window of 256, without the causal mask at Seamless-M4T's
-   encoder (S = T = 1,000) and cross-attention shapes (S 8 / 16 over T
-   509 / 1,000), strided views and views whose rows
-   are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
+   under a window of 256, Qwen2-VL-7B's GQA 7:1 (28 query heads over 4
+   KV heads, h 128) at S 509 / 1,000 and its train shape (4, 512), without
+   the causal mask at Seamless-M4T's encoder (S = T = 1,000) and
+   cross-attention shapes (S 8 / 16 over T 509 / 1,000), strided views and
+   views whose rows are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
    of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
    inputs, from the zero state and (S 63/256/509) from a carried state,
    and two other head shapes (o and s_final at rtol 1e-4, atol 1e-5 plus
-   the f32 rounding of two summation orders, see ``k7_checks``); K6 (3xTF32 on the tensor cores) on the two
-   train shapes
-   (N, D, V) = (4,096, 2,048, 128,256) and (2,048, 4,096, 65,536), an odd N
+   the f32 rounding of two summation orders, see ``k7_checks``); K6
+   (3xTF32 on the tensor cores) on the five train shapes (N, D, V) =
+   (4,096, 2,048, 128,256), (2,048, 4,096, 65,536), (2,048, 4,096,
+   256,000), (2,048, 2,048, 151,936) and (2,048, 3,584, 152,064), an odd N
    with a vocab tail, a softcap of 30 and a vocab of 37, targets at 0, V-1
    and inside the last tile, at one split and at the automatic count (per
    token within 1e-5 relative + 1e-5 + 8 f32 epsilons of |x| max|w|, see
@@ -101,17 +103,23 @@ against their plain PyTorch versions:
    on 16 held-out digits at rtol 1e-4, atol 1e-5, at least 7 right
    (``c_export_phase``); no gcc fails the run;
 6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
-   RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B and Nemotron-4-15B (8
-   requests, 4 lanes, 16 new tokens each) at full width and depth, bf16
-   compute (each layer's weights stored in bf16 as it is drawn), through
-   ``Engine``, one model at a time: every request done, K5 = 16 / K7 = 32
-   / K5 = 12 / K5 = 24 / K5 = 32 / K5 = 32 launches per prefill (no other
-   kernel), the KV/state bytes (268,959,744 / 136,314,880 / 54,788,096 /
-   805,699,584 / 537,395,200 / 537,395,200 B), each prompt's
+   RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B, Nemotron-4-15B and
+   Qwen2-VL-7B's text decoder (8 requests, 4 lanes, 16 new tokens each) at
+   full width and depth, bf16 compute (each layer's weights stored in bf16
+   as it is drawn), through ``Engine``, one model at a time: every request
+   done, K5 = 16 / K7 = 32 / K5 = 12 / K5 = 24 / K5 = 32 / K5 = 32 / K5 =
+   28 launches per prefill (no other kernel), the KV/state bytes
+   (268,959,744 / 136,314,880 / 54,788,096 / 805,699,584 / 537,395,200 /
+   537,395,200 / 235,339,776 B), each prompt's
    logits against the plain path on the card (the same model with K5/K7
    swapped for their plain versions, ``plain_kernels``), TTFT, prefill and
    decode tokens/s, peak memory, and the device time of K5 / K7, the
    RG-LRU scan and the MoE einsums over the served prompts' prefills;
+   Qwen2-VL-7B then from patch embeddings (``vl_embeds_phase``): 4 lanes
+   of 509 embedding rows through ``Model.prefill(batch={"embeds": ...})``,
+   K5 28 launches, then 16 greedy decode steps on tokens, none, the
+   prefill's logits against the plain path (``LM_LOGITS_TOL``), TTFT, ms a
+   decode step and peak memory;
    then Seamless-M4T-large-v2 at full size (``encdec_phase``): two batches
    of 4 utterances (509 frames and 8-token prompts, 1,000 frames and
    16-token prompts), each ``encode`` -> ``prefill(memory=)`` -> 32 greedy
@@ -124,7 +132,7 @@ against their plain PyTorch versions:
    cache (``kv_int8_phase``): 143,130,624 against 268,959,744 state bytes,
    the first prefill's and decode step's logits within
    tests/test_kv_quant.py's tolerances, ms a decode step both ways;
-7. holds each architecture at full width, 2 layers (RecurrentGemma 3;
+7. holds each served architecture at full width, 2 layers (RecurrentGemma 3;
    Seamless 2 encoder and 2 decoder layers over 200 frames, its training
    loss and gradients too, at step 9's limits), f32 compute, kernel path
    against plain path: prefill and 4 decode steps at 1e-4; then
@@ -133,27 +141,36 @@ against their plain PyTorch versions:
    logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
    and with the weights in bf16 (recorded);
 8. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
-   step of 2 microbatches, then a profiled step) and RWKV6-7B at full width
-   with 2 layers (B 4 x S 512, 2 steps, then a profiled step): f32 params,
-   bf16 compute, remat, ``xent_impl="chunked"``, the launcher's AdamW,
-   token-pipeline batches; every loss finite, launches per step pinned
-   (Llama K5 32, K6 1, or 64 and 2 with 2 microbatches; RWKV K7 4, K6 1;
-   no other kernel), every parameter leaf with a nonzero finite gradient,
+   step of 2 microbatches, then a profiled step), and RWKV6-7B (2 layers),
+   RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2) and Qwen2-VL-7B (2, on the
+   launcher's embeds batches, and a step of 2 microbatches) at full width
+   (B 4 x S 512, 2 steps, then a profiled step): f32 params, bf16 compute,
+   remat, ``xent_impl="chunked"``, the launcher's AdamW, token-pipeline
+   batches; every loss finite, launches per step pinned (Llama K5 32, K6
+   1, or 64 and 2 with 2 microbatches; RWKV K7 4, K6 1; RecurrentGemma K5
+   2, Qwen2-MoE and Qwen2-VL K5 4, K6 1; no other kernel), every parameter
+   leaf with a nonzero finite gradient (an embeds batch's unread
+   ``embed``: zero),
    step 1's loss and grad norm against the plain path (1e-2 and 5e-2
    relative); step ms, tokens/s, peak memory, K6's device ms per step,
-   the device's idle share and MFU;
-9. holds both architectures at full width, 2 layers, f32 compute, kernel
-   path against plain path: step 1's loss at 1e-5 relative, every
-   gradient leaf at rtol 1e-3 and 1e-3 of the leaf's largest value, and
-   the losses of 2 AdamW steps at 1e-5 relative;
+   the device's idle share and MFU (on the active parameters for MoE);
+9. holds the five trained architectures at full width, 2 layers
+   (RecurrentGemma 3), f32 compute, kernel path against plain path: step
+   1's loss at 1e-5 relative, every gradient leaf at rtol 1e-3 and 1e-3 of
+   the leaf's largest value, and the losses of 2 AdamW steps at 1e-5
+   relative; then (``remat_dots_phase``) one Llama-3.2-1B train step's
+   loss and gradients under ``remat_policy="block"`` and under ``"dots"``:
+   losses within 1e-6, K5 32 in both, both peaks recorded;
 10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
     K3 and K4 at every distinct depthwise step of both nets, beside
     cuDNN's chain and the f64 chain, K5 at S 128/512/1000, at
-    RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and Nemotron-4-15B's
-    served shapes at S 509 and at Seamless-M4T's batch of 4 at 1,000
-    frames (encoder and cross-attention without the mask, decoder), K7 at S
-    128/509/512/1000 (each of its two kernels by name), K5 also at Llama's
-    train shape B 8 x S 512, K6 at the two train shapes) with CUDA events
+    RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's, Nemotron-4-15B's and
+    Qwen2-VL-7B's served shapes at S 509 and at Seamless-M4T's batch of 4
+    at 1,000 frames (encoder and cross-attention without the mask,
+    decoder), K7 at S 128/509/512/1000 (each of its two kernels by name),
+    K5 also at the train shapes of Llama (B 8 x S 512), RecurrentGemma,
+    Qwen2-MoE and Qwen2-VL (B 4 x S 512), K6 at the five train shapes) with
+    CUDA events
     and the profiler, beside its plain version, a PyTorch library call
     computing the same function where there is one, and its bound from the
     shapes (K6's on its route, 3xTF32 at the TF32 tensor-core peak, with
@@ -1948,7 +1965,11 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             (1, 509, 16, 1, 256, 2048, 0.0), (1, 509, 16, 16, 128, 0, 0.0),
             (1, 1000, 16, 1, 256, 256, 0.0),
             # Seamless-M4T's decoder self-attention at its served prompts
-            (4, 8, 16, 16, 64, 0, 0.0), (4, 16, 16, 16, 64, 0, 0.0)]
+            (4, 8, 16, 16, 64, 0, 0.0), (4, 16, 16, 16, 64, 0, 0.0),
+            # Qwen2-VL-7B: 28 query heads over 4 KV heads (GQA 7:1, h 128) at
+            # its longest served prompt, at 1,000 tokens and at its train shape
+            (1, 509, 28, 4, 128, 0, 0.0), (1, 1000, 28, 4, 128, 0, 0.0),
+            (4, 512, 28, 4, 128, 0, 0.0)]
 # K5 without the causal mask, (B, S, H, K, h, T): Seamless-M4T's encoder
 # self-attention over 1,000 frames (S = T), one utterance and its served
 # batches of 4 at 509 and 1,000 frames, and its decoder's cross-attention
@@ -1993,10 +2014,14 @@ K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches bo
 # the prefill's logits after encode, both batches) are its first readings
 # on an H100 80GB HBM3 at 700 W, 0.0586 / 0.0127 at 509 frames and 0.0547 /
 # 0.0124 at 1,000, with ~3.5x / 3x headroom (K5 in 72 launches a batch).
+# Qwen2-VL-7B's (served from tokens through Engine, and vl_embeds' prefill
+# from embeds) is its first reading on an H100 80GB HBM3 at 700 W, 0.0679 /
+# 0.0163 served and 0.0684 / 0.0151 from embeds, with ~3.5x / 3x headroom
+# (K5 in all 28 layers).
 LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75),
                  "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2),
                  "llama3-8b": (0.25, 0.05), "nemotron-4-15b": (0.3, 0.06),
-                 "seamless-m4t-large-v2": (0.2, 0.04)}
+                 "seamless-m4t-large-v2": (0.2, 0.04), "qwen2-vl-7b": (0.25, 0.05)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
 # RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
 # on the prompts below, at f32 compute: the final logits' (max |difference|,
@@ -2024,10 +2049,15 @@ LM_ENGINES = {
     "qwen2-moe-a2.7b": (3, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
     "llama3-8b": (4, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
     "nemotron-4-15b": (5, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
+    # Qwen2-VL-7B's text decoder (28 attention layers, h 128, GQA 28:4, q/k/v
+    # bias, M-RoPE in text mode), as Engine serves it; vl_embeds then drives
+    # the same model from patch embeddings
+    "qwen2-vl-7b": (6, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
 }
 LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880,
                "recurrentgemma-9b": 54_788_096, "qwen2-moe-a2.7b": 805_699_584,
-               "llama3-8b": 537_395_200, "nemotron-4-15b": 537_395_200}
+               "llama3-8b": 537_395_200, "nemotron-4-15b": 537_395_200,
+               "qwen2-vl-7b": 235_339_776}
 # A name every kernel of K5 / K7 has in the profiler
 LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 # Plain-PyTorch parts of the served prefills timed as profiler ranges:
@@ -2040,7 +2070,7 @@ LM_RANGES = (("repro_torch.models.griffin", "rg_lru", "rg_lru_scan"),
 LM_STRICT = (("llama3.2-1b", 10, 129, 2), ("rwkv6-7b", 11, 200, 2),
              ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2),
              ("seamless-m4t-large-v2", 14, 16, 2), ("llama3-8b", 15, 200, 2),
-             ("nemotron-4-15b", 16, 200, 2))
+             ("nemotron-4-15b", 16, 200, 2), ("qwen2-vl-7b", 17, 200, 2))
 LM_STRICT_SRC = 200
 # Seamless-M4T-large-v2 served (encdec_phase): (frames, prompt tokens) of
 # each batch of ENCDEC_LANES utterances of one length (the reference has no
@@ -2055,6 +2085,11 @@ ENCDEC_LANES, ENCDEC_STEPS, ENCDEC_MAX_SEQ = 4, 32, 64
 KV_INT8_BYTES = 143_130_624
 KV_INT8_PREFILL_TOL, KV_INT8_DECODE_TOL = (0.2, 0.15), (0.25, 0.2)
 KV_INT8_ARGMAX_AGREE = 0.5
+# vl_embeds: Qwen2-VL-7B prefilled from VL_EMBEDS_LANES rows of
+# VL_EMBEDS_ROWS patch embeddings ~ N(0, 1/D) each (the vision frontend is a
+# stub in the reference: precomputed embeddings enter in place of the token
+# embedding), then VL_EMBEDS_STEPS greedy decode steps on tokens.
+VL_EMBEDS_LANES, VL_EMBEDS_ROWS, VL_EMBEDS_STEPS = 4, 509, 16
 
 
 def _close(torch, a, b, rtol, atol):
@@ -2114,6 +2149,7 @@ def k5_checks(torch, np, report) -> None:
     cases += [(B, S, T, H, K, h, 0, 0.0, False) for B, S, H, K, h, T in K5_NONCAUSAL]
     worst = {"f32": 0.0, "bf16": 0.0}
     worst_nc = {"f32": 0.0, "bf16": 0.0}
+    worst_gqa7 = {"f32": 0.0, "bf16": 0.0}  # Qwen2-VL's 28 query heads over 4
     worst_row = 0.0
     n_checks = 0
     for ci, (B, S, T, H, K, h, window, softcap, causal) in enumerate(cases):
@@ -2139,6 +2175,8 @@ def k5_checks(torch, np, report) -> None:
             worst[kind] = max(worst[kind], err)
             if not causal:
                 worst_nc[kind] = max(worst_nc[kind], err)
+            if H == 7 * K:
+                worst_gqa7[kind] = max(worst_gqa7[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2169,6 +2207,8 @@ def k5_checks(torch, np, report) -> None:
     report.emit({"phase": "k5_vs_plain", "checks": n_checks + 2, "max_abs_err": worst,
                  "non_causal_checks": 2 * len(K5_NONCAUSAL),
                  "non_causal_max_abs_err": worst_nc,
+                 "gqa_7_1_checks": 2 * sum(H == 7 * K for _, _, H, K, *_ in K5_EXTRA),
+                 "gqa_7_1_max_abs_err": worst_gqa7,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2441,9 +2481,84 @@ def lm_engine_phase(torch, np, report) -> dict:
             "max_memory_allocated": peak,
         })
         out[arch] = counts
+        if cfg.frontend == "vision":
+            vl_embeds_phase(torch, np, report, model, params, max_seq)
         del model, params
         torch.cuda.empty_cache()
     return out
+
+
+def vl_embeds_phase(torch, np, report, model, params, max_seq) -> None:
+    """Qwen2-VL-7B from patch embeddings, on the model ``lm_engine_phase``
+    has just served: ``Model.prefill(batch={"embeds": e})`` on
+    VL_EMBEDS_LANES rows of VL_EMBEDS_ROWS embeddings (N(0, 1/D), seeded),
+    then VL_EMBEDS_STEPS greedy steps of ``make_decode_step`` on tokens,
+    every launch counter set to 0 just before.  K5 runs once a layer in the
+    prefill and never in a decode step, no other kernel runs; the prefill's
+    logits, finite, are held against the plain path's on the same inputs
+    within ``LM_LOGITS_TOL``.  Records TTFT (the prefill), ms a decode step
+    (p50 / p99), tokens/s and peak memory."""
+    from repro_torch.serve.step import make_decode_step
+
+    counters = _counters()
+    cfg = model.cfg
+    B, S = VL_EMBEDS_LANES, VL_EMBEDS_ROWS
+    gen = torch.Generator("cuda").manual_seed(60)
+    embeds = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda") \
+        / cfg.d_model ** 0.5
+    decode = make_decode_step(model, max_seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, {"embeds": embeds}, max_seq)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    ttft_ms = 1e3 * (time.perf_counter() - t0)
+    prefill_counts = {k: c.count for k, c in counters.items()}
+    out, step_ms, step_counts = [tok], [], []
+    for t in range(VL_EMBEDS_STEPS):
+        before = {k: c.count for k, c in counters.items()}
+        ts = time.perf_counter()
+        tok, _, cache = decode(params, cache, tok, S + t)
+        out.append(tok)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        step_counts.append({k: c.count - before[k] for k, c in counters.items()})
+    peak = torch.cuda.max_memory_allocated()
+    seq = torch.cat(out, dim=1)
+    del cache
+    want = {k: 0 for k in counters}
+    want["K5"] = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    if prefill_counts != want or any(any(c.values()) for c in step_counts):
+        raise AssertionError(f"vl_embeds: launches {prefill_counts} in the prefill (want "
+                             f"{want}), decode steps "
+                             f"{[c for c in step_counts if any(c.values())][:2]} (want none)")
+    if tuple(seq.shape) != (B, VL_EMBEDS_STEPS + 1) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"vl_embeds: tokens {tuple(seq.shape)}, logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    with plain_kernels():
+        _, lp = model.prefill(params, {"embeds": embeds}, max_seq)
+    err, rel = _diff(torch, logits, lp)
+    max_abs, rel_rms = LM_LOGITS_TOL[cfg.name]
+    report.emit({
+        "phase": "vl_embeds", "arch": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype, "lanes": B,
+        "embeds_rows": S, "max_seq": max_seq, "decode_steps": VL_EMBEDS_STEPS,
+        "k5_launches_prefill": prefill_counts["K5"],
+        "k5_launches_per_decode_step": max(c["K5"] for c in step_counts),
+        "ttft_ms": ttft_ms, "prefill_tokens_per_s": B * S / (ttft_ms / 1e3),
+        "decode_step_ms_p50": _pct(np, step_ms, 50),
+        "decode_step_ms_p99": _pct(np, step_ms, 99),
+        "decode_tokens_per_s": B * VL_EMBEDS_STEPS / (sum(step_ms) / 1e3),
+        "max_memory_allocated": peak,
+        "logits_vs_plain": {"max_abs": err, "rel": rel},
+        "logits_tolerance": {"max_abs": max_abs, "rel": rel_rms},
+    })
+    if not (err <= max_abs and rel <= rel_rms):
+        raise AssertionError(f"vl_embeds: prefill logits against the plain path max abs "
+                             f"{err}, rel {rel} (allowed {max_abs}, {rel_rms})")
 
 
 def encdec_phase(torch, np, report) -> dict:
@@ -2883,7 +2998,14 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> li
               for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
                                     ("qwen2-moe-a2.7b", 16, 16, 128),
                                     ("llama3-8b", 32, 8, 128),
-                                    ("nemotron-4-15b", 48, 8, 128))]
+                                    ("nemotron-4-15b", 48, 8, 128),
+                                    ("qwen2-vl-7b", 28, 4, 128))]
+    # the train shapes of RecurrentGemma, Qwen2-MoE and Qwen2-VL (B 4 x S 512;
+    # RecurrentGemma's window of 2048 is past S)
+    cases += [("train", arch, 4, 512, 512, H, K, h, True, train_counts[arch]["K5"])
+              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
+                                    ("qwen2-moe-a2.7b", 16, 16, 128),
+                                    ("qwen2-vl-7b", 28, 4, 128))]
     T, S = ENCDEC_BATCHES[-1]
     cases += [(mode, "seamless-m4t-large-v2", ENCDEC_LANES, sq, tk, 16, 16, 64, causal,
                sum(n for key, n in encdec_k5.items() if key[1:8] == (ENCDEC_LANES, sq, tk, 16,
@@ -2911,7 +3033,8 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> li
                                 f"enable_gqa), bf16",
                      **t})
         entries.append({
-            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}]"
+            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}, "
+                     f"H={H} K={K} h={h}]"
                      if mode == "train" else
                      f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
                      if mode == "prefill" else
@@ -2984,6 +3107,11 @@ PEAK_F32_OPS_PER_S = PEAK_OPS_PER_S["f32"]
 K6_CASES = [
     (4096, 2048, 128256, 0.0, None),
     (2048, 4096, 65536, 0.0, None),
+    # the train shapes of RecurrentGemma-9B (tied, V 256,000), Qwen2-MoE and
+    # Qwen2-VL (B 4 x S 512 tokens each)
+    (2048, 4096, 256000, 0.0, None),
+    (2048, 2048, 151936, 0.0, None),
+    (2048, 3584, 152064, 0.0, None),
     (129, 64, 1000, 0.0, 0.1),
     (129, 64, 1000, 30.0, 1.0),
     (32, 16, 37, 0.0, 0.1),
@@ -3020,11 +3148,27 @@ STRICT_LOSS_RTOL, STRICT_GRAD_RTOL = 1e-5, 1e-3
 # arch: (seed, layers (None: all), batch, seq, timed steps, a microbatches=2
 # step, launches per step).  K5: 16 forward + 16 in remat's recompute; K6
 # once per loss (2 with 2 microbatches; its backward is plain); K7: 2
-# forward + 2 recompute.
+# forward + 2 recompute.  RecurrentGemma, Qwen2-MoE and Qwen2-VL cut depth,
+# never width (AdamW's 16 B a parameter at full depth is over 80 GB):
+# RecurrentGemma-9B one (rglru, rglru, local) group, so K5 runs on its
+# local layer (1 + 1); Qwen2-MoE-A2.7B and Qwen2-VL-7B 2 attention layers
+# (2 + 2); Qwen2-VL trains on the launcher's embeds batch, and its
+# microbatches=2 step splits a batch without tokens.
 TRAIN_RUNS = {
     "llama3.2-1b": (20, None, 8, 512, 4, True, {"K5": 32, "K6": 1}),
     "rwkv6-7b": (21, 2, 4, 512, 2, False, {"K7": 4, "K6": 1}),
+    "recurrentgemma-9b": (22, 3, 4, 512, 2, False, {"K5": 2, "K6": 1}),
+    "qwen2-moe-a2.7b": (23, 2, 4, 512, 2, False, {"K5": 4, "K6": 1}),
+    "qwen2-vl-7b": (24, 2, 4, 512, 2, True, {"K5": 4, "K6": 1}),
 }
+# train_strict: (arch, seed, layers) at f32 compute
+TRAIN_STRICT = (("llama3.2-1b", 30, 2), ("rwkv6-7b", 31, 2), ("recurrentgemma-9b", 32, 3),
+                ("qwen2-moe-a2.7b", 33, 2), ("qwen2-vl-7b", 34, 2))
+# remat_dots: Llama-3.2-1B's train cell, one step's loss and gradients under
+# each policy from the same params and batch: losses within
+# REMAT_DOTS_LOSS_RTOL (the same forward: "dots" keeps the matmul outputs
+# that "block" computes again in the backward)
+REMAT_DOTS_LOSS_RTOL = 1e-6
 
 
 def _xent_inputs(torch, np, rng, N, D, V, w_std):
@@ -3080,7 +3224,7 @@ def k6_checks(torch, np, report) -> None:
                  "bounds_ms": {f"N={N} D={D} V={V}": {
                      "route": k6_bound(N, D, V)[0],
                      "f32_cuda_core": k6_f32_bound_ms(N, D, V)}
-                     for N, D, V in ((4096, 2048, 128256), (2048, 4096, 65536))}})
+                     for N, D, V in K6_TRAIN_SHAPES.values()}})
 
 
 def grad_checks(torch, np, report) -> None:
@@ -3199,17 +3343,37 @@ def _profile_step(torch, fn):
             [[ev.key[:100], ev.count, ev.self_device_time_total / 1e3] for ev in top])
 
 
+def _active_params(cfg, params) -> float:
+    """The parameters a token's forward reads: every one, except that a MoE
+    layer's routed experts count top_k / num_experts of their weights."""
+    from repro_torch.tree import leaves
+
+    n = sum(p.numel() for p in leaves(params))
+    if cfg.moe is not None:
+        routed = sum(layer["ffn"][k].numel() for layer in params["layers"]
+                     if "router" in layer["ffn"] for k in ("wi", "wg", "wo")
+                     if k in layer["ffn"])
+        n -= routed * (1 - cfg.moe.top_k / cfg.moe.num_experts)
+    return n
+
+
 def lm_train_phase(torch, np, report) -> dict:
-    """Train Llama-3.2-1B at full width and depth, and RWKV6-7B at full width
-    with 2 layers (AdamW's 16 B a parameter for all 32 layers, ~120 GB, is
-    over the card's 80 GB): bf16 compute, f32 params, remat, the launcher's
-    AdamW, token-pipeline batches; the timed steps, a microbatches=2 step
-    (Llama), then one more step under the profiler for K6's device time and
-    the device's busy time.  Before the run, step 1's gradients on the
-    kernel path (every leaf nonzero and finite) and its loss and grad norm
-    against the plain path.  Returns {arch: {kernel: launches of the run}}."""
+    """Train each of ``TRAIN_RUNS``: Llama-3.2-1B at full width and depth,
+    RWKV6-7B, RecurrentGemma-9B, Qwen2-MoE-A2.7B and Qwen2-VL-7B at full
+    width with a few layers (AdamW's 16 B a parameter at full depth is over
+    the card's 80 GB): bf16 compute, f32 params, remat, the launcher's
+    AdamW, token-pipeline batches (Qwen2-VL's as the launcher's embeds,
+    ``frontend_batch``); the timed steps, a microbatches=2 step (Llama,
+    Qwen2-VL), then one more step under the profiler for K6's device time
+    and the device's busy time.  Before the run, step 1's gradients on the
+    kernel path (every leaf nonzero and finite, but an embeds batch's
+    unread ``embed``, exactly zero) and its loss and grad norm against the
+    plain path.  MFU = 6 (active non-embedding params + V D) tokens / (step
+    s x 989e12), the active params a MoE layer's top_k / num_experts of its
+    routed experts (``_active_params``).  Returns {arch: {kernel: launches
+    of the run}}."""
     from repro_torch.data import tokens as tok
-    from repro_torch.launch.train import adamw_config
+    from repro_torch.launch.train import adamw_config, frontend_batch
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
     from repro_torch.tree import leaves
@@ -3220,9 +3384,12 @@ def lm_train_phase(torch, np, report) -> dict:
         model, params, cfg = _train_model(torch, arch, seed, layers)
         pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                        global_batch=B, seed=seed)
-        b0 = tok.device_batch(pipe, 0, "cuda")
-        loss_k, _, grads = value_and_grad(model, params, b0)
-        n_leaves, n_good, bad = _leaf_stats(torch, grads)
+        b0 = frontend_batch(cfg, tok.device_batch(pipe, 0, "cuda"))
+        loss_k, m0, grads = value_and_grad(model, params, b0)
+        unread = ("embed",) if "embeds" in b0 else ()
+        n_leaves, n_good, bad = _leaf_stats(torch, {k: v for k, v in grads.items()
+                                                     if k not in unread})
+        bad += [k for k in unread if bool(grads[k].any())]
         norm_k = float(opt.global_norm(grads))
         del grads
         before = {k: c.count for k, c in counters.items()}
@@ -3239,8 +3406,8 @@ def lm_train_phase(torch, np, report) -> dict:
                                  f"{bad}; loss {loss_k} vs plain {loss_p}, grad norm "
                                  f"{norm_k} vs plain {norm_p}")
 
-        # `steps` steps, a microbatches=2 step (Llama), then one more step
-        # under the profiler for the device breakdown.
+        # `steps` steps, a microbatches=2 step (Llama, Qwen2-VL), then one
+        # more step under the profiler for the device breakdown.
         kinds = ["timed"] * steps + (["micro"] if micro else []) + ["profiled"]
         adamw = adamw_config(len(kinds))
         step_fns = {1: make_train_step(model, TrainStepConfig(adamw=adamw)),
@@ -3252,7 +3419,7 @@ def lm_train_phase(torch, np, report) -> dict:
         for s, kind in enumerate(kinds):
             n_micro = 2 if kind == "micro" else 1
             step_fn = step_fns[n_micro]
-            batch = tok.device_batch(pipe, s, "cuda")
+            batch = frontend_batch(cfg, tok.device_batch(pipe, s, "cuda"))
             torch.cuda.synchronize()
             for c in counters.values():
                 c.reset()
@@ -3276,18 +3443,21 @@ def lm_train_phase(torch, np, report) -> dict:
         p50_ms = _pct(np, step_ms[:steps], 50)
         tokens = B * S
         n_params = sum(p.numel() for p in leaves(params))
+        n_active = _active_params(cfg, params)
         emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-        flops = 6 * (n_params - emb + cfg.vocab_size * cfg.d_model) * tokens
+        flops = 6 * (n_active - emb + cfg.vocab_size * cfg.d_model) * tokens
         report.emit({
             "phase": "lm_train", "arch": arch, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": B, "seq": S,
             "tokens_per_step": tokens, "compute_dtype": cfg.compute_dtype,
             "param_dtype": cfg.param_dtype, "remat": model.remat,
-            "xent_impl": model.xent_impl, "params": n_params,
-            "steps": kinds, "losses": losses, "launches_per_step": launches,
+            "xent_impl": model.xent_impl, "params": n_params, "active_params": n_active,
+            "batch_inputs": sorted(b0), "steps": kinds, "losses": losses,
+            "launches_per_step": launches,
             "leaves_with_nonzero_finite_grad": f"{n_good}/{n_leaves}",
+            "leaves_unread_with_zero_grad": list(unread),
             "step1_vs_plain": {"loss": loss_k, "plain_loss": loss_p, "grad_norm": norm_k,
-                               "plain_grad_norm": norm_p},
+                               "plain_grad_norm": norm_p, "aux": float(m0["aux"])},
             "limits": {"loss_rtol": TRAIN_LOSS_RTOL, "grad_norm_rtol": TRAIN_NORM_RTOL},
             "step_ms": step_ms, "step_ms_p50": p50_ms,
             "tokens_per_s": tokens / (p50_ms / 1e3),
@@ -3326,24 +3496,28 @@ def _grads_close(torch, gk, gp):
 
 
 def train_strict_phase(torch, np, report) -> None:
-    """Both architectures at full width, 2 layers, f32 compute, TF32 off:
-    step 1's loss and every gradient leaf, then the losses of 2 AdamW steps,
-    kernel path against plain path (``plain_kernels``), from identical
-    params."""
+    """Each of ``TRAIN_STRICT`` at full width and a few layers, f32 compute,
+    TF32 off: step 1's loss and every gradient leaf, then the losses of 2
+    AdamW steps, kernel path against plain path (``plain_kernels``), from
+    identical params (Qwen2-VL on the launcher's embeds batches)."""
     from repro_torch.data import tokens as tok
-    from repro_torch.launch.train import adamw_config
+    from repro_torch.launch.train import adamw_config, frontend_batch
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
 
-    for arch, seed in (("llama3.2-1b", 30), ("rwkv6-7b", 31)):
-        model, params_k, cfg = _train_model(torch, arch, seed, 2, "float32")
-        _, params_p, _ = _train_model(torch, arch, seed, 2, "float32")
+    for arch, seed, layers in TRAIN_STRICT:
+        model, params_k, cfg = _train_model(torch, arch, seed, layers, "float32")
+        _, params_p, _ = _train_model(torch, arch, seed, layers, "float32")
         pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=256,
                                        global_batch=2, seed=seed)
-        b0 = tok.device_batch(pipe, 0, "cuda")
-        loss_k, _, gk = value_and_grad(model, params_k, b0)
+
+        def batch_at(s):
+            return frontend_batch(cfg, tok.device_batch(pipe, s, "cuda"))
+
+        b0 = batch_at(0)
+        loss_k, m_k, gk = value_and_grad(model, params_k, b0)
         with plain_kernels():
-            loss_p, _, gp = value_and_grad(model, params_p, b0)
+            loss_p, m_p, gp = value_and_grad(model, params_p, b0)
         worst, bad = _grads_close(torch, gk, gp)
         del gk, gp
         losses = {"kernel": [], "plain": []}
@@ -3351,7 +3525,7 @@ def train_strict_phase(torch, np, report) -> None:
             step_fn = make_train_step(model, TrainStepConfig(adamw=adamw_config(2)))
             state = opt.init_state(params)
             for s in range(2):
-                batch = tok.device_batch(pipe, s, "cuda")
+                batch = batch_at(s)
                 with plain_kernels() if side == "plain" else contextlib.nullcontext():
                     params, state, m = step_fn(params, state, batch)
                 losses[side].append(float(m["loss"]))
@@ -3361,9 +3535,10 @@ def train_strict_phase(torch, np, report) -> None:
         if bad or loss_rel > STRICT_LOSS_RTOL or max(rel) > STRICT_LOSS_RTOL:
             raise AssertionError(f"{arch} train_strict: loss rel {loss_rel}, step losses "
                                  f"{losses}, leaves off {bad[:5]}")
-        report.emit({"phase": "train_strict", "arch": arch, "layers": 2,
+        report.emit({"phase": "train_strict", "arch": arch, "layers": layers,
                      "compute_dtype": "float32", "tf32": False, "batch": 2, "seq": 256,
                      "loss_rel_err": loss_rel, "worst_leaf_err_of_max": worst,
+                     "aux": {"kernel": float(m_k["aux"]), "plain": float(m_p["aux"])},
                      "adamw_step_losses": losses, "adamw_step_loss_rel_err": rel,
                      "limits": {"loss_rtol": STRICT_LOSS_RTOL,
                                 "grad_rtol": STRICT_GRAD_RTOL,
@@ -3372,7 +3547,66 @@ def train_strict_phase(torch, np, report) -> None:
         torch.cuda.empty_cache()
 
 
+def remat_dots_phase(torch, np, report) -> None:
+    """Llama-3.2-1B's train cell (``TRAIN_RUNS``): one step's loss and
+    gradients (``value_and_grad``, the part of a step a remat policy
+    changes) under ``remat_policy="block"`` and under ``"dots"``, from the
+    same params and batch, every launch counter set to 0 just before:
+    losses within REMAT_DOTS_LOSS_RTOL, K5 32 launches in both (the
+    recompute runs K5 under either policy) and K6 1.  Records each one's
+    peak memory ("dots" keeps the matmul outputs until the backward, so
+    its peak is the higher), ms and grad norm."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import value_and_grad
+
+    arch = "llama3.2-1b"
+    seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+    model, params, cfg = _train_model(torch, arch, seed, layers)
+    batch = tok.device_batch(tok.TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=seed), 0, "cuda")
+    counters = _counters()
+    want = {k: per_step.get(k, 0) for k in counters}
+    out = {}
+    for policy in ("block", "dots"):
+        m_ = Model(cfg, xent_impl=model.xent_impl, remat=True, remat_policy=policy,
+                   rwkv_chunk=model.rwkv_chunk)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        loss, _, grads = value_and_grad(m_, params, batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = {k: c.count for k, c in counters.items()}
+        out[policy] = {"loss": float(loss), "grad_norm": float(opt.global_norm(grads)),
+                       "launches": counts, "ms": ms,
+                       "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del grads
+        torch.cuda.empty_cache()
+        if counts != want:
+            raise AssertionError(f"remat_dots {policy}: launches {counts}, want {want}")
+    lb, ld = out["block"]["loss"], out["dots"]["loss"]
+    rel = abs(ld - lb) / abs(lb)
+    report.emit({"phase": "remat_dots", "arch": arch, "layers": cfg.num_layers,
+                 "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype, **out,
+                 "loss_rel_err": rel, "loss_rtol": REMAT_DOTS_LOSS_RTOL,
+                 "peak_ratio_dots_over_block": out["dots"]["max_memory_allocated"]
+                 / out["block"]["max_memory_allocated"]})
+    if not np.isfinite(lb) or rel > REMAT_DOTS_LOSS_RTOL:
+        raise AssertionError(f"remat_dots: loss block {lb}, dots {ld} (rel {rel})")
+    del model, params
+    torch.cuda.empty_cache()
+
+
 PEAK_TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
+# K6 timed at each train cell's (N, D, V): B x S tokens, d_model, vocab
+K6_TRAIN_SHAPES = {"llama3.2-1b": (4096, 2048, 128256), "rwkv6-7b": (2048, 4096, 65536),
+                   "recurrentgemma-9b": (2048, 4096, 256000),
+                   "qwen2-moe-a2.7b": (2048, 2048, 151936),
+                   "qwen2-vl-7b": (2048, 3584, 152064)}
 K6_ROUTE = ("3xTF32 on the tensor cores: mma.sync.m16n8k8 TF32 products of hi/lo "
             "splits of each f32 operand, f32 accumulation")
 
@@ -3392,18 +3626,17 @@ def k6_f32_bound_ms(N, D, V):
 
 
 def k6_timing_phase(torch, np, report, train_counts) -> list:
-    """K6 at the two train shapes: CUDA-event ms and profiler device ms,
-    beside its plain version (``seq_chunked_xent``), the library call
-    ``F.cross_entropy(x @ w.T, t, reduction="none")`` (f32, TF32 off) and
-    its bound."""
+    """K6 at each train cell's shape (``K6_TRAIN_SHAPES``): CUDA-event ms
+    and profiler device ms, beside its plain version (``seq_chunked_xent``),
+    the library call ``F.cross_entropy(x @ w.T, t, reduction="none")`` (f32,
+    TF32 off) and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import ref as xent_ref
     from repro_torch.kernels.xent.kernel import fused_xent_fwd
 
     entries = []
-    for arch, (N, D, V) in (("llama3.2-1b", (4096, 2048, 128256)),
-                            ("rwkv6-7b", (2048, 4096, 65536))):
+    for arch, (N, D, V) in K6_TRAIN_SHAPES.items():
         rng = np.random.default_rng(66)
         x, w, t = _xent_inputs(torch, np, rng, N, D, V, None)
         tl = t.long()
@@ -3500,6 +3733,7 @@ def main(argv=None) -> int:
     rwkv_drift_phase(torch, np, report)
     train_counts = lm_train_phase(torch, np, report)
     train_strict_phase(torch, np, report)
+    remat_dots_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5)
     entries += k6_timing_phase(torch, np, report, train_counts)

@@ -6,10 +6,13 @@ The port's counterpart of ``repro/launch/serve.py``, with ``--device``
 (default ``cuda``; ``cpu`` runs the kernels' plain versions).  Weights are
 random from a seeded ``torch.Generator``; with ``--full`` each layer is
 stored in the config's compute dtype as soon as it is drawn.  As in the
-reference, an enc-dec config (Seamless-M4T) serves its text decoder alone:
-``Engine`` has no memory argument.  To drive the encoder, call ``Model.encode``, then
+reference, an enc-dec config (Seamless-M4T) and a vision config (Qwen2-VL)
+serve their text decoder alone: ``Engine`` takes tokens and has no memory
+argument.  To drive the encoder, call ``Model.encode``, then
 ``Model.prefill(..., memory=)`` and the steps of
-``serve.step.make_decode_step(model, max_seq)`` with ``memory``.
+``serve.step.make_decode_step(model, max_seq)`` with ``memory``; to start
+from patch embeddings, ``Model.prefill(params, {"embeds": e}, max_seq)``,
+then ``decode_step`` on tokens.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def main(argv=None):
 
     dev = resolve(args.device)
     cfg = cfgbase.get_config(args.arch) if args.full else cfgbase.get_reduced_config(args.arch)
-    if cfg.is_encdec:
+    if cfg.is_encdec or cfg.frontend == "vision":
         print(f"note: {cfg.name} serves its text decoder; frontends are stubs")
     model = Model(cfg, rwkv_chunk=8)
     params = model.init_params(torch.Generator(dev).manual_seed(0), device=dev,

@@ -7,9 +7,10 @@ The port's counterpart of ``repro/launch/train.py``, with ``--device``
 ``--full`` (the published config; default the reduced one).  Params are
 f32 (``param_dtype``) from a seeded ``torch.Generator``, compute in the
 config's dtype; AdamW as :func:`adamw_config` sets it; batches from the
-synthetic token pipeline (an enc-dec config also gets ``src_embeds``, the
-one-hot of each token id modulo ``d_model``, the reference's stand-in for
-its stub audio frontend); checkpoints every 10 steps.
+synthetic token pipeline (:func:`frontend_batch`: a vision config, Qwen2-VL,
+trains on ``{"embeds", "targets"}`` with no tokens, and an enc-dec config,
+Seamless-M4T, gets ``src_embeds`` beside its tokens); checkpoints every 10
+steps.  Every family trains.
 """
 from __future__ import annotations
 
@@ -32,6 +33,20 @@ def adamw_config(steps: int) -> opt.AdamWConfig:
     """The launcher's AdamW: peak 1e-3 after 5 warmup steps, cosine over
     ``steps``."""
     return opt.AdamWConfig(lr_peak=1e-3, warmup_steps=5, total_steps=steps)
+
+
+def frontend_batch(cfg, batch: dict) -> dict:
+    """A token-pipeline batch as the config's stub frontend takes it, with
+    the reference's stand-in for the frontend's output, the one-hot of each
+    token id modulo ``d_model``: ``{"embeds", "targets"}`` for a vision
+    config, the batch and ``src_embeds`` for an enc-dec config, the batch
+    as it is otherwise."""
+    if cfg.frontend != "vision" and not cfg.is_encdec:
+        return batch
+    stub = F.one_hot(batch["tokens"].long() % cfg.d_model, cfg.d_model).float()
+    if cfg.frontend == "vision":
+        return {"embeds": stub, "targets": batch["targets"]}
+    return {**batch, "src_embeds": stub}
 
 
 def main(argv=None):
@@ -63,11 +78,7 @@ def main(argv=None):
         return LoopState(step=0, params=params, opt_state=opt.init_state(params))
 
     def batch_at(s):
-        batch = tok.device_batch(pipe, s, dev)
-        if cfg.is_encdec:
-            batch["src_embeds"] = F.one_hot(batch["tokens"].long() % cfg.d_model,
-                                            cfg.d_model).float()
-        return batch
+        return frontend_batch(cfg, tok.device_batch(pipe, s, dev))
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix=f"repro-torch-{args.arch}-")
     lcfg = LoopConfig(total_steps=args.steps, ckpt_dir=ckpt_dir, ckpt_every=10, log_every=5)

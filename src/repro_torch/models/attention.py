@@ -29,7 +29,16 @@ bias even when ``cfg.attn_bias`` is set, and it applies neither RoPE, nor a
 softcap, nor a memory mask (``attention.py:38,133-145``), so utterances of
 different lengths padded into one batch attend to the padding.
 
-Waiting for a later slice: M-RoPE (item 6b).
+Qwen2-VL's M-RoPE (``cfg.mrope_sections``) runs as the reference runs it:
+the (B, S) positions broadcast into three equal (t, h, w) streams, so on
+every path it computes RoPE's angles (``_rope``, reference
+``attention.py:57-64``).
+
+The q/k/v and output projections are products with no batch dimension.
+They are written as matmuls over the flattened weights, which reach
+``aten.mm`` (an einsum reaches ``aten.bmm`` with a batch of one), so that
+``remat_policy="dots"`` saves them as the reference's
+``dots_with_no_batch_dims_saveable`` does.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash import ops as flash_ops
-from repro_torch.models.common import apply_rope, cdt, dense_init, pdt
+from repro_torch.models.common import apply_mrope, apply_rope, cdt, dense_init, pdt
 
 NEG_INF = -2.3819763e38  # large negative for masked logits (bf16-safe)
 
@@ -63,9 +72,11 @@ def init_attn_params(cfg, gen: torch.Generator, device, cross: bool = False) -> 
 
 def _project_qkv(cfg, p, xq: torch.Tensor, xkv: torch.Tensor):
     cd = cdt(cfg)
-    q = torch.einsum("bsd,dnh->bsnh", xq.to(cd), p["wq"].to(cd))
-    k = torch.einsum("bsd,dnh->bsnh", xkv.to(cd), p["wk"].to(cd))
-    v = torch.einsum("bsd,dnh->bsnh", xkv.to(cd), p["wv"].to(cd))
+
+    def proj(x, w):  # (B, S, D) @ (D, n, h) → (B, S, n, h), one aten.mm
+        return (x.to(cd) @ w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+    q, k, v = proj(xq, p["wq"]), proj(xkv, p["wk"]), proj(xkv, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -74,6 +85,9 @@ def _project_qkv(cfg, p, xq: torch.Tensor, xkv: torch.Tensor):
 
 
 def _rope(cfg, x, positions, kind: str):
+    if cfg.mrope_sections:
+        pos3 = positions[None].expand(3, *positions.shape)
+        return apply_mrope(x, pos3, cfg.rope_theta, cfg.mrope_sections)
     theta = cfg.rope_theta
     if kind == "attn" and cfg.rope_theta_global:
         theta = cfg.rope_theta_global  # gemma3: global layers use 1M theta
@@ -118,7 +132,8 @@ def _window(cfg, kind: str) -> int:
 
 def _out_proj(cfg, p, out: torch.Tensor) -> torch.Tensor:
     cd = cdt(cfg)
-    return torch.einsum("bsnh,nhd->bsd", out.to(cd), p["wo"].to(cd))
+    wo = p["wo"].to(cd)
+    return out.to(cd).flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
 def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str,

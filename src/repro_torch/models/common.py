@@ -15,7 +15,7 @@ across with :func:`repro_torch.convert.lm_params_from_numpy`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +78,31 @@ def apply_rope(x: torch.Tensor,  # (B, S, n, h)
     h = x.shape[-1]
     inv = torch.as_tensor(rope_freqs(h, theta), device=x.device)  # (h/2,)
     ang = positions[..., None].float() * inv  # (B, S, h/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor,  # (B, S, n, h)
+                positions: torch.Tensor,  # (3, B, S): temporal / height / width
+                theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: the half-dim frequency bands split into
+    (t, h, w) sections (summing to h/2), each rotated by its own position
+    stream.  With three equal streams (text) it is :func:`apply_rope`, bit
+    for bit."""
+    h = x.shape[-1]
+    half = h // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    inv = torch.as_tensor(rope_freqs(h, theta), device=x.device)  # (h/2,)
+    parts, start = [], 0
+    for sec, pos in zip(sections, positions):
+        parts.append(pos[..., None].float() * inv[start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)  # (B, S, h/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -28,11 +28,21 @@ enc-dec training loss reads the decoder's output without it
 ``kv_dtype="int8"`` keeps the attention caches in int8 with a scale per
 (row, slot, KV head) (:func:`repro_torch.models.attention.init_kv_cache`).
 
+Qwen2-VL's vision frontend is a stub in the reference too
+(``configs/qwen2_vl_7b.py``): ``prefill`` and ``train_loss`` take
+``batch["embeds"]`` (B, S, D) in place of the token embedding, cast to the
+compute dtype with no lookup and no ``emb_scale`` (reference
+``transformer.py:368-371,438-443``), so ``params["embed"]`` gets a zero
+gradient in training (and AdamW still decays it); decode embeds tokens as
+usual.  Its M-RoPE runs in text mode (:func:`repro_torch.models.attention._rope`).
+
 Training (``train_loss`` / ``_xent``) follows the reference
 (``transformer.py:334-398``): the mean cross-entropy over masked positions
-plus the auxiliary loss, zero for the families it trains (dense attention,
-RWKV and enc-dec; the ``rglru`` and MoE families are served only, their
-training waits for item 6c).  Three CE paths:
+plus the auxiliary loss, the MoE layers' Switch load-balancing losses
+summed over the stack (zero for the families without MoE).  Every block
+kind trains: attention (with a dense or a MoE FFN), ``rglru`` (the
+doubling scan, differentiated as it is), ``rwkv`` and the enc-dec stacks.
+Three CE paths:
 
 * ``naive`` materializes (B, S, V) logits in the compute dtype;
 * ``chunked`` and ``seq_chunked`` go through
@@ -42,9 +52,15 @@ training waits for item 6c).  Three CE paths:
   chunks of ``xent_seq_chunk``).
 
 With ``remat`` each layer (of both stacks) runs under
-``torch.utils.checkpoint`` (the reference's ``remat_policy="block"``:
-nothing saved inside a layer), so the backward pass runs each layer's
-forward again.
+``torch.utils.checkpoint``, its MoE aux loss a second output.
+``remat_policy="block"`` saves nothing inside a layer, so the backward pass
+runs each layer's forward again; ``"dots"`` is the reference's
+``dots_with_no_batch_dims_saveable`` (``transformer.py:294-298``) through
+selective checkpointing (:func:`dots_policy`): the outputs of products with
+no batch dimension are saved and the rest is recomputed.  K5 and K7 are
+not such products (the reference's ``pallas_call`` is not a dot), so they
+run again in the recompute under either policy; K6 runs once, after the
+stack.
 
 Every prefill or training attention over more than one query row runs K5
 (causal, or not for the encoder and the cross-attention) and every
@@ -52,10 +68,6 @@ multi-token RWKV time-mix K7 (on the card, each inside a
 ``torch.autograd.Function`` whose backward is the plain VJP; their plain
 versions on the CPU).  The RG-LRU scan and the MoE dispatch are plain
 PyTorch, as they are XLA ops in the reference.
-
-Not ported yet (ROADMAP.md queue 1, item 6b): M-RoPE and the vision
-frontend; and (item 6c) training the ``rglru`` and MoE families and
-``remat_policy="dots"``.
 """
 from __future__ import annotations
 
@@ -63,7 +75,8 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
@@ -79,17 +92,25 @@ F32_LEAVES = frozenset({"scale", "bias", "decay_base", "bonus_u", "gn_scale", "g
                         "w_a", "b_a", "w_x", "b_x", "lam", "router"})
 
 
-def _check_ported(cfg: ModelConfig, kv_dtype: str) -> None:
-    later = "is not ported yet (ROADMAP.md queue 1, 'LM families', item 6b)"
-    for kind in set(cfg.blocks()):
-        if kind not in (*ATTN_KINDS, "rglru", "rwkv"):
-            raise NotImplementedError(f"{cfg.name}: block kind {kind!r} {later}")
-    if cfg.frontend not in ("none", "audio"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend {later}")
-    if cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE {later}")
-    if kv_dtype not in ("compute", "int8"):
-        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+# remat_policy="dots": the products with no batch dimension reach aten.mm
+# (addmm with a bias) and are saved; batched products (aten.bmm: attention's
+# per-head products, the MoE's dispatch, expert and combine einsums) and
+# everything else are recomputed.
+SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat_policy="dots"``."""
+    if op in SAVED_BY_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+REMAT_CONTEXTS = {"block": noop_context_fn, "dots": _dots_context}
 
 
 def store_compute_dtype(params: Dict[str, Any], dtype) -> Dict[str, Any]:
@@ -146,19 +167,31 @@ def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, memory) -> torch.Tensor:
 
 
 def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor, rwkv_chunk: int,
-                 memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    positions: torch.Tensor, rwkv_chunk: int,
+                    memory: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over a whole sequence with no cache (the training forward
-    and the encoder; RWKV from the zero state)."""
+    and the encoder; RG-LRU and RWKV from the zero state): (x, aux), aux
+    the MoE FFN's load-balancing loss, an f32 zero for any other layer."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["norm1"], x)
     if kind in ATTN_KINDS or kind == "enc":
         x = x + attention.attend_train(cfg, p["attn"], h, kind, positions)
         x = _cross(cfg, p, x, memory)
-        return x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+        h2 = apply_norm(cfg, p["norm2"], x)
+        if "router" in p["ffn"]:
+            f, aux = moe.apply_moe(cfg, p["ffn"], h2)
+        else:
+            f = mlp.apply_mlp(cfg, p["ffn"], h2)
+        return x + f, aux
+    if kind == "rglru":
+        a, _ = griffin.griffin_block(cfg, p["rec"], h)
+        x = x + a
+        return x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x)), aux
     a, _, _ = rwkv6.time_mix(cfg, p["tm"], h, None, None, chunk=rwkv_chunk)
     x = x + a
     c, _ = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x))
-    return x + c
+    return x + c, aux
 
 
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -194,19 +227,16 @@ class Model:
     xent_chunk: int = 8192
     xent_seq_chunk: int = 256
     remat: bool = True
-    remat_policy: str = "block"  # "dots" waits (ROADMAP.md queue 1, item 6c)
+    remat_policy: str = "block"  # "block" (save nothing) | "dots" (save matmul outputs)
     rwkv_chunk: int = 64
     kv_dtype: str = "compute"  # "compute" | "int8" (the quantized KV cache)
 
     def __post_init__(self):
-        _check_ported(self.cfg, self.kv_dtype)
+        if self.kv_dtype not in ("compute", "int8"):
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
         if self.xent_impl not in ("naive", "chunked", "seq_chunked"):
             raise ValueError(f"unknown xent_impl {self.xent_impl!r}")
-        if self.remat_policy == "dots":
-            raise NotImplementedError(
-                'remat_policy="dots" (save the matmul outputs) is not ported yet '
-                "(ROADMAP.md queue 1, item 6c)")
-        if self.remat_policy != "block":
+        if self.remat_policy not in REMAT_CONTEXTS:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
 
     # -- params ---------------------------------------------------------------
@@ -249,6 +279,14 @@ class Model:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt(cfg))
         return x
 
+    def _input(self, params, batch: dict) -> torch.Tensor:
+        """The stack's input: ``batch["embeds"]`` (the vision stub's patch
+        embeddings) in the compute dtype when given, else the embedding of
+        ``batch["tokens"]``."""
+        if "embeds" in batch:
+            return batch["embeds"].to(cdt(self.cfg))
+        return self._embed(params, batch["tokens"])
+
     def _unembed_matrix(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
@@ -282,46 +320,47 @@ class Model:
         return (ce * mask).sum() / denom
 
     def _stack(self, layers, kinds, x: torch.Tensor, memory=None,
-               remat: bool = False) -> torch.Tensor:
+               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """One stack of layers over whole sequences with no cache, each layer
-        under ``checkpoint`` when ``remat``."""
+        under ``checkpoint`` (with ``remat_policy``'s context) when
+        ``remat``: (x, the sum of the layers' aux losses in layer order)."""
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(kinds, layers):
             args = (self.cfg, kind, p, x, positions, self.rwkv_chunk, memory)
-            x = (checkpoint(_sequence_block, *args, use_reentrant=False) if remat
-                 else _sequence_block(*args))
-        return x
+            if remat:
+                x, a = checkpoint(_sequence_block, *args, use_reentrant=False,
+                                  context_fn=REMAT_CONTEXTS[self.remat_policy])
+            else:
+                x, a = _sequence_block(*args)
+            aux = aux + a
+        return x, aux
 
     def train_loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
-        """(loss, {"ce", "aux"}) of ``batch["tokens"]`` (B, S) against
-        ``batch["targets"]``, weighted by ``batch["mask"]`` (default all
-        ones); an enc-dec config also takes ``batch["src_embeds"]`` (B, T,
-        D), encoded with remat as the decoder is, and its decoder's output
-        goes to the loss without ``final_norm``, as in the reference
-        (``transformer.py:381-398``).  ``aux`` is zero: no family trained
-        here has an auxiliary loss.  The ``rglru`` and MoE families raise
-        (item 6c)."""
+        """(loss, {"ce", "aux"}) of the batch against ``batch["targets"]``
+        (B, S), weighted by ``batch["mask"]`` (default all ones): loss = ce +
+        aux, aux the decoder stack's summed MoE aux losses.  The input is
+        ``batch["tokens"]`` (B, S) or ``batch["embeds"]`` (B, S, D); an
+        enc-dec config also takes ``batch["src_embeds"]`` (B, T, D), encoded
+        with remat as the decoder is, and its decoder's output goes to the
+        loss without ``final_norm``, as in the reference
+        (``transformer.py:366-398``)."""
         cfg = self.cfg
-        if "rglru" in cfg.blocks() or cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: training the rglru and MoE families is not ported "
-                "yet (ROADMAP.md queue 1, item 6c); they are served only")
-        tokens, targets = batch["tokens"], batch["targets"]
+        targets = batch["targets"]
         memory = None
         if cfg.is_encdec:
-            memory = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
-                                 batch["src_embeds"].to(cdt(cfg)), remat=self.remat)
+            memory, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
+                                    batch["src_embeds"].to(cdt(cfg)), remat=self.remat)
             memory = apply_norm(cfg, params["final_norm"], memory)
-        x = self._stack(params["layers"], cfg.blocks(), self._embed(params, tokens), memory,
-                        remat=self.remat)
+        x, aux = self._stack(params["layers"], cfg.blocks(), self._input(params, batch),
+                             memory, remat=self.remat)
         if not cfg.is_encdec:
             x = apply_norm(cfg, params["final_norm"], x)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
         ce = self._xent(params, x, targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------
@@ -343,14 +382,15 @@ class Model:
         (K5, ``causal=False``) and the decoder's ``final_norm``, as in the
         reference (``transformer.py:417-427``)."""
         cfg = self.cfg
-        x = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
-                        src_embeds.to(cdt(cfg)))
+        x, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
+                           src_embeds.to(cdt(cfg)))
         return apply_norm(cfg, params["final_norm"], x)
 
     def prefill(self, params, batch: dict, max_seq: int,
                 memory: Optional[torch.Tensor] = None) -> Tuple[List[dict], torch.Tensor]:
-        """Process a prompt (``batch["tokens"]``: (B, S)), build the caches
-        and return (cache, last-token logits).  Caches start from the zero
+        """Process a prompt (``batch["tokens"]``: (B, S), or
+        ``batch["embeds"]``: (B, S, D)), build the caches and return (cache,
+        last-token logits).  Caches start from the zero
         state, so RWKV layers run K7, and RG-LRU layers the doubling scan.
         An enc-dec config's decoder attends to ``memory`` (from
         :meth:`encode`), or to the encoding of ``batch["src_embeds"]`` when
@@ -359,9 +399,8 @@ class Model:
         cfg = self.cfg
         if cfg.is_encdec and memory is None and "src_embeds" in batch:
             memory = self.encode(params, batch["src_embeds"])
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._input(params, batch)
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         states = []
         for kind, p in zip(cfg.blocks(), params["layers"]):

@@ -2,9 +2,11 @@
 
 The port's counterpart of ``repro/train/step.py::make_train_step``:
 
-* microbatch gradient accumulation (the batch split into ``microbatches``
-  equal parts along its first axis), summed in ``grad_dtype`` (``bfloat16``
-  is the reference's compressed accumulation), then loss/n and grads/n;
+* microbatch gradient accumulation (every leaf of the batch split into
+  ``microbatches`` equal parts along its first axis: ``tokens`` or a
+  vision batch's ``embeds``, ``targets``, ``mask``), summed in
+  ``grad_dtype`` (``bfloat16`` is the reference's compressed
+  accumulation), then loss/n and grads/n;
 * remat comes from the model (``Model.remat``);
 * AdamW with the reference's decay mask
   (:func:`repro_torch.train.optimizer.decay_mask_like_reference`).
@@ -12,7 +14,8 @@ The port's counterpart of ``repro/train/step.py::make_train_step``:
 Metrics: ``loss``, ``grad_norm`` (before clipping) and ``lr``, plus ``ce``
 and ``aux`` from the model when there is one microbatch (the reference
 drops them when it accumulates).  ``jit_train_step`` (sharded in/out
-placements) waits for ``ShardingPolicy`` (ROADMAP.md queue 1, item 6c).
+placements) waits for ``ShardingPolicy``, the multi-card half of item 6c
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -56,10 +59,10 @@ def make_train_step(model, step_cfg: TrainStepConfig = TrainStepConfig()):
 
     def train_step(params, opt_state, batch):
         if n > 1:
-            B = batch["tokens"].shape[0]
-            if B % n:
+            B = batch["targets"].shape[0]
+            if any(v.shape[0] != B for v in batch.values()) or B % n:
                 raise ValueError(f"batch {B} does not split into {n} microbatches")
-            loss_sum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=batch["targets"].device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt, device=p.device), params)
             for i in range(n):
                 mb = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}

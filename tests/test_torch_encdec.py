@@ -256,16 +256,6 @@ def test_engine_serves_the_decoder_like_the_reference():
     assert cache_bytes(eng.cache) == eng.plan_report()["kv_state_bytes"]
 
 
-def test_qwen2_vl_still_waits_for_6b3():
-    """M-RoPE and the vision frontend are the next slice: Qwen2-VL raises,
-    and so does each of the two alone."""
-    cfg = base.get_reduced_config("qwen2-vl-7b")
-    for c in (cfg, dataclasses.replace(cfg, frontend="none"),
-              dataclasses.replace(cfg, mrope_sections=())):
-        with pytest.raises(NotImplementedError, match="6b"):
-            Model(c)
-
-
 def test_encoder_and_cross_attention_go_through_k5(monkeypatch):
     """An enc-dec encode + prefill calls ``flash_attention`` once a layer
     and stack (reduced config, CPU, counted): the encoder's and the

@@ -174,8 +174,12 @@ ENTRY_POINTS = {
     "launch.serve.main": lambda: launch_serve.main(["--arch", "llama3.2-1b"]),
     "launch.serve.main[griffin]": lambda: launch_serve.main(["--arch", "recurrentgemma-9b"]),
     "launch.serve.main[moe]": lambda: launch_serve.main(["--arch", "qwen2-moe-a2.7b"]),
+    "launch.serve.main[vision]": lambda: launch_serve.main(["--arch", "qwen2-vl-7b"]),
     "make_data_mesh": lambda: make_data_mesh(),
     "launch.train.main": lambda: launch_train.main(["--arch", "llama3.2-1b"]),
+    "launch.train.main[griffin]": lambda: launch_train.main(["--arch", "recurrentgemma-9b"]),
+    "launch.train.main[moe]": lambda: launch_train.main(["--arch", "qwen2-moe-a2.7b"]),
+    "launch.train.main[vision]": lambda: launch_train.main(["--arch", "qwen2-vl-7b"]),
     "data.device_batch": lambda: tok.device_batch(
         tok.TokenPipelineConfig(vocab_size=16, seq_len=4, global_batch=2), 0),
     "adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(

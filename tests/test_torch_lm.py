@@ -7,14 +7,15 @@ reference's, with ``attn_impl="ref"`` and ``"flash"`` (Pallas, interpret
 mode), and so do 4 decode steps, at rtol = atol = 1e-4 (1e-5 for the
 Griffin and MoE families: RecurrentGemma, Qwen2-MoE, Mixtral); Llama-3-8B
 and Nemotron-4-15B (the one ``relu2`` MLP in an attention block) among
-them.  Those two and Seamless-M4T also pass the port's counterparts of
+them.  Those two, Seamless-M4T, the Griffin and MoE families and
+Qwen2-VL (from ``embeds``) also pass the port's counterparts of
 ``tests/test_arch_smoke.py``: a finite loss and finite gradients, and
 decode equal to the full forward.  The port's
 ``Engine`` emits the reference ``Engine``'s tokens and plan.  One case
 runs the configs' own bf16 compute, on logits at 5e-2.  The Griffin and
 MoE families keep their f32-read leaves in f32 under
-``store_compute_dtype``, carry their params across and back bit for bit,
-and raise in ``train_loss`` (item 6c).
+``store_compute_dtype`` and carry their params across and back bit for
+bit; ``tests/test_torch_train_families.py`` trains them.
 """
 import dataclasses
 
@@ -34,6 +35,7 @@ from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import Model, store_compute_dtype
 from repro_torch.serve.engine import Engine, Request, cache_bytes
+from repro_torch.models import moe
 from repro_torch.models.common import apply_norm
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train.step import value_and_grad
@@ -225,10 +227,7 @@ def test_engine_refuses_a_request_longer_than_its_cache():
         eng.run([Request(rid=0, prompt=np.zeros(6, np.int32), max_new_tokens=3)])
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b"])
-def test_families_not_ported_yet_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(base.get_reduced_config(arch))
+def test_unknown_kv_dtype_raises():
     with pytest.raises(ValueError, match="kv_dtype"):
         Model(base.get_reduced_config("llama3.2-1b"), kv_dtype="int4")
 
@@ -240,15 +239,19 @@ def _smoke_batch(cfg, seed):
     rng = np.random.default_rng(seed)
     batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (SMOKE_B, SMOKE_S)),
                                 dtype=torch.int32) for k in ("tokens", "targets")}
+    embeds = torch.as_tensor(rng.standard_normal((SMOKE_B, SMOKE_S, cfg.d_model)),
+                             dtype=torch.float32)
     if cfg.is_encdec:
-        batch["src_embeds"] = torch.as_tensor(
-            rng.standard_normal((SMOKE_B, SMOKE_S, cfg.d_model)), dtype=torch.float32)
+        batch["src_embeds"] = embeds
+    if cfg.frontend == "vision":  # the reference's vision batch has no tokens
+        batch = {"embeds": embeds, "targets": batch["targets"]}
     return batch
 
 
 @pytest.mark.parametrize("check", ["loss_and_grads", "decode_vs_full_forward"])
-@pytest.mark.parametrize("arch", ["llama3-8b", "nemotron-4-15b", "seamless-m4t-large-v2"])
-def test_arch_smoke_counterparts(arch, check):
+@pytest.mark.parametrize("arch", ["llama3-8b", "nemotron-4-15b", "seamless-m4t-large-v2",
+                                  *NEW_FAMILIES, "qwen2-vl-7b"])
+def test_arch_smoke_counterparts(arch, check, monkeypatch):
     """tests/test_arch_smoke.py's checks on the port, reduced config: at its
     own bf16 compute, a finite scalar loss and a finite gradient on every
     leaf; or, at f32 compute, the prefill's logits and one decode step's
@@ -257,7 +260,15 @@ def test_arch_smoke_counterparts(arch, check):
     reference test compares at bf16 within 2e-2; the port's prefill keeps
     K5's softmax weights in f32 where decode attention rounds them to the
     compute dtype, so at bf16 the two differ by a bf16 rounding (one logit
-    in 512 by 0.032 on Llama-3-8B), and at f32 they compute one function."""
+    in 512 by 0.032 on Llama-3-8B), and at f32 they compute one function.
+    Qwen2-VL prefills from ``embeds`` and decodes a token, so its full
+    forward runs over the embeds and that token's embedding.  The MoE
+    layers drop a (token, expert) choice past an expert's capacity, counted
+    in the group's order (24 slots at 32 or 33 tokens: these prompts drop
+    some), and a decode step's single token (8 slots) never, so decode is
+    the full forward's function only where the full forward drops nothing:
+    for the MoE families the prefill is held at the real capacity, then
+    both again with the capacity lifted to a group's token count."""
     cfg = base.get_reduced_config(arch)
     if check == "decode_vs_full_forward":
         cfg = dataclasses.replace(cfg, compute_dtype="float32")
@@ -272,26 +283,21 @@ def test_arch_smoke_counterparts(arch, check):
         return
     memory = model.encode(params, batch["src_embeds"]) if cfg.is_encdec else None
 
-    def full_logits(tokens):
-        x = model._stack(params["layers"], cfg.blocks(), model._embed(params, tokens), memory)
+    def full_logits(x):
+        x, _ = model._stack(params["layers"], cfg.blocks(), x, memory)
         return model._logits_last(params, apply_norm(cfg, params["final_norm"], x)[:, -1])
 
-    tokens, max_seq = batch["tokens"], SMOKE_S + 4
-    cache, logits_pre = model.prefill(params, {"tokens": tokens}, max_seq, memory=memory)
-    _close(logits_pre, full_logits(tokens).numpy())
+    prompt = {k: v for k, v in batch.items() if k in ("tokens", "embeds")}
+    x, max_seq = model._input(params, prompt), SMOKE_S + 4
+    cache, logits_pre = model.prefill(params, prompt, max_seq, memory=memory)
+    _close(logits_pre, full_logits(x).numpy())
+    if cfg.moe is not None:
+        monkeypatch.setattr(moe, "capacity", lambda cfg, tokens, factor=1.25: tokens)
+        cache, logits_pre = model.prefill(params, prompt, max_seq, memory=memory)
+        _close(logits_pre, full_logits(x).numpy())
     nxt = torch.argmax(logits_pre, -1)[:, None].to(torch.int32)
     logits_dec, _ = model.decode_step(params, cache, nxt, SMOKE_S, max_seq, memory=memory)
-    _close(logits_dec, full_logits(torch.cat([tokens, nxt], dim=1)).numpy())
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen2-moe-a2.7b", "mixtral-8x7b"])
-def test_training_the_new_families_waits_for_6c(arch):
-    """Served, not trained: ``train_loss`` names item 6c."""
-    model = Model(base.get_reduced_config(arch))
-    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="6c"):
-        model.train_loss(params, {"tokens": tokens, "targets": tokens})
+    _close(logits_dec, full_logits(torch.cat([x, model._embed(params, nxt)], dim=1)).numpy())
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen2-moe-a2.7b"])

@@ -197,11 +197,6 @@ def test_train_loss_honours_the_mask():
                                rtol=1e-6)
 
 
-def test_remat_dots_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(base.get_reduced_config("llama3.2-1b"), remat_policy="dots")
-
-
 # ----------------------------------------------------------------- train step
 STEP_CASES = {
     "llama-1mb-f32": ("llama3.2-1b", 1, "float32"),
