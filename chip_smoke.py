@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--out FILE] [--mesh-only]
+    python3 chip_smoke.py [--out FILE] [--mesh-only | --sharded-only]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
 and the LM serving path, served, the paper's train → fuse → plan → emit C
@@ -161,6 +161,29 @@ against their plain PyTorch versions:
    relative; then (``remat_dots_phase``) one Llama-3.2-1B train step's
    loss and gradients under ``remat_policy="block"`` and under ``"dots"``:
    losses within 1e-6, K5 32 in both, both peaks recorded;
+   then the multi-card half of training on the card: ``sharded_train``
+   (Llama-3.2-1B whole, B 8 x S 512, 2 steps of ``jit_train_step`` on a
+   ("data", "model") = (2, 2) mesh, over four cards when there are four,
+   else over cuda:0 four times: params by ``ShardingPolicy``, the AdamW
+   moments ZeRO-1 split, each data coordinate's rows through K5 and K6;
+   step 1's loss bit-equal to the unsharded step with 2 microbatches,
+   step 2's within 1e-5 relative, the f64 norm of every param and moment
+   leaf within 1e-6 relative of the unsharded step's, K5 64 and K6 2 a
+   step both ways, each coordinate's bytes equal to its specs'
+   arithmetic, over distinct cards every copy of a block bit-equal across
+   them, step ms and peak both ways), ``sharded_mixed`` (the branches
+   that only distinct devices take, on one card: a widened reduced Llama
+   at f32 on (2, 2) over cuda:0 and the CPU, every block on both; its
+   copies bit-equal across them, the losses within 1e-5 and the leaf
+   norms within 1e-4 of the same steps over cuda:0 alone), ``reshard``
+   (the params saved whole and restored with ``shardings=`` onto (4, 1);
+   the params and AdamW state by ``reshard_tree`` onto (4, 1), then onto
+   (1, 1); every leaf bit-equal after each) and ``pipeline`` (GPipe, 2
+   stages over cuda:0,
+   or cuda:0 and cuda:1 when there are two, D 2,048, M 8, B 4, f32:
+   outputs and gradients within 1e-5 of the sequential stack)
+   (``--sharded-only`` builds, checks K5 and K6, runs these four phases
+   and stops);
 10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
     K3 and K4 at every distinct depthwise step of both nets, beside
     cuDNN's chain and the f64 chain, K5 at S 128/512/1000, at
@@ -168,7 +191,8 @@ against their plain PyTorch versions:
     Qwen2-VL-7B's served shapes at S 509 and at Seamless-M4T's batch of 4
     at 1,000 frames (encoder and cross-attention without the mask,
     decoder), K7 at S 128/509/512/1000 (each of its two kernels by name),
-    K5 also at the train shapes of Llama (B 8 x S 512), RecurrentGemma,
+    K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
+    K6's, lm_train's and sharded_train's), RecurrentGemma,
     Qwen2-MoE and Qwen2-VL (B 4 x S 512), K6 at the five train shapes) with
     CUDA events
     and the profiler, beside its plain version, a PyTorch library call
@@ -3601,6 +3625,399 @@ def remat_dots_phase(torch, np, report) -> None:
     torch.cuda.empty_cache()
 
 
+# sharded_train: Llama-3.2-1B's train cell (TRAIN_RUNS) through
+# jit_train_step on a ("data", "model") = (2, 2) mesh, 2 steps, against the
+# unsharded step with 2 microbatches (what a data axis of 2 computes):
+# step 1's loss bit-equal, step 2's within SHARDED_LOSS_RTOL (the global
+# norm adds its parts in another order), and the f64 norm of every param
+# and moment leaf after the steps within SHARDED_NORM_RTOL of the unsharded
+# step's (the limit the CPU tests hold each leaf to)
+SHARDED_STEPS = 2
+SHARDED_LOSS_RTOL = 1e-5
+SHARDED_NORM_RTOL = 1e-6
+# pipeline: 2 stages of 2 tanh dense layers (D x D, f32) over cuda:0, M
+# microbatches of B rows, against the sequential stack
+PIPE_D, PIPE_M, PIPE_B, PIPE_TOL = 2048, 8, 4, 1e-5
+
+
+def _sharded_mesh(torch):
+    """(2, 2) over four distinct cards when there are four, else cuda:0
+    four times."""
+    from repro_torch.launch.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+               else [torch.device("cuda", 0)])
+    return make_mesh((2, 2), ("data", "model"), devices=devices)
+
+
+def _coordinate_bytes(np, trees_and_shardings, mesh):
+    """{coordinate: [bytes it holds, bytes its specs say]} over the trees."""
+    from repro_torch.tree import leaves
+
+    out = {}
+    for tree, shardings in trees_and_shardings:
+        for x, sh in zip(leaves(tree), leaves(shardings)):
+            want = sh.bytes_per_coordinate(tuple(x.shape), x.dtype.itemsize)
+            for coord in mesh.coords():
+                t = x.shard(coord)
+                got = 0 if t is None else t.numel() * t.element_size()
+                key = ",".join(map(str, coord))
+                acc = out.setdefault(key, [0, 0])
+                acc[0] += got
+                acc[1] += int(want[coord])
+    return out
+
+
+def _leaf_norms(torch, trees) -> list:
+    """The f64 norm of every leaf of ``trees`` (a placed leaf gathered on
+    cuda:0 first)."""
+    from repro_torch.sharding import placement as pl
+    from repro_torch.tree import leaves
+
+    return [float(torch.linalg.vector_norm(pl.gather(x, "cuda").double()))
+            for tree in trees for x in leaves(tree)]
+
+
+def _copies_disagree(torch, trees) -> tuple:
+    """(blocks held on more than one card, those whose copies are not all
+    bit-equal to the first) over the placed leaves of ``trees``."""
+    from repro_torch.tree import leaves
+
+    several = unequal = 0
+    for tree in trees:
+        for x in leaves(tree):
+            for held in x.copies().values():
+                if len({t.device for _, t in held}) < 2:
+                    continue
+                several += 1
+                first = held[0][1]
+                unequal += not all(torch.equal(t.to(first.device), first)
+                                   for _, t in held[1:])
+    return several, unequal
+
+
+def sharded_train_phase(torch, np, report):
+    """Llama-3.2-1B at full width and depth (B 8 x S 512, bf16 compute, f32
+    master weights, remat "block", the launcher's AdamW) two ways, from the
+    same seeded weights and token-pipeline batches: the unsharded step with
+    2 microbatches, then ``jit_train_step`` on ``_sharded_mesh`` (the
+    params by ``ShardingPolicy.param_specs``, the moments ZeRO-1 split, the
+    batch split over the data axis), every launch counter set to 0 just
+    before each step.  Checks: step 1's loss bit-equal, step 2's within
+    SHARDED_LOSS_RTOL, the f64 norm of every param, m and v leaf after the
+    steps within SHARDED_NORM_RTOL of the unsharded step's, K5 and K6
+    launches a step equal both ways (K5 64, K6 2: each data coordinate runs
+    its rows' forward and remat's recompute), every leaf in its placement,
+    each coordinate's bytes equal to its specs' arithmetic, and (over
+    distinct cards) every copy of a block bit-equal across the cards.
+    Records the step ms and peak memory (cuda:0's, and each card's) both
+    ways and the bytes at each coordinate and on each card.  Returns (the
+    sharded state, the sharded step, {kernel: launches over the sharded
+    steps})."""
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import tokens as tok
+    from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch.train import adamw_config
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, jit_train_step, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    arch = "llama3.2-1b"
+    seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+    counters = _counters()
+    adamw = adamw_config(SHARDED_STEPS)
+    want = {k: 2 * per_step.get(k, 0) for k in counters}
+    runs = {}
+
+    cards = range(torch.cuda.device_count())
+
+    def drive(name, step_fn, params, state, pipe):
+        _sync_all(torch)
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
+        ms, losses, launches = [], [], []
+        for s in range(SHARDED_STEPS):
+            batch = tok.device_batch(pipe, s, "cuda")
+            _sync_all(torch)
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            _sync_all(torch)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts = {k: c.count for k, c in counters.items()}
+            losses.append(float(m["loss"]))
+            launches.append(counts)
+            if counts != want or not np.isfinite(losses[-1]):
+                raise AssertionError(f"sharded_train {name} step {s + 1}: launches "
+                                     f"{counts}, want {want}; loss {losses[-1]}")
+        runs[name] = {"losses": losses, "step_ms": ms, "launches_per_step": launches,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(0),
+                      "max_memory_allocated_by_card": {
+                          f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards}}
+        return params, state
+
+    model, params, cfg = _train_model(torch, arch, seed, layers)
+    initial = tree_map(lambda p: p.to("cpu"), params)  # the sharded run's start
+    pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                   seed=seed)
+    unsharded = make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))
+    params, state = drive("unsharded_2_microbatches", unsharded, params,
+                          opt.init_state(params), pipe)
+    want_norms = _leaf_norms(torch, (params, state.m, state.v))
+    del params, state
+    torch.cuda.empty_cache()
+
+    mesh = _sharded_mesh(torch)
+    policy = ShardingPolicy(mesh, cfg)
+    step = jit_train_step(model, policy, inp.abstract_params(model),
+                          TrainStepConfig(adamw=adamw),
+                          batch_specs=policy.batch_specs(cfgbase.ShapeConfig("train", S, B,
+                                                                             "train")))
+    params = reshard_tree(initial, step.param_shardings)
+    del initial
+    params, state = drive("sharded_2x2", step, params, step.init_opt_state(), pipe)
+    norms = _leaf_norms(torch, (params, state.m, state.v))
+    norm_rel = max(abs(a - b) / b if b else abs(a) for a, b in zip(norms, want_norms))
+    several, unequal = _copies_disagree(torch, (params, state.m, state.v))
+
+    by_coord = _coordinate_bytes(np, [(params, step.param_shardings),
+                                      (state.m, step.opt_state_shardings.m),
+                                      (state.v, step.opt_state_shardings.v)], mesh)
+    by_card = {}
+    for x in leaves(params) + leaves(state.m) + leaves(state.v):
+        for dev, n in x.device_bytes().items():
+            by_card[str(dev)] = by_card.get(str(dev), 0) + n
+    placed = all(x.sharding == sh for x, sh in zip(leaves(params), leaves(step.param_shardings)))
+    u, sh = runs["unsharded_2_microbatches"], runs["sharded_2x2"]
+    rel2 = abs(sh["losses"][1] - u["losses"][1]) / abs(u["losses"][1])
+    report.emit({"phase": "sharded_train", "arch": arch, "layers": cfg.num_layers,
+                 "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype,
+                 "param_dtype": cfg.param_dtype, "remat_policy": model.remat_policy,
+                 "mesh": {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices.flat]},
+                 **runs, "step1_loss_bit_equal": sh["losses"][0] == u["losses"][0],
+                 "step2_loss_rel_err": rel2, "loss_rtol": SHARDED_LOSS_RTOL,
+                 "leaves_norm_checked": len(norms), "leaf_norm_max_rel_err": norm_rel,
+                 "norm_rtol": SHARDED_NORM_RTOL, "blocks_on_several_cards": several,
+                 "blocks_with_unequal_copies": unequal,
+                 "bytes_by_coordinate_held_vs_specs": by_coord, "bytes_by_card": by_card,
+                 "placements_kept": placed})
+    bad = {k: v for k, v in by_coord.items() if v[0] != v[1]}
+    if (sh["losses"][0] != u["losses"][0] or rel2 > SHARDED_LOSS_RTOL or bad or not placed
+            or not norm_rel <= SHARDED_NORM_RTOL or unequal):
+        raise AssertionError(f"sharded_train: losses {sh['losses']} vs {u['losses']}, "
+                             f"leaf norms {norm_rel} off, bytes off their specs {bad}, "
+                             f"placements kept {placed}, {unequal} of {several} blocks "
+                             f"on several cards with unequal copies")
+    counts = {k: sum(c[k] for c in sh["launches_per_step"]) for k in counters}
+    return (params, state), step, counts
+
+
+# sharded_mixed: the sharded step over two distinct devices on one card.
+# Llama-3.2-1B's reduced config widened to K5's head dim (2 layers, d 256,
+# 4 heads of 64 over 2 KV heads, d_ff 512, vocab 1,024), f32 compute,
+# B 4 x S 64, 2 steps; against the same steps on (2, 2) over cuda:0 alone:
+# the losses within MIXED_LOSS_RTOL and every param / m / v leaf's norm
+# within MIXED_NORM_RTOL (the LM path's gradient tolerance: one data row
+# runs the plain versions on the CPU where the other mesh runs K5 and K6)
+MIXED_LOSS_RTOL, MIXED_NORM_RTOL = 1e-5, 1e-4
+
+
+def sharded_mixed_phase(torch, np, report) -> None:
+    """The branches of ``jit_train_step`` that only distinct devices take,
+    run on one card: a (2, 2) ("data", "model") mesh over
+    [[cuda:0, cpu], [cpu, cuda:0]], so every param block is held on both
+    devices, data row 0 computes on the card (K5, K6) and row 1 on the CPU
+    (the plain versions), and each ZeRO-1 shard is updated on its own
+    device and copied to the block's holder on the other.  Checks: every
+    copy of a block bit-equal across the two devices, each coordinate's
+    bytes its specs', the losses and leaf norms within MIXED_LOSS_RTOL and
+    MIXED_NORM_RTOL of the same steps on (2, 2) over cuda:0 alone."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.data import tokens as tok
+    from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.launch import inputs as inp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, jit_train_step
+
+    cfg = dataclasses.replace(cfgbase.get_reduced_config("llama3.2-1b"), d_model=256,
+                              num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512,
+                              vocab_size=1024, compute_dtype="float32")
+    B, S = 4, 64
+    model = Model(cfg, xent_impl="chunked", remat=True)
+    whole = model.init_params(torch.Generator("cpu").manual_seed(7), device="cpu")
+    pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                   seed=7)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    runs = {}
+    for name, devices in (("cuda:0", [card]), ("cuda:0+cpu", [card, cpu, cpu, card])):
+        mesh = make_mesh((2, 2), ("data", "model"), devices=devices)
+        policy = ShardingPolicy(mesh, cfg)
+        step = jit_train_step(model, policy, inp.abstract_params(model),
+                              TrainStepConfig(adamw=opt.AdamWConfig(lr_peak=1e-3,
+                                                                    warmup_steps=2,
+                                                                    total_steps=10)),
+                              batch_specs=policy.batch_specs(
+                                  cfgbase.ShapeConfig("train", S, B, "train")))
+        params, state = reshard_tree(whole, step.param_shardings), step.init_opt_state()
+        losses = []
+        for s in range(2):
+            params, state, m = step(params, state, tok.device_batch(pipe, s, "cuda"))
+            losses.append(float(m["loss"]))
+        trees = (params, state.m, state.v)
+        by_coord = _coordinate_bytes(np, list(zip(trees, (step.param_shardings,
+                                                          step.opt_state_shardings.m,
+                                                          step.opt_state_shardings.v))), mesh)
+        several, unequal = _copies_disagree(torch, trees)
+        runs[name] = {"devices": [str(d) for d in mesh.devices.flat], "losses": losses,
+                      "norms": _leaf_norms(torch, trees), "blocks_on_several_devices": several,
+                      "blocks_with_unequal_copies": unequal,
+                      "coordinates_off_their_specs": sorted(k for k, v in by_coord.items()
+                                                            if v[0] != v[1])}
+    one, mixed = runs["cuda:0"], runs["cuda:0+cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mixed["losses"], one["losses"]))
+    norm_rel = max(abs(a - b) / b if b else abs(a)
+                   for a, b in zip(mixed.pop("norms"), one.pop("norms")))
+    report.emit({"phase": "sharded_mixed", "layers": cfg.num_layers, "d_model": cfg.d_model,
+                 "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype, **runs,
+                 "loss_max_rel_err": loss_rel, "loss_rtol": MIXED_LOSS_RTOL,
+                 "leaf_norm_max_rel_err": norm_rel, "norm_rtol": MIXED_NORM_RTOL})
+    if (not mixed["blocks_on_several_devices"] or mixed["blocks_with_unequal_copies"]
+            or one["coordinates_off_their_specs"] or mixed["coordinates_off_their_specs"]
+            or not loss_rel <= MIXED_LOSS_RTOL or not norm_rel <= MIXED_NORM_RTOL):
+        raise AssertionError(f"sharded_mixed: {runs}, losses {loss_rel} and leaf norms "
+                             f"{norm_rel} off the one-card mesh's")
+
+
+def reshard_phase(torch, np, report, state, step) -> None:
+    """Elastic re-mesh of the sharded train state from (2, 2): ``ckpt.save``
+    of the placed params (whole leaves) and ``restore(shardings=)`` of them
+    onto (4, 1); ``reshard_tree`` of the whole params and AdamW state onto
+    (4, 1), and of that onto (1, 1) (over the same cards as
+    ``_sharded_mesh``, or cuda:0).  Every leaf bit-equal to the (2, 2) one
+    and in its new placement after each.  Records the save, restore and
+    reshard seconds and the checkpoint's bytes."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import placement as pl
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.tree import leaves
+
+    params, opt_state = state
+    tree = {"params": params, "opt": opt_state}
+    ckpt_dir = ROOT / "build" / "chip_reshard_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, 2, {"params": params})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(p.stat().st_size for p in ckpt_dir.rglob("*") if p.is_file())
+    devices = sorted(set(step.mesh.devices.flat), key=str)
+
+    def shardings_on(sizes):
+        mesh = make_mesh(sizes, ("data", "model"),
+                         devices=devices if len(devices) == sizes[0] * sizes[1]
+                         else devices[:1])
+        policy = ShardingPolicy(mesh, step.model.cfg)
+        specs = policy.param_specs(step.abstract_params)
+        return {"params": policy.shardings(specs),
+                "opt": policy.opt_state_shardings(specs, step.abstract_params)}
+
+    def check(onto, how, want, got, shardings, seconds):
+        equal = placed = 0
+        for a, b, sh in zip(leaves(want), leaves(got), leaves(shardings)):
+            placed += b.sharding == sh
+            equal += bool(torch.equal(pl.gather(a, "cuda"), pl.gather(b, "cuda")))
+        n = len(leaves(want))
+        out.append({"onto": onto, "by": how, "seconds": seconds, "leaves": n,
+                    "bit_equal": equal, "placed": placed})
+        if equal != n or placed != n:
+            raise AssertionError(f"reshard onto {onto} ({how}): {equal}/{n} leaves "
+                                 f"bit-equal, {placed}/{n} in their placements")
+
+    out, moved = [], tree
+    for sizes in ((4, 1), (1, 1)):
+        onto = "x".join(map(str, sizes))
+        shardings = shardings_on(sizes)
+        if sizes == (4, 1):
+            t0 = time.perf_counter()
+            _, restored = ckpt.restore(ckpt_dir, {"params": params},
+                                       shardings={"params": shardings["params"]})
+            _sync_all(torch)
+            check(onto, "restore(shardings=) of the params", {"params": params}, restored,
+                  {"params": shardings["params"]}, time.perf_counter() - t0)
+            del restored
+        t0 = time.perf_counter()
+        moved = reshard_tree(moved, shardings)
+        _sync_all(torch)
+        check(onto, "reshard_tree of the params and AdamW state", tree, moved, shardings,
+              time.perf_counter() - t0)
+    del moved
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    report.emit({"phase": "reshard", "from": "2x2", "save_s": save_s,
+                 "checkpoint_bytes": nbytes, "checks": out})
+
+
+def pipeline_phase(torch, np, report) -> None:
+    """``pipeline_forward`` (GPipe, M + P - 1 ticks) with 2 stages over
+    cuda:0 (a ("pod",) mesh of the card twice; over cuda:0 and cuda:1 on a
+    machine of two cards or more), each stage 2 tanh dense
+    layers of PIPE_D, PIPE_M microbatches of PIPE_B rows, f32, TF32 off:
+    the outputs within PIPE_TOL of the sequential stack, and the gradients
+    of sum(y^2) too.  Records both forwards' ms."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.pipeline import pipeline_forward, stack_stage_params
+
+    gen = torch.Generator("cuda").manual_seed(40)
+    D = PIPE_D
+
+    def stage(p, x):
+        return torch.tanh(torch.tanh(x @ p["w1"]) @ p["w2"])
+
+    stages = [{k: torch.randn(D, D, generator=gen, device="cuda") / D ** 0.5
+               for k in ("w1", "w2")} for _ in range(2)]
+    xs = torch.randn(PIPE_M, PIPE_B, D, generator=gen, device="cuda")
+    mesh = make_mesh((2,), ("pod",), devices=[torch.device("cuda", i) for i in
+                                              range(min(2, torch.cuda.device_count()))])
+    run = pipeline_forward(stage, mesh)
+    stacked = stack_stage_params(stages)
+    for t in stacked.values():
+        t.requires_grad_(True)
+    y = run(stacked, xs)
+    (y ** 2).sum().backward()
+    flat = [t.detach().clone().requires_grad_(True) for t in (stacked["w1"], stacked["w2"])]
+    seq = lambda w1, w2: torch.stack([stage({"w1": w1[1], "w2": w2[1]},
+                                            stage({"w1": w1[0], "w2": w2[0]}, x))
+                                      for x in xs])
+    y_ref = seq(*flat)
+    (y_ref ** 2).sum().backward()
+    err = float((y - y_ref).detach().abs().max())
+    gerr = max(float((stacked[k].grad - f.grad).abs().max() / f.grad.abs().max())
+               for k, f in zip(("w1", "w2"), flat))
+    with torch.no_grad():
+        t_pipe = event_ms(torch, lambda: run(stacked, xs), iters=20, warmup=3)
+        t_seq = event_ms(torch, lambda: seq(*flat), iters=20, warmup=3)
+    report.emit({"phase": "pipeline", "devices": [str(d) for d in mesh.devices.flat],
+                 "stages": 2, "microbatches": PIPE_M, "rows": PIPE_B,
+                 "d": D, "dtype": "float32", "ticks": PIPE_M + 1, "max_abs_err": err,
+                 "grad_rel_err": gerr, "tol": PIPE_TOL, "pipelined_ms": t_pipe,
+                 "sequential_ms": t_seq})
+    if not (err <= PIPE_TOL and gerr <= PIPE_TOL):
+        raise AssertionError(f"pipeline: outputs {err}, gradients {gerr} off the "
+                             f"sequential stack (limit {PIPE_TOL})")
+
+
 PEAK_TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 # K6 timed at each train cell's (N, D, V): B x S tokens, d_model, vocab
 K6_TRAIN_SHAPES = {"llama3.2-1b": (4096, 2048, 128256), "rwkv6-7b": (2048, 4096, 65536),
@@ -3685,6 +4102,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, serve the six CNN engines, run the mesh phase and "
                          "stop (on a machine of several cards: the mesh over them all)")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build, check K5 and K6, run the sharded_train, sharded_mixed, "
+                         "reshard and pipeline phases and stop (on a machine of four "
+                         "cards: the meshes over distinct cards)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3706,6 +4127,24 @@ def main(argv=None) -> int:
                  "cuda": torch.version.cuda, "python": sys.version.split()[0],
                  "device": torch.cuda.get_device_name(0)})
     build_phase(report)
+
+    def stop_early():
+        print(card_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.sharded_only:
+        k5_checks(torch, np, report)
+        k6_checks(torch, np, report)
+        state, step, _ = sharded_train_phase(torch, np, report)
+        sharded_mixed_phase(torch, np, report)
+        reshard_phase(torch, np, report, state, step)
+        del state, step
+        torch.cuda.empty_cache()
+        pipeline_phase(torch, np, report)
+        return stop_early()
     k1_checks(torch, np, report)
     k2_checks(torch, np, report)
     dw_checks(torch, np, report)
@@ -3717,11 +4156,7 @@ def main(argv=None) -> int:
     engines = engine_phase(torch, np, report)
     mesh_phase(torch, np, report, engines)
     if args.mesh_only:
-        print(card_line(), flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return stop_early()
     stream_phase(torch, np, report)
     report_phase(torch, np, report)
     residual_phase(torch, np, report)
@@ -3734,6 +4169,14 @@ def main(argv=None) -> int:
     train_counts = lm_train_phase(torch, np, report)
     train_strict_phase(torch, np, report)
     remat_dots_phase(torch, np, report)
+    state, step, sharded_counts = sharded_train_phase(torch, np, report)
+    for k, n in sharded_counts.items():
+        train_counts["llama3.2-1b"][k] += n
+    sharded_mixed_phase(torch, np, report)
+    reshard_phase(torch, np, report, state, step)
+    del state, step
+    torch.cuda.empty_cache()
+    pipeline_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5)
     entries += k6_timing_phase(torch, np, report, train_counts)

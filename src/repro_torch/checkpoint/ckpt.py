@@ -14,8 +14,10 @@ layout:
 
 Tree paths join the keys of the port's dict / list / NamedTuple tree with
 ``/``.  bf16 leaves are stored as f32 (numpy has no bf16) and cast back on
-restore.  The reference's ``shardings=`` (elastic restore onto another
-mesh) waits for the sharded train step (ROADMAP.md queue 1, item 6c).
+restore.  A placed leaf (:class:`repro_torch.sharding.placement.Placed`)
+is written whole, so a checkpoint stays mesh-agnostic, as the reference's
+host npz is; ``restore(shardings=)`` places each restored leaf by a tree of
+placements, so a run may resume on another mesh (elastic restart).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.placement import Placed, gather, place
 from repro_torch.tree import flatten_with_paths, unflatten_like
 
 
@@ -38,7 +41,9 @@ def _flat(tree) -> dict:
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy (never a view: the train step updates params in place
-    while an async write is pending)."""
+    while an async write is pending); a placed leaf is gathered whole."""
+    if isinstance(leaf, Placed):
+        leaf = gather(leaf, "cpu")
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -89,22 +94,31 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, target_tree: Any, *, step: Optional[int] = None,
-            host_rank: int = 0) -> Tuple[int, Any]:
+            shardings: Any = None, host_rank: int = 0) -> Tuple[int, Any]:
     """Restore into the structure of ``target_tree``: each leaf a tensor on
-    the target leaf's device and dtype.  Raises ``ValueError`` on a shape
-    mismatch and ``FileNotFoundError`` when there is no checkpoint."""
+    the target leaf's device (the CPU for a ``meta`` target) and dtype,
+    placed again by the target's placement when it is placed.
+    ``shardings``: a matching tree of placements (``NamedSharding``) to
+    place the leaves by instead, onto any mesh.  Raises ``ValueError`` on a
+    shape mismatch and ``FileNotFoundError`` when there is no checkpoint."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     data = np.load(ckpt_dir / f"step-{step:08d}" / f"shard-{host_rank}.npz")
+    flat_shard = _flat(shardings) if shardings is not None else {}
     restored = []
     for key, ref in _flat(target_tree).items():
         arr = data[key]
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: checkpoint {arr.shape} != target {tuple(ref.shape)}")
-        restored.append(torch.as_tensor(arr).to(device=ref.device, dtype=ref.dtype))
+        t = torch.as_tensor(arr).to(dtype=ref.dtype)
+        sharding = flat_shard.get(key, ref.sharding if isinstance(ref, Placed) else None)
+        if sharding is not None:
+            restored.append(place(t, sharding))
+        else:
+            restored.append(t.to("cpu" if ref.device.type == "meta" else ref.device))
     return step, unflatten_like(target_tree, restored)
 
 
@@ -131,5 +145,5 @@ class CheckpointManager:
         for s in sorted(_steps(self.dir))[: -self.keep]:
             shutil.rmtree(self.dir / f"step-{s:08d}", ignore_errors=True)
 
-    def restore_latest(self, target_tree: Any):
-        return restore(self.dir, target_tree)
+    def restore_latest(self, target_tree: Any, shardings: Any = None):
+        return restore(self.dir, target_tree, shardings=shardings)

@@ -105,33 +105,47 @@ def lm_params_from_numpy(params_np: Mapping[str, Any], cfg, device="cuda",
     return out
 
 
-def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
-    """The inverse of :func:`lm_params_from_numpy`: the port's params (or any
-    tree of the same structure, such as AdamW's m or v) restacked into the
-    reference's layout as numpy — ``g{i}`` holding position ``i`` of the
-    pattern with a leading group axis, ``r{i}`` the remainder layers,
-    ``enc_g0`` an enc-dec config's encoder layers."""
-    def arrays(tree):
-        if isinstance(tree, Mapping):
-            return {k: arrays(v) for k, v in tree.items()}
-        return tree.detach().cpu().numpy()
+def restack(tree: Mapping[str, Any], cfg, leaf=None, stack=None) -> Dict[str, Any]:
+    """The port's per-layer tree (params, AdamW's m or v, their specs or
+    shapes) in the reference's layout: ``g{i}`` holding position ``i`` of
+    the pattern over the groups, ``r{i}`` the remainder layers, ``enc_g0``
+    an enc-dec config's encoder layers.  ``leaf`` maps each leaf (default:
+    as it is) and ``stack`` turns a layer leaf's values over the groups into
+    the stacked leaf (default ``np.stack``).  A tree with no top-level dict
+    (a decode cache: one dict a layer) is taken as the layers."""
+    leaf = leaf or (lambda x: x)
+    stack = stack or np.stack
 
-    def stack(trees):
-        if isinstance(trees[0], Mapping):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
+    def arrays(node):
+        if isinstance(node, Mapping):
+            return {k: arrays(v) for k, v in node.items()}
+        return leaf(node)
 
+    def stacked(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stacked([t[k] for t in nodes]) for k in nodes[0]}
+        return stack(nodes)
+
+    if not isinstance(tree, Mapping):
+        tree = {"layers": tree}
     P = len(cfg.block_pattern)
     n_groups, rem = divmod(cfg.num_layers, P)
-    layers = [arrays(layer) for layer in params["layers"]]
-    out = {k: arrays(v) for k, v in params.items() if k not in ("layers", "enc_layers")}
-    if "enc_layers" in params:
-        out["enc_g0"] = stack([arrays(layer) for layer in params["enc_layers"]])
+    layers = [arrays(layer) for layer in tree["layers"]]
+    out = {k: arrays(v) for k, v in tree.items() if k not in ("layers", "enc_layers")}
+    if "enc_layers" in tree:
+        out["enc_g0"] = stacked([arrays(layer) for layer in tree["enc_layers"]])
     if n_groups:
-        out.update({f"g{i}": stack([layers[g * P + i] for g in range(n_groups)])
+        out.update({f"g{i}": stacked([layers[g * P + i] for g in range(n_groups)])
                     for i in range(P)})
     out.update({f"r{ri}": layers[n_groups * P + ri] for ri in range(rem)})
     return out
+
+
+def lm_params_to_numpy(params: Mapping[str, Any], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`lm_params_from_numpy`: the port's params (or any
+    tree of the same structure, such as AdamW's m or v) restacked into the
+    reference's layout as numpy (:func:`restack`)."""
+    return restack(params, cfg, leaf=lambda t: t.detach().cpu().numpy())
 
 
 def adamw_state_from_numpy(state_np, cfg, device="cuda"):

@@ -1,17 +1,23 @@
-"""Fault tolerance: preemption handling, straggler detection, step timing.
+"""Fault tolerance: preemption handling, straggler detection, elastic
+re-mesh, step timing.
 
 The port's counterpart of ``repro/ft/resilience.py``: planned preemptions
 (SIGTERM → checkpoint now and exit cleanly), stragglers (a step, or a host,
-slower than ``factor`` x the median) and the step timer the train loop
-laps.  ``reshard_tree`` (elastic re-mesh) waits for the sharded train step
-(ROADMAP.md queue 1, item 6c).
+slower than ``factor`` x the median), the step timer the train loop laps,
+and :func:`reshard_tree`: checkpoints are mesh-agnostic (whole leaves,
+``repro_torch.checkpoint.ckpt``), so a restart may change the mesh, and
+every leaf is placed by the new policy's placements (``restore(shardings=)``
+does the same).
 """
 from __future__ import annotations
 
 import signal
 import statistics
 import time
-from typing import List, Optional
+from typing import Any, List, Optional
+
+from repro_torch.sharding.placement import place
+from repro_torch.tree import tree_map
 
 
 class PreemptionGuard:
@@ -71,6 +77,13 @@ class StragglerDetector:
     @property
     def median(self) -> Optional[float]:
         return statistics.median(self._times) if self._times else None
+
+
+def reshard_tree(tree: Any, shardings: Any) -> Any:
+    """Elastic re-mesh: every leaf (a whole tensor, or one placed on another
+    mesh) placed by the matching :class:`NamedSharding` of ``shardings``,
+    block by block from the blocks it crosses; no bit changes."""
+    return tree_map(place, tree, shardings)
 
 
 class StepTimer:

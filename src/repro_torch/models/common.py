@@ -115,7 +115,9 @@ def apply_mrope(x: torch.Tensor,  # (B, S, n, h)
 # ----------------------------------------------------------------------------
 def _trunc_normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2], times ``std``, drawn in f32 on the
-    generator's device."""
+    generator's device; on the ``meta`` device nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(std).to(dtype=dtype, device=device)

@@ -247,7 +247,9 @@ class Model:
         embedding and layer is stored in it (:func:`store_compute_dtype`)
         as soon as it is drawn: the same draws and values as storing the
         whole tree afterwards, but no more than one layer's or embedding's
-        ``param_dtype`` weights exist at a time."""
+        ``param_dtype`` weights exist at a time.  On ``device="meta"`` the
+        tree has its shapes and dtypes and nothing is drawn (``generator``
+        may be None): :func:`repro_torch.launch.inputs.abstract_params`."""
         cfg = self.cfg
         dev = resolve(device)
 

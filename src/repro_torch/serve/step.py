@@ -4,8 +4,11 @@ the LM prefill and decode steps.
 The port's counterpart of ``repro/serve/step.py``: ``bucket_for`` and
 ``BucketedExecutorCache`` (``step.py:68-140``), ``enable_persistent_cache``
 (``step.py:34-60``), ``make_prefill_step`` and ``make_decode_step``.
-PyTorch runs eagerly, so ``jit_*_step`` have no counterpart; their sharded
-placements go with the sharded train step (ROADMAP.md queue 1, item 6c).
+PyTorch runs eagerly, and the sharded ``jit_prefill_step`` /
+``jit_decode_step`` have no counterpart: a KV cache placed by
+``ShardingPolicy.cache_specs`` (ported, and read by
+``repro_torch.launch.dryrun``) pays only with attention computed on its
+shards, which waits for tensor-parallel compute (ROADMAP.md item 6f).
 
 Requests pad up to the nearest bucket, so an executor only ever sees the
 batch sizes on the ladder; in the port, preparing a bucket means running its

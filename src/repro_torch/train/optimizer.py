@@ -76,8 +76,19 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
     """(grads scaled to a global norm of at most ``max_norm``, each in its
     own dtype; the norm before scaling)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+    scale = clip_scale(norm, max_norm)
+    return tree_map(lambda g: scaled(g, scale), grads), norm
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a gradient of global norm ``norm`` to a norm
+    of at most ``max_norm`` (1 when it is already there)."""
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def scaled(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``g * scale`` computed in f32, in ``g``'s dtype."""
+    return (g.float() * scale).to(g.dtype)
 
 
 def decay_mask_like_reference(cfg, params) -> Any:
@@ -102,23 +113,33 @@ def apply_adamw(cfg: AdamWConfig, params, grads, state: AdamWState, *,
     ``decay_mask``: a tree of bools like params (default ``ndim >= 2``).
     Returns (params, new state, {"grad_norm", "lr"})."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state.step + 1
-    lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    stepf = step.float()
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=stepf.device) ** stepf
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=stepf.device) ** stepf
+    step, lr, bc1, bc2 = next_step(cfg, state.step)
     if decay_mask is None:
         decay_mask = tree_map(lambda p: p.ndim >= 2, params)
-
-    def upd(p, g, m, v, decay):
-        gf = g.float()
-        m.copy_(b1 * m + (1 - b1) * gf)
-        v.copy_(b2 * v + (1 - b2) * torch.square(gf))
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay and decay:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
-
-    tree_map(upd, params, grads, state.m, state.v, decay_mask)
+    tree_map(lambda p, g, m, v, decay: adamw_update(cfg, p, g, m, v, decay, lr, bc1, bc2),
+             params, grads, state.m, state.v, decay_mask)
     return params, AdamWState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}
+
+
+def next_step(cfg: AdamWConfig, step: torch.Tensor):
+    """(step + 1, its learning rate, the bias corrections 1 - b1^t and
+    1 - b2^t), f32 scalars on the step's device."""
+    step = step + 1
+    stepf = step.float()
+    bc1 = 1 - torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device) ** stepf
+    bc2 = 1 - torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device) ** stepf
+    return step, lr_schedule(cfg, step), bc1, bc2
+
+
+def adamw_update(cfg: AdamWConfig, p, g, m, v, decay: bool, lr, bc1, bc2) -> None:
+    """One leaf's (or one shard's) AdamW update, in place on ``p``, ``m``
+    and ``v``, from its clipped gradient ``g``; ``lr``, ``bc1`` and ``bc2``
+    are the step's f32 scalars on the leaf's device."""
+    b1, b2 = cfg.b1, cfg.b2
+    gf = g.float()
+    m.copy_(b1 * m + (1 - b1) * gf)
+    v.copy_(b2 * v + (1 - b2) * torch.square(gf))
+    delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    if cfg.weight_decay and decay:
+        delta = delta + cfg.weight_decay * p.float()
+    p.copy_((p.float() - lr * delta).to(p.dtype))

@@ -15,8 +15,10 @@ def _is_namedtuple(tree) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
-def _children(tree):
+def _children(tree, is_leaf=None):
     """(key, child) pairs of an inner node, or None for a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return None
     if isinstance(tree, dict):
         return [(k, tree[k]) for k in sorted(tree)]
     if _is_namedtuple(tree):
@@ -26,30 +28,35 @@ def _children(tree):
     return None
 
 
-def flatten_with_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
-    """[(path, leaf)], path the tuple of keys from the root."""
-    kids = _children(tree)
+def flatten_with_paths(tree, prefix: Tuple = (), is_leaf=None) -> List[Tuple[Tuple, Any]]:
+    """[(path, leaf)], path the tuple of keys from the root; ``is_leaf``
+    stops the walk at the nodes it is true of."""
+    kids = _children(tree, is_leaf)
     if kids is None:
         return [(prefix, tree)]
     out = []
     for k, child in kids:
-        out += flatten_with_paths(child, prefix + (k,))
+        out += flatten_with_paths(child, prefix + (k,), is_leaf)
     return out
 
 
-def leaves(tree) -> list:
-    return [leaf for _, leaf in flatten_with_paths(tree)]
+def leaves(tree, is_leaf=None) -> list:
+    return [leaf for _, leaf in flatten_with_paths(tree, is_leaf=is_leaf)]
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
-    ``rest`` (trees of the same structure); the result has that structure."""
+    ``rest`` (trees of the same structure); the result has that structure.
+    ``is_leaf`` stops the walk at the nodes of ``tree`` it is true of."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest), is_leaf=is_leaf)
+                for k in tree}
     if _is_namedtuple(tree):
-        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+        return type(tree)(*(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(tree_map(fn, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest))
     return fn(tree, *rest)
 
 

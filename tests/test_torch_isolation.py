@@ -37,13 +37,17 @@ from repro_torch.kernels.xent import ref as xent_ref
 from repro_torch.data import tokens as tok
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch import inputs as launch_inputs
+from repro_torch.launch.mesh import Mesh, make_data_mesh, make_host_mesh, make_mesh
 from repro_torch.models import attention, rwkv6
 from repro_torch.models.transformer import Model
 from repro_torch.quant import exec as qexec
 from repro_torch.quant import kernel_q8
 from repro_torch.serve.cnn_engine import CNNEngine
 from repro_torch.serve.engine import Engine
+from repro_torch.sharding.policy import ShardingPolicy
+from repro_torch.train.pipeline import pipeline_forward
+from repro_torch.train.step import jit_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -86,7 +90,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/ft/resilience.py",
             "src/repro_torch/launch/train.py",
             "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/inputs.py",
+            "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/report.py",
             "src/repro_torch/sharding/policy.py",
+            "src/repro_torch/sharding/placement.py",
+            "src/repro_torch/train/pipeline.py",
             "src/repro_torch/models/griffin.py",
             "src/repro_torch/models/moe.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
@@ -176,6 +186,13 @@ ENTRY_POINTS = {
     "launch.serve.main[moe]": lambda: launch_serve.main(["--arch", "qwen2-moe-a2.7b"]),
     "launch.serve.main[vision]": lambda: launch_serve.main(["--arch", "qwen2-vl-7b"]),
     "make_data_mesh": lambda: make_data_mesh(),
+    "make_host_mesh": lambda: make_host_mesh(),
+    "make_mesh": lambda: make_mesh((2, 2), ("data", "model")),
+    "Mesh[cuda:0 x 4]": lambda: Mesh([["cuda:0"] * 2] * 2, ("data", "model")),
+    "jit_train_step": lambda: jit_train_step(
+        Model(_llama()), ShardingPolicy(make_host_mesh(model=2), _llama()),
+        launch_inputs.abstract_params(Model(_llama()))),
+    "pipeline_forward": lambda: pipeline_forward(lambda p, x: x, make_mesh((2,), ("pod",))),
     "launch.train.main": lambda: launch_train.main(["--arch", "llama3.2-1b"]),
     "launch.train.main[griffin]": lambda: launch_train.main(["--arch", "recurrentgemma-9b"]),
     "launch.train.main[moe]": lambda: launch_train.main(["--arch", "qwen2-moe-a2.7b"]),

@@ -1,6 +1,9 @@
 """The port's data-parallel mesh, on the CPU: the port of the CPU-runnable
-half of ``tests/test_sharding_dp.py`` (its 8-device test is the reference's
-own caveat, ROADMAP.md queue 3).
+half of ``tests/test_sharding_dp.py``.  The LM's ("data", "model")
+mesh, ``ShardingPolicy`` and the sharded train step, the counterparts of
+``tests/test_sharding_multidevice.py``, are held in
+``tests/test_torch_sharded_train.py`` and
+``tests/test_torch_sharding_policy.py``.
 
 * ``DataParallelPolicy``'s mesh validation, ``padded_batch`` / ``pad_lanes``
   and ``make_data_mesh``'s count check (stand-in meshes, as the reference's
@@ -46,7 +49,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.conv_pool import ops
 from repro_torch.kernels.conv_pool import ref as conv_ref
 from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
-from repro_torch.launch.mesh import DataMesh, data_axes, make_data_mesh
+from repro_torch.launch.mesh import DataMesh, data_axes, make_data_mesh, make_host_mesh
 from repro_torch.quant.exec import make_int8_executor
 from repro_torch.serve import step
 from repro_torch.serve.cnn_engine import CNNEngine, StreamServer
@@ -140,6 +143,22 @@ def test_make_data_mesh_validates_count(monkeypatch):
         make_data_mesh(3)
     with pytest.raises(ValueError, match=r"got 0"):
         make_data_mesh(0)
+
+
+def test_make_host_mesh_lays_out_data_by_model(monkeypatch):
+    """``(n // model, model)`` over the CPU repeated ``model`` times, or
+    over every card; a count the model axis does not divide raises."""
+    mesh = make_host_mesh(model=2, device="cpu")
+    assert mesh.axis_names == ("data", "model") and mesh.shape == {"data": 1, "model": 2}
+    assert list(mesh.devices.flat) == [torch.device("cpu")] * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    mesh = make_host_mesh(model=2)
+    assert mesh.shape == {"data": 2, "model": 2}
+    assert [d.index for d in mesh.devices.flat] == [0, 1, 2, 3]
+    assert make_host_mesh().shape == {"data": 4, "model": 1}
+    with pytest.raises(ValueError, match="do not split into a model axis of 3"):
+        make_host_mesh(model=3)
 
 
 def test_make_data_mesh_on_cuda_raises_without_a_card():
