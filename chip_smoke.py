@@ -138,8 +138,7 @@ against their plain PyTorch versions:
    against plain path: prefill and 4 decode steps at 1e-4; then
    RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
    kernel path against plain path layer by layer, at f32 compute (final
-   logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``)
-   and with the weights in bf16 (recorded);
+   logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``);
 8. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
    step of 2 microbatches, then a profiled step), and RWKV6-7B (2 layers),
    RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2) and Qwen2-VL-7B (2, on the
@@ -178,11 +177,25 @@ against their plain PyTorch versions:
    norms within 1e-4 of the same steps over cuda:0 alone), ``reshard``
    (the params saved whole and restored with ``shardings=`` onto (4, 1);
    the params and AdamW state by ``reshard_tree`` onto (4, 1), then onto
-   (1, 1); every leaf bit-equal after each) and ``pipeline`` (GPipe, 2
+   (1, 1); every leaf bit-equal after each), ``sharded_serve`` (the
+   sharded serving steps, ``jit_prefill_step`` / ``jit_decode_step``, on
+   the same (2, 2) mesh beside the unsharded ``Model.prefill`` /
+   ``make_decode_step`` on the same weights: Llama-3-8B whole at 4 x 509
+   and 4 x 128 tokens and RecurrentGemma-9B's first 3 layers at 4 x 509
+   and 1 x 509, ``max_seq`` 1,024, 16 greedy steps each: the prefill's
+   logits within ``LM_LOGITS_TOL``, K5 once a layer on each model
+   coordinate of each computing data row (Llama-3-8B 128, RecurrentGemma 4
+   / 2) and no kernel in a decode step, each coordinate's cache bytes its
+   specs' (Llama-3-8B: 4 of 8 KV heads; RecurrentGemma: a length block),
+   ``next_tok`` placed by ``tok_spec``; TTFT, ms a decode step and
+   greedy-token agreement both ways recorded; then the same steps on
+   (2, 2) over [[cuda:0, cpu], [cpu, cuda:0]] against cuda:0 alone, f32,
+   widened reduced configs: logits within 1e-5, greedy tokens equal, every
+   cache block on both devices bit-equal) and ``pipeline`` (GPipe, 2
    stages over cuda:0,
    or cuda:0 and cuda:1 when there are two, D 2,048, M 8, B 4, f32:
    outputs and gradients within 1e-5 of the sequential stack)
-   (``--sharded-only`` builds, checks K5 and K6, runs these four phases
+   (``--sharded-only`` builds, checks K5 and K6, runs these five phases
    and stops);
 10. times each kernel at the main path's shapes (K1-K4 at batch 1 and 16,
     K3 and K4 at every distinct depthwise step of both nets, beside
@@ -193,7 +206,9 @@ against their plain PyTorch versions:
     decoder), K7 at S 128/509/512/1000 (each of its two kernels by name),
     K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
     K6's, lm_train's and sharded_train's), RecurrentGemma,
-    Qwen2-MoE and Qwen2-VL (B 4 x S 512), K6 at the five train shapes) with
+    Qwen2-MoE and Qwen2-VL (B 4 x S 512) and at each shape the sharded
+    prefills gave it (a data row's rows, a model coordinate's heads), K6
+    at the five train shapes) with
     CUDA events
     and the profiler, beside its plain version, a PyTorch library call
     computing the same function where there is one, and its bound from the
@@ -315,15 +330,20 @@ C_MIN_CORRECT = 7
 
 
 class Report:
-    """Prints each result as one JSON line, and keeps a copy in ``--out``."""
+    """Prints each result as one JSON line, and keeps a copy in ``--out``.
+    A phase's line carries ``t_s``, the seconds since the report began, so
+    the lines show where the run's time went."""
 
     def __init__(self, out):
         self.out = Path(out) if out else None
+        self.t0 = time.perf_counter()
         if self.out:
             self.out.parent.mkdir(parents=True, exist_ok=True)
             self.out.write_text("")
 
     def emit(self, obj) -> None:
+        if "phase" in obj:
+            obj = {**obj, "t_s": round(time.perf_counter() - self.t0, 3)}
         line = json.dumps(obj)
         print(line, flush=True)
         if self.out:
@@ -1994,6 +2014,14 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             # its longest served prompt, at 1,000 tokens and at its train shape
             (1, 509, 28, 4, 128, 0, 0.0), (1, 1000, 28, 4, 128, 0, 0.0),
             (4, 512, 28, 4, 128, 0, 0.0)]
+# K5 at the shapes the sharded prefills of sharded_serve give it on (2, 2): a
+# data row's rows and a model coordinate's heads.  Llama-3-8B: 16 query heads
+# over 4 KV heads (h 128) at prompts of 509 and 128; RecurrentGemma-9B's
+# local layer: 8 query heads over its one KV head (GQA 8:1, h 256, window
+# 2048) at batch 4 (two rows a data row) and batch 1 (the first data row)
+K5_SHARDED_SERVE = [(2, 509, 16, 4, 128, 0, 0.0), (2, 128, 16, 4, 128, 0, 0.0),
+                    (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0)]
+K5_EXTRA += K5_SHARDED_SERVE
 # K5 without the causal mask, (B, S, H, K, h, T): Seamless-M4T's encoder
 # self-attention over 1,000 frames (S = T), one utterance and its served
 # batches of 4 at 509 and 1,000 frames, and its decoder's cross-attention
@@ -2159,6 +2187,14 @@ def plain_kernels():
         flash_ops.flash_attention, wkv_ops.wkv, xent_ops.fused_xent = saved
 
 
+def k5_cases() -> list:
+    """Every shape ``k5_checks`` holds K5 at, in f32 and in bf16: (B, S,
+    T, H, K, h, window, softcap, causal)."""
+    cases = [(B, S, S, H, K, h, window, softcap, True) for B, S, H, K, h, window, softcap in
+             [(B, S, 32, 8, 64, 0, 0.0) for S in K5_SEQS for B in (1, 2)] + K5_EXTRA]
+    return cases + [(B, S, T, H, K, h, 0, 0.0, False) for B, S, H, K, h, T in K5_NONCAUSAL]
+
+
 def k5_checks(torch, np, report) -> None:
     """K5 against its plain version: the Llama shapes at every S and batch,
     a window, a softcap, head dims 128 and 256, the non-causal shapes
@@ -2167,13 +2203,11 @@ def k5_checks(torch, np, report) -> None:
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref
 
-    # (B, S, T, H, K, h, window, softcap, causal)
-    cases = [(B, S, S, H, K, h, window, softcap, True) for B, S, H, K, h, window, softcap in
-             [(B, S, 32, 8, 64, 0, 0.0) for S in K5_SEQS for B in (1, 2)] + K5_EXTRA]
-    cases += [(B, S, T, H, K, h, 0, 0.0, False) for B, S, H, K, h, T in K5_NONCAUSAL]
+    cases = k5_cases()
     worst = {"f32": 0.0, "bf16": 0.0}
     worst_nc = {"f32": 0.0, "bf16": 0.0}
     worst_gqa7 = {"f32": 0.0, "bf16": 0.0}  # Qwen2-VL's 28 query heads over 4
+    worst_sharded = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_SERVE
     worst_row = 0.0
     n_checks = 0
     for ci, (B, S, T, H, K, h, window, softcap, causal) in enumerate(cases):
@@ -2201,6 +2235,8 @@ def k5_checks(torch, np, report) -> None:
                 worst_nc[kind] = max(worst_nc[kind], err)
             if H == 7 * K:
                 worst_gqa7[kind] = max(worst_gqa7[kind], err)
+            if (B, S, H, K, h, window, softcap) in K5_SHARDED_SERVE and causal:
+                worst_sharded[kind] = max(worst_sharded[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2233,6 +2269,8 @@ def k5_checks(torch, np, report) -> None:
                  "non_causal_max_abs_err": worst_nc,
                  "gqa_7_1_checks": 2 * sum(H == 7 * K for _, _, H, K, *_ in K5_EXTRA),
                  "gqa_7_1_max_abs_err": worst_gqa7,
+                 "sharded_serve_checks": 2 * len(K5_SHARDED_SERVE),
+                 "sharded_serve_max_abs_err": worst_sharded,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2994,15 +3032,18 @@ def _roofline(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> list:
+def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
+                    serve_k5) -> list:
     """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
     also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
     Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
     frames: the encoder's and the cross-attention's, without the mask, and
-    the decoder's), and K5 at Llama's train shape (B 8, S 512): event ms,
-    device ms, plain ms, the library yardstick for K5 (SDPA, causal or
-    not as K5), the bound.  ``encdec_k5``: K5's launches by key in the
-    served enc-dec batches."""
+    the decoder's), K5 at Llama's train shape (B 8, S 512), and K5 at
+    each shape the sharded prefills gave it (a data row's rows and a model
+    coordinate's heads): event ms, device ms, plain ms, the library
+    yardstick for K5 (SDPA, causal or not as K5), the bound.
+    ``encdec_k5``: K5's launches by key in the served enc-dec batches;
+    ``serve_k5``: by (arch,) + key in ``sharded_serve``'s prefills."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
@@ -3036,6 +3077,8 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> li
                                                                      16, 64, causal)))
               for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
                                            ("decoder", S, S, True))]
+    cases += [("sharded prefill", key[0], *key[2:9], n)
+              for key, n in sorted(serve_k5.items(), key=lambda kv: str(kv[0]))]
     for mode, arch, B, S, T, H, K, h, causal, launches in cases:
         q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
                             device="cuda")
@@ -3060,6 +3103,9 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5) -> li
             "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}, "
                      f"H={H} K={K} h={h}]"
                      if mode == "train" else
+                     f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, a row's B={B} "
+                     f"S={S}, a coordinate's H={H} K={K} h={h}]"
+                     if mode == "sharded prefill" else
                      f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
                      if mode == "prefill" else
                      f"K5 flash_fwd_bf16 [{arch} {mode} attention, B={B} S={S} T={T}, "
@@ -3104,13 +3150,19 @@ def k7_timing_phase(torch, np, report, rng, k7_launches) -> list:
     return entries
 
 
+# A plain version slower than this a call (K7's plain scan in chunks of 1)
+# is timed over 2 calls and profiled over 1, the others over 5 and 3.
+PLAIN_SLOW_MS = 100.0
+
+
 def _times(torch, kern, plain, library):
     """CUDA-event ms and profiler device ms of a kernel, its plain version
     and (when there is one) a library call."""
+    slow = event_ms(torch, plain, iters=1, warmup=1) > PLAIN_SLOW_MS
     t = {"ms": event_ms(torch, kern, iters=50, warmup=5),
-         "plain_ms": event_ms(torch, plain, iters=5, warmup=1),
+         "plain_ms": event_ms(torch, plain, iters=2 if slow else 5, warmup=0),
          "device_ms": device_ms(torch, kern, iters=20),
-         "plain_device_ms": device_ms(torch, plain, iters=3)}
+         "plain_device_ms": device_ms(torch, plain, iters=1 if slow else 3)}
     if library is not None:
         t["library_ms"] = event_ms(torch, library, iters=50, warmup=5)
         t["library_device_ms"] = device_ms(torch, library, iters=20)
@@ -3897,6 +3949,259 @@ def sharded_mixed_phase(torch, np, report) -> None:
                              f"{norm_rel} off the one-card mesh's")
 
 
+# sharded_serve: the sharded prefill and decode steps (jit_prefill_step /
+# jit_decode_step) on _sharded_mesh, beside the unsharded Model.prefill and
+# make_decode_step on the same weights: (arch, seed, layers (None: all of
+# them), [(batch, prompt length)]), SERVE_SHARDED_STEPS greedy steps after
+# each prefill, max_seq SERVE_SHARDED_MAX_SEQ.  RecurrentGemma-9B keeps its
+# first pattern group (rglru, rglru, local) of 38 layers: its local layer's
+# one KV head leaves the cache split on length (over "model" at batch 4,
+# over ("data", "model") at batch 1).
+SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509), (4, 128))),
+                 ("recurrentgemma-9b", 41, 3, ((4, 509), (1, 509))))
+SERVE_SHARDED_STEPS, SERVE_SHARDED_MAX_SEQ = 16, 1024
+# sharded_serve's distinct-device cases: f32, (2, 2) over cuda:0 and the
+# CPU against (2, 2) over cuda:0 alone, logits within SERVE_MIXED_TOL (rtol
+# = atol), prompts of SERVE_MIXED_S tokens (past the reduced window of 16:
+# RecurrentGemma's local ring wraps), SERVE_MIXED_STEPS decode steps
+SERVE_MIXED_TOL, SERVE_MIXED_S, SERVE_MIXED_STEPS, SERVE_MIXED_MAX_SEQ = 1e-5, 40, 4, 64
+
+
+def _serve_run(torch, counters, prefill, decode, start, steps):
+    """Time one prefill and ``steps`` greedy decode steps (each fed the
+    step before's ``next_tok``), every launch counter set to 0 just before
+    each: {logits (the prefill's, and each step's), ttft_ms, launches a
+    prefill (and K5's by key), launches a decode step, ms a step, the
+    tokens of each step (host), the last ``next_tok``'s placement, the
+    cache}."""
+    from repro_torch.sharding import placement as pl
+
+    def counted(fn):
+        _sync_all(torch)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync_all(torch)
+        return out, 1e3 * (time.perf_counter() - t0), {k: c.count for k, c in counters.items()}
+
+    (cache, logits), ttft, pre = counted(prefill)
+    by_key = dict(counters["K5"].by_key)
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    tokens, ms, per_step, step_logits = [tok.cpu()], [], [], []
+    for s in range(steps):
+        (tok, lg, cache), t, counts = counted(lambda: decode(cache, tok, start + s))
+        ms.append(t)
+        per_step.append(counts)
+        step_logits.append(lg)
+        tokens.append(pl.gather(tok, "cpu") if isinstance(tok, pl.Placed) else tok.cpu())
+    return {"logits": logits, "step_logits": step_logits, "ttft_ms": ttft,
+            "prefill_launches": pre, "k5_by_key": by_key, "decode_launches": per_step,
+            "decode_step_ms": ms, "tokens": tokens,
+            "next_tok_sharding": getattr(tok, "sharding", None), "cache": cache}
+
+
+def _sharded_steps(model, policy, B, S, max_seq):
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch import inputs as inp
+    from repro_torch.serve.step import jit_decode_step, jit_prefill_step
+
+    aparams, acache = inp.abstract_params(model), inp.abstract_cache(model, B, max_seq)
+    specs = policy.batch_specs(cfgbase.ShapeConfig("prefill", S, B, "prefill"))
+    return (jit_prefill_step(model, policy, aparams, acache, specs, B, max_seq),
+            jit_decode_step(model, policy, aparams, acache, B, max_seq))
+
+
+def sharded_serve_phase(torch, np, report) -> dict:
+    """The sharded serving steps (``jit_prefill_step`` /
+    ``jit_decode_step``) on ``_sharded_mesh``, each arch of SERVE_SHARDED
+    at full width (bf16 weights as drawn), first through the unsharded
+    ``Model.prefill`` / ``make_decode_step`` and then, on the same weights
+    (placed by the policy, the whole copy freed), through the sharded
+    steps: every data row's attention on each model coordinate's heads
+    (K5 in the prefill), the FFN on its ``d_ff`` slice, the KV cache on its
+    shards.  Checks, for each batch: the prefill's logits within
+    LM_LOGITS_TOL of the unsharded path's; K5 once a layer a model
+    coordinate a computing data row in the prefill and no kernel in a
+    decode step, both ways as the unsharded path's counts say; every cache
+    leaf placed by its spec, each coordinate holding its spec's bytes (Llama
+    -3-8B: 4 of 8 KV heads a coordinate); ``next_tok`` placed by the
+    reference's ``tok_spec``.  Records greedy-token agreement a step, TTFT
+    and ms a decode step both ways.  Then ``_sharded_serve_mixed``.
+    Returns K5's launches by key over the sharded prefills."""
+    from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.serve.step import make_decode_step
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    counters = _counters()
+    mesh = _sharded_mesh(torch)
+    max_seq, steps = SERVE_SHARDED_MAX_SEQ, SERVE_SHARDED_STEPS
+    k5_keys = {}
+    for arch, seed, layers, batches in SERVE_SHARDED:
+        model, params = _lm_model(torch, arch, seed,
+                                  **({} if layers is None else {"num_layers": layers}))
+        cfg = model.cfg
+        policy = ShardingPolicy(mesh, cfg)
+        rng = np.random.default_rng(seed)
+        prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                                   device="cuda") for B, S in batches]
+        n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+        udecode = make_decode_step(model, max_seq)
+        # warm-up outside the timed runs: cuBLAS handles, the kernel library
+        model.prefill(params, {"tokens": prompts[0][:1, :8]}, max_seq)
+        unsharded = [_serve_run(torch, counters,
+                                lambda t=t: model.prefill(params, {"tokens": t}, max_seq),
+                                lambda c, tok, pos: udecode(params, c, tok, pos),
+                                t.shape[1], steps) for t in prompts]
+        for u in unsharded:
+            del u["cache"], u["step_logits"]
+        steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq) for B, S in batches]
+        placed = reshard_tree(params, steps_by_batch[0][0].param_shardings)
+        del params
+        torch.cuda.empty_cache()
+        for (B, S), t, u, (pre, dec) in zip(batches, prompts, unsharded, steps_by_batch):
+            sh = _serve_run(torch, counters, lambda: pre(placed, {"tokens": t}),
+                            lambda c, tok, pos: dec(placed, c, tok, pos), S, steps)
+            cache = sh.pop("cache")
+            del sh["step_logits"]
+            rows = 2 if B % 2 == 0 else 1
+            want_pre = {k: 0 for k in counters}
+            want_pre["K5"] = n_attn * 2 * rows
+            for k, n in sh["k5_by_key"].items():
+                k5_keys[(arch,) + k] = k5_keys.get((arch,) + k, 0) + n
+            # every shape K5 ran at here is one k5_checks held against the plain version
+            checked = set(k5_cases())
+            unchecked = [k for k in sh["k5_by_key"]
+                         if (*k[1:7], k[8], k[9], k[7]) not in checked]
+            lk, lu = sh["logits"], u["logits"]
+            err = float((lk.float() - lu.float()).abs().max())
+            rel = float((lk.float() - lu.float()).norm() / lu.float().norm())
+            by_coord = _coordinate_bytes(np, [(cache, dec.cache_shardings)], mesh)
+            attn = next(i for i, kind in enumerate(cfg.blocks()) if kind != "rglru")
+            k_blocks = sorted({tuple(cache[attn]["k"].shard(c).shape) for c in mesh.coords()})
+            placed_ok = all(x.sharding == s for x, s in
+                            zip(leaves(cache), leaves(dec.cache_shardings)))
+            agree = [float((a == b).float().mean()) for a, b in zip(sh["tokens"], u["tokens"])]
+            max_abs, rel_rms = LM_LOGITS_TOL[arch]
+            rec = {"phase": "sharded_serve", "arch": arch, "layers": cfg.num_layers,
+                   "d_model": cfg.d_model, "batch": B, "prompt": S, "max_seq": max_seq,
+                   "decode_steps": steps, "compute_dtype": cfg.compute_dtype,
+                   "mesh": {"shape": mesh.shape,
+                            "devices": [str(d) for d in mesh.devices.flat]},
+                   "cache_layout": tp.cache_layout(cache[attn]["k"]),
+                   "k_spec": str(tuple(cache[attn]["k"].sharding.spec)),
+                   "k_block_shapes": k_blocks,
+                   "logits_vs_unsharded": {"max_abs": err, "rel_rms": rel},
+                   "logits_limit": {"max_abs": max_abs, "rel_rms": rel_rms},
+                   "prefill_launches": sh["prefill_launches"],
+                   "prefill_launches_want": want_pre,
+                   "unsharded_prefill_launches": u["prefill_launches"],
+                   "decode_launches": sh["decode_launches"][0],
+                   "greedy_token_agreement": agree,
+                   "ttft_ms": {"sharded": sh["ttft_ms"], "unsharded": u["ttft_ms"]},
+                   "decode_step_ms_p50": {"sharded": _pct(np, sh["decode_step_ms"], 50),
+                                          "unsharded": _pct(np, u["decode_step_ms"], 50)},
+                   "decode_step_ms": {"sharded": sh["decode_step_ms"],
+                                      "unsharded": u["decode_step_ms"]},
+                   "bytes_by_coordinate_held_vs_specs": by_coord,
+                   "next_tok_spec": str(tuple(dec.tok_sharding.spec)),
+                   "placements_kept": placed_ok,
+                   "k5_shapes_not_in_k5_checks": unchecked,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            report.emit(rec)
+            no_kernels = {k: 0 for k in counters}
+            bad = {k: v for k, v in by_coord.items() if v[0] != v[1]}
+            want_spec = (("data",) if B % 2 == 0 else None, None)
+            if (not torch.isfinite(lk).all() or err > max_abs or rel > rel_rms
+                    or sh["prefill_launches"] != want_pre
+                    or u["prefill_launches"] != {**no_kernels, "K5": n_attn}
+                    or any(c != no_kernels for c in sh["decode_launches"] + u["decode_launches"])
+                    or bad or not placed_ok or unchecked
+                    or tuple(dec.tok_sharding.spec) != want_spec
+                    or sh["next_tok_sharding"] != dec.tok_sharding
+                    or (arch == "llama3-8b"
+                        and k_blocks != [(B // 2, max_seq, cfg.num_kv_heads // 2,
+                                          cfg.head_dim)])):
+                raise AssertionError(f"sharded_serve {arch} batch {B}: {rec}")
+            del cache
+        del placed
+        torch.cuda.empty_cache()
+    _sharded_serve_mixed(torch, np, report)
+    report.emit({"phase": "sharded_serve_done",
+                 "seconds": round(time.perf_counter() - t_phase, 3)})
+    return k5_keys
+
+
+def _sharded_serve_mixed(torch, np, report) -> None:
+    """The branches of the sharded serving steps that only distinct devices
+    take, on one card: a (2, 2) ("data", "model") mesh over [[cuda:0, cpu],
+    [cpu, cuda:0]] against (2, 2) over cuda:0 alone, f32: a widened reduced
+    Llama-3.2-1B (heads split: each data row's partial sums cross from the
+    CPU to the card or back) at batch 4, and a widened reduced
+    RecurrentGemma-9B (its cache split on length, its ring of 16 slots
+    wrapped) at batch 4 and at batch 1 (the combine across all four
+    coordinates, two devices).  Checks: every step's logits within
+    SERVE_MIXED_TOL of cuda:0 alone, every cache block held on both devices
+    bit-equal across them, each coordinate's cache bytes its specs'."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.sharding.policy import ShardingPolicy
+
+    wide = dict(d_model=256, num_heads=4, head_dim=64, d_ff=512, vocab_size=1024,
+                compute_dtype="float32")
+    cases = (("llama3.2-1b", dict(num_kv_heads=2), 4),
+             ("recurrentgemma-9b", dict(num_kv_heads=1, lru_width=256), 4),
+             ("recurrentgemma-9b", dict(num_kv_heads=1, lru_width=256), 1))
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    counters = _counters()
+    for arch, changes, B in cases:
+        cfg = dataclasses.replace(cfgbase.get_reduced_config(arch), **wide, **changes)
+        model = Model(cfg)
+        whole = model.init_params(torch.Generator("cpu").manual_seed(8), device="cpu")
+        tokens = torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (B, SERVE_MIXED_S)).astype(np.int32), device="cuda")
+        runs = {}
+        for name, devices in (("cuda:0", [card]), ("cuda:0+cpu", [card, cpu, cpu, card])):
+            mesh = make_mesh((2, 2), ("data", "model"), devices=devices)
+            pre, dec = _sharded_steps(model, ShardingPolicy(mesh, cfg), B, SERVE_MIXED_S,
+                                      SERVE_MIXED_MAX_SEQ)
+            params = reshard_tree(whole, pre.param_shardings)
+            run = _serve_run(torch, counters, lambda: pre(params, {"tokens": tokens}),
+                             lambda c, tok, pos: dec(params, c, tok, pos), SERVE_MIXED_S,
+                             SERVE_MIXED_STEPS)
+            by_coord = _coordinate_bytes(np, [(run["cache"], dec.cache_shardings)], mesh)
+            several, unequal = _copies_disagree(torch, [run["cache"]])
+            runs[name] = {"logits": torch.stack([run["logits"]] + run["step_logits"]),
+                          "tokens": run["tokens"],
+                          "k5_prefill": run["prefill_launches"]["K5"],
+                          "blocks_on_several_devices": several,
+                          "blocks_with_unequal_copies": unequal,
+                          "coordinates_off_their_specs": sorted(
+                              k for k, v in by_coord.items() if v[0] != v[1])}
+        one, mixed = runs["cuda:0"], runs["cuda:0+cpu"]
+        ok, err = _close(torch, mixed.pop("logits"), one.pop("logits"), SERVE_MIXED_TOL,
+                         SERVE_MIXED_TOL)
+        same_tokens = all(torch.equal(a, b) for a, b in zip(mixed.pop("tokens"),
+                                                            one.pop("tokens")))
+        report.emit({"phase": "sharded_serve_mixed", "arch": arch, "d_model": cfg.d_model,
+                     "batch": B, "prompt": SERVE_MIXED_S, "decode_steps": SERVE_MIXED_STEPS,
+                     "compute_dtype": cfg.compute_dtype, **runs,
+                     "logits_max_abs_err": err, "tol": SERVE_MIXED_TOL,
+                     "greedy_tokens_equal": same_tokens})
+        if (not ok or not same_tokens or not mixed["blocks_on_several_devices"]
+                or mixed["blocks_with_unequal_copies"] or one["coordinates_off_their_specs"]
+                or mixed["coordinates_off_their_specs"]):
+            raise AssertionError(f"sharded_serve_mixed {arch} batch {B}: {runs}, logits "
+                                 f"{err} off cuda:0 alone")
+
+
 def reshard_phase(torch, np, report, state, step) -> None:
     """Elastic re-mesh of the sharded train state from (2, 2): ``ckpt.save``
     of the placed params (whole leaves) and ``restore(shardings=)`` of them
@@ -4104,8 +4409,8 @@ def main(argv=None) -> int:
                          "stop (on a machine of several cards: the mesh over them all)")
     ap.add_argument("--sharded-only", action="store_true",
                     help="build, check K5 and K6, run the sharded_train, sharded_mixed, "
-                         "reshard and pipeline phases and stop (on a machine of four "
-                         "cards: the meshes over distinct cards)")
+                         "reshard, sharded_serve and pipeline phases and stop (on a "
+                         "machine of four cards: the meshes over distinct cards)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -4143,6 +4448,7 @@ def main(argv=None) -> int:
         reshard_phase(torch, np, report, state, step)
         del state, step
         torch.cuda.empty_cache()
+        sharded_serve_phase(torch, np, report)
         pipeline_phase(torch, np, report)
         return stop_early()
     k1_checks(torch, np, report)
@@ -4176,9 +4482,11 @@ def main(argv=None) -> int:
     reshard_phase(torch, np, report, state, step)
     del state, step
     torch.cuda.empty_cache()
+    serve_k5 = sharded_serve_phase(torch, np, report)
     pipeline_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
-    entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5)
+    entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
+                               serve_k5)
     entries += k6_timing_phase(torch, np, report, train_counts)
     for net in engines:
         run = engines[net]["run"]

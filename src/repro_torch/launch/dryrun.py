@@ -26,12 +26,12 @@ so each record here is arithmetic on the same plan, on the abstract
   output it writes once (train: params, AdamW state and batch in, params
   and state out; prefill: params and batch in, cache out; decode: params
   and cache in, the new cache slot out); collective bytes a card from the
-  formulas of the port's sharded step (:func:`collectives`).
+  formulas of the port's sharded steps: the train step's
+  (:func:`collectives`), and the tensor-parallel traffic of the serving
+  steps ``jit_prefill_step`` / ``jit_decode_step``
+  (:func:`serving_collectives`).
 
-The prefill and decode cells plan the reference's sharded serving steps
-(``jit_prefill_step`` / ``jit_decode_step``), which the port has not got:
-their collective term counts only the weight gathers of a gather-at-read
-step.  Records go to ``build/dryrun/`` (git-ignored), never under
+Records go to ``build/dryrun/`` (git-ignored), never under
 ``benchmarks/``.
 """
 from __future__ import annotations
@@ -48,7 +48,7 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.launch import inputs as inp
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import ATTN_KINDS, Model
 from repro_torch.sharding.placement import NamedSharding, axes_of
 from repro_torch.sharding.policy import ShardingPolicy, is_spec
 from repro_torch.tree import flatten_with_paths, leaves
@@ -81,17 +81,17 @@ def _counts(mesh, spec, ndim, axes) -> int:
     return n
 
 
-def collectives(policy, aparams, pspecs, ospecs, mode: str, reads: int) -> rl.CollectiveStats:
-    """Bytes a card sends in one step of the port's sharded step, ring
-    algorithms (R participants move (R - 1) / R of the data):
+def collectives(policy, aparams, pspecs, ospecs, reads: int) -> rl.CollectiveStats:
+    """Bytes a card sends in one step of the port's sharded train step,
+    ring algorithms (R participants move (R - 1) / R of the data):
 
     * ``all-gather`` (model): each read of a leaf split on ``"model"``
       assembles it whole from its R = model-size blocks; ``reads`` reads a
       step (forward, remat's recompute, each microbatch);
-    * train only, over the data axes (R = data size), per leaf of a card's
-      param block: the gradient ``reduce-scatter`` into the ZeRO-1 shards
-      (an ``all-reduce``, twice the bytes, where the moments are not split
-      on data), then the updated params' ``all-gather``."""
+    * over the data axes (R = data size), per leaf of a card's param
+      block: the gradient ``reduce-scatter`` into the ZeRO-1 shards (an
+      ``all-reduce``, twice the bytes, where the moments are not split on
+      data), then the updated params' ``all-gather``."""
     mesh = policy.mesh
     dp, tp = policy.dp_size, policy.tp_size
     by = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
@@ -102,7 +102,7 @@ def collectives(policy, aparams, pspecs, ospecs, mode: str, reads: int) -> rl.Co
         if _counts(mesh, ps, leaf.ndim, (policy.tp,)) > 1:
             by["all-gather"] += reads * (tp - 1) / tp * nbytes
             count["all-gather"] += reads
-        if mode != "train" or dp == 1:
+        if dp == 1:
             continue
         block = nbytes / _counts(mesh, ps, leaf.ndim, tuple(mesh.axis_names))
         split = (_counts(mesh, os_, leaf.ndim, policy.dp) > 1
@@ -115,6 +115,95 @@ def collectives(policy, aparams, pspecs, ospecs, mode: str, reads: int) -> rl.Co
         else:
             by["all-reduce"] += 2 * (dp - 1) / dp * block
             count["all-reduce"] += 1
+    return rl.CollectiveStats({k: v for k, v in by.items() if count[k]},
+                              {k: v for k, v in count.items() if v})
+
+
+def _split(mesh, spec, ndim, axes) -> bool:
+    return _counts(mesh, spec, ndim, axes) > 1
+
+
+def serving_collectives(policy, cfg, shape, aparams, pspecs, acache, cspecs
+                        ) -> rl.CollectiveStats:
+    """Bytes a card sends in one step of the port's sharded prefill or
+    decode step, ring algorithms (R participants move (R - 1) / R of the
+    data), over the R = model-size coordinates of a data row, whose rows
+    are ``B_row`` = B / data size when the data axes divide the batch,
+    else B:
+
+    * ``all-reduce``, 2 (R - 1) / R x ``B_row`` x S x D x the compute
+      dtype's bytes, for each attention sub-block (self, cross, encoder)
+      and each FFN whose output projection is split on ``"model"``: the
+      partial outputs summed on the row's device and the sum's next input
+      sent back out; and for the embedding split on vocab (the table's
+      dtype; a prefill from ``embeds`` looks nothing up).  S is the
+      prompt's length in a prefill (an enc-dec's decoder takes
+      ``ENCDEC_DECODER_PREFILL`` tokens, its encoder the cell's length), 1
+      in a decode step;
+    * ``all-gather``: the logits' vocab slices, (R - 1) / R x ``B_row`` x V
+      x 4; in a decode step, per attention layer whose cache is split on
+      length over R' blocks, the combine's partials, (R' - 1) / R' x
+      ``B_row`` x H x (h + 2) x 4; and the blocks computed whole (``rwkv``,
+      ``rglru``): each weight split on ``"model"`` gathered once, (R - 1) /
+      R of its bytes, and each state leaf split on ``"model"`` gathered
+      before the block and written back after it, twice (R - 1) / R of the
+      row's bytes."""
+    mesh = policy.mesh
+    tp = policy.tp_size
+    model_ax = (policy.tp,)
+    B = shape.global_batch
+    rows = B // policy.dp_size if B % policy.dp_size == 0 else B
+    decode = shape.mode == "decode"
+    S = 1 if decode else (inp.ENCDEC_DECODER_PREFILL if cfg.is_encdec else shape.seq_len)
+    cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
+    D = cfg.d_model
+    by = {"all-reduce": 0.0, "all-gather": 0.0}
+    count = {k: 0 for k in by}
+    ring = (tp - 1) / tp
+
+    def add(kind, nbytes):
+        by[kind] += nbytes
+        count[kind] += 1
+
+    def summed(spec, leaf, seq):
+        if _split(mesh, spec, leaf.ndim, model_ax):
+            add("all-reduce", 2 * ring * rows * seq * D * cbytes)
+
+    def ffn(p, ps, seq):
+        if "shared" in p and not _split(mesh, ps["wi"], p["wi"].ndim, model_ax):
+            p, ps = p["shared"], ps["shared"]
+        summed(ps["wi"], p["wi"], seq)
+
+    for kind, p, ps, c, cs in zip(cfg.blocks(), aparams["layers"], pspecs["layers"], acache,
+                                  cspecs):
+        if kind in ATTN_KINDS:
+            summed(ps["attn"]["wo"], p["attn"]["wo"], S)
+            if cfg.is_encdec:
+                summed(ps["cross"]["wo"], p["cross"]["wo"], S)
+            ffn(p["ffn"], ps["ffn"], S)
+            length = NamedSharding(mesh, cs["k"]).entries(4)[1]
+            if decode and length is not None:
+                r = int(np.prod([mesh.shape[a] for a in axes_of(length)]))
+                add("all-gather", (r - 1) / r * rows * cfg.num_heads * (cfg.head_dim + 2) * 4)
+            continue
+        if kind == "rglru":
+            ffn(p["ffn"], ps["ffn"], S)
+        key = "rec" if kind == "rglru" else "tm"
+        for (_, leaf), spec in zip(flatten_with_paths(p[key]), leaves(ps[key], is_leaf=is_spec)):
+            if _split(mesh, spec, leaf.ndim, model_ax):
+                add("all-gather", ring * leaf.numel() * leaf.element_size())
+        for name, leaf in c.items():
+            if _split(mesh, cs[name], leaf.ndim, model_ax):
+                add("all-gather", 2 * ring * leaf.numel() * leaf.element_size() * rows / B)
+    if cfg.is_encdec and not decode:
+        for p, ps in zip(aparams["enc_layers"], pspecs["enc_layers"]):
+            summed(ps["attn"]["wo"], p["attn"]["wo"], shape.seq_len)
+            ffn(p["ffn"], ps["ffn"], shape.seq_len)
+    if (decode or cfg.frontend != "vision") and _split(mesh, pspecs["embed"], 2, model_ax):
+        add("all-reduce", 2 * ring * rows * S * D * aparams["embed"].element_size())
+    table = "embed" if cfg.tie_embeddings else "unembed"
+    if _split(mesh, pspecs[table], 2, model_ax):
+        add("all-gather", ring * rows * cfg.vocab_size * 4)
     return rl.CollectiveStats({k: v for k, v in by.items() if count[k]},
                               {k: v for k, v in count.items() if v})
 
@@ -172,13 +261,15 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     held = {"params": _bytes(aparams, pspecs, mesh), "grads": zero, "opt_state": zero,
             "cache": zero}
     bspecs = policy.batch_specs(shape)
+    acache = cspecs = None
     if shape.mode == "train":
         held["grads"] = _bytes(aparams, pspecs, mesh, itemsize=4)
         held["opt_state"] = 2 * _bytes(aparams, ospecs, mesh, itemsize=4) + 4  # m, v, step
         batch = inp.train_batch_specs(cfg, shape)
     else:
         acache = inp.abstract_cache(model, shape.global_batch, shape.seq_len)
-        held["cache"] = _bytes(acache, policy.cache_specs(acache, shape.global_batch), mesh)
+        cspecs = policy.cache_specs(acache, shape.global_batch)
+        held["cache"] = _bytes(acache, cspecs, mesh)
         if shape.mode == "prefill":
             batch = inp.prefill_batch_specs(cfg, shape)
         else:  # a decode step's inputs replicate, as in the reference
@@ -195,8 +286,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         moved = 2 * (held["params"] + held["opt_state"]) + batch_bytes
     else:  # prefill writes the cache, a decode step reads it
         moved = held["params"] + held["cache"] + batch_bytes
-    reads = (2 if model.remat and shape.mode == "train" else 1) * microbatches
-    coll = collectives(policy, aparams, pspecs, ospecs, shape.mode, reads)
+    if shape.mode == "train":
+        reads = (2 if model.remat else 1) * microbatches
+        coll = collectives(policy, aparams, pspecs, ospecs, reads)
+    else:
+        coll = serving_collectives(policy, cfg, shape, aparams, pspecs, acache, cspecs)
     cost = {"flops": mflops / n, "transcendentals": 0.0, "bytes accessed": float(moved.max())}
     roof = rl.derive(cost, coll, num_devices=n, model_flops_total=mflops)
     return {

@@ -69,6 +69,14 @@ def route(cfg, p: dict, x: torch.Tensor, C: int) -> dict:
             "gate": gate * keep.to(gate.dtype)}
 
 
+def combine_weights(r: dict, C: int) -> torch.Tensor:
+    """combine (B, S, E, C) from :func:`route`'s decisions: combine[b, s, e,
+    c] = Σ_k gate · 1[expert = e] · 1[slot = c], zero where dropped."""
+    keep = r["keep"]
+    onehot_c = F.one_hot(torch.where(keep, r["pos"], 0).long(), C).float() * keep[..., None]
+    return torch.einsum("bske,bskc->bsec", r["onehot_e"] * r["gate"][..., None], onehot_c)
+
+
 def expert_mix(cfg, p: dict, x: torch.Tensor, combine: torch.Tensor) -> torch.Tensor:
     """The dispatch einsum, the experts' MLPs and the combine einsum:
     x (B, S, D) and combine (B, S, E, C) → (B, S, D) in the compute dtype."""
@@ -87,36 +95,42 @@ def expert_mix(cfg, p: dict, x: torch.Tensor, combine: torch.Tensor) -> torch.Te
     return torch.einsum("bsec,becd->bsd", combine.to(cd), out_e)
 
 
-def apply_moe(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
-              group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) → (out, aux loss).  A row longer than ``group_size`` and
-    a multiple of it is split into groups of ``group_size`` tokens, each
-    with its own capacity, as in the reference."""
-    m = cfg.moe
+def token_groups(x: torch.Tensor, group_size: int = 4096) -> torch.Tensor:
+    """x (B, S, D) with each row longer than ``group_size`` and a multiple
+    of it split into rows of ``group_size`` tokens, each routed with its
+    own capacity, as in the reference; ``x`` itself otherwise."""
     B, S, D = x.shape
     if S > group_size and S % group_size == 0:
-        n = S // group_size
-        out, aux = apply_moe(cfg, p, x.reshape(B * n, group_size, D), capacity_factor,
-                             group_size)
-        return out.reshape(B, S, D), aux
-    E = m.num_experts
-    C = capacity(cfg, S, capacity_factor)
-    cd = cdt(cfg)
-    r = route(cfg, p, x, C)
-    keep = r["keep"]
-    onehot_c = F.one_hot(torch.where(keep, r["pos"], 0).long(), C).float() * keep[..., None]
-    # combine[b,s,e,c] = Σ_k gate · 1[expert = e] · 1[slot = c]
-    combine = torch.einsum("bske,bskc->bsec", r["onehot_e"] * r["gate"][..., None],
-                           onehot_c)
-    out = expert_mix(cfg, p, x, combine)
+        return x.reshape(B * (S // group_size), group_size, D)
+    return x
 
+
+def plan(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25):
+    """(:func:`route`'s decisions, :func:`combine_weights`) for one group
+    x (B, S, D), at the capacity of S tokens."""
+    C = capacity(cfg, x.shape[1], capacity_factor)
+    r = route(cfg, p, x, C)
+    return r, combine_weights(r, C)
+
+
+def shared_gate(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The shared expert's sigmoid gate (B, S, 1) in the compute dtype."""
+    cd = cdt(cfg)
+    return torch.sigmoid((x.to(cd) @ p["shared_gate"].to(cd)).float()).to(cd)
+
+
+def apply_moe(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
+              group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) → (out, aux loss), over :func:`token_groups`."""
+    m = cfg.moe
+    xg = token_groups(x, group_size)
+    r, combine = plan(cfg, p, xg, capacity_factor)
+    out = expert_mix(cfg, p, xg, combine)
     if m.d_ff_shared:
-        shared = mlp_mod.apply_mlp(cfg, p["shared"], x)
-        sg = torch.sigmoid((x.to(cd) @ p["shared_gate"].to(cd)).float())
-        out = out + shared * sg.to(cd)
+        out = out + mlp_mod.apply_mlp(cfg, p["shared"], xg) * shared_gate(cfg, p, xg)
 
     # Switch aux loss: E · Σ_e f_e · P_e (f = token fraction, P = mean prob)
     token_frac = r["onehot_e"].sum(dim=2).mean(dim=(0, 1))  # (E,)
     prob_mean = r["probs"].mean(dim=(0, 1))  # (E,)
-    aux = E * torch.sum(token_frac * prob_mean) * m.router_aux_weight
-    return out.to(x.dtype), aux
+    aux = m.num_experts * torch.sum(token_frac * prob_mean) * m.router_aux_weight
+    return out.to(x.dtype).reshape(x.shape), aux

@@ -220,6 +220,55 @@ def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dty
     raise ValueError(kind)
 
 
+class LocalOps:
+    """The sub-block operations of the serving walk (:meth:`Model.prefill`,
+    :meth:`Model.decode_step`, :meth:`Model.encode`) on whole tensors on
+    one device.  :class:`repro_torch.sharding.tensor_parallel.RowOps` has
+    the same methods for one data row of a mesh."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def read(self, p: dict) -> dict:
+        """A node whose leaves the walk reads as they are (norms, the
+        blocks it computes itself)."""
+        return p
+
+    def lookup(self, table, tokens: torch.Tensor) -> torch.Tensor:
+        return table[tokens.long()]
+
+    def unembed(self, table, x_last: torch.Tensor) -> torch.Tensor:
+        cd = cdt(self.cfg)
+        return (x_last.to(cd) @ table.to(cd).T).float()
+
+    def attend(self, p, h, kind, positions):
+        return attention.attend_train(self.cfg, p, h, kind, positions)
+
+    def attend_prefill(self, p, h, kind, positions, state, spec):
+        a, k, v = attention.attend_prefill(self.cfg, p, h, kind, positions)
+        attention.fill_kv_cache(state, spec, k, v, positions)
+        return a, state
+
+    def attend_decode(self, p, h, kind, pos, state, spec):
+        return attention.attend_decode(self.cfg, p, h, state, kind, pos, spec)
+
+    def cross(self, p, h, memory):
+        return attention.attend_cross(self.cfg, p, h, memory)
+
+    def ffn(self, p, x):
+        return _ffn(self.cfg, p, x)
+
+    def mlp(self, p, x):
+        return mlp.apply_mlp(self.cfg, p, x)
+
+    def read_state(self, state: dict) -> dict:
+        return state
+
+    def write_state(self, state: dict, new: dict) -> dict:
+        """The layer's new state, in its state's dtypes."""
+        return {k: v.to(state[k].dtype) for k, v in new.items()}
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
@@ -274,29 +323,28 @@ class Model:
         return params
 
     # -- embedding ------------------------------------------------------------
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, ops=None) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(cdt(cfg))
+        x = (ops or LocalOps(cfg)).lookup(params["embed"], tokens).to(cdt(cfg))
         if cfg.emb_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt(cfg))
         return x
 
-    def _input(self, params, batch: dict) -> torch.Tensor:
+    def _input(self, params, batch: dict, ops=None) -> torch.Tensor:
         """The stack's input: ``batch["embeds"]`` (the vision stub's patch
         embeddings) in the compute dtype when given, else the embedding of
         ``batch["tokens"]``."""
         if "embeds" in batch:
             return batch["embeds"].to(cdt(self.cfg))
-        return self._embed(params, batch["tokens"])
+        return self._embed(params, batch["tokens"], ops)
 
     def _unembed_matrix(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
 
-    def _logits_last(self, params, x_last: torch.Tensor) -> torch.Tensor:
+    def _logits_last(self, params, x_last: torch.Tensor, ops=None) -> torch.Tensor:
         """Logits for one position per batch row, f32 (B, V)."""
         cfg = self.cfg
-        W = self._unembed_matrix(params)
-        logits = (x_last.to(cdt(cfg)) @ W.to(cdt(cfg)).T).float()
+        logits = (ops or LocalOps(cfg)).unembed(self._unembed_matrix(params), x_last)
         if cfg.logit_softcap:
             logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
         return logits
@@ -378,18 +426,25 @@ class Model:
         return _init_block_state(self.cfg, kind, batch, max_seq, cdt(self.cfg), device,
                                  kv_quant=self.kv_dtype == "int8")
 
-    def encode(self, params, src_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, src_embeds: torch.Tensor, ops=None) -> torch.Tensor:
         """The encoder (enc-dec configs): frame embeddings (B, T, D) → the
         memory (B, T, D) the decoder attends to, through the ``enc`` layers
         (K5, ``causal=False``) and the decoder's ``final_norm``, as in the
         reference (``transformer.py:417-427``)."""
         cfg = self.cfg
-        x, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
-                           src_embeds.to(cdt(cfg)))
-        return apply_norm(cfg, params["final_norm"], x)
+        ops = ops or LocalOps(cfg)
+        x = src_embeds.to(cdt(cfg))
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        for p in params["enc_layers"]:
+            r = ops.read(p)
+            x = x + ops.attend(p["attn"], apply_norm(cfg, r["norm1"], x), "enc", positions)
+            x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
+        return apply_norm(cfg, ops.read(params)["final_norm"], x)
 
     def prefill(self, params, batch: dict, max_seq: int,
-                memory: Optional[torch.Tensor] = None) -> Tuple[List[dict], torch.Tensor]:
+                memory: Optional[torch.Tensor] = None, ops=None,
+                states=None) -> Tuple[List[dict], torch.Tensor]:
         """Process a prompt (``batch["tokens"]``: (B, S), or
         ``batch["embeds"]``: (B, S, D)), build the caches and return (cache,
         last-token logits).  Caches start from the zero
@@ -397,72 +452,67 @@ class Model:
         An enc-dec config's decoder attends to ``memory`` (from
         :meth:`encode`), or to the encoding of ``batch["src_embeds"]`` when
         no memory is given; with neither, it runs without its cross
-        sub-blocks."""
+        sub-blocks.  ``ops`` and ``states`` (the empty caches to fill) are
+        the sharded step's (:class:`LocalOps`)."""
         cfg = self.cfg
+        ops = ops or LocalOps(cfg)
         if cfg.is_encdec and memory is None and "src_embeds" in batch:
-            memory = self.encode(params, batch["src_embeds"])
-        x = self._input(params, batch)
+            memory = self.encode(params, batch["src_embeds"], ops)
+        x = self._input(params, batch, ops)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        states = []
-        for kind, p in zip(cfg.blocks(), params["layers"]):
-            h = apply_norm(cfg, p["norm1"], x)
-            state = self._block_state(kind, B, max_seq, x.device)
-            if kind in ATTN_KINDS:
-                a, k, v = attention.attend_prefill(cfg, p["attn"], h, kind, positions)
-                attention.fill_kv_cache(state, attention.cache_spec(cfg, kind, max_seq),
-                                        k, v, positions)
-                x = _cross(cfg, p, x + a, memory)
-                x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
-            elif kind == "rglru":
-                a, state = griffin.griffin_block(cfg, p["rec"], h, state)
-                x = x + a
-                x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
-            else:
-                a, s_new, tm_x = rwkv6.time_mix(cfg, p["tm"], h, None, None,
-                                                chunk=self.rwkv_chunk)
-                x = x + a
-                c, cm_x = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x))
-                x = x + c
-                state = {"s": s_new, "tm_x": tm_x.to(state["tm_x"].dtype),
-                         "cm_x": cm_x.to(state["cm_x"].dtype)}
-            states.append(state)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return states, self._logits_last(params, x[:, -1])
+        if states is None:
+            states = self.init_cache(B, max_seq, x.device)
+        return self._walk(ops, params, x, states, positions, max_seq, memory, decode=False)
 
     def decode_step(self, params, states: List[dict], tokens: torch.Tensor,
-                    pos, max_seq: int,
-                    memory: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, List[dict]]:
+                    pos, max_seq: int, memory: Optional[torch.Tensor] = None,
+                    ops=None) -> Tuple[torch.Tensor, List[dict]]:
         """One token for the whole batch.  tokens: (B, 1); pos: an int or a
         (B,) tensor of per-lane absolute positions; ``memory``: an enc-dec
         config's encoder output, whose cross K/V each step projects anew, as
         the reference's does.  KV caches are updated in place.  Returns
         (logits (B, V) f32, states)."""
+        ops = ops or LocalOps(self.cfg)
+        x = self._embed(params, tokens, ops)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(tokens.shape[0])
+        states, logits = self._walk(ops, params, x, states, pos, max_seq, memory, decode=True)
+        return logits, states
+
+    def _walk(self, ops, params, x: torch.Tensor, states: List[dict], positions,
+              max_seq: int, memory, decode: bool) -> Tuple[List[dict], torch.Tensor]:
+        """The decoder stack over ``x`` with a cache, the one layer walk of
+        the prefill (``positions`` (B, S), empty ``states`` filled) and of a
+        decode step (``positions`` the (B,) slots' positions, ``states``
+        read and updated), each sub-block through ``ops``.  Returns (the
+        states, the last position's logits)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        B = tokens.shape[0]
-        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(B)
-        new_states = []
+        out = []
         for kind, p, state in zip(cfg.blocks(), params["layers"], states):
-            h = apply_norm(cfg, p["norm1"], x)
+            r = ops.read(p)
+            h = apply_norm(cfg, r["norm1"], x)
             if kind in ATTN_KINDS:
                 spec = attention.cache_spec(cfg, kind, max_seq)
-                a, state = attention.attend_decode(cfg, p["attn"], h, state, kind, pos, spec)
-                x = _cross(cfg, p, x + a, memory)
-                x = x + _ffn(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
-            elif kind == "rglru":
-                a, state = griffin.griffin_block(cfg, p["rec"], h, state)
+                attend = ops.attend_decode if decode else ops.attend_prefill
+                a, state = attend(p["attn"], h, kind, positions, state, spec)
                 x = x + a
-                x = x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
+                if memory is not None and "cross" in p:
+                    x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
+                x = x + ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))
+            elif kind == "rglru":
+                a, new = griffin.griffin_block(cfg, r["rec"], h, ops.read_state(state))
+                state = ops.write_state(state, new)
+                x = x + a
+                x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
             else:
-                a, s_new, tm_x = rwkv6.time_mix(cfg, p["tm"], h, state["s"], state["tm_x"],
+                st = ops.read_state(state) if decode else dict.fromkeys(state)
+                a, s_new, tm_x = rwkv6.time_mix(cfg, r["tm"], h, st["s"], st["tm_x"],
                                                 chunk=self.rwkv_chunk)
                 x = x + a
-                c, cm_x = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x),
-                                            state["cm_x"])
+                c, cm_x = rwkv6.channel_mix(cfg, r["tm"], apply_norm(cfg, r["norm2"], x),
+                                            st["cm_x"])
                 x = x + c
-                state = {"s": s_new, "tm_x": tm_x.to(state["tm_x"].dtype),
-                         "cm_x": cm_x.to(state["cm_x"].dtype)}
-            new_states.append(state)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return self._logits_last(params, x[:, 0]), new_states
+                state = ops.write_state(state, {"s": s_new, "tm_x": tm_x, "cm_x": cm_x})
+            out.append(state)
+        x = apply_norm(cfg, ops.read(params)["final_norm"], x)
+        return out, self._logits_last(params, x[:, -1], ops)

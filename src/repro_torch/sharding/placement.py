@@ -19,7 +19,13 @@ kept by hand:
   share a device and a block share one tensor.  :func:`gather`
   reassembles the whole tensor on a device, differentiably, so autograd
   hands each block its own gradient on its own device.  Neither changes a
-  bit.
+  bit;
+* :meth:`Placed.shard` and :meth:`Placed.region_at` read one coordinate's
+  block and where it lies, without a copy; :func:`write` and
+  :func:`write_slots` write a region in place into every tensor that holds
+  part of it (every device that holds it), each from the one value given,
+  so the copies of a block stay bit-equal.  A :class:`Reader` over a tree
+  of placed leaves hands out each leaf whole where it is read.
 """
 from __future__ import annotations
 
@@ -167,9 +173,16 @@ class Placed:
         return len(self.shape)
 
     def shard(self, coord) -> Optional[torch.Tensor]:
-        """The block that mesh coordinate ``coord`` holds, or None."""
+        """The block that mesh coordinate ``coord`` holds (the stored
+        tensor itself, no copy), or None."""
         b = self.sharding.block(coord, self.ndim)
         return None if b is None else self.store[(b, self.sharding.mesh.device(coord))]
+
+    def region_at(self, coord) -> Optional[Region]:
+        """The region of the whole tensor that coordinate ``coord``'s block
+        holds, or None."""
+        b = self.sharding.block(coord, self.ndim)
+        return None if b is None else self.sharding.region(b, self.shape)
 
     def copies(self) -> Dict[Tuple[int, ...], List[Tuple[tuple, torch.Tensor]]]:
         """block -> [(coordinate, tensor)] over the coordinates that hold it,
@@ -216,11 +229,67 @@ def _build(sharding: NamedSharding, shape, dtype, fill) -> Placed:
     return Placed(sharding, shape, dtype, store)
 
 
+def full(sharding: NamedSharding, shape, dtype, value) -> Placed:
+    """A placed tensor filled with ``value``, each block made on its
+    device."""
+    return _build(sharding, tuple(shape), dtype,
+                  lambda region, dev: torch.full(tuple(b - a for a, b in region), value,
+                                                 dtype=dtype, device=dev))
+
+
 def zeros(sharding: NamedSharding, shape, dtype) -> Placed:
     """A placed tensor of zeros, each block made on its device."""
-    return _build(sharding, tuple(shape), dtype,
-                  lambda region, dev: torch.zeros(tuple(b - a for a, b in region),
-                                                  dtype=dtype, device=dev))
+    return full(sharding, shape, dtype, 0)
+
+
+def intersect(a: Region, b: Region) -> Optional[Region]:
+    """The region two regions share, or None."""
+    out = tuple((max(a0, b0), min(a1, b1)) for (a0, a1), (b0, b1) in zip(a, b))
+    return None if any(lo >= hi for lo, hi in out) else out
+
+
+def write(x: Placed, region: Region, value: torch.Tensor) -> None:
+    """``x[region] = value`` in place: every stored tensor whose block
+    crosses ``region`` takes its part of ``value`` (copied to its device),
+    so every device that holds a part of the region gets it, and the copies
+    of a block stay bit-equal.  ``region`` may leave out trailing
+    dimensions (whole)."""
+    region = tuple(region) + tuple((0, d) for d in x.shape[len(region):])
+    for (b, _), t in x.store.items():
+        outer = x.sharding.region(b, x.shape)
+        inter = intersect(outer, region)
+        if inter is not None:
+            t[slices_within(inter, outer)].copy_(value[slices_within(inter, region)])
+
+
+def write_slots(x: Placed, rows: Tuple[int, int], slots: torch.Tensor,
+                value: torch.Tensor, rest: Region = ()) -> None:
+    """One slot a row, in place, in every tensor that holds it: ``x[r,
+    slots[r - rows[0]], rest] = value[r - rows[0]]`` for each row ``r`` in
+    ``rows``, ``x`` laid out (rows, slots, ...).  ``slots`` is a tensor, so
+    nothing waits for the device: a block whose slot range does not hold a
+    row's slot keeps that row as it was (the slot is clamped into the
+    block's range and the old value written back)."""
+    rest = tuple(rest) + tuple((0, d) for d in x.shape[2 + len(rest):])
+    for (b, dev), t in x.store.items():
+        outer = x.sharding.region(b, x.shape)
+        inter = intersect(outer, ((rows[0], rows[1]), outer[1]) + rest)
+        if inter is None:
+            continue
+        (r0, r1), (l0, l1) = inter[0], outer[1]
+        sl = slots[r0 - rows[0]:r1 - rows[0]].to(dev).long()
+        val = value[(slice(r0 - rows[0], r1 - rows[0]),)
+                    + slices_within(inter[2:], rest)].to(dev)
+        local_rows = torch.arange(r0 - outer[0][0], r1 - outer[0][0], device=dev)
+        tail = slices_within(inter[2:], outer[2:])
+        if (l0, l1) == (0, x.shape[1]):  # the block holds every slot
+            t[(local_rows, sl) + tail] = val
+            continue
+        inside = (sl >= l0) & (sl < l1)
+        local = torch.clamp(sl - l0, 0, l1 - l0 - 1)
+        old = t[(local_rows, local) + tail]
+        t[(local_rows, local) + tail] = torch.where(
+            inside.view((-1,) + (1,) * (val.ndim - 1)), val, old)
 
 
 def read_region(x, region: Region, device) -> torch.Tensor:
@@ -254,6 +323,22 @@ def place(x, sharding: NamedSharding) -> Placed:
                   lambda region, dev: read_region(x, region, dev))
 
 
+def as_placed(x, sharding: NamedSharding, donate: bool = True) -> Placed:
+    """A sharded step's input leaf laid out by ``sharding``: a whole tensor
+    is placed; a :class:`Placed` by ``sharding`` comes as it is
+    (``donate``: the step updates it in place) or as a copy; one placed by
+    another sharding raises."""
+    if not isinstance(x, Placed):
+        return place(x, sharding)
+    if x.sharding != sharding:
+        raise ValueError(f"a leaf placed by {x.sharding.spec} where the step expects "
+                         f"{sharding.spec}; reshard it first "
+                         f"(repro_torch.ft.resilience.reshard_tree)")
+    if donate:
+        return x
+    return Placed(x.sharding, x.shape, x.dtype, {k: t.clone() for k, t in x.store.items()})
+
+
 def sources(x: Placed, device, among: Iterable[tuple] = ()) -> Dict[Tuple[int, ...],
                                                                       torch.Tensor]:
     """block -> the tensor that a read on ``device`` takes it from: a copy on
@@ -283,6 +368,27 @@ def assemble(blocks: Dict[Tuple[int, ...], torch.Tensor], counts: Sequence[int],
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=len(prefix))
 
     return build(())
+
+
+class Reader(dict):
+    """A dict node of a tree of placed leaves whose leaves come whole where
+    they are read (``read(leaf)``; dict nodes under it are Readers too,
+    lists lists of them): a layer's weights are whole only while it runs."""
+
+    def __init__(self, node: dict, read):
+        super().__init__(node)
+        self._read = read
+
+    def __getitem__(self, key):
+        v = dict.__getitem__(self, key)
+        if isinstance(v, dict):
+            return Reader(v, self._read)
+        if isinstance(v, list):
+            return [Reader(x, self._read) if isinstance(x, dict) else self._read(x) for x in v]
+        return self._read(v)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
 
 
 def gather(x, device, among: Iterable[tuple] = ()) -> torch.Tensor:

@@ -1,0 +1,580 @@
+"""Tensor-parallel sub-blocks on a ("data", "model") mesh.
+
+The port's counterpart of what GSPMD does for the reference's sharded
+serving steps (``repro/serve/step.py:165-220``): each layer's sub-block
+runs on every model coordinate of a data row from that coordinate's own
+blocks (:meth:`repro_torch.sharding.placement.Placed.shard`, no copy), each
+under ``device.current`` of its device, and the partial outputs come back
+to the row's device (the device of its first model coordinate).  The
+model's own layer walk (``Model.prefill`` / ``decode_step`` / ``encode``)
+calls them through :class:`RowOps`, one data row at a time.  The splits
+are ``ShardingPolicy.param_spec``'s:
+
+* **attention** (``attn``, ``swa``, ``local``, ``enc``, a decoder's
+  ``cross``): ``wq`` / ``bq`` split on heads give each coordinate its q
+  heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` its KV heads (or all of them
+  where ``"model"`` does not divide the KV heads: then each coordinate
+  projects every KV head and takes the ones its q heads read, sliced or
+  repeated so that the group is uniform), ``wo`` split on its head input.
+  A coordinate applies RoPE / M-RoPE to its heads and runs K5 over them
+  (prefill, the encoder, cross-attention over a memory) or the plain
+  ``_sdpa_ref`` (decode), and its ``wo`` block gives a partial output;
+* **the dense MLP and the MoE FFN**: ``wi`` / ``wg`` split on ``d_ff``,
+  ``wo`` on its ``d_ff`` input (each expert's, and the shared expert's).
+  The router and ``shared_gate`` are replicated and run once on the row's
+  device, so every coordinate takes the same capacity, slots and drops;
+  ``combine`` and the shared expert's sigmoid gate are linear in the
+  expert outputs, so the output is the sum of the partials;
+* **the embedding and the unembedding** split on vocab: a token's row comes
+  from the one coordinate whose range holds it, the others add zeros (the
+  sum is bit-equal), and the logits are the concatenation of each
+  coordinate's vocab slice;
+* **norms and every other 1-D leaf** are replicated and read on the row's
+  device;
+* **``rwkv`` and ``rglru`` blocks run whole** on the row's device
+  (:func:`whole`: weights gathered at read, their state gathered before the
+  block and written back to its placement after it; their tensor-parallel
+  compute is ``ROADMAP.md`` item 6f).
+
+**The KV cache on its shards** (``ShardingPolicy.cache_specs``,
+:func:`cache_layout`): split on heads, each coordinate writes and reads
+only its own block; split on length (over ``"model"``, or ``("data",
+"model")`` at batch 1), the prefill writes each slot range into the block
+that owns it, a decode step writes its slot into its owner's block only
+(:func:`repro_torch.sharding.placement.write_slots`), and each block
+gives the partial softmax ``(o, m, l)`` of every q head over its slots
+(:func:`partial_softmax`), combined by log-sum-exp in slot order
+(:func:`combine_partials`, the flash-decoding combine GSPMD inserts for
+the reference; plain PyTorch, as the reference has no kernel for it).  A
+cache split on neither is read whole from each coordinate's own copy.
+
+**Sums.**  A coordinate's partial output is in the compute dtype (at bf16
+its matmul has rounded it once); the partials are summed in f32 in
+coordinate order on the row's device and cast to the compute dtype once,
+so at one model coordinate the sum is the unsharded path's bits.  A
+sub-block whose output projection is not split on its input (its heads or
+``d_ff`` do not divide ``"model"``) is computed once, on the row's device,
+and taken once.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import current
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.models import attention, mlp, moe
+from repro_torch.models.common import cdt
+from repro_torch.sharding import placement as pl
+
+MODEL = "model"
+
+
+# -- data rows ------------------------------------------------------------------
+
+
+def data_rows(mesh, dp_axes: Sequence[str]) -> List[list]:
+    """Each data coordinate's mesh coordinates (row-major, so in model
+    order), data coordinates in the order the data axes number them."""
+    dp = tuple(mesh.axis_names.index(a) for a in dp_axes if a in mesh.axis_names)
+    sizes = [mesh.sizes[i] for i in dp]
+    rows: Dict[int, list] = {}
+    for c in mesh.coords():
+        rows.setdefault(int(np.ravel_multi_index([c[i] for i in dp], sizes))
+                        if dp else 0, []).append(tuple(c))
+    return [rows[j] for j in sorted(rows)]
+
+
+def splits_rows(batch_specs: Optional[dict], dp_axes: Sequence[str]) -> bool:
+    """Whether ``batch_specs`` split the batch's rows over the data axes
+    (else the batch runs whole on the first data row); raises if they
+    disagree on the first axis."""
+    from repro_torch.sharding.policy import is_spec
+
+    specs = {k: v for k, v in (batch_specs or {}).items() if is_spec(v)}
+    firsts = {tuple(pl.axes_of(s[0])) if len(s) else () for s in specs.values()}
+    if len(firsts) > 1:
+        raise ValueError(f"batch specs {specs} disagree on the batch axis")
+    return bool(specs) and firsts == {tuple(dp_axes)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Row:
+    """One data row at work: its mesh coordinates in model order, their
+    devices, and the batch rows ``[rows[0], rows[1])`` it computes."""
+
+    coords: Tuple[tuple, ...]
+    devices: Tuple[torch.device, ...]
+    rows: Tuple[int, int]
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+
+def rows_at_work(mesh, coords_by_row: List[list], batch: int, split: bool) -> List[Row]:
+    """The rows that compute a batch of ``batch``: every data row, each on
+    its contiguous equal slice, when ``split``; else the first, on all."""
+    n = len(coords_by_row) if split else 1
+    if batch % n:
+        raise ValueError(f"a batch of {batch} does not split over {n} data rows")
+    per = batch // n
+    return [Row(tuple(cs), tuple(mesh.device(c) for c in cs), (j * per, (j + 1) * per))
+            for j, cs in enumerate(coords_by_row[:n])]
+
+
+# -- reading blocks ---------------------------------------------------------------
+
+
+def split_dim(x, axis: str = MODEL) -> Optional[int]:
+    """The dimension of a placed leaf split over ``axis``, or None."""
+    if not isinstance(x, pl.Placed):
+        return None
+    for i, e in enumerate(x.sharding.entries(x.ndim)):
+        if axis in pl.axes_of(e):
+            return i
+    return None
+
+
+def whole(x, row: Row) -> torch.Tensor:
+    """``x`` whole on the row's device: the row's first coordinate's block
+    when it is whole (no copy), else gathered from the blocks (the row's
+    copies first).  A plain tensor is moved there."""
+    if not isinstance(x, pl.Placed):
+        return x.to(row.device)
+    t = x.shard(row.coords[0])
+    if t is not None and t.shape == x.shape:
+        return t
+    return pl.gather(x, row.device, row.coords)
+
+
+def reader(tree, row: Row) -> pl.Reader:
+    """A view of a dict of placed leaves that reads each whole on the row's
+    device (:func:`whole`)."""
+    return pl.Reader(tree, lambda v: whole(v, row) if isinstance(v, pl.Placed) else v)
+
+
+def _local(p: dict, c) -> dict:
+    """Coordinate ``c``'s blocks of a sub-block's leaves."""
+    return {k: v.shard(c) for k, v in p.items() if isinstance(v, pl.Placed)}
+
+
+def _workers(row: Row, split: bool):
+    """(coordinate, device) of each coordinate that computes a sub-block:
+    every one of the row when its output projection is split, else the
+    first alone."""
+    n = len(row.coords) if split else 1
+    return list(zip(row.coords[:n], row.devices[:n]))
+
+
+def sum_partials(parts: Sequence[torch.Tensor], device, dtype) -> torch.Tensor:
+    """Σ parts in f32, in order, on ``device``, cast to ``dtype`` once."""
+    acc = None
+    for t in parts:
+        t = t.to(device).float()
+        acc = t if acc is None else acc + t
+    return acc.to(dtype)
+
+
+# -- embedding / unembedding ------------------------------------------------------
+
+
+def lookup(table, tokens: torch.Tensor, row: Row) -> torch.Tensor:
+    """``table[tokens]`` (tokens on the row's device) with the table split
+    on vocab: each coordinate looks up the tokens in its range and zeros
+    elsewhere; the partials sum to the rows bit for bit."""
+    if split_dim(table) is None:
+        return whole(table, row)[tokens.long()]
+    parts = []
+    for c, dev in zip(row.coords, row.devices):
+        t = table.shard(c)
+        v0, v1 = table.region_at(c)[0]
+        with current(dev):
+            tok = tokens.to(dev).long()
+            inside = (tok >= v0) & (tok < v1)
+            got = t[torch.clamp(tok - v0, 0, v1 - v0 - 1)]
+            parts.append(torch.where(inside[..., None], got, torch.zeros_like(got)))
+    return sum_partials(parts, row.device, table.dtype)
+
+
+def unembed(cfg, table, x_last: torch.Tensor, row: Row) -> torch.Tensor:
+    """``x_last @ table.T`` in the compute dtype, f32 (B, V) on the row's
+    device: each coordinate's vocab slice from its own block, concatenated
+    in order."""
+    cd = cdt(cfg)
+    if split_dim(table) is None:
+        return (x_last.to(cd) @ whole(table, row).to(cd).T).float()
+    parts = []
+    for c, dev in zip(row.coords, row.devices):
+        with current(dev):
+            parts.append((x_last.to(dev).to(cd) @ table.shard(c).to(cd).T).float())
+    return torch.cat([t.to(row.device) for t in parts], dim=-1)
+
+
+# -- attention ----------------------------------------------------------------------
+
+
+def kv_pick(q_heads: Tuple[int, int], group: int):
+    """The KV heads that q heads ``[h0, h1)`` read under GQA ``group``, as
+    an index into all KV heads that gives one uniform group: a slice when
+    the range covers whole groups or lies in one, else each q head's KV
+    head repeated (group 1)."""
+    h0, h1 = q_heads
+    n = h1 - h0
+    if n % group == 0:
+        return slice(h0 // group, h1 // group)
+    if group % n == 0:
+        return slice(h0 // group, h0 // group + 1)
+    return torch.arange(h0, h1) // group
+
+
+def _take(x: torch.Tensor, pick, dim: int = 2) -> torch.Tensor:
+    if isinstance(pick, slice):
+        return x[(slice(None),) * dim + (pick,)]
+    return x.index_select(dim, pick.to(x.device))
+
+
+def _heads(p: dict, c, key: str) -> Tuple[int, int]:
+    """The head range of coordinate ``c``'s block of ``wq`` / ``wk``."""
+    return p[key].region_at(c)[1]
+
+
+def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
+                      row: Row, memory: Optional[torch.Tensor] = None):
+    """``attention.attend_prefill`` (or ``attend_cross`` with ``memory``)
+    split on heads: each coordinate projects its q and KV heads, applies
+    RoPE (not to a memory), runs K5 on them and its ``wo`` block; one
+    query row over a memory (a decode step's cross-attention) runs
+    ``_sdpa_ref``.  Returns (the summed output on the row's device, [(KV
+    head range, k, v)] covering every KV head once, for the cache)."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    q_split = split_dim(p["wq"]) is not None
+    kv_split = split_dim(p["wk"]) is not None
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    parts, kv = [], []
+    for i, (c, dev) in enumerate(_workers(row, q_split)):
+        lp = _local(p, c)
+        with current(dev):
+            xq = x.to(dev)
+            q, k, v = attention._project_qkv(cfg, lp, xq, xq if memory is None
+                                             else memory.to(dev))
+            if memory is None:
+                pos = positions.to(dev)
+                q = attention._rope(cfg, q, pos, kind)
+                k = attention._rope(cfg, k, pos, kind)
+            kq, vq = k, v
+            if q_split and not kv_split:
+                pick = kv_pick(_heads(p, c, "wq"), group)
+                kq, vq = _take(k, pick), _take(v, pick)
+            if memory is None:
+                out = flash_ops.flash_attention(q, kq, vq, causal=kind != "enc",
+                                                window=attention._window(cfg, kind),
+                                                scale=scale, softcap=cfg.attn_softcap)
+            elif x.shape[1] > 1:
+                out = flash_ops.flash_attention(q, kq, vq, causal=False, window=0, scale=scale)
+            else:
+                out = attention._sdpa_ref(q, kq, vq, None, scale)
+            parts.append(attention._out_proj(cfg, lp, out))
+        if kv_split or i == 0:
+            kv.append((_heads(p, c, "wk"), k, v))
+    return sum_partials(parts, row.device, cdt(cfg)), kv
+
+
+def cache_layout(k: pl.Placed) -> str:
+    """How a KV cache leaf ``(B, L, K, h)`` is split: ``"heads"`` (K on
+    "model"), ``"length"`` (L split) or ``"whole"`` (neither)."""
+    entries = k.sharding.entries(k.ndim)
+    if MODEL in pl.axes_of(entries[2]):
+        return "heads"
+    return "length" if entries[1] is not None else "whole"
+
+
+def _quantized(k: torch.Tensor, v: torch.Tensor, state: dict):
+    """[(leaf, value)] of K and V for the cache: int8 values and their
+    scales in an int8 cache, else in the cache's dtype."""
+    if "k_scale" in state:
+        (kq, ks), (vq, vs) = attention._quantize_heads(k), attention._quantize_heads(v)
+        return [("k", kq), ("k_scale", ks), ("v", vq), ("v_scale", vs)]
+    return [("k", k.to(state["k"].dtype)), ("v", v.to(state["v"].dtype))]
+
+
+def fill_cache(state: dict, spec: attention.KVCacheSpec, kv, S: int, row: Row) -> None:
+    """``attention.fill_kv_cache`` into a placed layer cache: each KV head
+    range's slots into the blocks that hold them (every holder), the
+    positions likewise.  A ring keeps the last ``length`` positions at
+    their slots (``pos % length``: a rotation of them)."""
+    L = spec.length
+    if spec.ring and S >= L:
+        shift = (S - L) % L
+
+        def slots(t):
+            return torch.roll(t[:, S - L:], shift, dims=1)
+        n, first = L, S - L
+    else:
+        def slots(t):
+            return t
+        n, first = S, 0
+    rows = row.rows
+    for heads, k, v in kv:
+        for name, val in _quantized(slots(k), slots(v), state):
+            pl.write(state[name], (rows, (0, n), heads), val)
+    pos = torch.arange(first, S, dtype=torch.int32, device=row.device)
+    if first:
+        pos = torch.roll(pos, shift)
+    pl.write(state["pos"], (rows, (0, n)), pos[None].expand(rows[1] - rows[0], n))
+
+
+def _valid(cfg, kind: str, cpos: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The decode mask of ``attention.attend_decode``: filled, causal and
+    (windows) inside the window."""
+    valid = (cpos >= 0) & (cpos <= pos[:, None])
+    if kind in ("swa", "local") and cfg.window:
+        valid &= cpos > pos[:, None] - cfg.window
+    return valid
+
+
+def _dequant(state: dict, blocks: dict, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block's K and V in ``dtype`` (an int8 cache dequantized)."""
+    k, v = blocks["k"], blocks["v"]
+    if "k_scale" in state:
+        k = k.to(dtype) * blocks["k_scale"][..., None].to(dtype)
+        v = v.to(dtype) * blocks["v_scale"][..., None].to(dtype)
+    return k, v
+
+
+def partial_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                    scale: float, softcap: float = 0.0):
+    """One length block's share of decode attention: q (B, 1, H, h) over
+    the block's k/v (B, T, K, h) where ``valid`` (B, T): ``(o, m, l)`` with
+    ``o`` (B, 1, H, h) = Σ exp(s - m) v, ``m`` (B, 1, H) the largest valid
+    score and ``l`` the sum of exp(s - m), all f32.  A block with no valid
+    slot gives ``l = 0`` and ``m = -inf``."""
+    B, S, H, h = q.shape
+    K = k.shape[2]
+    G = H // K
+    s = torch.einsum("bskgh,btkh->bkgst", q.reshape(B, S, K, G, h), k).float() * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(valid[:, None, None, None, :], s, -torch.inf)
+    m = s.amax(dim=-1)  # (B, K, G, S)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float()).reshape(B, S, H, h)
+
+    def by_head(t):  # (B, K, G, S) -> (B, S, H)
+        return t.permute(0, 3, 1, 2).reshape(B, S, H)
+
+    return o, by_head(m), by_head(p.sum(dim=-1))
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The flash-decoding combine: [(o, m, l)] of the length blocks, in
+    slot order, → Σ exp(m_b - m) o_b / Σ exp(m_b - m) l_b, m the largest
+    m_b; a block with ``m = -inf`` weighs 0."""
+    m = parts[0][1]
+    for _, mb, _ in parts[1:]:
+        m = torch.maximum(m, mb)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    o = l = None
+    for ob, mb, lb in parts:
+        w = torch.exp(mb - m)  # exp(-inf) = 0 for an empty block
+        o = ob * w[..., None] if o is None else o + ob * w[..., None]
+        l = lb * w if l is None else l + lb * w
+    return o / l[..., None]
+
+
+def attention_decode(cfg, p: dict, x: torch.Tensor, state: dict, kind: str,
+                     pos: torch.Tensor, spec: attention.KVCacheSpec, row: Row) -> torch.Tensor:
+    """``attention.attend_decode`` on a placed layer cache: each coordinate
+    projects its heads of the new token and writes its KV heads' slot
+    (only into the blocks that hold it); then a heads-split cache is read
+    block by block, a length-split one through :func:`partial_softmax` on
+    each block and :func:`combine_partials`, and a whole one from each
+    coordinate's own copy.  Returns the summed output on the row's
+    device."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    q_split = split_dim(p["wq"]) is not None
+    kv_split = split_dim(p["wk"]) is not None
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    cd = cdt(cfg)
+    positions = pos[:, None]
+    slot = (pos % spec.length if spec.ring else pos).long()
+    rows = row.rows
+    work = []  # (coordinate, device, local params, q)
+    for i, (c, dev) in enumerate(_workers(row, q_split)):
+        lp = _local(p, c)
+        with current(dev):
+            xq = x.to(dev)
+            q, k, v = attention._project_qkv(cfg, lp, xq, xq)
+            q = attention._rope(cfg, q, positions.to(dev), kind)
+            k = attention._rope(cfg, k, positions.to(dev), kind)
+            if kv_split or i == 0:
+                heads = _heads(p, c, "wk")
+                for name, val in _quantized(k[:, 0], v[:, 0], state):
+                    pl.write_slots(state[name], rows, slot, val, (heads,))
+        work.append((c, dev, lp, q))
+    pl.write_slots(state["pos"], rows, slot, pos.to(torch.int32))
+
+    layout = cache_layout(state["k"])
+    parts = []
+    if layout == "length":
+        q_all = torch.cat([q.to(row.device) for *_, q in work], dim=2)
+        o = length_attend(cfg, state, q_all, pos, kind, row, scale).to(q_all.dtype)
+        for c, dev, lp, q in work:
+            h0, h1 = _heads(p, c, "wq")
+            with current(dev):
+                parts.append(attention._out_proj(cfg, lp, o[:, :, h0:h1].to(dev)))
+        return sum_partials(parts, row.device, cd)
+    L = state["k"].shape[1]
+    for c, dev, lp, q in work:
+        with current(dev):
+            blocks = {name: leaf.shard(c) for name, leaf in state.items() if name != "pos"}
+            if state["k"].region_at(c)[0] != rows:
+                raise ValueError(f"cache block at {c} holds rows {state['k'].region_at(c)[0]}, "
+                                 f"the row computes {rows}")
+            ck, cv = _dequant(state, blocks, q.dtype)
+            if q_split and not kv_split:
+                pick = kv_pick(_heads(p, c, "wq"), group)
+                ck, cv = _take(ck, pick), _take(cv, pick)
+            cpos = pl.read_region(state["pos"], (rows, (0, L)), dev)
+            mask = _valid(cfg, kind, cpos, pos.to(dev))[:, None, None, :]
+            out = attention._sdpa_ref(q, ck, cv, mask, scale, cfg.attn_softcap)
+            parts.append(attention._out_proj(cfg, lp, out))
+    return sum_partials(parts, row.device, cd)
+
+
+def length_attend(cfg, state: dict, q: torch.Tensor, pos: torch.Tensor, kind: str,
+                  row: Row, scale: float) -> torch.Tensor:
+    """Decode attention of every q head (``q`` (B, 1, H, h) on the row's
+    device) over a cache split on length: the partial softmax of each
+    block that holds the row's rows, on that block's device (a copy on the
+    row's coordinates first), combined on the row's device in slot order.
+    Returns f32 (B, 1, H, h)."""
+    k = state["k"]
+    rows = row.rows
+    srcs = {name: pl.sources(leaf, row.device, row.coords)
+            for name, leaf in state.items() if name != "pos"}
+    partials = []
+    for b in sorted(srcs["k"]):
+        region = k.sharding.region(b, k.shape)
+        if pl.intersect(region[:1], (rows,)) is None:
+            continue
+        if region[0] != rows:
+            raise ValueError(f"cache block {b} holds rows {region[0]}, the row computes {rows}")
+        blocks = {name: s[b[:state[name].ndim]] for name, s in srcs.items()}
+        dev = blocks["k"].device
+        with current(dev):
+            ck, cv = _dequant(state, blocks, q.dtype)
+            cpos = pl.read_region(state["pos"], (rows, region[1]), dev)
+            valid = _valid(cfg, kind, cpos, pos.to(dev))
+            part = partial_softmax(q.to(dev), ck, cv, valid, scale, cfg.attn_softcap)
+        partials.append(tuple(t.to(row.device) for t in part))
+    return combine_partials(partials)
+
+
+# -- FFN -------------------------------------------------------------------------------
+
+
+def dense_mlp(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
+    """``mlp.apply_mlp`` split on ``d_ff``: each coordinate's ``wi`` /
+    ``wg`` columns and ``wo`` rows give a partial output."""
+    parts = []
+    for c, dev in _workers(row, split_dim(p["wi"]) is not None):
+        with current(dev):
+            parts.append(mlp.apply_mlp(cfg, _local(p, c), x.to(dev)))
+    return sum_partials(parts, row.device, cdt(cfg))
+
+
+def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
+    """``moe.apply_moe``'s output (serving drops the aux loss) with the
+    experts' and the shared expert's ``d_ff`` split: routing, capacity and
+    the shared gate once on the row's device, then each coordinate's
+    expert and shared-expert partials."""
+    xg = moe.token_groups(x)
+    _, combine = moe.plan(cfg, {"router": whole(p["router"], row)}, xg)
+    experts = {k: p[k] for k in ("wi", "wg", "wo") if k in p}
+    parts = []
+    for c, dev in _workers(row, split_dim(p["wi"]) is not None):
+        with current(dev):
+            parts.append(moe.expert_mix(cfg, _local(experts, c), xg.to(dev), combine.to(dev)))
+    if cfg.moe.d_ff_shared:
+        sg = moe.shared_gate(cfg, {"shared_gate": whole(p["shared_gate"], row)}, xg)
+        for c, dev in _workers(row, split_dim(p["shared"]["wi"]) is not None):
+            with current(dev):
+                parts.append(mlp.apply_mlp(cfg, _local(p["shared"], c), xg.to(dev))
+                             * sg.to(dev))
+    return sum_partials(parts, row.device, cdt(cfg)).to(x.dtype).reshape(x.shape)
+
+
+def ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
+    """The FFN after attention: the MoE layer or the dense MLP."""
+    return moe_ffn(cfg, p, x, row) if "router" in p else dense_mlp(cfg, p, x, row)
+
+
+# -- blocks computed whole -----------------------------------------------------------------
+
+
+def read_state(state: dict, row: Row) -> dict:
+    """A recurrent layer's state for the row's rows, whole on its device."""
+    return {k: pl.read_region(v, (row.rows,) + tuple((0, d) for d in v.shape[1:]), row.device)
+            for k, v in state.items()}
+
+
+def write_state(state: dict, new: dict, row: Row) -> None:
+    """The row's rows of a recurrent layer's new state back into its
+    placement (every holder)."""
+    for k, v in new.items():
+        pl.write(state[k], (row.rows,), v.to(state[k].dtype))
+
+
+# -- the walk's operations on one data row ---------------------------------------------
+
+
+class RowOps:
+    """The sub-block operations of :class:`repro_torch.models.transformer.
+    LocalOps` on one data row of a mesh, so that ``Model.prefill`` /
+    ``decode_step`` / ``encode`` walk a placed model: attention and FFNs
+    split over the row's model coordinates, the KV cache on its shards,
+    norms and the blocks computed whole read whole on the row's device,
+    their state read from and written back to its placement."""
+
+    def __init__(self, cfg, row: Row):
+        self.cfg, self.row = cfg, row
+
+    def read(self, p: dict) -> pl.Reader:
+        return reader(p, self.row)
+
+    def lookup(self, table, tokens):
+        return lookup(table, tokens, self.row)
+
+    def unembed(self, table, x_last):
+        return unembed(self.cfg, table, x_last, self.row)
+
+    def attend(self, p, h, kind, positions):
+        return attention_prefill(self.cfg, p, h, kind, positions, self.row)[0]
+
+    def attend_prefill(self, p, h, kind, positions, state, spec):
+        a, kv = attention_prefill(self.cfg, p, h, kind, positions, self.row)
+        fill_cache(state, spec, kv, h.shape[1], self.row)
+        return a, state
+
+    def attend_decode(self, p, h, kind, pos, state, spec):
+        return attention_decode(self.cfg, p, h, state, kind, pos, spec, self.row), state
+
+    def cross(self, p, h, memory):
+        return attention_prefill(self.cfg, p, h, "attn", None, self.row, memory=memory)[0]
+
+    def ffn(self, p, x):
+        return ffn(self.cfg, p, x, self.row)
+
+    def mlp(self, p, x):
+        return dense_mlp(self.cfg, p, x, self.row)
+
+    def read_state(self, state: dict) -> dict:
+        return read_state(state, self.row)
+
+    def write_state(self, state: dict, new: dict) -> dict:
+        write_state(state, new, self.row)
+        return state

@@ -30,11 +30,11 @@ import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.device import current
 from repro_torch.sharding import placement as pl
+from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
@@ -122,22 +122,6 @@ def make_train_step(model, step_cfg: TrainStepConfig = TrainStepConfig()):
 # ---------------------------------------------------------------------------
 
 
-class _Reader(dict):
-    """A dict node of a placed param tree whose leaves are gathered where
-    the model reads them: one layer's weights are whole only while that
-    layer runs (and again in its recompute under remat)."""
-
-    def __init__(self, node: dict, read):
-        super().__init__(node)
-        self._read = read
-
-    def __getitem__(self, key):
-        return self._read(dict.__getitem__(self, key))
-
-    def get(self, key, default=None):
-        return self[key] if key in self else default
-
-
 def _row_batches(batch: dict, split: bool, n_rows: int, devices) -> List[dict]:
     """The batch of each data coordinate on its device: contiguous rows
     when ``split``, else the whole batch on the first coordinate only."""
@@ -145,10 +129,6 @@ def _row_batches(batch: dict, split: bool, n_rows: int, devices) -> List[dict]:
         return [{k: v.to(devices[0]) for k, v in batch.items()}]
     return [{k: v.to(d) for k, v in rows.items()}
             for rows, d in zip(microbatches(batch, n_rows), devices)]
-
-
-def _clone(x: pl.Placed) -> pl.Placed:
-    return pl.Placed(x.sharding, x.shape, x.dtype, {k: t.clone() for k, t in x.store.items()})
 
 
 class ShardedTrainStep:
@@ -189,30 +169,16 @@ class ShardedTrainStep:
 
     def __init__(self, model, policy, abstract_params, step_cfg: TrainStepConfig,
                  batch_specs: Optional[dict], donate: bool):
-        from repro_torch.sharding.policy import is_spec
-
         self.model, self.step_cfg, self.donate = model, step_cfg, donate
         self.abstract_params = abstract_params
         pspecs = policy.param_specs(abstract_params)
         self.param_shardings = policy.shardings(pspecs)
         self.opt_state_shardings = policy.opt_state_shardings(pspecs, abstract_params)
         self.decay = leaves(opt.decay_mask_like_reference(model.cfg, abstract_params))
-        mesh = policy.mesh
-        self.mesh = mesh
-        coords = list(mesh.coords())
-        dp = tuple(mesh.axis_names.index(a) for a in policy.dp if a in mesh.axis_names)
-        sizes = [mesh.sizes[i] for i in dp]
-        rows: Dict[int, list] = {}
-        for c in coords:
-            rows.setdefault(int(np.ravel_multi_index([c[i] for i in dp], sizes))
-                            if dp else 0, []).append(c)
-        self.rows = [rows[j] for j in sorted(rows)]  # each row's coordinates
-        self.home = mesh.device(coords[0])
-        specs = {k: v for k, v in (batch_specs or {}).items() if is_spec(v)}
-        firsts = {tuple(pl.axes_of(s[0])) if len(s) else () for s in specs.values()}
-        if len(firsts) > 1:
-            raise ValueError(f"batch specs {specs} disagree on the batch axis")
-        self.split_rows = bool(specs) and firsts == {tuple(policy.dp)}
+        self.mesh = policy.mesh
+        self.rows = tp.data_rows(self.mesh, policy.dp)  # each row's coordinates
+        self.home = self.mesh.device(self.rows[0][0])
+        self.split_rows = tp.splits_rows(batch_specs, policy.dp)
 
     def init_opt_state(self) -> opt.AdamWState:
         """Step 0 and zero f32 moments, each block made on its device."""
@@ -223,20 +189,12 @@ class ShardedTrainStep:
             m=tree_map(zeros, self.abstract_params, sh.m),
             v=tree_map(zeros, self.abstract_params, sh.v))
 
-    def _as_placed(self, x, sharding):
-        if isinstance(x, pl.Placed):
-            if x.sharding != sharding:
-                raise ValueError(f"a leaf placed by {x.sharding.spec} where the step "
-                                 f"expects {sharding.spec}; reshard it first "
-                                 f"(repro_torch.ft.resilience.reshard_tree)")
-            return x if self.donate else _clone(x)
-        return pl.place(x, sharding)
-
     def __call__(self, params, opt_state, batch):
         cfg, model = self.step_cfg, self.model
         gdt = getattr(torch, cfg.grad_dtype)
-        params = tree_map(self._as_placed, params, self.param_shardings)
-        opt_state = opt.AdamWState(*(tree_map(self._as_placed, x, s) for x, s in
+        place = lambda x, s: pl.as_placed(x, s, self.donate)
+        params = tree_map(place, params, self.param_shardings)
+        opt_state = opt.AdamWState(*(tree_map(place, x, s) for x, s in
                                      zip(opt_state, self.opt_state_shardings)))
         P, M, V = leaves(params), leaves(opt_state.m), leaves(opt_state.v)
         # each moment block: (key, region, a coordinate holding it)
@@ -262,13 +220,9 @@ class ShardedTrainStep:
             def read(v, srcs=srcs, dev=dev):
                 if isinstance(v, pl.Placed):
                     return pl.assemble(srcs[ids[id(v)]], v.sharding.counts(v.ndim), dev)
-                if isinstance(v, dict):
-                    return _Reader(v, read)
-                if isinstance(v, list):
-                    return [read(x) for x in v]
                 return v
 
-            view = read(params)
+            view = pl.Reader(params, read)
             with current(dev), _requiring_grad(tensors):
                 for mb in microbatches(rb, m):
                     loss, metrics, grads = _loss_and_grads(model, view, mb, tensors)

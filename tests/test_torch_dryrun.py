@@ -14,6 +14,9 @@
   ``dryrun.main --all --both-meshes`` (a record for every runnable cell,
   the reference's skipped cells skipped), and ``report.main`` rendering a
   directory of records.
+* The serving cells' collective term, the tensor-parallel traffic of the
+  sharded prefill and decode steps, against its formula written out for
+  Llama-3-8B on (16, 16).
 """
 import json
 import os
@@ -246,3 +249,26 @@ def test_dryrun_all_and_report(tmp_path, capsys):
     n_roof = sum(1 for line in report.roofline_table(recs).splitlines()[2:])
     assert n_roof == sum(1 for (a, s, m), r in recs.items() if m == "16x16"
                          and not r["skipped"])
+
+
+def test_serving_cells_collective_term():
+    """Llama-3-8B on (16, 16): 32 attention layers, attention (32 heads)
+    and the MLP (d_ff 14,336) split 16 ways, vocab 128,256 split, 8 KV
+    heads replicated so the decode cache splits on length over "model".
+    Per card, ring algorithms over R = 16: all-reduce 2 x 15/16 x B_row x S
+    x 4,096 x 2 bytes (bf16 partials) per attention and per MLP, plus the
+    embedding's lookup (f32 table); all-gather 15/16 x B_row x 128,256 x 4
+    of logits and, in a decode step, 15/16 x B_row x 32 x (128 + 2) x 4 of
+    the combine's partials per layer."""
+    ring = 15 / 16
+    for shape, rows, S in (("decode_32k", 128 // 16, 1), ("prefill_32k", 32 // 16, 32_768)):
+        rec = dryrun.lower_cell("llama3-8b", shape)
+        coll = rec["analysis"]["collectives"]
+        reduce = 2 * ring * rows * S * 4096
+        want = {"all-reduce": 64 * reduce * 2 + reduce * 4,
+                "all-gather": ring * rows * 128_256 * 4
+                + (32 * ring * rows * 32 * 130 * 4 if shape == "decode_32k" else 0)}
+        count = {"all-reduce": 65, "all-gather": 1 + (32 if shape == "decode_32k" else 0)}
+        assert coll["bytes_by_kind"] == pytest.approx(want, rel=1e-12)
+        assert coll["count_by_kind"] == count
+        assert rec["roofline"]["collective_s"] == pytest.approx(sum(want.values()) / rl.LINK_BW)

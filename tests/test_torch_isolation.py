@@ -47,6 +47,7 @@ from repro_torch.serve.cnn_engine import CNNEngine
 from repro_torch.serve.engine import Engine
 from repro_torch.sharding.policy import ShardingPolicy
 from repro_torch.train.pipeline import pipeline_forward
+from repro_torch.serve.step import jit_decode_step, jit_prefill_step
 from repro_torch.train.step import jit_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -96,6 +97,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/launch/report.py",
             "src/repro_torch/sharding/policy.py",
             "src/repro_torch/sharding/placement.py",
+            "src/repro_torch/sharding/tensor_parallel.py",
+            "src/repro_torch/serve/step.py",
             "src/repro_torch/train/pipeline.py",
             "src/repro_torch/models/griffin.py",
             "src/repro_torch/models/moe.py"} <= names
@@ -192,6 +195,14 @@ ENTRY_POINTS = {
     "jit_train_step": lambda: jit_train_step(
         Model(_llama()), ShardingPolicy(make_host_mesh(model=2), _llama()),
         launch_inputs.abstract_params(Model(_llama()))),
+    "jit_prefill_step": lambda: jit_prefill_step(
+        Model(_llama()), ShardingPolicy(make_host_mesh(model=2), _llama()),
+        launch_inputs.abstract_params(Model(_llama())),
+        launch_inputs.abstract_cache(Model(_llama()), 2, 16), {}, 2, 16),
+    "jit_decode_step": lambda: jit_decode_step(
+        Model(_llama()), ShardingPolicy(make_host_mesh(model=2), _llama()),
+        launch_inputs.abstract_params(Model(_llama())),
+        launch_inputs.abstract_cache(Model(_llama()), 2, 16), 2, 16),
     "pipeline_forward": lambda: pipeline_forward(lambda p, x: x, make_mesh((2,), ("pod",))),
     "launch.train.main": lambda: launch_train.main(["--arch", "llama3.2-1b"]),
     "launch.train.main[griffin]": lambda: launch_train.main(["--arch", "recurrentgemma-9b"]),
@@ -419,6 +430,54 @@ def test_new_families_attention_goes_through_k5(arch, monkeypatch):
         kv = torch.empty(B, S, K, h, dtype=torch.bfloat16, device="cuda")
         with pytest.raises(RuntimeError, match="reached the build of flash_fwd"):
             attend(q, kv, kv, window=window)
+
+
+def test_sharded_prefill_attention_goes_through_k5_on_every_coordinate(monkeypatch):
+    """The sharded prefill (``jit_prefill_step``) calls ``flash_attention``
+    once a layer on every model coordinate of every data row, on that
+    coordinate's heads: RecurrentGemma reduced on (2, 2) at batch 2, its
+    local layer's 2 q heads over 1 KV head split 1 + 1, K5's route for 1 : 1
+    here (the full config's 16 : 1 gives 8 : 1 a coordinate); a decode step
+    calls it never.  A CUDA call at the full config's per-coordinate shape
+    reaches K5's build, never the plain version."""
+    _no_cuda()
+    cfg = cfgbase.get_reduced_config("recurrentgemma-9b")
+    model = Model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
+    policy = ShardingPolicy(make_mesh((2, 2), ("data", "model"), device="cpu"), cfg)
+    aparams, acache = launch_inputs.abstract_params(model), launch_inputs.abstract_cache(
+        model, 2, 32)
+    specs = policy.batch_specs(cfgbase.ShapeConfig("p", 20, 2, "prefill"))
+    prefill = jit_prefill_step(model, policy, aparams, acache, specs, 2, 32)
+    decode = jit_decode_step(model, policy, aparams, acache, 2, 32)
+    calls = []
+    attend = flash_ops.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape)))
+        return attend(q, k, v, **kw)
+
+    monkeypatch.setattr(flash_ops, "flash_attention", counted)
+    cache, _ = prefill(params, {"tokens": torch.zeros((2, 20), dtype=torch.int32)})
+    n_attn = sum(kind == "local" for kind in cfg.blocks())
+    h = cfg.head_dim
+    assert calls == [((1, 20, 1, h), (1, 20, 1, h))] * (n_attn * 4)
+    decode(params, cache, torch.zeros((2, 1), dtype=torch.int32), 20)
+    assert len(calls) == n_attn * 4
+
+    def reached(name):
+        raise RuntimeError(f"reached the build of {name}")
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(build, "load", reached)
+    monkeypatch.setattr(flash_ref, "attention_ref", forbidden)
+    with FakeTensorMode():
+        q = torch.empty(2, 509, 8, 256, dtype=torch.bfloat16, device="cuda")
+        kv = torch.empty(2, 509, 1, 256, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(RuntimeError, match="reached the build of flash_fwd"):
+            attend(q, kv, kv)
 
 
 def test_k7_wrapper_with_a_cuda_tensor_raises_and_never_falls_back(no_plain):
