@@ -161,18 +161,25 @@ against their plain PyTorch versions:
    loss and gradients under ``remat_policy="block"`` and under ``"dots"``:
    losses within 1e-6, K5 32 in both, both peaks recorded;
    then the multi-card half of training on the card: ``sharded_train``
-   (Llama-3.2-1B whole, B 8 x S 512, 2 steps of ``jit_train_step`` on a
-   ("data", "model") = (2, 2) mesh, over four cards when there are four,
-   else over cuda:0 four times: params by ``ShardingPolicy``, the AdamW
-   moments ZeRO-1 split, each data coordinate's rows through K5 and K6;
-   step 1's loss bit-equal to the unsharded step with 2 microbatches,
-   step 2's within 1e-5 relative, the f64 norm of every param and moment
-   leaf within 1e-6 relative of the unsharded step's, K5 64 and K6 2 a
-   step both ways, each coordinate's bytes equal to its specs'
-   arithmetic, over distinct cards every copy of a block bit-equal across
-   them, step ms and peak both ways), ``sharded_mixed`` (the branches
+   (3 steps of ``jit_train_step`` beside the unsharded step with 2
+   microbatches, params by ``ShardingPolicy``, the AdamW moments ZeRO-1
+   split: Llama-3.2-1B whole, B 8 x S 512, on ("data", "model") = (2, 1)
+   over cuda:0 twice, each data row's rows through K5 and K6 whole: step
+   1's loss bit-equal, the others within 1e-5 relative, the f64 norm of
+   every param and moment leaf within 1e-6 relative, K5 64 and K6 2 a
+   step; then tensor parallel on (2, 2), over four cards when there are
+   four, else over cuda:0 four times: K5 128 (on each model coordinate's
+   heads) and K6 2 a step, no param split on "model" gathered but the
+   unembedding for K6, losses and leaf norms within the limits
+   ``SHARDED_TP_*`` derives; Qwen2-MoE-A2.7B's 2 layers, B 4, on (2, 2):
+   K5 16, the experts' d_ff split, losses, leaf norms and each row's aux
+   loss through ``RowOps`` within ``SHARDED_MOE_*``; each coordinate's bytes equal to
+   its specs' arithmetic, over distinct cards every copy of a block
+   bit-equal across them, step ms and peak both ways, Llama's idle
+   share unsharded and on (2, 2)), ``sharded_mixed`` (the branches
    that only distinct devices take, on one card: a widened reduced Llama
-   at f32 on (2, 2) over cuda:0 and the CPU, every block on both; its
+   at f32, tensor parallel on (2, 2) over cuda:0 and the CPU, every block
+   on both; its
    copies bit-equal across them, the losses within 1e-5 and the leaf
    norms within 1e-4 of the same steps over cuda:0 alone), ``reshard``
    (the params saved whole and restored with ``shardings=`` onto (4, 1);
@@ -207,7 +214,8 @@ against their plain PyTorch versions:
     K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
     K6's, lm_train's and sharded_train's), RecurrentGemma,
     Qwen2-MoE and Qwen2-VL (B 4 x S 512) and at each shape the sharded
-    prefills gave it (a data row's rows, a model coordinate's heads), K6
+    prefills and the sharded train steps gave it (a data row's rows, a
+    model coordinate's heads), K6
     at the five train shapes) with
     CUDA events
     and the profiler, beside its plain version, a PyTorch library call
@@ -2022,6 +2030,13 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
 K5_SHARDED_SERVE = [(2, 509, 16, 4, 128, 0, 0.0), (2, 128, 16, 4, 128, 0, 0.0),
                     (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0)]
 K5_EXTRA += K5_SHARDED_SERVE
+# K5 at the shapes the sharded train steps of sharded_train give it: a data
+# row's rows and a model coordinate's heads.  Llama-3.2-1B's B 8 split over 2
+# data rows, every head on (2, 1), 16 query heads over 4 KV heads (h 64) a
+# coordinate on (2, 2); Qwen2-MoE-A2.7B's B 4, 8 heads over 8 (h 128) on (2, 2)
+K5_SHARDED_TRAIN = [(4, 512, 32, 8, 64, 0, 0.0), (4, 512, 16, 4, 64, 0, 0.0),
+                    (2, 512, 8, 8, 128, 0, 0.0)]
+K5_EXTRA += K5_SHARDED_TRAIN
 # K5 without the causal mask, (B, S, H, K, h, T): Seamless-M4T's encoder
 # self-attention over 1,000 frames (S = T), one utterance and its served
 # batches of 4 at 509 and 1,000 frames, and its decoder's cross-attention
@@ -2208,6 +2223,7 @@ def k5_checks(torch, np, report) -> None:
     worst_nc = {"f32": 0.0, "bf16": 0.0}
     worst_gqa7 = {"f32": 0.0, "bf16": 0.0}  # Qwen2-VL's 28 query heads over 4
     worst_sharded = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_SERVE
+    worst_sharded_train = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_TRAIN
     worst_row = 0.0
     n_checks = 0
     for ci, (B, S, T, H, K, h, window, softcap, causal) in enumerate(cases):
@@ -2237,6 +2253,8 @@ def k5_checks(torch, np, report) -> None:
                 worst_gqa7[kind] = max(worst_gqa7[kind], err)
             if (B, S, H, K, h, window, softcap) in K5_SHARDED_SERVE and causal:
                 worst_sharded[kind] = max(worst_sharded[kind], err)
+            if (B, S, H, K, h, window, softcap) in K5_SHARDED_TRAIN and causal:
+                worst_sharded_train[kind] = max(worst_sharded_train[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2271,6 +2289,8 @@ def k5_checks(torch, np, report) -> None:
                  "gqa_7_1_max_abs_err": worst_gqa7,
                  "sharded_serve_checks": 2 * len(K5_SHARDED_SERVE),
                  "sharded_serve_max_abs_err": worst_sharded,
+                 "sharded_train_checks": 2 * len(K5_SHARDED_TRAIN),
+                 "sharded_train_max_abs_err": worst_sharded_train,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -3033,17 +3053,19 @@ def _roofline(nbytes, ops):
 
 
 def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
-                    serve_k5) -> list:
+                    serve_k5, train_k5) -> list:
     """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
     also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
     Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
     frames: the encoder's and the cross-attention's, without the mask, and
     the decoder's), K5 at Llama's train shape (B 8, S 512), and K5 at
     each shape the sharded prefills gave it (a data row's rows and a model
-    coordinate's heads): event ms, device ms, plain ms, the library
-    yardstick for K5 (SDPA, causal or not as K5), the bound.
-    ``encdec_k5``: K5's launches by key in the served enc-dec batches;
-    ``serve_k5``: by (arch,) + key in ``sharded_serve``'s prefills."""
+    coordinate's heads), and likewise at each shape the sharded train
+    steps gave it: event ms, device ms, plain ms, the library yardstick for
+    K5 (SDPA, causal or not as K5), the bound.  ``encdec_k5``: K5's
+    launches by key in the served enc-dec batches; ``serve_k5`` and
+    ``train_k5``: by (arch,) + key in ``sharded_serve``'s prefills and
+    ``sharded_train``'s steps."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
@@ -3077,8 +3099,9 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                                                                      16, 64, causal)))
               for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
                                            ("decoder", S, S, True))]
-    cases += [("sharded prefill", key[0], *key[2:9], n)
-              for key, n in sorted(serve_k5.items(), key=lambda kv: str(kv[0]))]
+    for mode, by_key in (("sharded prefill", serve_k5), ("sharded train", train_k5)):
+        cases += [(mode, key[0], *key[2:9], n)
+                  for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
     for mode, arch, B, S, T, H, K, h, causal, launches in cases:
         q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
                             device="cuda")
@@ -3106,6 +3129,9 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                      f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, a row's B={B} "
                      f"S={S}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded prefill" else
+                     f"K5 flash_fwd_bf16 [{arch} sharded train attention, a row's B={B} "
+                     f"S={S}, a coordinate's H={H} K={K} h={h}]"
+                     if mode == "sharded train" else
                      f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
                      if mode == "prefill" else
                      f"K5 flash_fwd_bf16 [{arch} {mode} attention, B={B} S={S} T={T}, "
@@ -3191,6 +3217,11 @@ K6_CASES = [
     (129, 64, 1000, 0.0, 0.1),
     (129, 64, 1000, 30.0, 1.0),
     (32, 16, 37, 0.0, 0.1),
+    # a data row's rows (and a microbatch's) of Llama-3.2-1B's and Qwen2-MoE's
+    # train batches in sharded_train and the 2-microbatch steps: the first
+    # rows of the train shapes' inputs above (k6_checks keeps those)
+    (2048, 2048, 128256, 0.0, None),
+    (1024, 2048, 151936, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -3263,16 +3294,28 @@ def _xent_inputs(torch, np, rng, N, D, V, w_std):
 def k6_checks(torch, np, report) -> None:
     """K6 against its plain version (``seq_chunked_xent``) on K6_CASES, at the
     automatic split count and (small cases) at one split, per token within
-    K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M."""
+    K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M.  A case whose D, V and
+    w std an earlier case had takes that case's first N rows (drawing a
+    vocabulary's weights on the host takes seconds)."""
     from repro_torch.kernels.xent import ref as xent_ref
     from repro_torch.kernels.xent.kernel import K6_LAUNCHES, fused_xent_fwd, split_count
 
     eps = torch.finfo(torch.float32).eps
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
+    kept = {}  # (D, V, w std) -> inputs a later case takes its first rows of
     for ci, (N, D, V, cap, w_std) in enumerate(K6_CASES):
-        rng = np.random.default_rng(6000 + ci)
-        x, w, t = _xent_inputs(torch, np, rng, N, D, V, w_std)
+        key = (D, V, w_std)
+        if key in kept and kept[key][0].shape[0] >= N:
+            x, w, t = kept[key]
+            x, t = x[:N], t[:N]
+        else:
+            rng = np.random.default_rng(6000 + ci)
+            x, w, t = _xent_inputs(torch, np, rng, N, D, V, w_std)
+        if any((d, v, s) == key and n <= N for n, d, v, _, s in K6_CASES[ci + 1:]):
+            kept[key] = (x, w, t)
+        else:
+            kept.pop(key, None)
         with torch.no_grad():
             want = xent_ref.seq_chunked_xent(x[None], w, t[None], softcap=cap)[0]
         M = x.norm(dim=1) * w.norm(dim=1).max()
@@ -3677,30 +3720,50 @@ def remat_dots_phase(torch, np, report) -> None:
     torch.cuda.empty_cache()
 
 
-# sharded_train: Llama-3.2-1B's train cell (TRAIN_RUNS) through
-# jit_train_step on a ("data", "model") = (2, 2) mesh, 2 steps, against the
-# unsharded step with 2 microbatches (what a data axis of 2 computes):
-# step 1's loss bit-equal, step 2's within SHARDED_LOSS_RTOL (the global
-# norm adds its parts in another order), and the f64 norm of every param
-# and moment leaf after the steps within SHARDED_NORM_RTOL of the unsharded
-# step's (the limit the CPU tests hold each leaf to)
+# sharded_train: train cells (TRAIN_RUNS) through jit_train_step, beside the
+# unsharded step with 2 microbatches (what a data axis of 2 computes) from
+# the same seeded weights and token-pipeline batches: SHARDED_STEPS + 1 steps
+# each way (Llama's last unsharded and (2, 2) step under the profiler, for
+# the idle share).  Llama-3.2-1B on ("data", "model") =
+# (2, 1) (each data row's whole model on its card: the same sums as the
+# unsharded step, so step 1's loss bit-equal, the later ones within
+# SHARDED_LOSS_RTOL, the global norm adding its parts in another order, and
+# the f64 norm of every param and moment leaf within SHARDED_NORM_RTOL) and
+# on (2, 2), tensor parallel: attention on each model coordinate's heads, the
+# MLP on its d_ff slice, the embedding on its vocab block; the partial outputs
+# summed in f32 in coordinate order round differently from the whole
+# products, so the losses within SHARDED_TP_LOSS_RTOL and the leaf norms
+# within SHARDED_TP_NORM_RTOL (about 3x and 2x the largest gaps of the
+# reduced Llama in bf16 on a CPU (2, 2) mesh, 3 seeds, 3 steps: 1.40e-4 and
+# 4.97e-3, tests/test_torch_tp_train.py::test_bf16_gaps_within_the_chip_limits).
+# Qwen2-MoE-A2.7B's train cell (2 layers) on (2, 2): the experts' and the
+# shared expert's d_ff split, the routing and aux loss once a data row; the
+# losses within SHARDED_MOE_LOSS_RTOL, every leaf norm within
+# SHARDED_MOE_NORM_RTOL, and each data row's aux loss, from the first batch
+# through RowOps, within SHARDED_MOE_AUX_RTOL of the unsharded forward's on
+# the same rows (3x the reduced config's 2.70e-4, 1.05e-1 and 1.08e-3; the
+# widest leaf gaps are the attention biases', which start at zero, and the
+# unsharded bf16 step is further from an f32 step than the split one:
+# test_bf16_moe_leaf_gaps_are_bf16_rounding).
 SHARDED_STEPS = 2
 SHARDED_LOSS_RTOL = 1e-5
 SHARDED_NORM_RTOL = 1e-6
+SHARDED_TP_LOSS_RTOL, SHARDED_TP_NORM_RTOL = 4.2e-4, 1e-2
+SHARDED_MOE_LOSS_RTOL, SHARDED_MOE_NORM_RTOL, SHARDED_MOE_AUX_RTOL = 8.1e-4, 3.2e-1, 3.2e-3
 # pipeline: 2 stages of 2 tanh dense layers (D x D, f32) over cuda:0, M
 # microbatches of B rows, against the sequential stack
 PIPE_D, PIPE_M, PIPE_B, PIPE_TOL = 2048, 8, 4, 1e-5
 
 
-def _sharded_mesh(torch):
-    """(2, 2) over four distinct cards when there are four, else cuda:0
-    four times."""
+def _sharded_mesh(torch, model=2):
+    """("data", "model") = (2, ``model``) over distinct cards when there are
+    that many, else cuda:0 repeated."""
     from repro_torch.launch.mesh import make_mesh
 
-    n = torch.cuda.device_count()
-    devices = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+    n = 2 * model
+    devices = ([torch.device("cuda", i) for i in range(n)] if torch.cuda.device_count() >= n
                else [torch.device("cuda", 0)])
-    return make_mesh((2, 2), ("data", "model"), devices=devices)
+    return make_mesh((2, model), ("data", "model"), devices=devices)
 
 
 def _coordinate_bytes(np, trees_and_shardings, mesh):
@@ -3731,6 +3794,10 @@ def _leaf_norms(torch, trees) -> list:
             for tree in trees for x in leaves(tree)]
 
 
+def _rel_errs(a, b) -> list:
+    return [abs(x - y) / abs(y) if y else abs(x) for x, y in zip(a, b)]
+
+
 def _copies_disagree(torch, trees) -> tuple:
     """(blocks held on more than one card, those whose copies are not all
     bit-equal to the first) over the placed leaves of ``trees``."""
@@ -3749,123 +3816,262 @@ def _copies_disagree(torch, trees) -> tuple:
     return several, unequal
 
 
-def sharded_train_phase(torch, np, report):
-    """Llama-3.2-1B at full width and depth (B 8 x S 512, bf16 compute, f32
-    master weights, remat "block", the launcher's AdamW) two ways, from the
-    same seeded weights and token-pipeline batches: the unsharded step with
-    2 microbatches, then ``jit_train_step`` on ``_sharded_mesh`` (the
-    params by ``ShardingPolicy.param_specs``, the moments ZeRO-1 split, the
-    batch split over the data axis), every launch counter set to 0 just
-    before each step.  Checks: step 1's loss bit-equal, step 2's within
-    SHARDED_LOSS_RTOL, the f64 norm of every param, m and v leaf after the
-    steps within SHARDED_NORM_RTOL of the unsharded step's, K5 and K6
-    launches a step equal both ways (K5 64, K6 2: each data coordinate runs
-    its rows' forward and remat's recompute), every leaf in its placement,
-    each coordinate's bytes equal to its specs' arithmetic, and (over
-    distinct cards) every copy of a block bit-equal across the cards.
-    Records the step ms and peak memory (cuda:0's, and each card's) both
-    ways and the bytes at each coordinate and on each card.  Returns (the
-    sharded state, the sharded step, {kernel: launches over the sharded
-    steps})."""
-    from repro_torch.configs import base as cfgbase
+@contextlib.contextmanager
+def _counting_gathers(params):
+    """Inside, ``pl.gather`` counts its calls by the param leaf it gathers
+    (its tree path); yields the dict it fills."""
+    from repro_torch.sharding import placement as pl
+    from repro_torch.tree import flatten_with_paths
+
+    paths = {id(x): "/".join(map(str, p)) for p, x in flatten_with_paths(params)}
+    counts, real = {}, pl.gather
+
+    def counting(x, *args, **kw):
+        if id(x) in paths:
+            counts[paths[id(x)]] = counts.get(paths[id(x)], 0) + 1
+        return real(x, *args, **kw)
+
+    pl.gather = counting
+    try:
+        yield counts
+    finally:
+        pl.gather = real
+
+
+def _device_batch(pipe, step):
+    """The token pipeline's batch ``step`` on the card."""
     from repro_torch.data import tokens as tok
+
+    return tok.device_batch(pipe, step, "cuda")
+
+
+def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile):
+    """SHARDED_STEPS + 1 steps of ``step_fn`` on the pipeline's batches,
+    every launch counter set to 0 just before each, the last under the
+    profiler when ``profile`` (else timed as the others); raises unless
+    each step's launches are ``want`` and its loss finite.  Returns
+    (params, state, the run's record, K5's launches by key)."""
+    counters = _counters()
+    cards = range(torch.cuda.device_count())
+    _sync_all(torch)
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    ms, losses, launches, k5 = [], [], [], {}
+    for s in range(SHARDED_STEPS + 1):
+        batch = _device_batch(pipe, s)
+        _sync_all(torch)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        profiling = profile and s == SHARDED_STEPS
+        if not profiling:
+            params, state, m = step_fn(params, state, batch)
+        else:
+            (params, state, m), by, busy, span, top = _profile_step(
+                torch, lambda: step_fn(params, state, batch))
+        _sync_all(torch)
+        if not profiling:
+            ms.append(1e3 * (time.perf_counter() - t0))
+        counts = {k: c.count for k, c in counters.items()}
+        for key, n in counters["K5"].by_key.items():
+            k5[key] = k5.get(key, 0) + n
+        losses.append(float(m["loss"]))
+        launches.append(counts)
+        if counts != want or not np.isfinite(losses[-1]):
+            raise AssertionError(f"sharded_train {name} step {s + 1}: launches "
+                                 f"{counts}, want {want}; loss {losses[-1]}")
+    fastest = min(ms)  # the first step of a cold process also warms up
+    rec = {"losses": losses, "step_ms": ms, "step_ms_min": fastest,
+           "launches_per_step": launches[0],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(0),
+           "max_memory_allocated_by_card": {
+               f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards}}
+    if profile:
+        rec["profiled_step"] = {"busy_ms": busy, "span_ms": span,
+                                "idle_share": 1 - busy / fastest, "k5_ms": by["flash_fwd"],
+                                "k6_ms": by["xent_fwd"], "top_kernels": top}
+    return params, state, rec, k5
+
+
+def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S, profile):
+    """``jit_train_step`` on ``_sharded_mesh(model=sizes_model)`` from the
+    CPU copy ``initial``: (params, state, step, the run's record with its
+    gathers by leaf, bytes a coordinate and copies across cards, K5's
+    launches by key)."""
+    from repro_torch.configs import base as cfgbase
     from repro_torch.ft.resilience import reshard_tree
     from repro_torch.launch import inputs as inp
     from repro_torch.launch.train import adamw_config
     from repro_torch.sharding.policy import ShardingPolicy
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import TrainStepConfig, jit_train_step, make_train_step
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.train.step import TrainStepConfig, jit_train_step
+    from repro_torch.tree import leaves
 
-    arch = "llama3.2-1b"
-    seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
-    counters = _counters()
-    adamw = adamw_config(SHARDED_STEPS)
-    want = {k: 2 * per_step.get(k, 0) for k in counters}
-    runs = {}
-
-    cards = range(torch.cuda.device_count())
-
-    def drive(name, step_fn, params, state, pipe):
-        _sync_all(torch)
-        for i in cards:
-            torch.cuda.reset_peak_memory_stats(i)
-        ms, losses, launches = [], [], []
-        for s in range(SHARDED_STEPS):
-            batch = tok.device_batch(pipe, s, "cuda")
-            _sync_all(torch)
-            for c in counters.values():
-                c.reset()
-            t0 = time.perf_counter()
-            params, state, m = step_fn(params, state, batch)
-            _sync_all(torch)
-            ms.append(1e3 * (time.perf_counter() - t0))
-            counts = {k: c.count for k, c in counters.items()}
-            losses.append(float(m["loss"]))
-            launches.append(counts)
-            if counts != want or not np.isfinite(losses[-1]):
-                raise AssertionError(f"sharded_train {name} step {s + 1}: launches "
-                                     f"{counts}, want {want}; loss {losses[-1]}")
-        runs[name] = {"losses": losses, "step_ms": ms, "launches_per_step": launches,
-                      "max_memory_allocated": torch.cuda.max_memory_allocated(0),
-                      "max_memory_allocated_by_card": {
-                          f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards}}
-        return params, state
-
-    model, params, cfg = _train_model(torch, arch, seed, layers)
-    initial = tree_map(lambda p: p.to("cpu"), params)  # the sharded run's start
-    pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
-                                   seed=seed)
-    unsharded = make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))
-    params, state = drive("unsharded_2_microbatches", unsharded, params,
-                          opt.init_state(params), pipe)
-    want_norms = _leaf_norms(torch, (params, state.m, state.v))
-    del params, state
-    torch.cuda.empty_cache()
-
-    mesh = _sharded_mesh(torch)
-    policy = ShardingPolicy(mesh, cfg)
+    mesh = _sharded_mesh(torch, sizes_model)
+    policy = ShardingPolicy(mesh, model.cfg)
     step = jit_train_step(model, policy, inp.abstract_params(model),
-                          TrainStepConfig(adamw=adamw),
+                          TrainStepConfig(adamw=adamw_config(SHARDED_STEPS + 1)),
                           batch_specs=policy.batch_specs(cfgbase.ShapeConfig("train", S, B,
                                                                              "train")))
     params = reshard_tree(initial, step.param_shardings)
-    del initial
-    params, state = drive("sharded_2x2", step, params, step.init_opt_state(), pipe)
-    norms = _leaf_norms(torch, (params, state.m, state.v))
-    norm_rel = max(abs(a - b) / b if b else abs(a) for a, b in zip(norms, want_norms))
-    several, unequal = _copies_disagree(torch, (params, state.m, state.v))
-
-    by_coord = _coordinate_bytes(np, [(params, step.param_shardings),
-                                      (state.m, step.opt_state_shardings.m),
-                                      (state.v, step.opt_state_shardings.v)], mesh)
+    with _counting_gathers(params) as gathers:
+        params, state, rec, k5 = _train_drive(torch, np, name, step, params,
+                                              step.init_opt_state(), pipe, want, profile)
+    trees = (params, state.m, state.v)
+    several, unequal = _copies_disagree(torch, trees)
+    by_coord = _coordinate_bytes(np, list(zip(trees, (step.param_shardings,
+                                                      step.opt_state_shardings.m,
+                                                      step.opt_state_shardings.v))), mesh)
     by_card = {}
     for x in leaves(params) + leaves(state.m) + leaves(state.v):
         for dev, n in x.device_bytes().items():
             by_card[str(dev)] = by_card.get(str(dev), 0) + n
-    placed = all(x.sharding == sh for x, sh in zip(leaves(params), leaves(step.param_shardings)))
-    u, sh = runs["unsharded_2_microbatches"], runs["sharded_2x2"]
-    rel2 = abs(sh["losses"][1] - u["losses"][1]) / abs(u["losses"][1])
-    report.emit({"phase": "sharded_train", "arch": arch, "layers": cfg.num_layers,
-                 "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype,
-                 "param_dtype": cfg.param_dtype, "remat_policy": model.remat_policy,
-                 "mesh": {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices.flat]},
-                 **runs, "step1_loss_bit_equal": sh["losses"][0] == u["losses"][0],
-                 "step2_loss_rel_err": rel2, "loss_rtol": SHARDED_LOSS_RTOL,
-                 "leaves_norm_checked": len(norms), "leaf_norm_max_rel_err": norm_rel,
-                 "norm_rtol": SHARDED_NORM_RTOL, "blocks_on_several_cards": several,
-                 "blocks_with_unequal_copies": unequal,
-                 "bytes_by_coordinate_held_vs_specs": by_coord, "bytes_by_card": by_card,
-                 "placements_kept": placed})
-    bad = {k: v for k, v in by_coord.items() if v[0] != v[1]}
-    if (sh["losses"][0] != u["losses"][0] or rel2 > SHARDED_LOSS_RTOL or bad or not placed
-            or not norm_rel <= SHARDED_NORM_RTOL or unequal):
-        raise AssertionError(f"sharded_train: losses {sh['losses']} vs {u['losses']}, "
-                             f"leaf norms {norm_rel} off, bytes off their specs {bad}, "
-                             f"placements kept {placed}, {unequal} of {several} blocks "
-                             f"on several cards with unequal copies")
-    counts = {k: sum(c[k] for c in sh["launches_per_step"]) for k in counters}
-    return (params, state), step, counts
+    rec.update({"mesh": {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices.flat]},
+                "gathers_by_leaf": gathers, "blocks_on_several_cards": several,
+                "blocks_with_unequal_copies": unequal,
+                "bytes_by_coordinate_held_vs_specs": by_coord, "bytes_by_card": by_card,
+                "placements_kept": all(x.sharding == sh for x, sh in
+                                       zip(leaves(params), leaves(step.param_shardings)))})
+    return params, state, step, rec, k5
+
+
+def _sharded_faults(cfg, rec, k5) -> list:
+    """What a sharded run broke of the checks every run keeps: bytes a
+    coordinate off their specs, placements, unequal copies across cards, a
+    gathered leaf other than the unembedding (K6 reads it whole) and the
+    blocks computed whole, K5 at a shape ``k5_checks`` does not hold."""
+    table = "embed" if cfg.tie_embeddings else "unembed"
+    faults = [f"bytes off their specs at {k}" for k, v in
+              rec["bytes_by_coordinate_held_vs_specs"].items() if v[0] != v[1]]
+    if not rec["placements_kept"]:
+        faults.append("placements not kept")
+    if rec["blocks_with_unequal_copies"]:
+        faults.append(f"{rec['blocks_with_unequal_copies']} blocks with unequal copies")
+    faults += [f"{path} gathered {n} times" for path, n in rec["gathers_by_leaf"].items()
+               if path != table and "/rec/" not in path and "/tm/" not in path]
+    checked = set(k5_cases())
+    faults += [f"K5 at {k} outside k5_cases" for k in k5
+               if (*k[1:7], k[8], k[9], k[7]) not in checked]
+    return faults
+
+
+def sharded_train_phase(torch, np, report):
+    """The train cells through ``jit_train_step`` beside the unsharded step
+    with 2 microbatches (see SHARDED_STEPS' comment): Llama-3.2-1B at full
+    width and depth (B 8 x S 512, bf16 compute, f32 master weights, remat
+    "block", the launcher's AdamW) on (2, 1) and, tensor parallel, on (2,
+    2); Qwen2-MoE-A2.7B's 2 layers (B 4 x S 512) on (2, 2).  Checks each
+    run's losses and leaf norms at its limits, its launches a step (K5 once
+    a layer a model coordinate a data row and again in remat's recompute:
+    Llama 64 on (2, 1) and 128 on (2, 2), Qwen2-MoE 16; K6 once a data row,
+    2), that no leaf split on "model" is gathered but the unembedding (read
+    whole for K6), K5 only at shapes ``k5_checks`` holds, every leaf in its
+    placement, each coordinate's bytes equal to its specs' arithmetic, and
+    (over distinct cards) every copy of a block bit-equal across the cards;
+    Qwen2-MoE's aux loss nonzero and each row's within SHARDED_MOE_AUX_RTOL
+    through RowOps.  Records step ms, peak memory, Llama's idle share of a
+    profiled step unsharded and on (2, 2), gathers by leaf, bytes at each
+    coordinate and on each card, each run's five widest leaf-norm gaps.  Returns (the (2, 2) Llama state, its step, {"K5": K5's
+    launches by (arch,) + key, "K6": K6's launches by arch} over the
+    sharded runs)."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.launch.train import adamw_config
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, make_train_step, microbatches
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    t_phase = time.perf_counter()
+    adamw = adamw_config(SHARDED_STEPS + 1)
+    k5_all, k6_all, faults = {}, {}, []
+    out = None
+    for arch, meshes in (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,))):
+        seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+        model, params, cfg = _train_model(torch, arch, seed, layers)
+        initial = tree_map(lambda p: p.to("cpu", copy=True), params)  # each sharded run's start
+        pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                                       seed=seed)
+        aux_check = None
+        if cfg.moe is not None:  # each data row's aux loss through RowOps, first batch
+            from repro_torch.ft.resilience import reshard_tree
+            from repro_torch.sharding.policy import ShardingPolicy
+
+            mesh = _sharded_mesh(torch, 2)
+            policy = ShardingPolicy(mesh, cfg)
+            placed = reshard_tree(params, policy.shardings(policy.param_specs(params)))
+            rows = tp.rows_at_work(mesh, tp.data_rows(mesh, policy.dp), B, True)
+            aux_check = []
+            with torch.no_grad():
+                for row, mb in zip(rows, microbatches(_device_batch(pipe, 0), 2)):
+                    _, mu = model.train_loss(params, mb)
+                    _, ms = model.train_loss(placed, {k: v.to(row.device) for k, v in
+                                                      mb.items()}, ops=tp.RowOps(cfg, row))
+                    aux_check.append([float(mu["aux"]), float(ms["aux"])])
+            del placed
+        unsharded = make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))
+        want_u = {k: 0 for k in _counters()}
+        want_u.update({k: 2 * n for k, n in per_step.items()})
+        profile = cfg.moe is None  # Llama's idle share, unsharded and on (2, 2)
+        params, state, u, _ = _train_drive(torch, np, f"{arch} unsharded", unsharded, params,
+                                           opt.init_state(params), pipe, want_u, profile)
+        want_norms = _leaf_norms(torch, (params, state.m, state.v))
+        del params, state
+        torch.cuda.empty_cache()
+        runs = {"unsharded_2_microbatches": u}
+        for n_model in meshes:
+            name = f"sharded_2x{n_model}"
+            n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+            want = dict(want_u, K5=n_attn * n_model * 2 * 2, K6=2)
+            params, state, step, rec, k5 = _sharded_run(
+                torch, np, f"{arch} {name}", model, initial, pipe, n_model, want, B, S,
+                profile and n_model > 1)
+            norm_rel = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
+            loss_rel = _rel_errs(rec["losses"], u["losses"])
+            names = [f"{kind} {'/'.join(map(str, path))}" for kind in ("param", "m", "v")
+                     for path, _ in flatten_with_paths(params)]
+            rec.update({"loss_rel_err": loss_rel, "leaves_norm_checked": len(norm_rel),
+                        "leaf_norm_max_rel_err": max(norm_rel),
+                        "leaf_norm_worst": sorted(zip(norm_rel, names), reverse=True)[:5],
+                        "step1_loss_bit_equal": rec["losses"][0] == u["losses"][0]})
+            if n_model == 1:
+                rec.update(loss_rtol=SHARDED_LOSS_RTOL, norm_rtol=SHARDED_NORM_RTOL)
+                bad = (not rec["step1_loss_bit_equal"] or max(loss_rel) > SHARDED_LOSS_RTOL
+                       or not max(norm_rel) <= SHARDED_NORM_RTOL)
+            elif cfg.moe is None:
+                rec.update(loss_rtol=SHARDED_TP_LOSS_RTOL, norm_rtol=SHARDED_TP_NORM_RTOL)
+                bad = (not max(loss_rel) <= SHARDED_TP_LOSS_RTOL
+                       or not max(norm_rel) <= SHARDED_TP_NORM_RTOL)
+            else:
+                aux_rel = [abs(s_ - u_) / abs(u_) if u_ else float("inf")
+                           for u_, s_ in aux_check]
+                rec.update(loss_rtol=SHARDED_MOE_LOSS_RTOL, norm_rtol=SHARDED_MOE_NORM_RTOL,
+                           aux_unsharded_vs_rowops=aux_check, aux_rel_err=aux_rel,
+                           aux_rtol=SHARDED_MOE_AUX_RTOL)
+                bad = (not max(loss_rel) <= SHARDED_MOE_LOSS_RTOL
+                       or not max(norm_rel) <= SHARDED_MOE_NORM_RTOL
+                       or not max(aux_rel) <= SHARDED_MOE_AUX_RTOL)
+            problems = _sharded_faults(cfg, rec, k5) + (["outside its limits"] if bad else [])
+            if problems:
+                faults.append(f"{arch} {name}: {problems}; {rec['losses']} vs {u['losses']}, "
+                              f"leaf norms {max(norm_rel)}")
+            for key, n in k5.items():
+                k5_all[(arch,) + key] = k5_all.get((arch,) + key, 0) + n
+            k6_all[arch] = k6_all.get(arch, 0) + want["K6"] * (SHARDED_STEPS + 1)
+            runs[name] = rec
+            if (arch, n_model) == ("llama3.2-1b", 2):
+                out = (params, state), step
+            else:
+                del params, state, step
+            torch.cuda.empty_cache()
+        report.emit({"phase": "sharded_train", "arch": arch, "layers": cfg.num_layers,
+                     "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype,
+                     "param_dtype": cfg.param_dtype, "remat_policy": model.remat_policy,
+                     **runs})
+        del initial
+    report.emit({"phase": "sharded_train_done",
+                 "seconds": round(time.perf_counter() - t_phase, 3)})
+    if faults:
+        raise AssertionError(f"sharded_train: {faults}")
+    return out[0], out[1], {"K5": k5_all, "K6": k6_all}
 
 
 # sharded_mixed: the sharded step over two distinct devices on one card.
@@ -4476,8 +4682,8 @@ def main(argv=None) -> int:
     train_strict_phase(torch, np, report)
     remat_dots_phase(torch, np, report)
     state, step, sharded_counts = sharded_train_phase(torch, np, report)
-    for k, n in sharded_counts.items():
-        train_counts["llama3.2-1b"][k] += n
+    for arch, n in sharded_counts["K6"].items():
+        train_counts[arch]["K6"] += n
     sharded_mixed_phase(torch, np, report)
     reshard_phase(torch, np, report, state, step)
     del state, step
@@ -4486,7 +4692,7 @@ def main(argv=None) -> int:
     pipeline_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
-                               serve_k5)
+                               serve_k5, sharded_counts["K5"])
     entries += k6_timing_phase(torch, np, report, train_counts)
     for net in engines:
         run = engines[net]["run"]

@@ -26,9 +26,9 @@ so each record here is arithmetic on the same plan, on the abstract
   output it writes once (train: params, AdamW state and batch in, params
   and state out; prefill: params and batch in, cache out; decode: params
   and cache in, the new cache slot out); collective bytes a card from the
-  formulas of the port's sharded steps: the train step's
-  (:func:`collectives`), and the tensor-parallel traffic of the serving
-  steps ``jit_prefill_step`` / ``jit_decode_step``
+  formulas of the port's sharded steps: the tensor-parallel and data-axis
+  traffic of the train step (:func:`collectives`), and the tensor-parallel
+  traffic of the serving steps ``jit_prefill_step`` / ``jit_decode_step``
   (:func:`serving_collectives`).
 
 Records go to ``build/dryrun/`` (git-ignored), never under
@@ -41,6 +41,7 @@ import dataclasses
 import json
 import traceback
 from pathlib import Path
+from typing import List
 
 import numpy as np
 
@@ -81,13 +82,89 @@ def _counts(mesh, spec, ndim, axes) -> int:
     return n
 
 
-def collectives(policy, aparams, pspecs, ospecs, reads: int) -> rl.CollectiveStats:
+def _split(mesh, spec, ndim, axes) -> bool:
+    return _counts(mesh, spec, ndim, axes) > 1
+
+
+def _summed_seqs(policy, cfg, aparams, pspecs, S: int, S_enc: int) -> List[int]:
+    """The sequence length of each sub-block whose partial outputs a data
+    row sums over ``"model"``: each attention (self; a decoder's cross; the
+    encoder's at ``S_enc``, none when 0) and each FFN (dense, or the MoE's
+    experts and shared expert, summed together) whose output projection is
+    split on ``"model"``."""
+    mesh, model_ax = policy.mesh, (policy.tp,)
+    out = []
+
+    def summed(spec, leaf, seq):
+        if _split(mesh, spec, leaf.ndim, model_ax):
+            out.append(seq)
+
+    def ffn(p, ps, seq):
+        if "shared" in p and not _split(mesh, ps["wi"], p["wi"].ndim, model_ax):
+            p, ps = p["shared"], ps["shared"]
+        summed(ps["wi"], p["wi"], seq)
+
+    for kind, p, ps in zip(cfg.blocks(), aparams["layers"], pspecs["layers"]):
+        if kind in ATTN_KINDS:
+            summed(ps["attn"]["wo"], p["attn"]["wo"], S)
+            if cfg.is_encdec:
+                summed(ps["cross"]["wo"], p["cross"]["wo"], S)
+            ffn(p["ffn"], ps["ffn"], S)
+        elif kind == "rglru":
+            ffn(p["ffn"], ps["ffn"], S)
+    if S_enc:
+        for p, ps in zip(aparams["enc_layers"], pspecs["enc_layers"]):
+            summed(ps["attn"]["wo"], p["attn"]["wo"], S_enc)
+            ffn(p["ffn"], ps["ffn"], S_enc)
+    return out
+
+
+def _whole_weights(policy, cfg, aparams, pspecs) -> List[int]:
+    """The bytes of each weight of an ``rwkv`` / ``rglru`` block (computed
+    whole on a data row's device) split on ``"model"``."""
+    mesh, model_ax = policy.mesh, (policy.tp,)
+    out = []
+    for kind, p, ps in zip(cfg.blocks(), aparams["layers"], pspecs["layers"]):
+        key = {"rglru": "rec", "rwkv": "tm"}.get(kind)
+        if key is None:
+            continue
+        for (_, leaf), spec in zip(flatten_with_paths(p[key]), leaves(ps[key], is_leaf=is_spec)):
+            if _split(mesh, spec, leaf.ndim, model_ax):
+                out.append(leaf.numel() * leaf.element_size())
+    return out
+
+
+def _row_batch(policy, B: int) -> int:
+    """A data row's rows: B / data size when the data axes divide B, else
+    B (the first data row computes the whole batch)."""
+    return B // policy.dp_size if B % policy.dp_size == 0 else B
+
+
+def collectives(policy, cfg, shape, aparams, pspecs, ospecs, remat: bool,
+                microbatches: int) -> rl.CollectiveStats:
     """Bytes a card sends in one step of the port's sharded train step,
     ring algorithms (R participants move (R - 1) / R of the data):
 
-    * ``all-gather`` (model): each read of a leaf split on ``"model"``
-      assembles it whole from its R = model-size blocks; ``reads`` reads a
-      step (forward, remat's recompute, each microbatch);
+    * over the R = model-size coordinates of a data row (tensor parallel),
+      whose rows are ``B_row`` = B / data size (B when the data axes do not
+      divide the batch), S the cell's length (an enc-dec's encoder and
+      decoder alike), each of ``microbatches`` slices of a row moving its
+      share:
+
+      - ``all-reduce``, 2 (R - 1) / R x ``B_row`` x S x D x the compute
+        dtype's bytes, for each attention (self, cross, the encoder's) and
+        FFN sub-block whose output projection is split on ``"model"``
+        (:func:`_summed_seqs`): the partial outputs in the forward, the
+        input's gradient in the backward, and the partials again in remat's
+        recompute (3 a sub-block with remat, 2 without); and once for the
+        embedding's vocab-split lookup (the table's dtype; a batch of
+        ``embeds`` looks nothing up);
+      - ``all-gather``, (R - 1) / R of the bytes of each ``rwkv`` /
+        ``rglru`` weight split on ``"model"`` at each read (the forward,
+        and remat's recompute), and of the unembedding split on vocab once,
+        read whole for K6; ``reduce-scatter``: their gradients back to
+        their blocks, (R - 1) / R of the same bytes, once;
+
     * over the data axes (R = data size), per leaf of a card's param
       block: the gradient ``reduce-scatter`` into the ZeRO-1 shards (an
       ``all-reduce``, twice the bytes, where the moments are not split on
@@ -96,31 +173,42 @@ def collectives(policy, aparams, pspecs, ospecs, reads: int) -> rl.CollectiveSta
     dp, tp = policy.dp_size, policy.tp_size
     by = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
     count = {k: 0 for k in by}
+
+    def add(kind, nbytes, n):
+        by[kind] += nbytes
+        count[kind] += n
+
+    rows, S, D, m = _row_batch(policy, shape.global_batch), shape.seq_len, cfg.d_model, microbatches
+    ring = (tp - 1) / tp
+    cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
+    passes = 3 if remat else 2
+    for seq in _summed_seqs(policy, cfg, aparams, pspecs, S, S if cfg.is_encdec else 0):
+        add("all-reduce", passes * 2 * ring * rows * seq * D * cbytes, passes * m)
+    model_ax = (policy.tp,)
+    if cfg.frontend != "vision" and _split(mesh, pspecs["embed"], 2, model_ax):
+        add("all-reduce", 2 * ring * rows * S * D * aparams["embed"].element_size(), m)
+    table = "embed" if cfg.tie_embeddings else "unembed"
+    gathered = [(w, (2 if remat else 1) * m) for w in _whole_weights(policy, cfg, aparams, pspecs)]
+    if _split(mesh, pspecs[table], 2, model_ax):
+        gathered.append((aparams[table].numel() * aparams[table].element_size(), m))
+    for nbytes, reads in gathered:
+        add("all-gather", reads * ring * nbytes, reads)
+        add("reduce-scatter", m * ring * nbytes, m)
     for (path, leaf), ps, os_ in zip(flatten_with_paths(aparams), leaves(pspecs, is_leaf=is_spec),
                                      leaves(ospecs, is_leaf=is_spec)):
-        nbytes = leaf.numel() * leaf.element_size()
-        if _counts(mesh, ps, leaf.ndim, (policy.tp,)) > 1:
-            by["all-gather"] += reads * (tp - 1) / tp * nbytes
-            count["all-gather"] += reads
         if dp == 1:
-            continue
+            break
+        nbytes = leaf.numel() * leaf.element_size()
         block = nbytes / _counts(mesh, ps, leaf.ndim, tuple(mesh.axis_names))
         split = (_counts(mesh, os_, leaf.ndim, policy.dp) > 1
                  or (getattr(os_, "group", None) or (None,))[0] is not None)
         if split:
-            by["reduce-scatter"] += (dp - 1) / dp * block
-            by["all-gather"] += (dp - 1) / dp * block
-            count["reduce-scatter"] += 1
-            count["all-gather"] += 1
+            add("reduce-scatter", (dp - 1) / dp * block, 1)
+            add("all-gather", (dp - 1) / dp * block, 1)
         else:
-            by["all-reduce"] += 2 * (dp - 1) / dp * block
-            count["all-reduce"] += 1
+            add("all-reduce", 2 * (dp - 1) / dp * block, 1)
     return rl.CollectiveStats({k: v for k, v in by.items() if count[k]},
                               {k: v for k, v in count.items() if v})
-
-
-def _split(mesh, spec, ndim, axes) -> bool:
-    return _counts(mesh, spec, ndim, axes) > 1
 
 
 def serving_collectives(policy, cfg, shape, aparams, pspecs, acache, cspecs
@@ -149,56 +237,36 @@ def serving_collectives(policy, cfg, shape, aparams, pspecs, acache, cspecs
       before the block and written back after it, twice (R - 1) / R of the
       row's bytes."""
     mesh = policy.mesh
-    tp = policy.tp_size
     model_ax = (policy.tp,)
     B = shape.global_batch
-    rows = B // policy.dp_size if B % policy.dp_size == 0 else B
+    rows = _row_batch(policy, B)
     decode = shape.mode == "decode"
     S = 1 if decode else (inp.ENCDEC_DECODER_PREFILL if cfg.is_encdec else shape.seq_len)
+    S_enc = shape.seq_len if cfg.is_encdec and not decode else 0
     cbytes = 2 if cfg.compute_dtype == "bfloat16" else 4
     D = cfg.d_model
     by = {"all-reduce": 0.0, "all-gather": 0.0}
     count = {k: 0 for k in by}
-    ring = (tp - 1) / tp
+    ring = (policy.tp_size - 1) / policy.tp_size
 
     def add(kind, nbytes):
         by[kind] += nbytes
         count[kind] += 1
 
-    def summed(spec, leaf, seq):
-        if _split(mesh, spec, leaf.ndim, model_ax):
-            add("all-reduce", 2 * ring * rows * seq * D * cbytes)
-
-    def ffn(p, ps, seq):
-        if "shared" in p and not _split(mesh, ps["wi"], p["wi"].ndim, model_ax):
-            p, ps = p["shared"], ps["shared"]
-        summed(ps["wi"], p["wi"], seq)
-
-    for kind, p, ps, c, cs in zip(cfg.blocks(), aparams["layers"], pspecs["layers"], acache,
-                                  cspecs):
+    for seq in _summed_seqs(policy, cfg, aparams, pspecs, S, S_enc):
+        add("all-reduce", 2 * ring * rows * seq * D * cbytes)
+    for nbytes in _whole_weights(policy, cfg, aparams, pspecs):
+        add("all-gather", ring * nbytes)
+    for kind, c, cs in zip(cfg.blocks(), acache, cspecs):
         if kind in ATTN_KINDS:
-            summed(ps["attn"]["wo"], p["attn"]["wo"], S)
-            if cfg.is_encdec:
-                summed(ps["cross"]["wo"], p["cross"]["wo"], S)
-            ffn(p["ffn"], ps["ffn"], S)
             length = NamedSharding(mesh, cs["k"]).entries(4)[1]
             if decode and length is not None:
                 r = int(np.prod([mesh.shape[a] for a in axes_of(length)]))
                 add("all-gather", (r - 1) / r * rows * cfg.num_heads * (cfg.head_dim + 2) * 4)
             continue
-        if kind == "rglru":
-            ffn(p["ffn"], ps["ffn"], S)
-        key = "rec" if kind == "rglru" else "tm"
-        for (_, leaf), spec in zip(flatten_with_paths(p[key]), leaves(ps[key], is_leaf=is_spec)):
-            if _split(mesh, spec, leaf.ndim, model_ax):
-                add("all-gather", ring * leaf.numel() * leaf.element_size())
         for name, leaf in c.items():
             if _split(mesh, cs[name], leaf.ndim, model_ax):
                 add("all-gather", 2 * ring * leaf.numel() * leaf.element_size() * rows / B)
-    if cfg.is_encdec and not decode:
-        for p, ps in zip(aparams["enc_layers"], pspecs["enc_layers"]):
-            summed(ps["attn"]["wo"], p["attn"]["wo"], shape.seq_len)
-            ffn(p["ffn"], ps["ffn"], shape.seq_len)
     if (decode or cfg.frontend != "vision") and _split(mesh, pspecs["embed"], 2, model_ax):
         add("all-reduce", 2 * ring * rows * S * D * aparams["embed"].element_size())
     table = "embed" if cfg.tie_embeddings else "unembed"
@@ -287,8 +355,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     else:  # prefill writes the cache, a decode step reads it
         moved = held["params"] + held["cache"] + batch_bytes
     if shape.mode == "train":
-        reads = (2 if model.remat else 1) * microbatches
-        coll = collectives(policy, aparams, pspecs, ospecs, reads)
+        coll = collectives(policy, cfg, shape, aparams, pspecs, ospecs, model.remat,
+                           microbatches)
     else:
         coll = serving_collectives(policy, cfg, shape, aparams, pspecs, acache, cspecs)
     cost = {"flops": mflops / n, "transcendentals": 0.0, "bytes accessed": float(moved.max())}

@@ -119,18 +119,22 @@ def shared_gate(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid((x.to(cd) @ p["shared_gate"].to(cd)).float()).to(cd)
 
 
+def aux_loss(cfg, r: dict) -> torch.Tensor:
+    """The Switch load-balancing loss of :func:`route`'s decisions: E · Σ_e
+    f_e · P_e (f the fraction of choices routed to e, P its mean prob),
+    times ``router_aux_weight``."""
+    m = cfg.moe
+    token_frac = r["onehot_e"].sum(dim=2).mean(dim=(0, 1))  # (E,)
+    prob_mean = r["probs"].mean(dim=(0, 1))  # (E,)
+    return m.num_experts * torch.sum(token_frac * prob_mean) * m.router_aux_weight
+
+
 def apply_moe(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25,
               group_size: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (out, aux loss), over :func:`token_groups`."""
-    m = cfg.moe
     xg = token_groups(x, group_size)
     r, combine = plan(cfg, p, xg, capacity_factor)
     out = expert_mix(cfg, p, xg, combine)
-    if m.d_ff_shared:
+    if cfg.moe.d_ff_shared:
         out = out + mlp_mod.apply_mlp(cfg, p["shared"], xg) * shared_gate(cfg, p, xg)
-
-    # Switch aux loss: E · Σ_e f_e · P_e (f = token fraction, P = mean prob)
-    token_frac = r["onehot_e"].sum(dim=2).mean(dim=(0, 1))  # (E,)
-    prob_mean = r["probs"].mean(dim=(0, 1))  # (E,)
-    aux = m.num_experts * torch.sum(token_frac * prob_mean) * m.router_aux_weight
-    return out.to(x.dtype).reshape(x.shape), aux
+    return out.to(x.dtype).reshape(x.shape), aux_loss(cfg, r)

@@ -62,6 +62,13 @@ not such products (the reference's ``pallas_call`` is not a dot), so they
 run again in the recompute under either policy; K6 runs once, after the
 stack.
 
+The training forward (``_stack`` / ``_sequence_block``) and the serving
+walk (``_walk``, ``encode``) take each sub-block, the input's lookup and
+the reads of norms and the unembedding from an ``ops`` object:
+:class:`LocalOps` on whole tensors, or the sharded steps'
+:class:`repro_torch.sharding.tensor_parallel.RowOps` on one data row of a
+mesh.
+
 Every prefill or training attention over more than one query row runs K5
 (causal, or not for the encoder and the cross-attention) and every
 multi-token RWKV time-mix K7 (on the card, each inside a
@@ -157,49 +164,34 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
     return p
 
 
-def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, memory) -> torch.Tensor:
-    """The cross sub-block after self-attention: a residual attention over
-    ``memory`` in decoder layers when there is one (reference
-    ``transformer.py:124-126``); ``x`` as it is otherwise."""
-    if memory is None or "cross" not in p:
-        return x
-    return x + attention.attend_cross(cfg, p["cross"], apply_norm(cfg, p["norm_x"], x), memory)
-
-
 def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                     positions: torch.Tensor, rwkv_chunk: int,
-                    memory: Optional[torch.Tensor] = None
+                    memory: Optional[torch.Tensor] = None, ops=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer over a whole sequence with no cache (the training forward
-    and the encoder; RG-LRU and RWKV from the zero state): (x, aux), aux
-    the MoE FFN's load-balancing loss, an f32 zero for any other layer."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(cfg, p["norm1"], x)
+    and its encoder; RG-LRU and RWKV from the zero state), each sub-block
+    through ``ops`` (:class:`LocalOps` by default): (x, aux), aux the MoE
+    FFN's load-balancing loss, an f32 zero for any other layer.  A
+    decoder layer's cross sub-block runs when there is a ``memory``
+    (reference ``transformer.py:124-126``)."""
+    ops = ops or LocalOps(cfg)
+    r = ops.read(p)
+    h = apply_norm(cfg, r["norm1"], x)
     if kind in ATTN_KINDS or kind == "enc":
-        x = x + attention.attend_train(cfg, p["attn"], h, kind, positions)
-        x = _cross(cfg, p, x, memory)
-        h2 = apply_norm(cfg, p["norm2"], x)
-        if "router" in p["ffn"]:
-            f, aux = moe.apply_moe(cfg, p["ffn"], h2)
-        else:
-            f = mlp.apply_mlp(cfg, p["ffn"], h2)
+        x = x + ops.attend(p["attn"], h, kind, positions)
+        if memory is not None and "cross" in p:
+            x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
+        f, aux = ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))
         return x + f, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rglru":
-        a, _ = griffin.griffin_block(cfg, p["rec"], h)
+        a, _ = griffin.griffin_block(cfg, r["rec"], h)
         x = x + a
-        return x + mlp.apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x)), aux
-    a, _, _ = rwkv6.time_mix(cfg, p["tm"], h, None, None, chunk=rwkv_chunk)
+        return x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x)), aux
+    a, _, _ = rwkv6.time_mix(cfg, r["tm"], h, None, None, chunk=rwkv_chunk)
     x = x + a
-    c, _ = rwkv6.channel_mix(cfg, p["tm"], apply_norm(cfg, p["norm2"], x))
+    c, _ = rwkv6.channel_mix(cfg, r["tm"], apply_norm(cfg, r["norm2"], x))
     return x + c, aux
-
-
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The FFN after attention: the MoE layer (its aux loss dropped, as in
-    serving) or the dense MLP."""
-    if "router" in p:
-        return moe.apply_moe(cfg, p, x)[0]
-    return mlp.apply_mlp(cfg, p, x)
 
 
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
@@ -221,7 +213,8 @@ def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dty
 
 
 class LocalOps:
-    """The sub-block operations of the serving walk (:meth:`Model.prefill`,
+    """The sub-block operations of the model's layer walks (the training
+    forward :meth:`Model.train_loss`, and serving's :meth:`Model.prefill`,
     :meth:`Model.decode_step`, :meth:`Model.encode`) on whole tensors on
     one device.  :class:`repro_torch.sharding.tensor_parallel.RowOps` has
     the same methods for one data row of a mesh."""
@@ -255,8 +248,14 @@ class LocalOps:
     def cross(self, p, h, memory):
         return attention.attend_cross(self.cfg, p, h, memory)
 
-    def ffn(self, p, x):
-        return _ffn(self.cfg, p, x)
+    def ffn(self, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The FFN after attention: (out, aux), aux the MoE layer's
+        load-balancing loss, an f32 zero for the dense MLP (serving drops
+        it)."""
+        if "router" in p:
+            return moe.apply_moe(self.cfg, p, x)
+        return mlp.apply_mlp(self.cfg, p, x), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
 
     def mlp(self, p, x):
         return mlp.apply_mlp(self.cfg, p, x)
@@ -352,7 +351,8 @@ class Model:
     # -- losses ---------------------------------------------------------------
     def _xent(self, params, x: torch.Tensor, targets: torch.Tensor,
               mask: torch.Tensor) -> torch.Tensor:
-        """Mean CE over masked positions.  x: (B, S, D); targets: (B, S)."""
+        """Mean CE over masked positions.  x: (B, S, D); targets: (B, S);
+        ``params`` as ``ops.read`` hands them out (the unembedding whole)."""
         cfg = self.cfg
         W = self._unembed_matrix(params)  # (V, D)
         denom = torch.clamp(mask.sum(), min=1.0)
@@ -370,15 +370,19 @@ class Model:
         return (ce * mask).sum() / denom
 
     def _stack(self, layers, kinds, x: torch.Tensor, memory=None,
-               remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One stack of layers over whole sequences with no cache, each layer
+               remat: bool = False, ops=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One stack of layers over whole sequences with no cache, each
+        sub-block through ``ops`` (:class:`LocalOps` by default), each layer
         under ``checkpoint`` (with ``remat_policy``'s context) when
-        ``remat``: (x, the sum of the layers' aux losses in layer order)."""
+        ``remat``: (x, the sum of the layers' aux losses in layer order).
+        The non-reentrant ``checkpoint`` runs the layer's Python again in
+        the backward pass, so ``ops``' per-device work is recomputed on its
+        own devices."""
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(kinds, layers):
-            args = (self.cfg, kind, p, x, positions, self.rwkv_chunk, memory)
+            args = (self.cfg, kind, p, x, positions, self.rwkv_chunk, memory, ops)
             if remat:
                 x, a = checkpoint(_sequence_block, *args, use_reentrant=False,
                                   context_fn=REMAT_CONTEXTS[self.remat_policy])
@@ -387,7 +391,7 @@ class Model:
             aux = aux + a
         return x, aux
 
-    def train_loss(self, params, batch: dict) -> Tuple[torch.Tensor, dict]:
+    def train_loss(self, params, batch: dict, ops=None) -> Tuple[torch.Tensor, dict]:
         """(loss, {"ce", "aux"}) of the batch against ``batch["targets"]``
         (B, S), weighted by ``batch["mask"]`` (default all ones): loss = ce +
         aux, aux the decoder stack's summed MoE aux losses.  The input is
@@ -395,22 +399,25 @@ class Model:
         enc-dec config also takes ``batch["src_embeds"]`` (B, T, D), encoded
         with remat as the decoder is, and its decoder's output goes to the
         loss without ``final_norm``, as in the reference
-        (``transformer.py:366-398``)."""
+        (``transformer.py:366-398``).  Every sub-block, the input's lookup
+        and the reads of norms and of the unembedding go through ``ops``
+        (:class:`LocalOps` by default; the sharded train step's
+        :class:`repro_torch.sharding.tensor_parallel.RowOps`)."""
         cfg = self.cfg
+        ops = ops or LocalOps(cfg)
+        top = ops.read(params)
         targets = batch["targets"]
         memory = None
         if cfg.is_encdec:
-            memory, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
-                                    batch["src_embeds"].to(cdt(cfg)), remat=self.remat)
-            memory = apply_norm(cfg, params["final_norm"], memory)
-        x, aux = self._stack(params["layers"], cfg.blocks(), self._input(params, batch),
-                             memory, remat=self.remat)
+            memory = self.encode(params, batch["src_embeds"], ops, remat=self.remat)
+        x, aux = self._stack(params["layers"], cfg.blocks(), self._input(params, batch, ops),
+                             memory, remat=self.remat, ops=ops)
         if not cfg.is_encdec:
-            x = apply_norm(cfg, params["final_norm"], x)
+            x = apply_norm(cfg, top["final_norm"], x)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
-        ce = self._xent(params, x, targets, mask)
+        ce = self._xent(top, x, targets, mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------
@@ -426,20 +433,17 @@ class Model:
         return _init_block_state(self.cfg, kind, batch, max_seq, cdt(self.cfg), device,
                                  kv_quant=self.kv_dtype == "int8")
 
-    def encode(self, params, src_embeds: torch.Tensor, ops=None) -> torch.Tensor:
+    def encode(self, params, src_embeds: torch.Tensor, ops=None,
+               remat: bool = False) -> torch.Tensor:
         """The encoder (enc-dec configs): frame embeddings (B, T, D) → the
         memory (B, T, D) the decoder attends to, through the ``enc`` layers
-        (K5, ``causal=False``) and the decoder's ``final_norm``, as in the
-        reference (``transformer.py:417-427``)."""
+        (K5, ``causal=False``; each under ``checkpoint`` when ``remat``, as
+        the training loss runs them) and the decoder's ``final_norm``, as in
+        the reference (``transformer.py:417-427``)."""
         cfg = self.cfg
         ops = ops or LocalOps(cfg)
-        x = src_embeds.to(cdt(cfg))
-        B, S = x.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        for p in params["enc_layers"]:
-            r = ops.read(p)
-            x = x + ops.attend(p["attn"], apply_norm(cfg, r["norm1"], x), "enc", positions)
-            x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
+        x, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
+                           src_embeds.to(cdt(cfg)), remat=remat, ops=ops)
         return apply_norm(cfg, ops.read(params)["final_norm"], x)
 
     def prefill(self, params, batch: dict, max_seq: int,
@@ -498,7 +502,7 @@ class Model:
                 x = x + a
                 if memory is not None and "cross" in p:
                     x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
-                x = x + ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))
+                x = x + ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))[0]
             elif kind == "rglru":
                 a, new = griffin.griffin_block(cfg, r["rec"], h, ops.read_state(state))
                 state = ops.write_state(state, new)

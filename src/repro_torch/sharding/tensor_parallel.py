@@ -1,14 +1,18 @@
 """Tensor-parallel sub-blocks on a ("data", "model") mesh.
 
 The port's counterpart of what GSPMD does for the reference's sharded
-serving steps (``repro/serve/step.py:165-220``): each layer's sub-block
-runs on every model coordinate of a data row from that coordinate's own
-blocks (:meth:`repro_torch.sharding.placement.Placed.shard`, no copy), each
-under ``device.current`` of its device, and the partial outputs come back
-to the row's device (the device of its first model coordinate).  The
-model's own layer walk (``Model.prefill`` / ``decode_step`` / ``encode``)
-calls them through :class:`RowOps`, one data row at a time.  The splits
-are ``ShardingPolicy.param_spec``'s:
+steps (``repro/train/step.py:80-110``, ``repro/serve/step.py:165-220``):
+each layer's sub-block runs on every model coordinate of a data row from
+that coordinate's own blocks (:meth:`repro_torch.sharding.placement.
+Placed.shard`, no copy), each under ``device.current`` of its device, and
+the partial outputs come back to the row's device (the device of its
+first model coordinate).  The model's own layer walks (``Model.train_loss``
+and ``Model.prefill`` / ``decode_step`` / ``encode``) call them through
+:class:`RowOps`, one data row at a time.  In training every operation is
+differentiable with respect to the blocks it reads (:func:`row_tensors`),
+so autograd hands each block its gradient on its own device; under remat
+the non-reentrant ``checkpoint`` recomputes each coordinate's work inside
+its own ``device.current``.  The splits are ``ShardingPolicy.param_spec``'s:
 
 * **attention** (``attn``, ``swa``, ``local``, ``enc``, a decoder's
   ``cross``): ``wq`` / ``bq`` split on heads give each coordinate its q
@@ -22,19 +26,23 @@ are ``ShardingPolicy.param_spec``'s:
 * **the dense MLP and the MoE FFN**: ``wi`` / ``wg`` split on ``d_ff``,
   ``wo`` on its ``d_ff`` input (each expert's, and the shared expert's).
   The router and ``shared_gate`` are replicated and run once on the row's
-  device, so every coordinate takes the same capacity, slots and drops;
+  device, so every coordinate takes the same capacity, slots and drops,
+  and the aux loss is computed there once (``moe.aux_loss``);
   ``combine`` and the shared expert's sigmoid gate are linear in the
   expert outputs, so the output is the sum of the partials;
 * **the embedding and the unembedding** split on vocab: a token's row comes
   from the one coordinate whose range holds it, the others add zeros (the
   sum is bit-equal), and the logits are the concatenation of each
-  coordinate's vocab slice;
+  coordinate's vocab slice.  The training loss reads the unembedding whole
+  (gathered on the row's device) for K6, which has no vocab-split form
+  yet (``ROADMAP.md`` item 6f);
 * **norms and every other 1-D leaf** are replicated and read on the row's
   device;
 * **``rwkv`` and ``rglru`` blocks run whole** on the row's device
-  (:func:`whole`: weights gathered at read, their state gathered before the
-  block and written back to its placement after it; their tensor-parallel
-  compute is ``ROADMAP.md`` item 6f).
+  (:func:`whole`: weights gathered at read, differentiably in training;
+  in serving their state gathered before the block and written back to
+  its placement after it; their tensor-parallel compute is ``ROADMAP.md``
+  item 6f).
 
 **The KV cache on its shards** (``ShardingPolicy.cache_specs``,
 :func:`cache_layout`): split on heads, each coordinate writes and reads
@@ -149,6 +157,21 @@ def whole(x, row: Row) -> torch.Tensor:
     if t is not None and t.shape == x.shape:
         return t
     return pl.gather(x, row.device, row.coords)
+
+
+def row_tensors(x: pl.Placed, row: Row) -> List[Tuple[Tuple[int, ...], torch.Tensor]]:
+    """[(block, stored tensor)] of every tensor of ``x`` that the row's
+    operations read, each once: each of its coordinates' own blocks
+    (:meth:`Placed.shard`) and the copies a read whole takes
+    (:func:`whole`, through ``pl.sources``).  The sharded train step asks
+    for the gradient of each."""
+    out, seen = [], set()
+    held = [(x.sharding.block(c, x.ndim), x.shard(c)) for c in row.coords]
+    for b, t in held + list(pl.sources(x, row.device, row.coords).items()):
+        if b is not None and id(t) not in seen:
+            seen.add(id(t))
+            out.append((b, t))
+    return out
 
 
 def reader(tree, row: Row) -> pl.Reader:
@@ -487,30 +510,36 @@ def dense_mlp(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
     return sum_partials(parts, row.device, cdt(cfg))
 
 
-def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
-    """``moe.apply_moe``'s output (serving drops the aux loss) with the
-    experts' and the shared expert's ``d_ff`` split: routing, capacity and
-    the shared gate once on the row's device, then each coordinate's
-    expert and shared-expert partials."""
+def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe.apply_moe`` with the experts' and the shared expert's ``d_ff``
+    split: routing, capacity, drops, the shared gate and the aux loss
+    (``moe.aux_loss``) once on the row's device, then each coordinate's
+    expert and shared-expert partials.  Returns (out, aux)."""
     xg = moe.token_groups(x)
-    _, combine = moe.plan(cfg, {"router": whole(p["router"], row)}, xg)
+    r, combine = moe.plan(cfg, {"router": whole(p["router"], row)}, xg)
     experts = {k: p[k] for k in ("wi", "wg", "wo") if k in p}
     parts = []
     for c, dev in _workers(row, split_dim(p["wi"]) is not None):
         with current(dev):
             parts.append(moe.expert_mix(cfg, _local(experts, c), xg.to(dev), combine.to(dev)))
-    if cfg.moe.d_ff_shared:
-        sg = moe.shared_gate(cfg, {"shared_gate": whole(p["shared_gate"], row)}, xg)
+    if cfg.moe.d_ff_shared:  # the gate after the MLPs, as apply_moe orders them:
+        # the backward then sums x's gradient in the same order
+        shared = []
         for c, dev in _workers(row, split_dim(p["shared"]["wi"]) is not None):
             with current(dev):
-                parts.append(mlp.apply_mlp(cfg, _local(p["shared"], c), xg.to(dev))
-                             * sg.to(dev))
-    return sum_partials(parts, row.device, cdt(cfg)).to(x.dtype).reshape(x.shape)
+                shared.append(mlp.apply_mlp(cfg, _local(p["shared"], c), xg.to(dev)))
+        sg = moe.shared_gate(cfg, {"shared_gate": whole(p["shared_gate"], row)}, xg)
+        parts += [h * sg.to(h.device) for h in shared]
+    out = sum_partials(parts, row.device, cdt(cfg)).to(x.dtype).reshape(x.shape)
+    return out, moe.aux_loss(cfg, r)
 
 
-def ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
-    """The FFN after attention: the MoE layer or the dense MLP."""
-    return moe_ffn(cfg, p, x, row) if "router" in p else dense_mlp(cfg, p, x, row)
+def ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN after attention: (out, aux) of the MoE layer, or the dense
+    MLP's and an f32 zero."""
+    if "router" in p:
+        return moe_ffn(cfg, p, x, row)
+    return dense_mlp(cfg, p, x, row), torch.zeros((), dtype=torch.float32, device=row.device)
 
 
 # -- blocks computed whole -----------------------------------------------------------------
@@ -534,11 +563,14 @@ def write_state(state: dict, new: dict, row: Row) -> None:
 
 class RowOps:
     """The sub-block operations of :class:`repro_torch.models.transformer.
-    LocalOps` on one data row of a mesh, so that ``Model.prefill`` /
-    ``decode_step`` / ``encode`` walk a placed model: attention and FFNs
-    split over the row's model coordinates, the KV cache on its shards,
-    norms and the blocks computed whole read whole on the row's device,
-    their state read from and written back to its placement."""
+    LocalOps` on one data row of a mesh, so that ``Model.train_loss``,
+    ``prefill``, ``decode_step`` and ``encode`` walk a placed model:
+    attention and FFNs split over the row's model coordinates, the
+    embedding looked up on its vocab blocks, the KV cache on its shards,
+    norms, the unembedding and the blocks computed whole read whole on the
+    row's device, their state read from and written back to its
+    placement.  Every operation is differentiable with respect to the
+    blocks it reads (:func:`row_tensors`)."""
 
     def __init__(self, cfg, row: Row):
         self.cfg, self.row = cfg, row

@@ -21,8 +21,10 @@ drops them when it accumulates).
 ``jit_train_step`` keeps the reference's name (``step.py:80``) and its
 placements: params by ``ShardingPolicy.param_specs``, the AdamW moments by
 ``opt_state_specs`` (ZeRO-1), the batch by ``batch_specs``, and the same
-placements out as in.  PyTorch runs it eagerly, coordinate by coordinate
-(:class:`ShardedTrainStep`).
+placements out as in.  PyTorch runs it eagerly (:class:`ShardedTrainStep`):
+each data row's loss and gradients tensor parallel over its model
+coordinates (:mod:`repro_torch.sharding.tensor_parallel`), each as GSPMD
+splits the reference's compute along ``"model"``.
 """
 from __future__ import annotations
 
@@ -58,11 +60,13 @@ def _requiring_grad(tensors):
             t.requires_grad_(False)
 
 
-def _loss_and_grads(model, params, batch: dict, wrt) -> Tuple[torch.Tensor, dict, tuple]:
+def _loss_and_grads(model, params, batch: dict, wrt, ops=None,
+                    materialize: bool = True) -> Tuple[torch.Tensor, dict, tuple]:
     """(loss, metrics, the gradients of the loss with respect to each
-    tensor of ``wrt``; zeros for one the loss does not use)."""
-    loss, metrics = model.train_loss(params, batch)
-    grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+    tensor of ``wrt``; for one the loss does not use, zeros, or ``None``
+    unless ``materialize``), the loss's sub-blocks through ``ops``."""
+    loss, metrics = model.train_loss(params, batch, ops=ops)
+    grads = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=materialize)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
@@ -122,15 +126,6 @@ def make_train_step(model, step_cfg: TrainStepConfig = TrainStepConfig()):
 # ---------------------------------------------------------------------------
 
 
-def _row_batches(batch: dict, split: bool, n_rows: int, devices) -> List[dict]:
-    """The batch of each data coordinate on its device: contiguous rows
-    when ``split``, else the whole batch on the first coordinate only."""
-    if not split:
-        return [{k: v.to(devices[0]) for k, v in batch.items()}]
-    return [{k: v.to(d) for k, v in rows.items()}
-            for rows, d in zip(microbatches(batch, n_rows), devices)]
-
-
 class ShardedTrainStep:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)`` on
     a mesh, the port's ``jit_train_step``.
@@ -139,32 +134,49 @@ class ShardedTrainStep:
       placed on the way in), the AdamW state by :meth:`init_opt_state`'s
       placements (the moments ZeRO-1 split), the batch as whole tensors
       split over the data axes by the batch specs.
-    * **Each data coordinate** computes the loss and gradients of its rows
-      on its device (the mesh's device at model index 0 of its row) through
-      the model's own ``train_loss``: K5 and K6 run there as in the
-      unsharded step.  A leaf is gathered from the row's blocks when the
-      model reads it.  ``microbatches`` splits each row's batch further.
+    * **Each data row** computes the loss and gradients of its rows through
+      the model's own ``train_loss`` with
+      :class:`repro_torch.sharding.tensor_parallel.RowOps`, tensor parallel
+      as GSPMD splits the reference's step along ``"model"``: attention on
+      each model coordinate's q / KV heads (K5 on that coordinate's card,
+      again in remat's recompute), the dense MLP, the experts and the
+      shared expert on its ``d_ff`` slice, the embedding looked up on its
+      vocab block, each from the coordinate's own blocks; the partial
+      outputs summed on the row's device (its first coordinate's), where
+      norms, the MoE routing and aux loss, and K6 run.  Every block the
+      row reads requires gradients, so each block's gradient lands on its
+      own device.  ``microbatches`` splits each row's batch further.
     * **Then** the gradients are summed over every microbatch of every data
-      coordinate in coordinate order, in ``grad_dtype``, straight into the
-      ZeRO-1 shard that owns each region (on that shard's device), and
-      divided by their count; clipped by the global norm of the whole
+      row in row order, in ``grad_dtype``, straight into the ZeRO-1 shard
+      that owns each region (on that shard's device), and divided by their
+      count: a region's gradient is the sum over every copy of its param
+      block that the row read (a replicated leaf is read from the row's
+      first coordinate only); clipped by the global norm of the whole
       gradient; AdamW updates each shard on its device; each param block
       takes the updated regions, from the devices that updated them.
     * **Out:** params and moments updated in place (``donate=True``; else
       on copies), in the placements they came in.
 
-    With ``dp`` data coordinates and ``m`` microbatches this computes
+    With ``dp`` data rows and ``m`` microbatches this computes
     ``make_train_step(TrainStepConfig(microbatches=dp * m))``: the losses
     and gradients of ``dp * m`` contiguous slices, averaged, which is how
     the reference's GSPMD step splits the global batch.  (The MoE aux loss
     is a product of means over its batch, so it is the mean of per-slice
     aux losses, as in the reference's microbatch path; for a dense family
     with an all-ones mask the loss equals the unsplit batch's up to
-    rounding.)  A batch the specs do not split by rows (replicated, or
-    split on the sequence at ``global_batch <= seq_parallel_threshold``)
-    runs whole on the first data coordinate.  Only storage and the
-    optimizer state are split along ``"model"``: each coordinate computes
-    with whole weights.
+    rounding.)  At one model coordinate the sums are the unsharded step's
+    bits; at more, the partial outputs are summed in f32 in coordinate
+    order and cast once, so the step rounds differently from the
+    unsharded one by design.
+
+    Three differences from the reference's GSPMD step (``ROADMAP.md``):
+    K6 runs whole, once a data row, over the unembedding gathered at read
+    (a vocab-split CE needs K6 to return partial ``(max, sumexp, target
+    logit)`` triples); ``rwkv`` and ``rglru`` blocks run whole on the
+    row's device, their weights gathered differentiably; and a batch the
+    specs do not split by rows (replicated, or split on the sequence at
+    ``global_batch <= seq_parallel_threshold``) runs whole on the first
+    data row.
     """
 
     def __init__(self, model, policy, abstract_params, step_cfg: TrainStepConfig,
@@ -201,34 +213,29 @@ class ShardedTrainStep:
         shards = [[((b, self.mesh.device(c)), x.sharding.region(b, x.shape), c)
                    for b, held in x.copies().items() for c, _ in held] for x in M]
 
-        rows = self.rows if self.split_rows else self.rows[:1]
-        row_devices = [self.mesh.device(r[0]) for r in rows]
-        row_batches = _row_batches(batch, self.split_rows, len(rows), row_devices)
+        rows = tp.rows_at_work(self.mesh, self.rows, batch["targets"].shape[0],
+                               self.split_rows)
         m = cfg.microbatches
         n = len(rows) * m
         acc: List[Dict] = [{} for _ in P]
         loss_sum, metrics = None, {}
-        for coords, dev, rb in zip(rows, row_devices, row_batches):
-            srcs = [pl.sources(x, dev, coords) for x in P]
-            tensors = [t for s in srcs for t in s.values()]
-            where = {}  # (leaf, block) -> index into tensors
-            for i, s in enumerate(srcs):
-                for b in s:
-                    where[(i, b)] = len(where)
-            ids = {id(x): i for i, x in enumerate(P)}
-
-            def read(v, srcs=srcs, dev=dev):
-                if isinstance(v, pl.Placed):
-                    return pl.assemble(srcs[ids[id(v)]], v.sharding.counts(v.ndim), dev)
-                return v
-
-            view = pl.Reader(params, read)
-            with current(dev), _requiring_grad(tensors):
+        for row, rb in zip(rows, microbatches(batch, len(rows))):
+            rb = {k: v.to(row.device) for k, v in rb.items()}
+            reads = [tp.row_tensors(x, row) for x in P]  # [(block, tensor)] a leaf
+            tensors = [t for r in reads for _, t in r]
+            ops = tp.RowOps(model.cfg, row)
+            # the backward pass on this thread alone: the autograd engine
+            # runs each card's (and the CPU's) nodes on a thread of its own,
+            # and two threads reaching one remat layer's nodes at once
+            # would both run its non-reentrant recompute
+            with (current(row.device), _requiring_grad(tensors),
+                  torch.autograd.set_multithreading_enabled(False)):
                 for mb in microbatches(rb, m):
-                    loss, metrics, grads = _loss_and_grads(model, view, mb, tensors)
+                    loss, metrics, grads = _loss_and_grads(model, params, mb, tensors, ops,
+                                                           materialize=False)
                     loss = loss.to(self.home)
                     loss_sum = loss if loss_sum is None else loss_sum + loss
-                    self._accumulate(acc, grads, where, srcs, P, shards, gdt)
+                    self._accumulate(acc, grads, reads, P, shards, gdt)
                     del grads
 
         if n > 1:
@@ -246,19 +253,29 @@ class ShardedTrainStep:
         return params, opt.AdamWState(step=new_step, m=opt_state.m, v=opt_state.v), metrics
 
     @staticmethod
-    def _accumulate(acc, grads, where, srcs, P, shards, gdt):
+    def _accumulate(acc, grads, reads, P, shards, gdt):
         """Add one microbatch's gradients into each moment block's region,
-        on that block's device."""
-        for i, (x, mine) in enumerate(zip(P, shards)):
+        on that block's device: the region's part of the gradient of every
+        copy of the param block that holds it (a copy the row did not read
+        has none; no copy read: zeros)."""
+        j = 0
+        for i, (x, mine, read) in enumerate(zip(P, shards, reads)):
+            got = grads[j:j + len(read)]
+            j += len(read)
             for key, region, _ in mine:
-                for b in srcs[i]:
+                g, inside = None, False
+                for (b, _), gb in zip(read, got):
                     outer = x.sharding.region(b, x.shape)
-                    if pl.contains(outer, region):
-                        break
-                else:
+                    if not pl.contains(outer, region):
+                        continue
+                    inside = True
+                    if gb is not None:
+                        part = gb[pl.slices_within(region, outer)].to(device=key[1], dtype=gdt)
+                        g = part if g is None else g + part
+                if not inside:
                     raise ValueError(f"{x}: a moment block {region} crosses param blocks")
-                g = grads[where[(i, b)]][pl.slices_within(region, outer)]
-                g = g.to(device=key[1], dtype=gdt)
+                if g is None:
+                    g = torch.zeros(tuple(b - a for a, b in region), dtype=gdt, device=key[1])
                 acc[i][key] = g.clone() if key not in acc[i] else acc[i][key] + g
 
     def _apply_adamw(self, P, M, V, acc, shards, step):

@@ -39,6 +39,7 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import Model
 from repro_torch.sharding.policy import ShardingPolicy
+from repro_torch.tree import leaves
 
 ARCHS = base.arch_ids()
 
@@ -221,7 +222,8 @@ def test_lower_cell_record(multi_pod):
                                            / n / 989e12)
     assert r["useful_flops_ratio"] == pytest.approx(1.0)
     assert set(rec["analysis"]["collectives"]["bytes_by_kind"]) == {"all-gather",
-                                                                    "reduce-scatter"}
+                                                                    "reduce-scatter",
+                                                                    "all-reduce"}
     decode = dryrun.lower_cell("rwkv6-7b", "long_500k", multi_pod=multi_pod)
     assert decode["bytes_per_card"]["cache"] > 0 and decode["bytes_per_card"]["grads"] == 0
     assert dryrun.lower_cell("llama3-8b", "long_500k", multi_pod=multi_pod)["skipped"]
@@ -272,3 +274,28 @@ def test_serving_cells_collective_term():
         assert coll["bytes_by_kind"] == pytest.approx(want, rel=1e-12)
         assert coll["count_by_kind"] == count
         assert rec["roofline"]["collective_s"] == pytest.approx(sum(want.values()) / rl.LINK_BW)
+
+
+def test_train_cell_collective_term():
+    """Llama-3-8B's train_4k on (16, 16), remat, one microbatch: a data row
+    of B_row = 256 / 16 rows x S 4,096.  Over "model" (R = 16, ring
+    algorithms): per attention and per MLP (32 layers, both split), three
+    all-reduces of 2 x 15/16 x B_row x S x 4,096 x 2 bytes (bf16 partials:
+    forward, the input's gradient, remat's recompute), one more for the
+    vocab-split lookup (f32 table), and the unembedding (128,256 x 4,096
+    f32, untied) gathered for K6 (all-gather) and its gradient sent back
+    (reduce-scatter), 15/16 of its bytes each.  Over "data" (R = 16), every
+    leaf's moments ZeRO-1 split: a reduce-scatter and an all-gather of
+    15/16 of a card's param block, so 15/16 of a card's param bytes each,
+    one a leaf."""
+    rec = dryrun.lower_cell("llama3-8b", "train_4k")
+    coll = rec["analysis"]["collectives"]
+    ring, rows, S, D = 15 / 16, 256 // 16, 4096, 4096
+    table = ring * 128_256 * D * 4
+    data = ring * rec["bytes_per_card"]["params"]
+    n_leaves = len(leaves(inp.abstract_params(dryrun.build_model(base.get_config("llama3-8b")))))
+    want = {"all-reduce": 64 * 3 * 2 * ring * rows * S * D * 2 + 2 * ring * rows * S * D * 4,
+            "all-gather": table + data, "reduce-scatter": table + data}
+    assert coll["bytes_by_kind"] == pytest.approx(want, rel=1e-9)
+    assert coll["count_by_kind"] == {"all-reduce": 64 * 3 + 1, "all-gather": n_leaves + 1,
+                                     "reduce-scatter": n_leaves + 1}

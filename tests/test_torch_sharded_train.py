@@ -20,11 +20,18 @@ repeated:
   near-zero m by a near-zero sqrt(v), so f32 rounding of a gradient that
   cancels decides its update (one of Mixtral's embedding weights at two
   microbatches: m 1.2e-9 against 2.4e-9, v 7e-18, update 1.2e-4 apart; the
-  port's  unsharded step alike).  Step 1's loss is bit-equal to the port's own
-  unsharded step with ``dp`` microbatches, and every leaf after 2 steps is
-  within 1e-6 of the larger of 1 and its largest |value| (the same sums;
-  only the global norm adds its parts in another order, which moves the
-  clipping scale by an f32 rounding);
+  port's  unsharded step alike).  Against the port's own unsharded step
+  with ``dp`` microbatches: at a model axis of 1, step 1's loss is
+  bit-equal and every leaf after 2 steps is within 1e-6 of the larger of 1
+  and its largest |value| (the same sums; only the global norm adds its
+  parts in another order, which moves the clipping scale by an f32
+  rounding); at a model axis of 2 or 4 (tensor parallel: the partial
+  outputs of attention, the FFNs and the lookup summed in f32 in
+  coordinate order) the losses within 1e-6 relative and every leaf within
+  1e-5 of the same scale, plus for a param the learning rate of each step
+  after which the unsharded step's v says the gradient's RMS so far is
+  under 1e-6 (a step-1 gradient of 3e-9 that cancels: its update's sign
+  and size are f32 rounding);
 * after the steps every leaf keeps its placement, and each coordinate
   holds exactly the bytes its spec says (the ZeRO-1 moments included);
 * ``place`` / ``gather`` / ``reshard_tree`` round-trip bit for bit, and
@@ -69,6 +76,10 @@ MESHES = {"2x2": (2, 2), "4x1": (4, 1), "1x4": (1, 4)}
 B, S = 4, 16
 ADAMW = dict(lr_peak=1e-3, warmup_steps=2, total_steps=10)
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
+# the tensor-parallel step (model axis > 1) against the port's unsharded
+# step: its partial outputs are summed in f32 in coordinate order, so it
+# rounds differently from the whole products by design
+TP_LOSS_RTOL, TP_LEAF_TOL = 1e-6, 1e-5
 
 
 def _cfgs(arch):
@@ -78,13 +89,21 @@ def _cfgs(arch):
 
 @functools.lru_cache(maxsize=None)
 def _setup(arch):
-    """(reference params as numpy, four numpy batches)."""
+    """(reference params as numpy, four numpy batches: tokens and targets,
+    an enc-dec's ``src_embeds`` beside them, a vision config's ``embeds``
+    in place of the tokens)."""
     rcfg, cfg = _cfgs(arch)
     rparams = jax.tree.map(np.asarray,
                            jax.jit(_ref_model(arch).init_params)(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
     batches = [{k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
                 for k in ("tokens", "targets")} for _ in range(4)]
+    for b in batches:  # an enc-dec's frames, a vision config's patch embeddings
+        if cfg.is_encdec:
+            b["src_embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        if cfg.frontend == "vision":
+            b["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+            del b["tokens"]
     return rparams, batches
 
 
@@ -133,20 +152,25 @@ def _whole(tree):
     return tree_map(lambda x: pl.gather(x, "cpu"), tree)
 
 
-def _assert_leaves_close(got, want, cfg, tol=LEAF_TOL, floor=1e-30, want_v=None, steps=0):
+def _assert_leaves_close(got, want, cfg, tol=LEAF_TOL, floor=1e-30, want_v=None, steps=0,
+                         step_vs=()):
     """Each leaf of ``got`` (the port's tree) against ``want``'s (the
     reference's layout): within rtol ``tol`` and atol ``tol`` of the larger
     of ``floor`` and the leaf's largest |value|; with ``want_v``, plus
     ``steps`` learning rates where the reference's v says the gradient's
-    RMS is under 1e-6."""
+    RMS is under 1e-6; with ``step_vs`` (v after each step), plus one
+    learning rate for each step after which v says so."""
     flat_got = dict(jax.tree_util.tree_flatten_with_path(convert.lm_params_to_numpy(got, cfg))[0])
     flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
     flat_v = {} if want_v is None else dict(jax.tree_util.tree_flatten_with_path(want_v)[0])
+    flat_vs = [dict(jax.tree_util.tree_flatten_with_path(v)[0]) for v in step_vs]
     assert len(flat_got) == len(flat_want)
     for path, w in flat_want:
         atol = tol * max(float(np.abs(w).max()), floor)
         if path in flat_v:
             atol = atol + steps * ADAMW["lr_peak"] * (np.sqrt(flat_v[path]) < 1e-6)
+        for v in flat_vs:
+            atol = atol + ADAMW["lr_peak"] * (np.sqrt(v[path]) < 1e-6)
         err = np.abs(flat_got[path] - w)
         assert (err <= atol + tol * np.abs(w)).all(), (jax.tree_util.keystr(path),
                                                        float(err.max()))
@@ -185,10 +209,11 @@ def check_sharded_step(arch, sizes, axes=("data", "model")):
     params = convert.lm_params_from_numpy(rparams, cfg, device="cpu")
     unsharded = make_train_step(model, TrainStepConfig(microbatches=dp,
                                                        adamw=opt.AdamWConfig(**ADAMW)))
-    ustate, ulosses = opt.init_state(params), []
+    ustate, ulosses, uvs = opt.init_state(params), [], []
     for b in batches[:2]:
         params, ustate, um = unsharded(params, ustate, _torch_batch(b))
         ulosses.append(float(um["loss"]))
+        uvs.append(convert.lm_params_to_numpy(ustate.v, cfg))
     uparams = params
 
     params = reshard_tree(convert.lm_params_from_numpy(rparams, cfg, device="cpu"),
@@ -198,10 +223,17 @@ def check_sharded_step(arch, sizes, axes=("data", "model")):
     for b in batches[:2]:
         params, state, m = step(params, state, _torch_batch(b))
         losses.append(float(m["loss"]))
-    assert losses[0] == ulosses[0]
+    if sizes[-1] == 1:  # the unsharded step's sums: its bits
+        assert losses[0] == ulosses[0]
+        port_tol = 1e-6
+    else:  # partial outputs summed in f32 in coordinate order
+        np.testing.assert_allclose(losses, ulosses, rtol=TP_LOSS_RTOL)
+        port_tol = TP_LEAF_TOL
     np.testing.assert_allclose(losses, want_losses, rtol=LOSS_RTOL)
     for got, want in ((params, uparams), (state.m, ustate.m), (state.v, ustate.v)):
-        _assert_leaves_close(_whole(got), convert.lm_params_to_numpy(want, cfg), cfg, 1e-6, 1.0)
+        _assert_leaves_close(_whole(got), convert.lm_params_to_numpy(want, cfg), cfg,
+                             port_tol, 1.0,
+                             step_vs=uvs if got is params and sizes[-1] > 1 else ())
     _assert_bytes_as_specs(params, step.param_shardings)
     _assert_bytes_as_specs(state.m, step.opt_state_shardings.m)
     _assert_bytes_as_specs(state.v, step.opt_state_shardings.v)
