@@ -15,6 +15,8 @@ The port's counterpart of ``repro/core/pingpong.py``.  Sequential graphs:
   are two real regions of device memory, which the reference's ``lax.scan``
   carry only implies.  PyTorch has no scan, so the steps run as a loop; the
   segment partition is kept for the stats, where it equals the reference's.
+* :func:`run_with_arena_scan` — the executor under the walker's signature,
+  cached per (graph, plan), with the reference's stats;
 * :func:`run_batch_with_arena` — N images through one plan.
 
 DAG graphs, on the reordered plans of `repro_torch.core.schedule.plan_dag`
@@ -27,7 +29,12 @@ DAG graphs, on the reordered plans of `repro_torch.core.schedule.plan_dag`
   Steps run one after the other in plan order, segment by segment through
   :func:`apply_dag_segment`: the isomorphic branches the reference batches
   into one ``vmap`` run apart;
+* :func:`run_dag_with_arena_scan` — the executor under the walker's
+  signature, cached per (graph, plan);
 * :func:`run_batch_dag_with_arena` — N images through one DAG plan.
+
+:func:`aot_compile` prepares an executor at one input shape before the
+first request (its kernels built, its arena allocated).
 
 The sequential executors are parametric in ``apply_layer_fn(layer, params,
 x, out)``, the DAG ones in ``apply_node_fn(layer, params, xs, out, relu)``:
@@ -68,6 +75,7 @@ from repro_torch.core.schedule import check_dag_plan
 from repro_torch.core.segments import cache_fifo
 from repro_torch.kernels.conv_pool.depthwise import fused_depthwise_conv_pool
 from repro_torch.kernels.conv_pool.ops import fused_conv_pool
+from repro_torch.tree import leaves
 
 # Executors kept per (graph, plan) object pair, bounded FIFO.
 _EXEC_CACHE_MAX = 32
@@ -292,6 +300,20 @@ def _cached_executor(graph: SequentialGraph, plan: MemoryPlan) -> ArenaExecutor:
     return hit[2]
 
 
+def run_with_arena_scan(
+    graph: SequentialGraph,
+    plan: MemoryPlan,
+    params,
+    x: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The executor's counterpart of :func:`run_with_arena` (same
+    signature): (output, stats), ``stats`` also giving the segment
+    grouping, as the reference's.  The executor is cached per (graph, plan),
+    so a second call reuses its arenas."""
+    ex = _cached_executor(graph, plan)
+    return ex(params, x), ex.stats()
+
+
 def run_batch_with_arena(
     graph: SequentialGraph,
     plan: MemoryPlan,
@@ -502,6 +524,14 @@ def make_dag_executor(graph: DAGGraph, plan: MemoryPlan, *,
 _DAG_EXEC_CACHE: Dict[Tuple[int, int], Tuple[DAGGraph, MemoryPlan, DagArenaExecutor]] = {}
 
 
+def _cached_dag_executor(graph: DAGGraph, plan: MemoryPlan) -> DagArenaExecutor:
+    return cache_fifo(
+        _DAG_EXEC_CACHE, (id(graph), id(plan)), _EXEC_CACHE_MAX,
+        lambda: (graph, plan, make_dag_executor(graph, plan)),
+        name="dag_exec",
+    )[2]
+
+
 def run_batch_dag_with_arena(
     graph: DAGGraph,
     plan: MemoryPlan,
@@ -513,12 +543,57 @@ def run_batch_dag_with_arena(
     in_ndim = len(graph.nodes[0].layer.shape)
     if xs.ndim != in_ndim + 1:
         raise ValueError(f"expected batched input (N, ...), got {tuple(xs.shape)}")
-    ex = cache_fifo(
-        _DAG_EXEC_CACHE, (id(graph), id(plan)), _EXEC_CACHE_MAX,
-        lambda: (graph, plan, make_dag_executor(graph, plan)),
-        name="dag_exec",
-    )[2]
+    ex = _cached_dag_executor(graph, plan)
     out = ex(params, xs)
     stats = ex.stats()
     stats["batch"] = int(xs.shape[0])
     return out, stats
+
+
+def run_dag_with_arena_scan(
+    graph: DAGGraph,
+    plan: MemoryPlan,
+    params,
+    x: torch.Tensor,
+) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The executor's counterpart of :func:`run_dag_with_arena` (same
+    signature): (output, stats), as :func:`run_with_arena_scan`."""
+    ex = _cached_dag_executor(graph, plan)
+    return ex(params, x), ex.stats()
+
+
+# ---------------------------------------------------------------------------
+# Ahead-of-time preparation (serving entry point)
+# ---------------------------------------------------------------------------
+
+
+class Compiled:
+    """An executor prepared at one input shape and dtype by
+    :func:`aot_compile`: called with ``(params, x)``, ``x`` of exactly that
+    shape, dtype and device, else it raises ``TypeError`` (the reference's
+    ``jax.stages.Compiled`` contract)."""
+
+    def __init__(self, fn: Callable, x_shape, dtype: torch.dtype, device: torch.device):
+        self.fn, self.x_shape, self.dtype, self.device = fn, tuple(x_shape), dtype, device
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != self.x_shape or x.dtype != self.dtype or x.device != self.device:
+            raise TypeError(f"prepared for {self.x_shape} {self.dtype} on {self.device}, "
+                            f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+        return self.fn(params, x)
+
+
+def aot_compile(fn: Callable, params, x_shape, dtype: torch.dtype) -> Compiled:
+    """``fn`` (an executor from :func:`make_scan_executor` or
+    :func:`make_dag_executor`, float or int8) prepared now at input shape
+    ``x_shape`` and ``dtype``: one call on zeros builds its kernels and
+    allocates its arena for that batch, so the first request pays neither.
+    It runs on the device of ``params``' first tensor.  Returns a
+    :class:`Compiled` that takes exactly ``(params, x)`` at that shape.  No
+    CUDA graph is captured."""
+    tensors = [t for t in leaves(params) if isinstance(t, torch.Tensor)]
+    if not tensors:
+        raise ValueError("aot_compile: params hold no tensor to take a device from")
+    dev = tensors[0].device
+    fn(params, torch.zeros(tuple(x_shape), dtype=dtype, device=dev))
+    return Compiled(fn, x_shape, dtype, dev)

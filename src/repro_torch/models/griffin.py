@@ -117,28 +117,46 @@ def rg_lru_step(xi, r_gate, i_gate, log_a_base, h):
     return h_new, h_new
 
 
+def rec_inputs(cfg, p: dict, x: torch.Tensor, tail: Optional[torch.Tensor],
+               cols=slice(None)):
+    """The channels of ``p``'s ``w_gate`` / ``w_rec`` / ``conv_w`` columns
+    (``conv_b``'s ``cols``): (the GeLU gate branch, ξ in f32 after the
+    causal conv from ``tail``, the new conv tail)."""
+    cd = cdt(cfg)
+    xc = x.to(cd)
+    gate = F.gelu(xc @ p["w_gate"].to(cd), approximate="tanh")
+    xi = xc @ p["w_rec"].to(cd)
+    xi, conv_tail = causal_conv1d(xi, p["conv_w"].to(cd), p["conv_b"][cols].to(cd), tail)
+    return gate, xi.float(), conv_tail
+
+
+def recurrence(cfg, p: dict, gate: torch.Tensor, xf_all: torch.Tensor, xf: torch.Tensor,
+               h0: Optional[torch.Tensor], step: bool, cols=slice(None)):
+    """The RG-LRU and the output projection of the channels ``cols``, whose
+    blocks ``p``'s ``w_a`` / ``w_x`` columns and ``w_out`` rows are: the
+    gates read every channel of ξ (``xf_all``) and act on these (``xf``,
+    ``gate``, ``h0``); ``step`` takes :func:`rg_lru_step` (one token from a
+    state).  Returns (their share of the output (B, S, D), h at the last
+    position)."""
+    cd = cdt(cfg)
+    r_gate = torch.sigmoid(xf_all @ p["w_a"].float() + p["b_a"][cols].float())
+    i_gate = torch.sigmoid(xf_all @ p["w_x"].float() + p["b_x"][cols].float())
+    log_a_base = -_C * F.softplus(p["lam"][cols].float())
+    if step:
+        h_step, h_last = rg_lru_step(xf[:, 0], r_gate[:, 0], i_gate[:, 0], log_a_base, h0)
+        h = h_step[:, None]
+    else:
+        h, h_last = rg_lru(xf, r_gate, i_gate, log_a_base, h0)
+    return (gate * h.to(cd)) @ p["w_out"].to(cd), h_last
+
+
 def griffin_block(cfg, p: dict, x: torch.Tensor,  # (B, S, D)
                   state: Optional[dict] = None  # {"h": (B, rw), "conv": (B, W-1, rw)}
                   ) -> Tuple[torch.Tensor, dict]:
     """The recurrent block; returns (out (B, S, D), new state).  The gate
     products and softplus(Λ) are f32 whatever the compute dtype, as in the
     reference; with one token and a state it takes :func:`rg_lru_step`."""
-    cd = cdt(cfg)
-    S = x.shape[1]
-    xc = x.to(cd)
-    gate = F.gelu(xc @ p["w_gate"].to(cd), approximate="tanh")
-    xi = xc @ p["w_rec"].to(cd)
-    xi, conv_tail = causal_conv1d(xi, p["conv_w"].to(cd), p["conv_b"].to(cd),
-                                  None if state is None else state["conv"])
-    xf = xi.float()
-    r_gate = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"].float())
-    i_gate = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"].float())
-    log_a_base = -_C * F.softplus(p["lam"].float())
+    gate, xf, conv_tail = rec_inputs(cfg, p, x, None if state is None else state["conv"])
     h0 = None if state is None else state["h"]
-    if S == 1 and state is not None:
-        h_step, h_last = rg_lru_step(xf[:, 0], r_gate[:, 0], i_gate[:, 0], log_a_base, h0)
-        h = h_step[:, None]
-    else:
-        h, h_last = rg_lru(xf, r_gate, i_gate, log_a_base, h0)
-    out = (gate * h.to(cd)) @ p["w_out"].to(cd)
+    out, h_last = recurrence(cfg, p, gate, xf, xf, h0, x.shape[1] == 1 and state is not None)
     return out, {"h": h_last, "conv": conv_tail}

@@ -85,10 +85,30 @@ def _ddlerp(p, x, xprev):
     return [mixed[:, :, i] for i in range(5)]  # r,k,v,w,g inputs
 
 
+def time_mix_inputs(p, x, xprev):
+    """What the time-mix reads of replicated leaves alone: the token-shift
+    inputs (xr, xk, xv, xg) and the decay LoRA's hidden layer
+    (:func:`_decay_hidden`), in the order (xr, xk, xv, hidden, xg)."""
+    xr, xk, xv, xw, xg = _ddlerp(p, x, xprev)
+    return xr, xk, xv, _decay_hidden(p, xw), xg
+
+
+def _decay_hidden(p, xw):
+    """The decay LoRA's hidden layer, tanh(xw decay_w1)."""
+    return torch.tanh(xw @ p["decay_w1"].to(xw.dtype))
+
+
+def _decay_out(p, hidden, cols=slice(None)):
+    """log-decay (<= ~0) from the LoRA's hidden layer: -exp(base + lora) per
+    channel, f32, for the channels ``cols`` of ``decay_w2`` and
+    ``decay_base``."""
+    lora = hidden @ p["decay_w2"][:, cols].to(hidden.dtype)
+    return -torch.exp(torch.clamp(p["decay_base"][cols].float() + lora.float(), -8.0, 4.0))
+
+
 def _decay(p, xw):
     """log-decay (<= ~0): logw = -exp(base + lora(xw)) per channel, f32."""
-    lora = torch.tanh(xw @ p["decay_w1"].to(xw.dtype)) @ p["decay_w2"].to(xw.dtype)
-    return -torch.exp(torch.clamp(p["decay_base"].float() + lora.float(), -8.0, 4.0))
+    return _decay_out(p, _decay_hidden(p, xw))
 
 
 def wkv_step(r, k, v, logw, u, s):
@@ -104,31 +124,41 @@ def _time_mix_inner(cfg, p, x, xprev, state, chunk):
     """The time-mix after the token-shift inputs are known.  ``state=None``
     is the zero state; several tokens from a carried state (a chunked
     prefill) run K7 from ``state``."""
-    B, S, D = x.shape
+    return heads_mix(cfg, p, time_mix_inputs(p, x, xprev), state, chunk)
+
+
+def heads_mix(cfg, p, mixed, state, chunk, cols=slice(None)):
+    """The time-mix from its inputs ``mixed`` (:func:`time_mix_inputs`) over
+    the heads of ``p``'s ``bonus_u`` rows, whose
+    channels are ``wr`` / ``wk`` / ``wv`` / ``wg``'s columns, ``wo``'s rows
+    and the channels ``cols`` of ``decay_w2``, ``decay_base``, ``gn_scale``
+    and ``gn_bias`` (every head and channel by default): (their share of
+    the output, (B, S, D) in the compute dtype, and their new state, (B,
+    H_p, hk, hv) f32).  ``state`` is those heads' incoming state, or None
+    for the zero state."""
+    xr, xk, xv, hidden, xg = mixed
+    B, S, _ = xr.shape
     hd = cfg.rwkv_head_dim
-    H = D // hd
+    H = p["bonus_u"].shape[0]
     cd = cdt(cfg)
-    xr, xk, xv, xw, xg = _ddlerp(p, x, xprev)
     r = (xr @ p["wr"].to(xr.dtype)).reshape(B, S, H, hd)
     k = (xk @ p["wk"].to(xk.dtype)).reshape(B, S, H, hd)
     v = (xv @ p["wv"].to(xv.dtype)).reshape(B, S, H, hd)
     g = F.silu(xg @ p["wg"].to(xg.dtype))
-    logw = _decay(p, xw).reshape(B, S, H, hd)
+    logw = _decay_out(p, hidden, cols).reshape(B, S, H, hd)
 
     if S == 1:
         s0 = state if state is not None else torch.zeros(
-            (B, H, hd, hd), dtype=torch.float32, device=x.device)
+            (B, H, hd, hd), dtype=torch.float32, device=xr.device)
         o, s_new = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], p["bonus_u"], s0)
         o = o[:, None]
     else:
         o, s_new = wkv_ops.wkv(r, k, v, logw, p["bonus_u"], chunk=chunk, s0=state)
 
-    # per-head groupnorm
+    # per-head groupnorm (as common.layernorm, F.layer_norm for its backward)
     o = o.reshape(B, S, H, hd)
-    mu = torch.mean(o, dim=-1, keepdim=True)
-    var = torch.var(o, dim=-1, keepdim=True, unbiased=False)
-    o = (o - mu) * torch.rsqrt(var + 64e-5)
-    o = o.reshape(B, S, D) * p["gn_scale"].float() + p["gn_bias"].float()
+    o = F.layer_norm(o, (hd,), eps=64e-5)
+    o = o.reshape(B, S, H * hd) * p["gn_scale"][cols].float() + p["gn_bias"][cols].float()
     out = (o.to(cd) * g.to(cd)) @ p["wo"].to(cd)
     return out, s_new
 
@@ -141,13 +171,31 @@ def time_mix(cfg, p, x, state=None, last_x=None, chunk: int = 64):
     return out, s_new, x[:, -1]
 
 
-def channel_mix(cfg, p, x, last_x=None):
-    """Squared-ReLU channel mix with token shift."""
-    cd = cdt(cfg)
+def channel_inputs(p, x, last_x=None):
+    """The channel-mix's token-shift inputs (xk, xr)."""
     xprev = _shift(x, last_x)
     xk = x + (xprev - x) * p["cm_mu_k"].to(x.dtype)
     xr = x + (xprev - x) * p["cm_mu_r"].to(x.dtype)
+    return xk, xr
+
+
+def channel_kv(cfg, p, xk):
+    """relu(xk cm_wk)² cm_wv in the compute dtype: a ``d_ff`` block's
+    partial for that block of ``cm_wk``'s columns and ``cm_wv``'s rows."""
+    cd = cdt(cfg)
     k = torch.square(F.relu(xk.to(cd) @ p["cm_wk"].to(cd)))
-    kv = k @ p["cm_wv"].to(cd)
-    r = torch.sigmoid((xr.to(cd) @ p["cm_wr"].to(cd)).float())
-    return r.to(cd) * kv, x[:, -1]
+    return k @ p["cm_wv"].to(cd)
+
+
+def channel_gate(cfg, p, xr):
+    """σ(xr cm_wr), f32: the columns of ``cm_wr``'s block."""
+    cd = cdt(cfg)
+    return torch.sigmoid((xr.to(cd) @ p["cm_wr"].to(cd)).float())
+
+
+def channel_mix(cfg, p, x, last_x=None):
+    """Squared-ReLU channel mix with token shift."""
+    xk, xr = channel_inputs(p, x, last_x)
+    kv = channel_kv(cfg, p, xk)
+    r = channel_gate(cfg, p, xr)
+    return r.to(cdt(cfg)) * kv, x[:, -1]

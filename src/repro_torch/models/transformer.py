@@ -185,12 +185,12 @@ def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         return x + f, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rglru":
-        a, _ = griffin.griffin_block(cfg, r["rec"], h)
+        a, _ = ops.rglru(p["rec"], h, None)
         x = x + a
         return x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x)), aux
-    a, _, _ = rwkv6.time_mix(cfg, r["tm"], h, None, None, chunk=rwkv_chunk)
+    a, _, _ = ops.time_mix(p["tm"], h, None, None, chunk=rwkv_chunk)
     x = x + a
-    c, _ = rwkv6.channel_mix(cfg, r["tm"], apply_norm(cfg, r["norm2"], x))
+    c, _ = ops.channel_mix(p["tm"], apply_norm(cfg, r["norm2"], x), None)
     return x + c, aux
 
 
@@ -259,6 +259,21 @@ class LocalOps:
 
     def mlp(self, p, x):
         return mlp.apply_mlp(self.cfg, p, x)
+
+    def rglru(self, p, h, state):
+        """The RG-LRU block from ``state`` (None: the zero state, no cache):
+        (out, the new state)."""
+        return griffin.griffin_block(self.cfg, p, h, state)
+
+    def time_mix(self, p, h, state, last_x, chunk: int = 64):
+        """RWKV's time-mix from the wkv state ``state`` and the token-shift
+        input ``last_x`` (None: zeros): (out, the new state, the new
+        ``last_x``)."""
+        return rwkv6.time_mix(self.cfg, p, h, state, last_x, chunk=chunk)
+
+    def channel_mix(self, p, x, last_x):
+        """RWKV's channel-mix: (out, the new ``last_x``)."""
+        return rwkv6.channel_mix(self.cfg, p, x, last_x)
 
     def read_state(self, state: dict) -> dict:
         return state
@@ -504,17 +519,16 @@ class Model:
                     x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
                 x = x + ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))[0]
             elif kind == "rglru":
-                a, new = griffin.griffin_block(cfg, r["rec"], h, ops.read_state(state))
+                a, new = ops.rglru(p["rec"], h, ops.read_state(state))
                 state = ops.write_state(state, new)
                 x = x + a
                 x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
             else:
                 st = ops.read_state(state) if decode else dict.fromkeys(state)
-                a, s_new, tm_x = rwkv6.time_mix(cfg, r["tm"], h, st["s"], st["tm_x"],
-                                                chunk=self.rwkv_chunk)
+                a, s_new, tm_x = ops.time_mix(p["tm"], h, st["s"], st["tm_x"],
+                                              chunk=self.rwkv_chunk)
                 x = x + a
-                c, cm_x = rwkv6.channel_mix(cfg, r["tm"], apply_norm(cfg, r["norm2"], x),
-                                            st["cm_x"])
+                c, cm_x = ops.channel_mix(p["tm"], apply_norm(cfg, r["norm2"], x), st["cm_x"])
                 x = x + c
                 state = ops.write_state(state, {"s": s_new, "tm_x": tm_x, "cm_x": cm_x})
             out.append(state)

@@ -12,9 +12,11 @@ over a genuine int8 arena (one byte per element, the plan's
   walkers, sequential and DAG;
 * :func:`make_int8_executor` (either graph kind) /
   :func:`run_batch_int8_with_arena` / :func:`run_batch_int8_dag_with_arena`
-  — the arena executors.  On CUDA a dense ``FusedConvPool`` step runs
-  kernel K2 and a depthwise step kernel K4, each writing straight into its
-  planned int8 buffer.
+  — the arena executors, and under the reference's names
+  :func:`make_int8_scan_executor` (an ``x_q -> y_q`` closure),
+  :func:`run_int8_with_arena_scan` and :func:`run_int8_dag_with_arena_scan`.
+  On CUDA a dense ``FusedConvPool`` step runs kernel K2 and a depthwise
+  step kernel K4, each writing straight into its planned int8 buffer.
 
 All are bit-exact against ``simulate_int8_forward`` /
 ``simulate_int8_dag_forward``, the independent slow oracles.
@@ -232,6 +234,39 @@ def _cached_executor(qm: QuantizedModel, plan: MemoryPlan, device: torch.device)
     return hit[2], hit[3]
 
 
+def make_int8_scan_executor(qm: QuantizedModel, plan: MemoryPlan, *,
+                            donate_input: bool = False, device="cuda"):
+    """``x_q -> y_q``: the int8 arena executor for (qm, plan) with its int8
+    params bound, on ``device`` (the reference's name for
+    :func:`make_int8_executor`).  Raises ``TypeError`` on a non-int8 input.
+    ``donate_input`` is accepted for the reference's signature and has no
+    effect: the executor copies its input into its arena and never writes
+    the caller's tensor."""
+    ex, params = make_int8_executor(qm, plan, device=device)
+
+    def _exec(x_q: torch.Tensor) -> torch.Tensor:
+        _check_int8(x_q)
+        return ex(params, x_q)
+
+    return _exec
+
+
+def _scan_stats(ex, plan: MemoryPlan) -> Dict[str, int]:
+    stats = ex.stats()
+    stats["arena_bytes"] = int(plan.arena_elems)  # int8: one byte per element
+    return stats
+
+
+def run_int8_with_arena_scan(qm: QuantizedModel, plan: MemoryPlan,
+                             x_q: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The executor's counterpart of :func:`run_int8_with_arena` (same
+    contract): bit-exact against the walker and the simulator, on ``x_q``'s
+    device, cached per (qm, plan, device); stats as the reference's."""
+    _check_int8(x_q)
+    ex, params = _cached_executor(qm, plan, x_q.device)
+    return ex(params, x_q), _scan_stats(ex, plan)
+
+
 def run_batch_int8_with_arena(qm: QuantizedModel, plan: MemoryPlan,
                               xs_q: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, int]]:
     """N quantized images through one int8 arena plan: the two int8 banks
@@ -242,8 +277,7 @@ def run_batch_int8_with_arena(qm: QuantizedModel, plan: MemoryPlan,
         raise ValueError(f"expected batched input (N, ...), got {tuple(xs_q.shape)}")
     ex, params = _cached_executor(qm, plan, xs_q.device)
     out = ex(params, xs_q)
-    stats = ex.stats()
-    stats["arena_bytes"] = int(plan.arena_elems)
+    stats = _scan_stats(ex, plan)
     stats["batch"] = int(xs_q.shape[0])
     return out, stats
 
@@ -261,6 +295,15 @@ def run_int8_dag_with_arena(qm: QuantizedModel, plan: MemoryPlan,
     )
     stats["arena_bytes"] = int(plan.arena_elems)  # int8: one byte per element
     return out, stats
+
+
+def run_int8_dag_with_arena_scan(qm: QuantizedModel, plan: MemoryPlan,
+                                 x_q: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, int]]:
+    """The executor's counterpart of :func:`run_int8_dag_with_arena`:
+    bit-exact against the walker and the DAG simulator."""
+    if not isinstance(qm.graph, DAGGraph):
+        raise TypeError("run_int8_dag_with_arena_scan expects a DAG-quantized model")
+    return run_int8_with_arena_scan(qm, plan, x_q)
 
 
 def run_batch_int8_dag_with_arena(qm: QuantizedModel, plan: MemoryPlan,

@@ -12,8 +12,9 @@ placements: params by ``ShardingPolicy.param_specs``, the KV cache by
 step's ``memory`` likewise, and the logits whole on the mesh's first
 device.  PyTorch runs them eagerly (:class:`ShardedPrefillStep`,
 :class:`ShardedDecodeStep`): each data row in turn walks the model's own
-``prefill`` / ``decode_step`` with each layer's attention and FFN split
-over the row's model coordinates and the KV cache read on its shards
+``prefill`` / ``decode_step`` with each layer's attention, FFN and
+recurrent block split over the row's model coordinates and the KV cache
+and recurrent state read on their shards
 (:class:`repro_torch.sharding.tensor_parallel.RowOps`).
 
 Requests pad up to the nearest bucket, so an executor only ever sees the

@@ -35,14 +35,33 @@ its own ``device.current``.  The splits are ``ShardingPolicy.param_spec``'s:
   sum is bit-equal), and the logits are the concatenation of each
   coordinate's vocab slice.  The training loss reads the unembedding whole
   (gathered on the row's device) for K6, which has no vocab-split form
-  yet (``ROADMAP.md`` item 6f);
+  yet (``ROADMAP.md`` item 6f.2);
+* **RWKV's time-mix** (:func:`time_mix`) split on heads: the token-shift
+  inputs and the decay LoRA's hidden layer once on the row's device (they
+  read replicated leaves alone), then each coordinate's heads from its
+  blocks of ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``bonus_u`` and its channels
+  of the replicated ``decay_w2`` / ``decay_base`` / ``gn_scale`` /
+  ``gn_bias``: K7 over its heads (``wkv_step`` for one token), the group
+  norm, its ``wo`` rows' partial;
+* **RWKV's channel-mix** (:func:`channel_mix`): ``cm_wk`` / ``cm_wv``
+  split on ``d_ff`` give partials, summed; ``cm_wr`` is split on its
+  output columns, so the gate ``r`` is each coordinate's slice,
+  concatenated, not summed;
+* **the RG-LRU** (:func:`rglru`) split on its width: each coordinate's gate
+  branch and causal conv from its blocks of ``w_gate`` / ``w_rec`` /
+  ``conv_w``; ``w_a`` / ``w_x`` are split on their output columns and read
+  every input channel, so ξ (an activation, not a leaf) is gathered to
+  every coordinate in coordinate order; then each coordinate's gates, scan
+  and ``w_out`` rows' partial.  The recurrent state (RWKV's ``s``, the
+  RG-LRU's ``h`` and ``conv``) is read from and written to each
+  coordinate's own block (:func:`own_block`, :class:`Blocks`); ``tm_x`` /
+  ``cm_x`` are replicated and written to every holder.  Heads or a width
+  that ``"model"`` does not divide run whole on the row's device: the
+  policy then replicates their leaves and state, save RWKV's ``d_model``
+  columns where ``"model"`` divides them and not the heads (those leaves
+  are gathered at read);
 * **norms and every other 1-D leaf** are replicated and read on the row's
-  device;
-* **``rwkv`` and ``rglru`` blocks run whole** on the row's device
-  (:func:`whole`: weights gathered at read, differentiably in training;
-  in serving their state gathered before the block and written back to
-  its placement after it; their tensor-parallel compute is ``ROADMAP.md``
-  item 6f).
+  device.
 
 **The KV cache on its shards** (``ShardingPolicy.cache_specs``,
 :func:`cache_layout`): split on heads, each coordinate writes and reads
@@ -63,6 +82,12 @@ so at one model coordinate the sum is the unsharded path's bits.  A
 sub-block whose output projection is not split on its input (its heads or
 ``d_ff`` do not divide ``"model"``) is computed once, on the row's device,
 and taken once.
+
+**Two differences from the reference's GSPMD steps are left**
+(``ROADMAP.md`` item 6f): the training loss runs K6 once a data row over
+the whole unembedding (6f.2, a vocab-split cross-entropy), and a batch the
+specs split on the sequence (batch 1) runs whole on the first data row,
+still split along ``"model"`` (6f.3, sequence parallelism).
 """
 from __future__ import annotations
 
@@ -74,7 +99,7 @@ import torch
 
 from repro_torch.device import current
 from repro_torch.kernels.flash import ops as flash_ops
-from repro_torch.models import attention, mlp, moe
+from repro_torch.models import attention, griffin, mlp, moe, rwkv6
 from repro_torch.models.common import cdt
 from repro_torch.sharding import placement as pl
 
@@ -542,20 +567,139 @@ def ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torch.Te
     return dense_mlp(cfg, p, x, row), torch.zeros((), dtype=torch.float32, device=row.device)
 
 
-# -- blocks computed whole -----------------------------------------------------------------
+# -- recurrent blocks -----------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """A new state leaf as the model coordinates computed it: [(its region
+    of the whole leaf, the block)], for :func:`write_state`."""
+
+    parts: Tuple[Tuple[pl.Region, torch.Tensor], ...]
+
+
+def own_block(x: pl.Placed, c, row: Row) -> Tuple[pl.Region, torch.Tensor]:
+    """Coordinate ``c``'s block of a state leaf for the row's rows: (its
+    region of the whole leaf, a view of the stored block, no copy)."""
+    outer = x.region_at(c)
+    region = (row.rows,) + outer[1:]
+    if not pl.contains(outer, region):
+        raise ValueError(f"state block at {c} holds {outer}, the row computes rows {row.rows}")
+    return region, x.shard(c)[pl.slices_within(region, outer)]
+
+
+def time_mix(cfg, p: dict, x: torch.Tensor, state, last_x, row: Row, chunk: int):
+    """``rwkv6.time_mix`` split on heads: the token-shift inputs and the
+    decay LoRA's hidden layer once on the row's device (they read
+    replicated leaves alone), then on each model coordinate its heads'
+    ``r``, ``k``, ``v``, ``g`` and decay from its blocks of ``wr`` / ``wk``
+    / ``wv`` / ``wg`` and its channels of ``decay_w2`` / ``decay_base``,
+    K7 over its heads (``wkv_step`` for one token) from its block of
+    ``state`` (None: zero), the group norm on its channels and its
+    ``wo`` rows' partial, summed by :func:`sum_partials`.  Returns (out, the
+    new state as :class:`Blocks`, the new ``last_x``).  Heads that do not
+    divide ``"model"`` run whole on the row's device (``state`` whole)."""
+    if split_dim(p["bonus_u"]) is None:
+        return rwkv6.time_mix(cfg, reader(p, row), x, state, last_x, chunk=chunk)
+    mixed = rwkv6.time_mix_inputs(reader(p, row), x, rwkv6._shift(x, last_x))
+    hd = cfg.rwkv_head_dim
+    parts, blocks = [], []
+    for c, dev in zip(row.coords, row.devices):
+        lp = _local(p, c)
+        h0, h1 = p["bonus_u"].region_at(c)[0]
+        with current(dev):
+            region, s0 = (None, None) if state is None else own_block(state, c, row)
+            out, s_new = rwkv6.heads_mix(cfg, lp, [t.to(dev) for t in mixed], s0, chunk,
+                                         slice(h0 * hd, h1 * hd))
+        parts.append(out)
+        if region is None:
+            region = (row.rows, (h0, h1), (0, hd), (0, hd))
+        blocks.append((region, s_new))
+    return sum_partials(parts, row.device, cdt(cfg)), Blocks(tuple(blocks)), x[:, -1]
+
+
+def channel_mix(cfg, p: dict, x: torch.Tensor, last_x, row: Row):
+    """``rwkv6.channel_mix`` with ``cm_wk`` split on ``d_ff`` columns and
+    ``cm_wv`` on its rows (partials summed in f32 in coordinate order), and
+    ``cm_wr`` on its output columns: each coordinate's slice of the gate
+    ``r``, concatenated, not summed.  Returns (cat(r) * Σ kv, the new
+    ``last_x``); at one model coordinate the unsharded bits."""
+    xk, xr = rwkv6.channel_inputs(reader(p, row), x, last_x)
+    kv = []
+    for c, dev in _workers(row, split_dim(p["cm_wk"]) is not None):
+        with current(dev):
+            kv.append(rwkv6.channel_kv(cfg, _local(p, c), xk.to(dev)))
+    kv = sum_partials(kv, row.device, cdt(cfg))
+    r = []
+    for c, dev in _workers(row, split_dim(p["cm_wr"]) is not None):
+        with current(dev):
+            r.append(rwkv6.channel_gate(cfg, _local(p, c), xr.to(dev)))
+    r = torch.cat([t.to(row.device) for t in r], dim=-1)
+    return r.to(cdt(cfg)) * kv, x[:, -1]
+
+
+def rglru(cfg, p: dict, x: torch.Tensor, state, row: Row):
+    """``griffin.griffin_block`` split on the RG-LRU width: each model
+    coordinate's gate branch and conv from its blocks of ``w_gate`` /
+    ``w_rec`` / ``conv_w`` and its channels of ``conv_b`` over its block of
+    the conv tail; ξ, every coordinate's channels in coordinate order, on
+    every device (``w_a`` / ``w_x`` are split on their output columns and
+    read every input channel: the activation is gathered, not a leaf);
+    then its gates, the scan (or ``rg_lru_step``) from its block of ``h``
+    and its ``w_out`` rows' partial, summed by :func:`sum_partials`.
+    Returns (out, the new state {"h", "conv"} as :class:`Blocks`, or None
+    from ``state`` None, the zero state of training).  A width that does
+    not divide ``"model"`` runs whole on the row's device (``state``
+    whole)."""
+    if split_dim(p["w_rec"]) is None:
+        return griffin.griffin_block(cfg, reader(p, row), x, state)
+    work = []  # (device, local params, channels, gate, ξ, new conv tail, h0, regions)
+    for c, dev in zip(row.coords, row.devices):
+        lp = _local(p, c)
+        cols = slice(*p["w_rec"].region_at(c)[-1])
+        tail = h0 = regions = None
+        with current(dev):
+            if state is not None:
+                (rh, h0), (rc, tail) = own_block(state["h"], c, row), own_block(state["conv"],
+                                                                                 c, row)
+                regions = (rh, rc)
+            gate, xf, tail = griffin.rec_inputs(cfg, lp, x.to(dev), tail, cols)
+        work.append((dev, lp, cols, gate, xf, tail, h0, regions))
+    xf_on = {}
+    for dev, *_ in work:
+        if dev not in xf_on:  # one coordinate reads its own ξ, as the unsharded block
+            xf_on[dev] = (work[0][4] if len(work) == 1
+                          else torch.cat([w[4].to(dev) for w in work], dim=-1))
+    parts, h_blocks, conv_blocks = [], [], []
+    step = x.shape[1] == 1 and state is not None
+    for dev, lp, cols, gate, xf, tail, h0, regions in work:
+        with current(dev):
+            out, h_last = griffin.recurrence(cfg, lp, gate, xf_on[dev], xf, h0, step, cols)
+        parts.append(out)
+        if regions is not None:
+            h_blocks.append((regions[0], h_last))
+            conv_blocks.append((regions[1], tail))
+    new = None if state is None else {"h": Blocks(tuple(h_blocks)),
+                                      "conv": Blocks(tuple(conv_blocks))}
+    return sum_partials(parts, row.device, cdt(cfg)), new
 
 
 def read_state(state: dict, row: Row) -> dict:
-    """A recurrent layer's state for the row's rows, whole on its device."""
-    return {k: pl.read_region(v, (row.rows,) + tuple((0, d) for d in v.shape[1:]), row.device)
+    """A recurrent layer's state for the row: a leaf split on ``"model"``
+    as it is (each coordinate reads its own block), any other the row's
+    rows whole on its device."""
+    return {k: v if split_dim(v) is not None else
+            pl.read_region(v, (row.rows,) + tuple((0, d) for d in v.shape[1:]), row.device)
             for k, v in state.items()}
 
 
 def write_state(state: dict, new: dict, row: Row) -> None:
-    """The row's rows of a recurrent layer's new state back into its
-    placement (every holder)."""
+    """A recurrent layer's new state into its placement (every holder): a
+    :class:`Blocks` value block by block, any other the row's rows."""
     for k, v in new.items():
-        pl.write(state[k], (row.rows,), v.to(state[k].dtype))
+        x = state[k]
+        for region, t in (v.parts if isinstance(v, Blocks) else [((row.rows,), v)]):
+            pl.write(x, region, t.to(x.dtype))
 
 
 # -- the walk's operations on one data row ---------------------------------------------
@@ -565,12 +709,12 @@ class RowOps:
     """The sub-block operations of :class:`repro_torch.models.transformer.
     LocalOps` on one data row of a mesh, so that ``Model.train_loss``,
     ``prefill``, ``decode_step`` and ``encode`` walk a placed model:
-    attention and FFNs split over the row's model coordinates, the
-    embedding looked up on its vocab blocks, the KV cache on its shards,
-    norms, the unembedding and the blocks computed whole read whole on the
-    row's device, their state read from and written back to its
-    placement.  Every operation is differentiable with respect to the
-    blocks it reads (:func:`row_tensors`)."""
+    attention, FFNs and the recurrent blocks (RWKV's time-mix and
+    channel-mix, the RG-LRU) split over the row's model coordinates, the
+    embedding looked up on its vocab blocks, the KV cache and the
+    recurrent state on their shards, norms and the unembedding read whole
+    on the row's device.  Every operation is differentiable with respect to
+    the blocks it reads (:func:`row_tensors`)."""
 
     def __init__(self, cfg, row: Row):
         self.cfg, self.row = cfg, row
@@ -603,6 +747,15 @@ class RowOps:
 
     def mlp(self, p, x):
         return dense_mlp(self.cfg, p, x, self.row)
+
+    def rglru(self, p, h, state):
+        return rglru(self.cfg, p, h, state, self.row)
+
+    def time_mix(self, p, h, state, last_x, chunk: int = 64):
+        return time_mix(self.cfg, p, h, state, last_x, self.row, chunk)
+
+    def channel_mix(self, p, x, last_x):
+        return channel_mix(self.cfg, p, x, last_x, self.row)
 
     def read_state(self, state: dict) -> dict:
         return read_state(state, self.row)

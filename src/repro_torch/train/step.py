@@ -139,9 +139,11 @@ class ShardedTrainStep:
       :class:`repro_torch.sharding.tensor_parallel.RowOps`, tensor parallel
       as GSPMD splits the reference's step along ``"model"``: attention on
       each model coordinate's q / KV heads (K5 on that coordinate's card,
-      again in remat's recompute), the dense MLP, the experts and the
-      shared expert on its ``d_ff`` slice, the embedding looked up on its
-      vocab block, each from the coordinate's own blocks; the partial
+      again in remat's recompute), RWKV's time-mix on its heads (K7
+      likewise), the RG-LRU on its channels, the dense MLP, the experts,
+      the shared expert and RWKV's channel-mix on its ``d_ff`` slice, the
+      embedding looked up on its vocab block, each from the coordinate's
+      own blocks; the partial
       outputs summed on the row's device (its first coordinate's), where
       norms, the MoE routing and aux loss, and K6 run.  Every block the
       row reads requires gradients, so each block's gradient lands on its
@@ -169,14 +171,15 @@ class ShardedTrainStep:
     order and cast once, so the step rounds differently from the
     unsharded one by design.
 
-    Three differences from the reference's GSPMD step (``ROADMAP.md``):
+    Two differences from the reference's GSPMD step (``ROADMAP.md``):
     K6 runs whole, once a data row, over the unembedding gathered at read
     (a vocab-split CE needs K6 to return partial ``(max, sumexp, target
-    logit)`` triples); ``rwkv`` and ``rglru`` blocks run whole on the
-    row's device, their weights gathered differentiably; and a batch the
-    specs do not split by rows (replicated, or split on the sequence at
-    ``global_batch <= seq_parallel_threshold``) runs whole on the first
-    data row.
+    logit)`` triples; item 6f.2); and a batch the specs do not split by
+    rows (replicated, or split on the sequence at ``global_batch <=
+    seq_parallel_threshold``) runs whole on the first data row (item
+    6f.3).  ``rwkv`` and ``rglru`` blocks run on each model coordinate's
+    heads or channels (K7 on a coordinate's heads, forward and remat's
+    recompute), as attention and the FFNs do.
     """
 
     def __init__(self, model, policy, abstract_params, step_cfg: TrainStepConfig,

@@ -14,6 +14,7 @@ tests hold them to the reference on the same numpy inputs:
 The reference's Pallas path (``impl="pallas"``) does not run on this jax,
 so it is never the reference here.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ package: the requantization bit for bit on more than 100k values, ties and
 saturation included, per channel as K4 applies it, and the geometry against
 the reference's layer shapes and halo windows.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import ctypes
 import hashlib
 import os

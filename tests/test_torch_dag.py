@@ -13,6 +13,7 @@ int8, these tests hold:
 * ``quantize_dag``: the port's own calibration on the same weights and
   batch gives the reference's scales (rtol 1e-5), joins included.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ carried across through numpy (``repro_torch.convert``).  Held:
   that puts a step's output on one of its inputs is refused;
 * ``CNNEngine`` over a DAG, float and int8, equals the executor.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

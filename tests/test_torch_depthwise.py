@@ -18,6 +18,7 @@ The reference's Pallas path is never used (``pl.Unblocked`` is gone on this
 jax); the CUDA kernels themselves are checked on the card by
 ``chip_smoke.py``.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import zlib
 
 import jax.numpy as jnp

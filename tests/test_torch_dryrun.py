@@ -18,6 +18,7 @@
   sharded prefill and decode steps, against its formula written out for
   Llama-3-8B on (16, 16).
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import json
 import os
 

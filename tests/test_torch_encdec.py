@@ -13,6 +13,7 @@ plain version with ``causal=False``, the reference through ``_sdpa_ref``
 with no mask: the same function, held here at S != T.  ``Engine`` serves
 the decoder alone, as the reference's does.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

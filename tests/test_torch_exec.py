@@ -10,6 +10,7 @@
   across frameworks, so a model quantized twice is not the same model).
 * The executors allocate exactly the plan's arena, and reuse it.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

@@ -21,6 +21,7 @@ Held:
   1e-5 and classifies at least 7 of 16 held-out digits (the reference's
   ``test_paper_pipeline_end_to_end``).
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import subprocess
 from pathlib import Path
 

@@ -6,6 +6,7 @@ Inputs come from a numpy seed and go to both frameworks as arrays.
 Tolerances are those of ``tests/test_kernel_flash.py``: f32 at
 rtol = atol = 2e-5, bf16 at 5e-2.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

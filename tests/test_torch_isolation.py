@@ -9,6 +9,7 @@
   ``nvcc``, it must raise.  Fake CUDA tensors (shapes and strides, no
   storage) stand in for real ones.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import ast
 import dataclasses
 from pathlib import Path

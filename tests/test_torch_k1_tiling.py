@@ -12,6 +12,7 @@ least one CTA per SM where the call has a warp of outputs for each; K2
 takes its own ``k2_tiling`` (K1's, with int8 shares); the values of K2's and
 K4's are pinned here.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import warnings
 
 import pytest

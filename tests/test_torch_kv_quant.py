@@ -9,6 +9,7 @@ programs whose f32 sums differ in the last bits, so a value that lies within
 1e-4 of a half step may round the other way: those, and only those, may
 differ by one step; the count is printed (``pytest -s``).
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

@@ -17,6 +17,7 @@ MoE families keep their f32-read leaves in f32 under
 ``store_compute_dtype`` and carry their params across and back bit for
 bit; ``tests/test_torch_train_families.py`` trains them.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ routing (the keep mask of dropped tokens), output and aux loss.  Inputs and
 weights come from a numpy seed and go to both frameworks as arrays; every
 comparison is at rtol = atol = 1e-5.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

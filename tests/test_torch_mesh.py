@@ -28,6 +28,7 @@ mesh, ``ShardingPolicy`` and the sharded train step, the counterparts of
   inputs (int8 bit-exact, f32 within 1e-5).
 * ``persistent_cache_dir=`` repoints ``build.library_path``.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import types
 
 import jax

@@ -10,6 +10,7 @@ gradients of sum(y^2) with respect to every stage's params against
 their stage's coordinate; on a mesh with a second axis the stages run at
 its index 0.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import functools
 
 import jax

@@ -5,6 +5,7 @@ The port keeps framework-free copies of ``repro.core.graph``/``fusion``/
 the paper's two networks: plan bytes **and** every buffer assignment
 (name, kind, size, offset, bank, live range) equal exactly.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import pytest

@@ -16,6 +16,7 @@ own seeded weights) and the reference's give the same dicts:
 * ``DagArenaExecutor`` runs its segments through ``apply_dag_segment``,
   with the same output as the step-by-step walk.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ Mirrors ``tests/test_serving.py`` and the ``ServeStats`` tests of
   int8 bit-exact against the reference's simulator);
 * the ``ServeStats`` percentile window contract.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import threading
 
 import jax

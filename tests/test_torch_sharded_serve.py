@@ -24,8 +24,9 @@ the cache length split), Qwen2-MoE-A2.7B (a shared expert), Qwen2-VL-7B
 in the prefill batch, decoded ``with_memory``, the memory placed by the
 reference's spec), gemma3-1b (2 q heads over 1
 KV head: replicated on (1, 4)); RecurrentGemma-9B (its cache split on
-length, its ``rglru`` blocks computed whole) and RWKV6-7B (computed whole,
-K7's plain version) in ``tests/test_torch_sharded_serve_recurrent.py``.
+length, its ``rglru`` blocks on each coordinate's channels) and RWKV6-7B
+(on each coordinate's heads, K7's plain version) in
+``tests/test_torch_sharded_serve_recurrent.py``.
 
 Also held here, against the reference's steps and the unsharded path:
 batch 1 on (2, 2) with the cache length split over ("data", "model"), and
@@ -33,11 +34,12 @@ a misaligned GQA shape (12 q heads over 3 KV heads on a model axis of 2
 and 4, with the cache split on length and whole).  And: the int8 KV cache
 under the sharded decode at ``tests/test_kv_quant.py``'s tolerances; the
 flash-decoding combine with an empty block and a wrapped ring; that no
-weight of an attention, FFN or embedding sub-block is assembled whole, and
-that a heads-split cache is read only block by block while a length-split
-one goes through the combine; ``donate``; and that another placement
-raises.
+weight of an attention, FFN, recurrent or embedding sub-block is assembled
+whole, and that a heads-split cache is read only block by block while a
+length-split one goes through the combine; ``donate``; and that another
+placement raises.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 import functools
 
@@ -56,7 +58,7 @@ from repro_torch.configs import base
 from repro_torch.ft.resilience import reshard_tree
 from repro_torch.launch import inputs as inp
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import attention
+from repro_torch.models import attention, griffin
 from repro_torch.models.transformer import Model
 from repro_torch.serve.step import (jit_decode_step, jit_prefill_step, make_decode_step,
                                     make_prefill_step)
@@ -420,21 +422,28 @@ def test_compute_reads_blocks_and_never_whole_weights(sizes, layout, monkeypatch
 
 
 def test_recurrent_blocks_alone_are_gathered(monkeypatch):
-    """RecurrentGemma on (1, 2): only the ``rglru`` blocks' weights are
-    gathered whole (its attention, FFN and embedding compute on blocks)."""
+    """RecurrentGemma on (1, 2): no weight is gathered whole, the ``rglru``
+    blocks' included (their gates, scan and ``w_out`` run on each
+    coordinate's channels: ``griffin.recurrence`` once an ``rglru`` layer a
+    coordinate, on half the width, its gates reading all of ξ)."""
     rparams, inputs, _, fed = _reference("recurrentgemma-9b")
     model = _model("recurrentgemma-9b")
-    params = convert.lm_params_from_numpy(rparams, model.cfg, device="cpu")
+    cfg = model.cfg
+    params = convert.lm_params_from_numpy(rparams, cfg, device="cpu")
     _, prefill, _ = sharded_steps(model, (1, 2))
     placed = reshard_tree(params, prefill.param_shardings)
     paths = {id(x): "/".join(map(str, p)) for p, x in flatten_with_paths(placed)}
-    gathered = []
-    real = pl.gather
+    gathered, widths = [], []
+    real, real_rec = pl.gather, griffin.recurrence
     monkeypatch.setattr(pl, "gather", lambda x, *a, **k: gathered.append(paths.get(id(x)))
                         or real(x, *a, **k))
+    monkeypatch.setattr(griffin, "recurrence", lambda cfg_, p, gate, xf_all, xf, *a, **k: (
+        widths.append((xf_all.shape[-1], xf.shape[-1])) or real_rec(cfg_, p, gate, xf_all, xf,
+                                                                    *a, **k)))
     prefill(placed, _torch(inputs))
-    assert gathered and all("/rec/" in p for p in gathered)
-    assert any("w_out" in p for p in gathered)
+    assert gathered == []
+    n_rec = sum(kind == "rglru" for kind in cfg.blocks())
+    assert widths == [(cfg.lru_width, cfg.lru_width // 2)] * (2 * n_rec)
 
 
 def test_donate_updates_the_cache_in_place():

@@ -11,9 +11,16 @@ repeated:
 * two steps of ``jit_train_step`` on ("data", "model") meshes (2, 2),
   (4, 1) and (1, 4), batch 4 x 16 split over the data axis, against the
   reference's ``make_train_step(TrainStepConfig(microbatches=dp))``:
-  losses within 1e-5 relative; every leaf of AdamW's m and v within rtol
-  1e-4 and atol 1e-4 of the leaf's largest |value| (the LM path's
-  gradient tolerance, as ``chip_smoke.py``'s ``_grads_close``); every param
+  losses within 1e-5 relative; after each step, every leaf of AdamW's m
+  and v within rtol 1e-4 and atol 1e-4 of the leaf's largest |value| (the
+  LM path's gradient tolerance, as ``chip_smoke.py``'s ``_grads_close``) of
+  the reference's step from the same state (the sharded step's state
+  before it, carried across): two steps compounded put m and v at the f32
+  noise floor, since AdamW's first update of a weight whose gradient
+  cancels to f32 rounding is itself rounding, and every later gradient
+  reads that weight (the reduced RWKV6's unsharded port step sits at 0.99
+  of the tolerance after two compounded steps, and at 1.05 with an
+  equal wkv chunk of 16 in place of 8); every param
   within rtol 1e-4 and atol 1e-4 of the larger of 1 and its leaf's largest
   |value|, plus the summed learning rate for a weight whose gradients' RMS
   over the steps is under 1e-6 (100 x AdamW's eps): AdamW divides its
@@ -40,6 +47,7 @@ repeated:
   onto (4, 1) (leaves bit-equal to the saved ones), 2 more steps: equal to
   the reference's 2 + 2 steps at microbatches 2 then 4.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 import functools
 
@@ -153,17 +161,20 @@ def _whole(tree):
 
 
 def _assert_leaves_close(got, want, cfg, tol=LEAF_TOL, floor=1e-30, want_v=None, steps=0,
-                         step_vs=()):
+                         step_vs=(), moved=None):
     """Each leaf of ``got`` (the port's tree) against ``want``'s (the
     reference's layout): within rtol ``tol`` and atol ``tol`` of the larger
     of ``floor`` and the leaf's largest |value|; with ``want_v``, plus
     ``steps`` learning rates where the reference's v says the gradient's
     RMS is under 1e-6; with ``step_vs`` (v after each step), plus one
-    learning rate for each step after which v says so."""
+    learning rate for each step after which v says so; with ``moved`` (the
+    reference's own tree from another start), plus its distance from
+    ``want``, for at most one element in a thousand of a leaf."""
     flat_got = dict(jax.tree_util.tree_flatten_with_path(convert.lm_params_to_numpy(got, cfg))[0])
     flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
     flat_v = {} if want_v is None else dict(jax.tree_util.tree_flatten_with_path(want_v)[0])
     flat_vs = [dict(jax.tree_util.tree_flatten_with_path(v)[0]) for v in step_vs]
+    flat_moved = {} if moved is None else dict(jax.tree_util.tree_flatten_with_path(moved)[0])
     assert len(flat_got) == len(flat_want)
     for path, w in flat_want:
         atol = tol * max(float(np.abs(w).max()), floor)
@@ -172,8 +183,13 @@ def _assert_leaves_close(got, want, cfg, tol=LEAF_TOL, floor=1e-30, want_v=None,
         for v in flat_vs:
             atol = atol + ADAMW["lr_peak"] * (np.sqrt(v[path]) < 1e-6)
         err = np.abs(flat_got[path] - w)
-        assert (err <= atol + tol * np.abs(w)).all(), (jax.tree_util.keystr(path),
-                                                       float(err.max()))
+        within = err <= atol + tol * np.abs(w)
+        if path in flat_moved:
+            excused = ~within & (err <= atol + tol * np.abs(w) + np.abs(flat_moved[path] - w))
+            assert excused.sum() <= w.size // 1000, (jax.tree_util.keystr(path),
+                                                     int(excused.sum()))
+            within |= excused
+        assert within.all(), (jax.tree_util.keystr(path), float(err.max()))
 
 
 def _assert_bytes_as_specs(tree, shardings):
@@ -205,24 +221,32 @@ def check_sharded_step(arch, sizes, axes=("data", "model")):
     model, step = _sharded(arch, sizes, axes)
     cfg = model.cfg
 
-    # the port's unsharded step with dp microbatches
-    params = convert.lm_params_from_numpy(rparams, cfg, device="cpu")
-    unsharded = make_train_step(model, TrainStepConfig(microbatches=dp,
-                                                       adamw=opt.AdamWConfig(**ADAMW)))
-    ustate, ulosses, uvs = opt.init_state(params), [], []
-    for b in batches[:2]:
-        params, ustate, um = unsharded(params, ustate, _torch_batch(b))
-        ulosses.append(float(um["loss"]))
-        uvs.append(convert.lm_params_to_numpy(ustate.v, cfg))
-    uparams = params
+    uparams, ustate, ulosses, uvs = _unsharded_run(arch, dp)
 
     params = reshard_tree(convert.lm_params_from_numpy(rparams, cfg, device="cpu"),
                           step.param_shardings)
     state = step.init_opt_state()
-    losses = []
-    for b in batches[:2]:
+    losses, ref_firsts, port_firsts = [], [], []
+    ref_in = (rparams, None)  # the state each sharded step starts from, reference layout
+    for i, b in enumerate(batches[:2]):
+        ref_firsts.append(_ref_step_from(arch, dp, ref_in, i, b))
         params, state, m = step(params, state, _torch_batch(b))
         losses.append(float(m["loss"]))
+        ref_in = tuple(convert.lm_params_to_numpy(_whole(t), cfg)
+                       for t in (params, state.m, state.v))
+        port_firsts.append(ref_in)
+        _assert_leaves_close(_whole(state.m), ref_firsts[-1][1], cfg)
+        _assert_leaves_close(_whole(state.v), ref_firsts[-1][2], cfg)
+    # m and v after the two steps against the reference's two compounded
+    # steps.  A weight whose first gradient cancels to f32 rounding moves
+    # by +-lr either way in AdamW's first step, and the second gradient
+    # reads it: the few elements beyond the tolerance are excused by as
+    # much as the reference's own second step moves when it starts from
+    # the port's first-step params (its own m and v kept)
+    _, moved_m, moved_v = _ref_step_from(arch, dp, (port_firsts[0][0], *ref_firsts[0][1:]),
+                                         1, batches[1])
+    _assert_leaves_close(_whole(state.m), want_m, cfg, moved=moved_m)
+    _assert_leaves_close(_whole(state.v), want_v, cfg, moved=moved_v)
     if sizes[-1] == 1:  # the unsharded step's sums: its bits
         assert losses[0] == ulosses[0]
         port_tol = 1e-6
@@ -239,8 +263,40 @@ def check_sharded_step(arch, sizes, axes=("data", "model")):
     _assert_bytes_as_specs(state.v, step.opt_state_shardings.v)
     assert int(pl.gather(state.step, "cpu")) == 2
     _assert_leaves_close(_whole(params), want_p, cfg, floor=1.0, want_v=want_v, steps=2)
-    _assert_leaves_close(_whole(state.m), want_m, cfg)
-    _assert_leaves_close(_whole(state.v), want_v, cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharded_run(arch, dp):
+    """The port's unsharded step with ``dp`` microbatches, 2 steps from the
+    reference's weights: (params, AdamW state, each step's loss, v after
+    each step in the reference's layout); shared by the meshes of one data
+    axis."""
+    model = _model(arch)
+    cfg = model.cfg
+    params = convert.lm_params_from_numpy(_setup(arch)[0], cfg, device="cpu")
+    unsharded = make_train_step(model, TrainStepConfig(microbatches=dp,
+                                                       adamw=opt.AdamWConfig(**ADAMW)))
+    ustate, ulosses, uvs = opt.init_state(params), [], []
+    for b in _setup(arch)[1][:2]:
+        params, ustate, um = unsharded(params, ustate, _torch_batch(b))
+        ulosses.append(float(um["loss"]))
+        uvs.append(convert.lm_params_to_numpy(ustate.v, cfg))
+    return params, ustate, ulosses, uvs
+
+
+def _ref_step_from(arch, n, state, done, batch):
+    """The reference's step at ``n`` microbatches on ``batch`` from
+    ``state`` (params, m, v as numpy in the reference's layout; m and v None
+    for a fresh AdamW state) after ``done`` steps: (params, m, v), numpy."""
+    params = jax.tree.map(jnp.asarray, state[0])
+    if state[1] is None:
+        opt_state = ref_opt.init_state(params)
+    else:
+        opt_state = ref_opt.AdamWState(step=jnp.asarray(done, jnp.int32),
+                                       m=jax.tree.map(jnp.asarray, state[1]),
+                                       v=jax.tree.map(jnp.asarray, state[2]))
+    params, opt_state, _ = _ref_step(arch, n)(params, opt_state, jax.tree.map(jnp.asarray, batch))
+    return jax.tree.map(np.asarray, (params, opt_state.m, opt_state.v))
 
 
 def test_microbatches_are_contiguous_equal_slices():

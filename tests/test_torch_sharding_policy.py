@@ -18,6 +18,7 @@ meshes (no devices; the reference's ``AbstractMesh``):
 * The seven cases of ``tests/test_sharding_policy.py``, by name, on the
   port's per-layer tree.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import functools
 
 import jax

@@ -21,6 +21,7 @@ frames come from seeded numpy generators.  Held:
 * on fake CUDA tensors, an int8 emission's first depthwise row block goes
   to K4's launch and raises here, never to the plain version.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,10 +16,12 @@ step, bit for bit at a model axis of 1, else at 1e-6 / 1e-5):
   encoder and cross-attention), Qwen2-VL (an ``embeds`` batch) and
   Qwen2-MoE (the aux loss);
 * (b) the same three on (1, 2) and (2, 2) against the reference;
-* (c) on (2, 2), ``flash_attention`` runs once a layer, a model coordinate
-  and a data row, and once more in remat's recompute, on that
-  coordinate's heads (its q and KV heads, the row's rows), and
-  ``pl.gather`` takes no leaf split on ``"model"`` but the unembedding
+* (c) on (2, 2), ``flash_attention`` runs once an attention layer, a model
+  coordinate and a data row, and once more in remat's recompute, on that
+  coordinate's heads (its q and KV heads, the row's rows); for RWKV6-7B
+  and RecurrentGemma-9B likewise K7 (``wkv``) on each coordinate's heads
+  and ``griffin.recurrence`` on its channels, its gates reading all of ξ;
+  and ``pl.gather`` takes no leaf split on ``"model"`` but the unembedding
   (read whole for the cross-entropy);
 * (d) on a (2, 2) mesh of two distinct devices (``cpu:0`` / ``cpu:1``,
   laid out as ``chip_smoke.py``'s ``sharded_mixed``), where a replicated
@@ -27,11 +29,15 @@ step, bit for bit at a model axis of 1, else at 1e-6 / 1e-5):
   read, every replicated leaf's param and ZeRO-1 moments after 2 steps
   equal the unsharded step's within the tensor-parallel tolerance, and
   every copy of every block is bit-equal across the two devices;
-* the bf16 gaps ``chip_smoke.py``'s ``sharded_train`` limits were set from,
-  and, against the same steps at f32 compute, that Qwen2-MoE's widest
-  leaf-norm gaps are bf16's rounding, which the split does not widen.
+* the bf16 gaps ``chip_smoke.py``'s ``sharded_train`` limits were set from
+  (and RWKV's f32 gaps, which its f32 run is held to), and, against the
+  same steps at f32 compute, that Qwen2-MoE's widest leaf-norm gaps are
+  bf16's rounding, which the split does not widen.  The three-seed
+  readings: ``tests/torch_precision_readings.py``.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -47,8 +53,10 @@ from repro_torch.configs import base
 from repro_torch.data import tokens as tok
 from repro_torch.ft.resilience import reshard_tree
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.launch import inputs as inp
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import griffin
 from repro_torch.models.transformer import Model
 from repro_torch.sharding import placement as pl
 from repro_torch.sharding import tensor_parallel as tp
@@ -72,7 +80,8 @@ def test_tp_step_matches_the_reference_microbatched_step(arch, mesh):
     check_sharded_step(arch, mesh)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-large-v2", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-large-v2", "qwen2-moe-a2.7b",
+                                  "rwkv6-7b", "recurrentgemma-9b"])
 def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, monkeypatch):
     model, step = _sharded(arch, (2, 2))
     cfg = model.cfg
@@ -80,22 +89,40 @@ def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, mo
     params = reshard_tree(convert.lm_params_from_numpy(rparams, cfg, device="cpu"),
                           step.param_shardings)
     paths = {id(x): "/".join(map(str, p)) for p, x in flatten_with_paths(params)}
-    gathered, shapes = [], []
+    gathered, shapes, k7, widths = [], [], [], []
     real_gather, real_flash = pl.gather, flash_ops.flash_attention
+    real_wkv, real_rec = wkv_ops.wkv, griffin.recurrence
     monkeypatch.setattr(pl, "gather", lambda x, *a, **k: (
         id(x) in paths and gathered.append(paths[id(x)])) or real_gather(x, *a, **k))
     monkeypatch.setattr(flash_ops, "flash_attention", lambda q, k, v, **kw: shapes.append(
         (tuple(q.shape), tuple(k.shape), kw["causal"])) or real_flash(q, k, v, **kw))
+    monkeypatch.setattr(wkv_ops, "wkv", lambda r, *a, **k: k7.append(tuple(r.shape)) or
+                        real_wkv(r, *a, **k))
+    monkeypatch.setattr(griffin, "recurrence", lambda c, p, g, xf_all, xf, *a, **k: (
+        widths.append((tuple(xf.shape), xf_all.shape[-1]))) or real_rec(c, p, g, xf_all, xf,
+                                                                          *a, **k))
     _, _, m = step(params, step.init_opt_state(), _torch_batch(batches[0]))
     assert np.isfinite(float(m["loss"]))
 
     rows, coords, passes = 2, 2, 2  # data rows, model coordinates, forward + recompute
-    H, K, h = cfg.num_heads // coords, cfg.num_kv_heads // coords, cfg.head_dim
-    want = [((B // rows, S, H, h), (B // rows, S, K, h), True)] * cfg.num_layers
+    H, h = cfg.num_heads // coords, cfg.head_dim
+    K = (cfg.num_kv_heads // coords if cfg.num_kv_heads % coords == 0
+         else max(1, H // (cfg.num_heads // cfg.num_kv_heads)))  # a uniform group a coordinate
+    n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    want = [((B // rows, S, H, h), (B // rows, S, K, h), True)] * n_attn
     if cfg.is_encdec:  # the encoder's layers, each decoder layer's cross-attention
         want += [((B // rows, S, H, h), (B // rows, S, K, h), False)] * (
             cfg.encoder_layers + cfg.num_layers)
     assert sorted(shapes) == sorted(want * rows * coords * passes)
+    # K7 on each coordinate's heads, the RG-LRU on its channels (ξ whole)
+    n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
+    n_rec = sum(kind == "rglru" for kind in cfg.blocks())
+    if n_rwkv:
+        Hr = cfg.d_model // cfg.rwkv_head_dim
+        assert k7 == [(B // rows, S, Hr // coords, cfg.rwkv_head_dim)] * (
+            n_rwkv * coords * rows * passes)
+    assert widths == [((B // rows, S, cfg.lru_width // coords), cfg.lru_width)] * (
+        n_rec * coords * rows * passes)
     table = "embed" if cfg.tie_embeddings else "unembed"
     assert gathered == [table] * rows
 
@@ -159,12 +186,14 @@ def _chip_smoke():
     return mod
 
 
+@functools.lru_cache(maxsize=None)
 def _run(arch, seed, compute_dtype, sharded, steps=3, batch=8, seq=64):
     """The reduced config at ``compute_dtype`` from seed ``seed``, ``steps``
     steps on the token pipeline's batches: on (2, 2) when ``sharded``, else
     the unsharded step with 2 microbatches.  Returns (each step's loss, each
     param / m / v leaf's f64 norm after the steps, each data row's (unsharded,
-    RowOps) aux loss on the first batch when sharded and the config has MoE)."""
+    RowOps) aux loss on the first batch when sharded and the config has MoE).
+    Cached: the bf16 tests below read some runs twice."""
     cfg = dataclasses.replace(base.get_reduced_config(arch), compute_dtype=compute_dtype)
     model = Model(cfg, xent_impl="chunked", remat=True)
     params = model.init_params(torch.Generator().manual_seed(seed), device="cpu")
@@ -217,17 +246,38 @@ def test_bf16_gaps_within_the_chip_limits():
     """The readings ``chip_smoke.py``'s ``sharded_train`` limits were set
     from (about 3x the largest; PERF.md): the reduced Llama-3.2-1B and
     Qwen2-MoE-A2.7B in bf16 on a (2, 2) CPU mesh, 3 seeds, 3 steps (the
-    card's 2 timed and 1 profiled), printed under ``-s`` and held within
-    the card's limits."""
+    card's 2 timed and 1 profiled), and RWKV6-7B and RecurrentGemma-9B at
+    seed 0 (their 3 seeds are a one-off run, PERF.md), printed under ``-s``
+    and held within the card's limits: each run's widest leaf-norm gap, or
+    its median where ``SHARDED_TP_LIMITS`` gates the median (RWKV)."""
     cs = _chip_smoke()
-    limits = {"llama3.2-1b": (cs.SHARDED_TP_LOSS_RTOL, cs.SHARDED_TP_NORM_RTOL, 0.0),
-              "qwen2-moe-a2.7b": (cs.SHARDED_MOE_LOSS_RTOL, cs.SHARDED_MOE_NORM_RTOL,
-                                  cs.SHARDED_MOE_AUX_RTOL)}
-    for arch, (loss_rtol, norm_rtol, aux_rtol) in limits.items():
+    limits = {"llama3.2-1b": (cs.SHARDED_TP_LOSS_RTOL, cs.SHARDED_TP_NORM_RTOL, "max", 0.0, 3),
+              "qwen2-moe-a2.7b": (cs.SHARDED_MOE_LOSS_RTOL, cs.SHARDED_MOE_NORM_RTOL, "max",
+                                  cs.SHARDED_MOE_AUX_RTOL, 3),
+              "rwkv6-7b": (*cs.SHARDED_TP_LIMITS["rwkv6-7b"], 0.0, 1),
+              "recurrentgemma-9b": (*cs.SHARDED_TP_LIMITS["recurrentgemma-9b"], 0.0, 1)}
+    for arch, (loss_rtol, norm_rtol, read, aux_rtol, seeds) in limits.items():
+        of = {"max": max, "median": lambda g: float(np.median(g))}[read]
         loss, norm, aux = (max(v) for v in zip(*(
-            [max(g) if g else 0.0 for g in _bf16_gaps(arch, seed)] for seed in range(3))))
-        print(f"{arch}: loss gap {loss:.3g}, leaf-norm gap {norm:.3g}, aux gap {aux:.3g}")
+            [f(g) if g else 0.0 for f, g in zip((max, of, max), _bf16_gaps(arch, seed))]
+            for seed in range(seeds))))
+        print(f"{arch}: loss gap {loss:.3g}, leaf-norm gap ({read}) {norm:.3g}, "
+              f"aux gap {aux:.3g}")
         assert loss <= loss_rtol and norm <= norm_rtol and aux <= aux_rtol
+
+
+def test_f32_gaps_within_the_chip_limits():
+    """``sharded_train``'s f32 run of the reduced RWKV6-7B: the (2, 2) step
+    against the 2-microbatch step at f32 compute, 3 steps, seed 0, every
+    param / m / v leaf's norm within ``SHARDED_F32_NORM_RTOL`` and every
+    loss within ``SHARDED_F32_LOSS_RTOL`` (printed under ``-s``)."""
+    cs = _chip_smoke()
+    for arch in cs.SHARDED_F32_ARCHS:
+        losses, norms, _ = _run(arch, 0, "float32", True)
+        ulosses, unorms, _ = _run(arch, 0, "float32", False)
+        loss, norm = max(_rel(losses, ulosses)), max(_rel(norms, unorms))
+        print(f"{arch} f32: loss gap {loss:.3g}, leaf-norm gap {norm:.3g}")
+        assert loss <= cs.SHARDED_F32_LOSS_RTOL and norm <= cs.SHARDED_F32_NORM_RTOL
 
 
 def test_bf16_moe_leaf_gaps_are_bf16_rounding():

@@ -15,6 +15,7 @@
 The reference draws the weights; ``convert`` carries them across as numpy
 (``lm_params_from_numpy``) and back (``lm_params_to_numpy``).
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 import functools
 

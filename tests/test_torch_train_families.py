@@ -20,6 +20,7 @@ reference, on the CPU.
   attention again in the recompute under both policies, as the reference
   runs its ``pallas_call`` again.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import collections
 import dataclasses
 import functools

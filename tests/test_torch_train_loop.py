@@ -10,6 +10,7 @@
   one (the counterpart of ``tests/test_substrate.py``'s test).
 * ``repro_torch.launch.train --device cpu`` runs.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import numpy as np
 import pytest
 import torch

@@ -21,6 +21,7 @@ reference, on the CPU.
 * ``launch.serve`` and ``launch.train`` run Qwen2-VL with ``--device cpu``;
   at full size one lane's KV state is the config's.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ Inputs come from a numpy seed.  Tolerances are those of
 ``tests/test_kernel_wkv.py``: 2e-5 against the chunked forms, rtol 1e-4 /
 atol 1e-5 against the stepwise one, 5e-2 for bf16 inputs.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 from pathlib import Path
 
 import jax.numpy as jnp

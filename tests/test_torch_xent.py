@@ -12,6 +12,7 @@
 
 Inputs come from a numpy seed and go to both frameworks as arrays.
 """
+import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import functools
 
 import jax
