@@ -55,7 +55,12 @@ against their plain PyTorch versions:
    with a vocab tail, a softcap of 30 and a vocab of 37, targets at 0, V-1
    and inside the last tile, at one split and at the automatic count (per
    token within 1e-5 relative + 1e-5 + 8 f32 epsilons of |x| max|w|, see
-   ``K6_CASES``; the worst share of those epsilons is printed); and each
+   ``K6_CASES``; the worst share of those epsilons is printed), and K6's
+   partial form (``xent_part_f32``, the vocab-split loss of the sharded
+   train step) on the same cases' vocabularies split in 2 and 4 blocks:
+   each block's (lse, t) against ``xent_block_ref`` and their log-sum-exp
+   combine against the whole-vocab plain CE, within the same gate, one
+   launch a call (``k6_part_vs_plain``); and each
    autograd Function (K5, K6, K7 forward, the
    plain VJP backward) at small f32 shapes: a ``grad_fn``, one launch, and
    gradients equal to autograd through the plain version at 1e-5;
@@ -177,8 +182,9 @@ against their plain PyTorch versions:
    every param and moment leaf within 1e-6 relative, K5 64 and K6 2 a
    step; then tensor parallel on (2, 2), over four cards when there are
    four, else over cuda:0 four times: K5 128 (on each model coordinate's
-   heads) and K6 2 a step, no param split on "model" gathered but the
-   unembedding for K6, losses and leaf norms within the limits
+   heads) and K6's partial form 4 a step (on each model coordinate's vocab
+   block of the unembedding, a data row's rows), no leaf gathered, losses
+   and leaf norms within the limits
    ``SHARDED_TP_*`` derives; Qwen2-MoE-A2.7B's 2 layers, B 4, on (2, 2):
    K5 16, the experts' d_ff split, losses, leaf norms and each row's aux
    loss through ``RowOps`` within ``SHARDED_MOE_*``; RWKV6-7B's 2 layers
@@ -238,7 +244,9 @@ against their plain PyTorch versions:
     Qwen2-MoE and Qwen2-VL (B 4 x S 512) and at each shape the sharded
     prefills and the sharded train steps gave it (a data row's rows, a
     model coordinate's heads), K6
-    at the five train shapes) with
+    at the five train shapes, and at the sharded train cells' data-row
+    tokens over the whole vocab and, in its partial form, over one model
+    coordinate's vocab block) with
     CUDA events
     and the profiler, beside its plain version, a PyTorch library call
     computing the same function where there is one, and its bound from the
@@ -3339,11 +3347,15 @@ K6_CASES = [
     (129, 64, 1000, 0.0, 0.1),
     (129, 64, 1000, 30.0, 1.0),
     (32, 16, 37, 0.0, 0.1),
-    # a data row's rows (and a microbatch's) of Llama-3.2-1B's and Qwen2-MoE's
-    # train batches in sharded_train and the 2-microbatch steps: the first
-    # rows of the train shapes' inputs above (k6_checks keeps those)
+    # a data row's rows (and a microbatch's) of Llama-3.2-1B's, Qwen2-MoE's,
+    # RWKV6-7B's and RecurrentGemma-9B's train batches in sharded_train and
+    # the 2-microbatch steps: the first rows of the train shapes' inputs
+    # above (k6_checks keeps those); split in K6_PART_BLOCKS, they are the
+    # vocab blocks sharded_train gives K6's partial form
     (2048, 2048, 128256, 0.0, None),
     (1024, 2048, 151936, 0.0, None),
+    (1024, 4096, 65536, 0.0, None),
+    (1024, 4096, 256000, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -3424,7 +3436,7 @@ def k6_checks(torch, np, report) -> None:
 
     eps = torch.finfo(torch.float32).eps
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
+    rows, part_rows = [], []
     kept = {}  # (D, V, w std) -> inputs a later case takes its first rows of
     for ci, (N, D, V, cap, w_std) in enumerate(K6_CASES):
         key = (D, V, w_std)
@@ -3458,6 +3470,7 @@ def k6_checks(torch, np, report) -> None:
             rows.append({"N": N, "D": D, "V": V, "softcap": cap, "splits": splits,
                          "max_abs_err": err, "eps_of_M": units,
                          "ce_mean": float(want.mean())})
+        part_rows += [_k6_part_case(torch, x, w, t, cap, want, M, n) for n in K6_PART_BLOCKS]
         del x, w, t, want
     report.emit({"phase": "k6_vs_plain", "route": K6_ROUTE, "checks": len(rows),
                  "worst_eps_of_M": max(r["eps_of_M"] for r in rows), "cases": rows,
@@ -3466,6 +3479,86 @@ def k6_checks(torch, np, report) -> None:
                      "route": k6_bound(N, D, V)[0],
                      "f32_cuda_core": k6_f32_bound_ms(N, D, V)}
                      for N, D, V in K6_TRAIN_SHAPES.values()}})
+    report.emit({"phase": "k6_part_vs_plain", "checks": len(part_rows),
+                 "worst_eps_of_M": max(r["worst_eps_of_M"] for r in part_rows),
+                 "rtol": K6_RTOL, "atol": K6_ATOL, "allowed_eps_of_M": K6_EPS_UNITS,
+                 "cases": part_rows})
+
+
+# K6's partial form: each K6_CASES vocabulary split in this many blocks
+K6_PART_BLOCKS = (2, 4)
+
+
+def k6_held(sms: int) -> set:
+    """The K6 launch keys (entry, N, D, V, splits, softcap) that
+    ``k6_checks`` holds against the plain version on a card of ``sms``
+    SMs: each K6_CASES shape whole at its automatic split count (and one
+    split where N <= 1,024), and each of its K6_PART_BLOCKS vocab blocks in
+    the partial form at the block's automatic split count."""
+    from repro_torch.kernels.xent.kernel import split_count
+
+    held = set()
+    for N, D, V, cap, _ in K6_CASES:
+        for splits in {split_count(N, V, sms), *((1,) if N <= 1024 else ())}:
+            held.add(("xent_fwd_f32", N, D, V, splits, float(cap)))
+        for n in K6_PART_BLOCKS:
+            for c in range(n):
+                vb = (c + 1) * V // n - c * V // n
+                held.add(("xent_part_f32", N, D, vb, split_count(N, vb, sms), float(cap)))
+    return held
+
+
+def k6_unheld(by_key) -> list:
+    """K6's launch keys (entry, N, D, V, splits, softcap) at a shape and
+    grid ``k6_checks`` does not hold."""
+    import torch
+
+    held = k6_held(torch.cuda.get_device_properties(0).multi_processor_count)
+    return [k for k in by_key if tuple(k[:6]) not in held]
+
+
+def _k6_part_case(torch, x, w, t, cap, want, M, n_blocks) -> dict:
+    """K6's partial form on ``n_blocks`` contiguous vocab blocks of ``w``:
+    each block's (lse, t) against ``xent_block_ref`` within K6's gate (M of
+    the block's rows), one launch a call, and their combine,
+    logsumexp(lse) - sum(t), against the whole-vocab plain CE ``want``
+    within the gate of the whole vocab's ``M``.  Raises on a miss; returns
+    the case's record."""
+    from repro_torch.kernels.xent import ref as xent_ref
+    from repro_torch.kernels.xent.kernel import K6_LAUNCHES, fused_xent_part
+
+    eps = torch.finfo(torch.float32).eps
+    N, D = x.shape
+    V = w.shape[0]
+    worst, lses, ts = 0.0, [], []
+    for c in range(n_blocks):
+        v0, v1 = c * V // n_blocks, (c + 1) * V // n_blocks
+        wb = w[v0:v1]
+        before = K6_LAUNCHES.count
+        lse, tt = fused_xent_part(x, wb, t - v0, softcap=cap)
+        launches = K6_LAUNCHES.count - before
+        with torch.no_grad():
+            p_lse, p_t = (a[0] for a in xent_ref.xent_block_ref(x[None], wb, t[None], v0,
+                                                               softcap=cap))
+        Mb = x.norm(dim=1) * wb.norm(dim=1).max()
+        for got, plain in ((lse, p_lse), (tt, p_t)):
+            diff = (got - plain).abs()
+            worst = max(worst, float((diff / (eps * Mb)).max()))
+            if launches != 1 or not bool((diff <= K6_RTOL * plain.abs() + K6_ATOL
+                                          + K6_EPS_UNITS * eps * Mb).all()):
+                raise AssertionError(f"K6 part {(N, D, V, cap)} block [{v0}, {v1}): "
+                                     f"{launches} launches, max abs err {float(diff.max())}")
+        lses.append(lse)
+        ts.append(tt)
+    ce = torch.logsumexp(torch.stack(lses), dim=0) - torch.stack(ts).sum(dim=0)
+    diff = (ce - want).abs()
+    units = float((diff / (eps * M)).max())
+    if not bool((diff <= K6_RTOL * want.abs() + K6_ATOL + K6_EPS_UNITS * eps * M).all()):
+        raise AssertionError(f"K6 part {(N, D, V, cap)} in {n_blocks} blocks: combined CE "
+                             f"max abs err {float(diff.max())} ({units:.2f} eps M)")
+    return {"N": N, "D": D, "V": V, "softcap": cap, "blocks": n_blocks,
+            "combined_max_abs_err": float(diff.max()), "combined_eps_of_M": units,
+            "worst_eps_of_M": max(worst, units)}
 
 
 def grad_checks(torch, np, report) -> None:
@@ -4000,13 +4093,13 @@ def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile):
     every launch counter set to 0 just before each, the last under the
     profiler when ``profile`` (else timed as the others); raises unless
     each step's launches are ``want`` and its loss finite.  Returns
-    (params, state, the run's record, {"K5", "K7": launches by key})."""
+    (params, state, the run's record, {"K5", "K6", "K7": launches by key})."""
     counters = _counters()
     cards = range(torch.cuda.device_count())
     _sync_all(torch)
     for i in cards:
         torch.cuda.reset_peak_memory_stats(i)
-    ms, losses, launches, by_key = [], [], [], {"K5": {}, "K7": {}}
+    ms, losses, launches, by_key = [], [], [], {"K5": {}, "K6": {}, "K7": {}}
     for s in range(SHARDED_STEPS + 1):
         batch = _device_batch(pipe, s)
         _sync_all(torch)
@@ -4048,7 +4141,7 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
     """``jit_train_step`` on ``_sharded_mesh(model=sizes_model)`` from the
     CPU copy ``initial``: (params, state, step, the run's record with its
     gathers by leaf, bytes a coordinate and copies across cards, {"K5",
-    "K7": launches by key})."""
+    "K6", "K7": launches by key})."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.ft.resilience import reshard_tree
     from repro_torch.launch import inputs as inp
@@ -4094,21 +4187,21 @@ def k7_unheld(by_key) -> list:
 def _sharded_faults(cfg, rec, by_key) -> list:
     """What a sharded run broke of the checks every run keeps: bytes a
     coordinate off their specs, placements, unequal copies across cards, a
-    gathered leaf other than the unembedding (K6 reads it whole), K5 at a
-    shape ``k5_checks`` does not hold, K7 at one ``K7_SHARDED`` does not."""
+    gathered leaf (none is: the loss runs K6's partial form on each model
+    coordinate's vocab block), K5 at a shape ``k5_checks`` does not hold,
+    K6 at a shape and grid ``k6_checks`` does not."""
     k5 = by_key["K5"]
-    table = "embed" if cfg.tie_embeddings else "unembed"
     faults = [f"bytes off their specs at {k}" for k, v in
               rec["bytes_by_coordinate_held_vs_specs"].items() if v[0] != v[1]]
     if not rec["placements_kept"]:
         faults.append("placements not kept")
     if rec["blocks_with_unequal_copies"]:
         faults.append(f"{rec['blocks_with_unequal_copies']} blocks with unequal copies")
-    faults += [f"{path} gathered {n} times" for path, n in rec["gathers_by_leaf"].items()
-               if path != table]
+    faults += [f"{path} gathered {n} times" for path, n in rec["gathers_by_leaf"].items()]
     checked = set(k5_cases())
     faults += [f"K5 at {k} outside k5_cases" for k in k5
                if (*k[1:7], k[8], k[9], k[7]) not in checked]
+    faults += [f"K6 at {k} outside K6_CASES" for k in k6_unheld(by_key["K6"])]
     return faults
 
 
@@ -4124,8 +4217,9 @@ def sharded_train_phase(torch, np, report):
     coordinate a data row and again in remat's recompute: Llama 64 on (2,
     1) and 128 on (2, 2), Qwen2-MoE 16, RecurrentGemma 8; K7 likewise once
     an RWKV layer, on a coordinate's 32 heads: RWKV6-7B 16; K6 once a data
-    row, 2), that no leaf split on "model" is gathered but the unembedding
-    (read whole for K6: no RWKV or RG-LRU leaf), K5 only at shapes
+    row on (2, 1), 2, and its partial form once a model coordinate a data
+    row on (2, 2), 4), that no leaf is gathered (the unembedding neither:
+    each coordinate's vocab block runs K6's partial form), K5 only at shapes
     ``k5_checks`` holds and K7 only at ``K7_SHARDED``, every leaf in its
     placement, each coordinate's bytes equal to its specs' arithmetic, and
     (over distinct cards) every copy of a block bit-equal across the cards;
@@ -4133,9 +4227,8 @@ def sharded_train_phase(torch, np, report):
     through RowOps.  Records step ms, peak memory, Llama's idle share of a
     profiled step unsharded and on (2, 2), gathers by leaf, bytes at each
     coordinate and on each card, each run's five widest leaf-norm gaps.
-    Returns (the (2, 2) Llama state, its step, {"K5" / "K7": their launches
-    by (arch,) + key, "K6": K6's launches by arch} over the sharded
-    runs)."""
+    Returns (the (2, 2) Llama state, its step, {"K5" / "K6" / "K7": their
+    launches by (arch,) + key over the sharded runs})."""
     from repro_torch.data import tokens as tok
     from repro_torch.launch.train import adamw_config
     from repro_torch.sharding import tensor_parallel as tp
@@ -4145,7 +4238,7 @@ def sharded_train_phase(torch, np, report):
 
     t_phase = time.perf_counter()
     adamw = adamw_config(SHARDED_STEPS + 1)
-    keys_all, k6_all, faults = {"K5": {}, "K7": {}}, {}, []
+    keys_all, faults = {"K5": {}, "K6": {}, "K7": {}}, []
     out = None
     for arch, meshes in (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,)),
                          ("rwkv6-7b", (2,)), ("recurrentgemma-9b", (2,))):
@@ -4207,8 +4300,9 @@ def sharded_train_phase(torch, np, report):
                 name = f"sharded_2x{n_model}"
                 n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
                 n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
+                # K6 once a data row (its partial form on each model coordinate's block)
                 want = dict(want_u, K5=n_attn * n_model * 2 * 2, K7=n_rwkv * n_model * 2 * 2,
-                            K6=2)
+                            K6=2 * n_model)
                 params, state, step, rec, by_key = _sharded_run(
                     torch, np, f"{arch}{tag} {name}", model, initial, pipe, n_model, want, B, S,
                     profile and n_model > 1)
@@ -4246,6 +4340,12 @@ def sharded_train_phase(torch, np, report):
                            or not max(norm_rel) <= SHARDED_MOE_NORM_RTOL
                            or not max(aux_rel) <= SHARDED_MOE_AUX_RTOL)
                 rec["k7_shapes"] = sorted(str(k[1:6]) for k in by_key["K7"])
+                rec["k6_launches_by_entry_and_shape"] = {str(k[:4]): n
+                                                         for k, n in by_key["K6"].items()}
+                entry = "xent_fwd_f32" if n_model == 1 else "xent_part_f32"
+                if any(k[0] != entry for k in by_key["K6"]):
+                    faults.append(f"{arch}{tag} {name}: K6 {sorted(by_key['K6'])}, want "
+                                  f"{entry} alone")
                 problems = (_sharded_faults(cfg, rec, by_key)
                             + (["outside its limits"] if bad else [])
                             + [f"K7 at {k} outside K7_SHARDED"
@@ -4257,7 +4357,6 @@ def sharded_train_phase(torch, np, report):
                     for key, n in keys.items():
                         at = (arch,) + key
                         keys_all[kernel][at] = keys_all[kernel].get(at, 0) + n
-                k6_all[arch] = k6_all.get(arch, 0) + want["K6"] * (SHARDED_STEPS + 1)
                 runs[name] = rec
                 if (arch, n_model) == ("llama3.2-1b", 2):
                     out = (params, state), step
@@ -4273,7 +4372,7 @@ def sharded_train_phase(torch, np, report):
                  "seconds": round(time.perf_counter() - t_phase, 3)})
     if faults:
         raise AssertionError(f"sharded_train: {faults}")
-    return out[0], out[1], {**keys_all, "K6": k6_all}
+    return out[0], out[1], keys_all
 
 
 # sharded_mixed: the sharded step over two distinct devices on one card.
@@ -4291,7 +4390,9 @@ def sharded_mixed_phase(torch, np, report) -> None:
     run on one card: a (2, 2) ("data", "model") mesh over
     [[cuda:0, cpu], [cpu, cuda:0]], so every param block is held on both
     devices, data row 0 computes on the card (K5, K6) and row 1 on the CPU
-    (the plain versions), and each ZeRO-1 shard is updated on its own
+    (the plain versions), the loss on each coordinate's vocab block on its
+    device (K6's partial form on the card's two blocks a step, the plain
+    block form on the CPU's), and each ZeRO-1 shard is updated on its own
     device and copied to the block's holder on the other.  Checks: every
     copy of a block bit-equal across the two devices, each coordinate's
     bytes its specs', the losses and leaf norms within MIXED_LOSS_RTOL and
@@ -4301,6 +4402,7 @@ def sharded_mixed_phase(torch, np, report) -> None:
     from repro_torch.configs import base as cfgbase
     from repro_torch.data import tokens as tok
     from repro_torch.ft.resilience import reshard_tree
+    from repro_torch.kernels.xent.kernel import K6_LAUNCHES as k6
     from repro_torch.launch import inputs as inp
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.transformer import Model
@@ -4329,15 +4431,25 @@ def sharded_mixed_phase(torch, np, report) -> None:
                                   cfgbase.ShapeConfig("train", S, B, "train")))
         params, state = reshard_tree(whole, step.param_shardings), step.init_opt_state()
         losses = []
+        k6.reset()
         for s in range(2):
             params, state, m = step(params, state, tok.device_batch(pipe, s, "cuda"))
             losses.append(float(m["loss"]))
+        # K6's partial form on each vocab block the card holds, the CPU's plain
+        k6_entries = {}
+        for key, n in k6.by_key.items():
+            k6_entries[key[0]] = k6_entries.get(key[0], 0) + n
+        cuda_coords = sum(d.type == "cuda" for d in mesh.devices.flat)
+        if k6_entries != {"xent_part_f32": 2 * cuda_coords}:
+            raise AssertionError(f"sharded_mixed {name}: K6 launches {k6_entries}, want "
+                                 f"xent_part_f32 {2 * cuda_coords} over 2 steps")
         trees = (params, state.m, state.v)
         by_coord = _coordinate_bytes(np, list(zip(trees, (step.param_shardings,
                                                           step.opt_state_shardings.m,
                                                           step.opt_state_shardings.v))), mesh)
         several, unequal = _copies_disagree(torch, trees)
         runs[name] = {"devices": [str(d) for d in mesh.devices.flat], "losses": losses,
+                      "k6_launches_by_entry": k6_entries,
                       "norms": _leaf_norms(torch, trees), "blocks_on_several_devices": several,
                       "blocks_with_unequal_copies": unequal,
                       "coordinates_off_their_specs": sorted(k for k, v in by_coord.items()
@@ -4798,11 +4910,12 @@ K6_ROUTE = ("3xTF32 on the tensor cores: mma.sync.m16n8k8 TF32 products of hi/lo
             "splits of each f32 operand, f32 accumulation")
 
 
-def k6_bound(N, D, V):
-    """(ms, by): x, w, targets read and the loss written once; the
+def k6_bound(N, D, V, outputs=1):
+    """(ms, by): x, w, targets read and ``outputs`` (N,) f32 outputs
+    written once (1: the loss; 2: the partial form's lse and t); the
     operations of K6's route, 3 TF32 products per f32 product (2 N V D
     each) at the TF32 tensor-core peak."""
-    t_bytes = 4 * (N * D + V * D + 2 * N) / HBM_BYTES_PER_S
+    t_bytes = 4 * (N * D + V * D + (1 + outputs) * N) / HBM_BYTES_PER_S
     t_ops = 3 * 2 * N * V * D / PEAK_TF32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -4812,49 +4925,93 @@ def k6_f32_bound_ms(N, D, V):
     return 2 * N * V * D / PEAK_F32_OPS_PER_S * 1e3
 
 
-def k6_timing_phase(torch, np, report, train_counts) -> list:
-    """K6 at each train cell's shape (``K6_TRAIN_SHAPES``): CUDA-event ms
-    and profiler device ms, beside its plain version (``seq_chunked_xent``),
-    the library call ``F.cross_entropy(x @ w.T, t, reduction="none")`` (f32,
-    TF32 off) and its bound."""
+def k6_timing_phase(torch, np, report, train_counts, sharded_k6) -> list:
+    """K6 at each train cell's shape (``K6_TRAIN_SHAPES``), and at each
+    (entry, N, D, V) that ``sharded_train`` launched for that arch
+    (``sharded_k6``: K6's launches by (arch, entry, N, D, V, ...)): a data
+    row's tokens over the whole vocab, or in the partial form over one
+    model coordinate's vocab block; beside each block, the same row over
+    the whole vocab as a reading (the first rows and the first block of
+    the train shape's inputs).  CUDA-event ms and profiler device ms,
+    beside its plain version (``seq_chunked_xent`` / ``xent_block_ref``),
+    the library call ``F.cross_entropy(x @ w.T, t, reduction="none")``
+    (f32, TF32 off; for a block, the same matmul, log-sum-exp and target
+    logit with the block's targets clamped into it) and its bound.  A
+    kernels-line entry for each shape the main path launched."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.xent import ref as xent_ref
-    from repro_torch.kernels.xent.kernel import fused_xent_fwd
+    from repro_torch.kernels.xent.kernel import fused_xent_fwd, fused_xent_part
 
+    def launched(arch, entry, N, D, V):
+        return sum(n for k, n in sharded_k6.items() if k[:5] == (arch, entry, N, D, V))
+
+    by_arch = {}
+    for k in sharded_k6:
+        by_arch.setdefault(k[0], set()).add(k[1:5])
+    if not set(by_arch) <= set(K6_TRAIN_SHAPES):
+        raise AssertionError(f"K6 timing: sharded_train ran {sorted(by_arch)}, "
+                             f"K6_TRAIN_SHAPES holds {sorted(K6_TRAIN_SHAPES)}")
     entries = []
     for arch, (N, D, V) in K6_TRAIN_SHAPES.items():
         rng = np.random.default_rng(66)
-        x, w, t = _xent_inputs(torch, np, rng, N, D, V, None)
-        tl = t.long()
-        kern = lambda: fused_xent_fwd(x, w, t)
-        plain = lambda: xent_ref.seq_chunked_xent(x[None], w, t[None])
-        library = lambda: F.cross_entropy(x @ w.T, tl, reduction="none")
-        with torch.no_grad():
-            err = float((kern() - plain()[0]).abs().max())
-            lib_err = float((library() - plain()[0]).abs().max())
-            t_ = {"ms": event_ms(torch, kern, iters=10, warmup=2),
-                  "plain_ms": event_ms(torch, plain, iters=3, warmup=1),
-                  "library_ms": event_ms(torch, library, iters=10, warmup=2),
-                  "device_ms": device_ms(torch, kern, iters=5),
-                  "plain_device_ms": device_ms(torch, plain, iters=2),
-                  "library_device_ms": device_ms(torch, library, iters=5)}
-        bms, bby = k6_bound(N, D, V)
-        report.emit({"phase": "timing", "kernel": "K6",
-                     "shape": f"N={N} D={D} V={V} f32 ({arch} train loss)",
-                     "max_abs_err": err, "library_max_abs_err": lib_err,
-                     "route": K6_ROUTE, "bound_ms": bms, "bound_by": bby,
-                     "f32_cuda_core_bound_ms": k6_f32_bound_ms(N, D, V),
-                     "library": "F.cross_entropy(x @ w.T, t, reduction='none'), f32, TF32 off",
-                     **t_})
-        entries.append({
-            "name": f"K6 xent_fwd_f32 [{arch} train loss, N={N} D={D} V={V}]",
-            "route": "cuda", "source": "src/repro_torch/csrc/xent_fwd.cu",
-            "replaces": "src/repro/kernels/xent/kernel.py:23",
-            "launches": train_counts[arch]["K6"], "max_abs_err": err, "ms": t_["ms"],
-            "plain_ms": t_["plain_ms"], "bound_ms": bms, "bound_by": bby,
-            "library_ms": t_["library_ms"], "device_ms": t_["device_ms"]})
-        del x, w, t, tl
+        x_all, w_all, t_all = _xent_inputs(torch, np, rng, N, D, V, None)
+        rows = by_arch.get(arch, set())
+        rows |= {("xent_fwd_f32", n, d, V) for e, n, d, _ in rows if e == "xent_part_f32"}
+        if any(d != D or n > N or v > V for _, n, d, v in rows):
+            raise AssertionError(f"K6 timing: {arch}'s sharded shapes {sorted(rows)} "
+                                 f"outside its train shape {(N, D, V)}")
+        shapes = [("train loss", "xent_fwd_f32", N, V, train_counts[arch]["K6"])]
+        shapes += [("sharded row, whole vocab" if entry == "xent_fwd_f32" else
+                    "sharded row, a coordinate's vocab block", entry, n, v,
+                    launched(arch, entry, n, D, v)) for entry, n, _, v in sorted(rows)]
+        for mode, entry, n, v, launches in shapes:
+            x, w, t = x_all[:n], w_all[:v], t_all[:n]
+            tl = t.long()
+            if entry == "xent_fwd_f32":
+                kern = lambda: fused_xent_fwd(x, w, t)
+                plain = lambda: xent_ref.seq_chunked_xent(x[None], w, t[None])
+                library = lambda: F.cross_entropy(x @ w.T, tl, reduction="none")
+                outputs = 1
+            else:
+                kern = lambda: fused_xent_part(x, w, t)
+                plain = lambda: xent_ref.xent_block_ref(x[None], w, t[None], 0)
+                tc = tl.clamp(0, v - 1)
+                library = lambda: F.cross_entropy(x @ w.T, tc, reduction="none")
+                outputs = 2
+            with torch.no_grad():
+                got, want = kern(), plain()
+                if outputs == 1:
+                    err = float((got - want[0]).abs().max())
+                    lib_err = float((library() - want[0]).abs().max())
+                else:
+                    err = max(float((a - b[0]).abs().max()) for a, b in zip(got, want))
+                    lib_err = None
+                del got, want
+                t_ = {"ms": event_ms(torch, kern, iters=10, warmup=2),
+                      "plain_ms": event_ms(torch, plain, iters=3, warmup=1),
+                      "library_ms": event_ms(torch, library, iters=10, warmup=2),
+                      "device_ms": device_ms(torch, kern, iters=5),
+                      "plain_device_ms": device_ms(torch, plain, iters=2),
+                      "library_device_ms": device_ms(torch, library, iters=5)}
+            bms, bby = k6_bound(n, D, v, outputs)
+            report.emit({"phase": "timing", "kernel": "K6", "entry": entry, "arch": arch,
+                         "mode": mode, "shape": f"N={n} D={D} V={v} f32 ({arch} {mode})",
+                         "launches": launches, "max_abs_err": err,
+                         "library_max_abs_err": lib_err, "route": K6_ROUTE,
+                         "bound_ms": bms, "bound_by": bby,
+                         "f32_cuda_core_bound_ms": k6_f32_bound_ms(n, D, v),
+                         "library": "F.cross_entropy(x @ w.T, t, reduction='none'), f32, "
+                                    "TF32 off", **t_})
+            if launches:
+                entries.append({
+                    "name": f"K6 {entry} [{arch} {mode}, N={n} D={D} V={v}]",
+                    "route": "cuda", "source": "src/repro_torch/csrc/xent_fwd.cu",
+                    "replaces": "src/repro/kernels/xent/kernel.py:23",
+                    "launches": launches, "max_abs_err": err, "ms": t_["ms"],
+                    "plain_ms": t_["plain_ms"], "bound_ms": bms, "bound_by": bby,
+                    "library_ms": t_["library_ms"], "device_ms": t_["device_ms"]})
+        del x_all, w_all, t_all, x, w, t, tl
         torch.cuda.empty_cache()
     return entries
 
@@ -4943,8 +5100,6 @@ def main(argv=None) -> int:
     train_strict_phase(torch, np, report)
     remat_dots_phase(torch, np, report)
     state, step, sharded_counts = sharded_train_phase(torch, np, report)
-    for arch, n in sharded_counts["K6"].items():
-        train_counts[arch]["K6"] += n
     sharded_mixed_phase(torch, np, report)
     reshard_phase(torch, np, report, state, step)
     del state, step
@@ -4954,7 +5109,7 @@ def main(argv=None) -> int:
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                                serve_keys, sharded_counts)
-    entries += k6_timing_phase(torch, np, report, train_counts)
+    entries += k6_timing_phase(torch, np, report, train_counts, sharded_counts["K6"])
     for net in engines:
         run = engines[net]["run"]
         report.emit({"phase": "serving", "net": net, "qps": run.qps,

@@ -55,6 +55,11 @@
 //   merges the splits in split order and writes the loss, so one launch
 //   does the whole call and the result does not depend on which CTA ends
 //   last;
+// * the partial form (xent_part_f32, PART = true) runs the same body on one
+//   vocab block of a split unembedding and writes, in place of the loss, the
+//   block's merged lse = m + log(s) and its target logit t (0 where the
+//   block does not hold the target: a target outside [0, V) matches no
+//   column).  The caller combines the blocks' (lse, t) by log-sum-exp;
 // * any N (the token tail is zero-filled and bounds-checked), any D (the
 //   D tail is zero-filled to the stage), int32 targets; 16-byte copies
 //   when D % 4 == 0 and x and w are 16-byte aligned, 4-byte copies else.
@@ -171,12 +176,14 @@ __device__ __forceinline__ void merge_pair(float& m, float& s, float m2, float s
   m = mn;
 }
 
-template <bool VEC>
+// PART: write the merged (lse, t) of the vocab range to (out, out_t) in
+// place of the loss out = lse - t.
+template <bool VEC, bool PART>
 __global__ void __launch_bounds__(kThreads, 1)
 xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const int* __restrict__ targets, float* __restrict__ out,
-                float* __restrict__ part, unsigned int* __restrict__ tickets, int N, int D,
-                int V, float softcap) {
+                float* __restrict__ out_t, float* __restrict__ part,
+                unsigned int* __restrict__ tickets, int N, int D, int V, float softcap) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float row_m[kBN], row_s[kBN], row_t[kBN];
   __shared__ float warp_m[kWarpsV][kBN], warp_s[kWarpsV][kBN];
@@ -197,7 +204,9 @@ xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     row_m[tid] = -INFINITY;
     row_s[tid] = 0.0f;
     row_t[tid] = 0.0f;
-    row_tgt[tid] = n0 + tid < N ? targets[n0 + tid] : -1;
+    // a target outside [0, V) matches no column, the masked tail's included
+    const int tg = n0 + tid < N ? targets[n0 + tid] : -1;
+    row_tgt[tid] = tg >= 0 && tg < V ? tg : -1;
   }
 
   const int nk = (D + kBK - 1) / kBK;
@@ -360,22 +369,47 @@ xent_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       merge_pair(m, s, __ldcg(part + at), __ldcg(part + plane + at));
       t += __ldcg(part + 2 * plane + at);
     }
-    out[n0 + tid] = m + logf(s) - t;
+    if (PART) {
+      out[n0 + tid] = m + logf(s);
+      out_t[n0 + tid] = t;
+    } else {
+      out[n0 + tid] = m + logf(s) - t;
+    }
   }
 }
 
-template <bool VEC>
-int launch(const float* x, const float* w, const int* t, float* out, float* part,
-           unsigned int* tickets, int N, int D, int V, int splits, float softcap,
-           cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(xent_fwd_kernel<VEC>,
+template <bool VEC, bool PART>
+int launch(const float* x, const float* w, const int* t, float* out, float* out_t,
+           float* part, unsigned int* tickets, int N, int D, int V, int splits,
+           float softcap, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(xent_fwd_kernel<VEC, PART>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(kSmemBytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((N + kBN - 1) / kBN, splits);
-  xent_fwd_kernel<VEC><<<grid, kThreads, kSmemBytes, s>>>(x, w, t, out, part, tickets, N, D,
-                                                          V, softcap);
+  xent_fwd_kernel<VEC, PART><<<grid, kThreads, kSmemBytes, s>>>(x, w, t, out, out_t, part,
+                                                                tickets, N, D, V, softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PART>
+int entry(const void* x, const void* w, const void* targets, void* out, void* out_t,
+          void* part, void* tickets, int N, int D, int V, int splits, float softcap,
+          void* stream) {
+  if (N <= 0 || D <= 0 || V <= 0 || splits < 1 || splits > (V + kBV - 1) / kBV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const int* tf = static_cast<const int*>(targets);
+  float* of = static_cast<float*>(out);
+  float* otf = static_cast<float*>(out_t);
+  float* pf = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch<true, PART>(xf, wf, tf, of, otf, pf, tk, N, D, V, splits, softcap, s)
+             : launch<false, PART>(xf, wf, tf, of, otf, pf, tk, N, D, V, splits, softcap, s);
 }
 
 }  // namespace
@@ -386,17 +420,16 @@ int launch(const float* x, const float* w, const int* t, float* out, float* part
 extern "C" int xent_fwd_f32(const void* x, const void* w, const void* targets, void* out,
                             void* part, void* tickets, int N, int D, int V, int splits,
                             float softcap, void* stream) {
-  if (N <= 0 || D <= 0 || V <= 0 || splits < 1 || splits > (V + kBV - 1) / kBV)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const int* tf = static_cast<const int*>(targets);
-  float* of = static_cast<float*>(out);
-  float* pf = static_cast<float*>(part);
-  unsigned int* tk = static_cast<unsigned int*>(tickets);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true>(xf, wf, tf, of, pf, tk, N, D, V, splits, softcap, s)
-             : launch<false>(xf, wf, tf, of, pf, tk, N, D, V, splits, softcap, s);
+  return entry<false>(x, w, targets, out, nullptr, part, tickets, N, D, V, splits, softcap,
+                      stream);
+}
+
+// The partial form on one vocab block w (V, D) of a split unembedding, with
+// block-local int32 targets (any value; one outside [0, V) leaves t = 0):
+// lse (N,) = log sum_v exp(l[n, v]) and t (N,) = l[n, targets[n]], f32.
+// The other arguments as xent_fwd_f32's.
+extern "C" int xent_part_f32(const void* x, const void* w, const void* targets, void* lse,
+                             void* t, void* part, void* tickets, int N, int D, int V,
+                             int splits, float softcap, void* stream) {
+  return entry<true>(x, w, targets, lse, t, part, tickets, N, D, V, splits, softcap, stream);
 }

@@ -7,7 +7,9 @@ vocab chunk (``chunked_xent``) or a sequence chunk (``seq_chunked_xent``)
 — and recompute it per chunk in the backward pass
 (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``), so
 autograd does not keep every chunk's slab alive.  All three compute in f32
-on f32 inputs.
+on f32 inputs.  :func:`xent_block_ref` is the plain version of K6's partial
+form: one vocab block's (log-sum-exp, target logit), for a vocab split over
+model coordinates.
 
 Beside them, :func:`xent_3xtf32` models K6's own arithmetic on the tensor
 cores (``csrc/xent_fwd.cu``): each f32 operand split into two TF32 parts,
@@ -87,6 +89,36 @@ def seq_chunked_xent(x: torch.Tensor,  # (B, S, D) f32
     return torch.cat([checkpoint(naive_xent, x[:, i:i + c], w, targets[:, i:i + c], softcap,
                                  use_reentrant=False)
                       for i in range(0, S, c)], dim=1)
+
+
+def naive_xent_block(x: torch.Tensor, w_block: torch.Tensor,
+                     targets_local: torch.Tensor, softcap: float = 0.0):
+    """One vocab block's share of the CE, materializing (B, S, V_block):
+    (lse, t), each (B, S) f32, the block's log-sum-exp of the (softcapped)
+    logits and the target logit, 0 where ``targets_local`` (the targets less
+    the block's first id) falls outside the block."""
+    logits = _cap(torch.einsum("bsd,vd->bsv", x, w_block).float(), softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    loc = targets_local.long()
+    inside = (loc >= 0) & (loc < w_block.shape[0])
+    hit = torch.gather(logits, -1, loc.clamp(0, w_block.shape[0] - 1)[..., None])[..., 0]
+    return lse, torch.where(inside, hit, torch.zeros_like(hit))
+
+
+def xent_block_ref(x: torch.Tensor,  # (B, S, D) f32
+                   w_block: torch.Tensor,  # (V_block, D) f32: rows [v0, v0 + V_block)
+                   targets: torch.Tensor,  # (B, S) int, global ids
+                   v0: int, softcap: float = 0.0, chunk: int = 256):
+    """K6's partial form's plain version: :func:`naive_xent_block` of the
+    block that starts at vocab id ``v0``, streamed over sequence chunks as
+    :func:`seq_chunked_xent` streams them.  The CE over the blocks of a
+    vocab is ``logsumexp(stack(lse)) - sum(t)``."""
+    S = x.shape[1]
+    c = seq_chunk_for(S, chunk)
+    local = targets.long() - v0
+    parts = [checkpoint(naive_xent_block, x[:, i:i + c], w_block, local[:, i:i + c], softcap,
+                        use_reentrant=False) for i in range(0, S, c)]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
 
 
 def tf32_rna(a: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,11 @@ Three CE paths:
   form the reference uses (vocab chunks of ``xent_chunk``, or sequence
   chunks of ``xent_seq_chunk``).
 
+The CE runs through ``ops.xent`` on the unembedding as it is placed: on a
+mesh, :class:`repro_torch.sharding.tensor_parallel.RowOps` runs each model
+coordinate's vocab block (K6's partial form on the card) and combines the
+blocks by log-sum-exp.
+
 With ``remat`` each layer (of both stacks) runs under
 ``torch.utils.checkpoint``, its MoE aux loss a second output.
 ``remat_policy="block"`` saves nothing inside a layer, so the backward pass
@@ -62,9 +67,10 @@ not such products (the reference's ``pallas_call`` is not a dot), so they
 run again in the recompute under either policy; K6 runs once, after the
 stack.
 
-The training forward (``_stack`` / ``_sequence_block``) and the serving
-walk (``_walk``, ``encode``) take each sub-block, the input's lookup and
-the reads of norms and the unembedding from an ``ops`` object:
+The training forward (``_stack`` / ``_sequence_block``, the loss) and the
+serving walk (``_walk``, ``encode``) take each sub-block, the input's
+lookup, the reads of norms, the unembedding and the CE from an ``ops``
+object:
 :class:`LocalOps` on whole tensors, or the sharded steps'
 :class:`repro_torch.sharding.tensor_parallel.RowOps` on one data row of a
 mesh.
@@ -234,6 +240,22 @@ class LocalOps:
         cd = cdt(self.cfg)
         return (x_last.to(cd) @ table.to(cd).T).float()
 
+    def xent(self, table, x: torch.Tensor, targets: torch.Tensor, *, softcap: float,
+             form: str, chunk: int, seq_chunk: int) -> torch.Tensor:
+        """Per-token CE (B, S) f32 of ``x`` (B, S, D) against the whole
+        unembedding ``table`` (V, D): ``form="naive"`` materializes the
+        logits in the compute dtype, the other forms go through
+        :func:`repro_torch.kernels.xent.ops.fused_xent`."""
+        if form == "naive":
+            cd = cdt(self.cfg)
+            logits = torch.einsum("bsd,vd->bsv", x.to(cd), table.to(cd)).float()
+            if softcap:
+                logits = torch.tanh(logits / softcap) * softcap
+            lse = torch.logsumexp(logits, dim=-1)
+            return lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return xent_ops.fused_xent(x.float(), table.float(), targets, softcap=softcap,
+                                   form=form, chunk=chunk, seq_chunk=seq_chunk)
+
     def attend(self, p, h, kind, positions):
         return attention.attend_train(self.cfg, p, h, kind, positions)
 
@@ -365,23 +387,14 @@ class Model:
 
     # -- losses ---------------------------------------------------------------
     def _xent(self, params, x: torch.Tensor, targets: torch.Tensor,
-              mask: torch.Tensor) -> torch.Tensor:
+              mask: torch.Tensor, ops=None) -> torch.Tensor:
         """Mean CE over masked positions.  x: (B, S, D); targets: (B, S);
-        ``params`` as ``ops.read`` hands them out (the unembedding whole)."""
-        cfg = self.cfg
-        W = self._unembed_matrix(params)  # (V, D)
+        the unembedding of ``params`` as it is placed, through ``ops.xent``
+        (on a mesh, each model coordinate's vocab block)."""
         denom = torch.clamp(mask.sum(), min=1.0)
-        if self.xent_impl == "naive":
-            cd = cdt(cfg)
-            logits = torch.einsum("bsd,vd->bsv", x.to(cd), W.to(cd)).float()
-            if cfg.logit_softcap:
-                logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-            lse = torch.logsumexp(logits, dim=-1)
-            tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-            return ((lse - tgt) * mask).sum() / denom
-        ce = xent_ops.fused_xent(x.float(), W.float(), targets, softcap=cfg.logit_softcap,
-                                 form=self.xent_impl, chunk=self.xent_chunk,
-                                 seq_chunk=self.xent_seq_chunk)
+        ce = (ops or LocalOps(self.cfg)).xent(
+            self._unembed_matrix(params), x, targets, softcap=self.cfg.logit_softcap,
+            form=self.xent_impl, chunk=self.xent_chunk, seq_chunk=self.xent_seq_chunk)
         return (ce * mask).sum() / denom
 
     def _stack(self, layers, kinds, x: torch.Tensor, memory=None,
@@ -414,8 +427,8 @@ class Model:
         enc-dec config also takes ``batch["src_embeds"]`` (B, T, D), encoded
         with remat as the decoder is, and its decoder's output goes to the
         loss without ``final_norm``, as in the reference
-        (``transformer.py:366-398``).  Every sub-block, the input's lookup
-        and the reads of norms and of the unembedding go through ``ops``
+        (``transformer.py:366-398``).  Every sub-block, the input's lookup,
+        the reads of norms and the CE on the unembedding go through ``ops``
         (:class:`LocalOps` by default; the sharded train step's
         :class:`repro_torch.sharding.tensor_parallel.RowOps`)."""
         cfg = self.cfg
@@ -432,7 +445,7 @@ class Model:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
-        ce = self._xent(top, x, targets, mask)
+        ce = self._xent(params, x, targets, mask, ops)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- serving ---------------------------------------------------------------

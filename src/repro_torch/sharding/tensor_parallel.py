@@ -33,9 +33,14 @@ its own ``device.current``.  The splits are ``ShardingPolicy.param_spec``'s:
 * **the embedding and the unembedding** split on vocab: a token's row comes
   from the one coordinate whose range holds it, the others add zeros (the
   sum is bit-equal), and the logits are the concatenation of each
-  coordinate's vocab slice.  The training loss reads the unembedding whole
-  (gathered on the row's device) for K6, which has no vocab-split form
-  yet (``ROADMAP.md`` item 6f.2);
+  coordinate's vocab slice.  The training loss (:func:`xent`) runs on each
+  coordinate's vocab block (K6's partial form on the card, its plain block
+  form on the CPU), which gives each token's log-sum-exp over the block and
+  its target logit where the block holds the target; the blocks' pairs
+  are combined on the row's device by log-sum-exp in coordinate order, as
+  GSPMD's max / sum all-reduces combine the reference's vocab shards
+  (``repro/kernels/xent/ref.py:72-91``), and the backward hands each block
+  its gradient on its own device;
 * **RWKV's time-mix** (:func:`time_mix`) split on heads: the token-shift
   inputs and the decay LoRA's hidden layer once on the row's device (they
   read replicated leaves alone), then each coordinate's heads from its
@@ -83,11 +88,10 @@ sub-block whose output projection is not split on its input (its heads or
 ``d_ff`` do not divide ``"model"``) is computed once, on the row's device,
 and taken once.
 
-**Two differences from the reference's GSPMD steps are left**
-(``ROADMAP.md`` item 6f): the training loss runs K6 once a data row over
-the whole unembedding (6f.2, a vocab-split cross-entropy), and a batch the
-specs split on the sequence (batch 1) runs whole on the first data row,
-still split along ``"model"`` (6f.3, sequence parallelism).
+**One difference from the reference's GSPMD steps is left**
+(``ROADMAP.md`` item 6f.3): a batch the specs split on the sequence (batch
+1) runs whole on the first data row, still split along ``"model"``
+(sequence parallelism).
 """
 from __future__ import annotations
 
@@ -99,8 +103,10 @@ import torch
 
 from repro_torch.device import current
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import attention, griffin, mlp, moe, rwkv6
 from repro_torch.models.common import cdt
+from repro_torch.models.transformer import LocalOps
 from repro_torch.sharding import placement as pl
 
 MODEL = "model"
@@ -260,6 +266,35 @@ def unembed(cfg, table, x_last: torch.Tensor, row: Row) -> torch.Tensor:
         with current(dev):
             parts.append((x_last.to(dev).to(cd) @ table.shard(c).to(cd).T).float())
     return torch.cat([t.to(row.device) for t in parts], dim=-1)
+
+
+def xent(cfg, table, x: torch.Tensor, targets: torch.Tensor, row: Row, *, softcap: float,
+         form: str, chunk: int, seq_chunk: int) -> torch.Tensor:
+    """Per-token CE (B, S) f32 on the row's device of ``x`` (B, S, D, on the
+    row's device) against the unembedding ``table`` with the table split on
+    vocab: on each coordinate, under its device, ``xent_ops.xent_part`` of
+    its block with the targets less the block's first id (``form`` per
+    block, see there); then on the row's device lse = logsumexp of the
+    blocks' lse in coordinate order and CE = lse - Σ t (only the block that
+    holds a target gives it a nonzero t).  A table not split on ``"model"``,
+    or whole at the row's first coordinate (a model axis of 1), runs the
+    whole-table loss (:meth:`LocalOps.xent`) from that coordinate's copy: the
+    unsharded step's bits."""
+    kw = dict(softcap=softcap, form=form, chunk=chunk, seq_chunk=seq_chunk)
+    if split_dim(table) is None or table.shard(row.coords[0]).shape == table.shape:
+        return LocalOps(cfg).xent(whole(table, row), x, targets, **kw)
+    lses, ts = [], []
+    for c, dev in zip(row.coords, row.devices):
+        v0 = table.region_at(c)[0][0]
+        with current(dev):
+            lse, t = xent_ops.xent_part(x.to(dev), table.shard(c), targets.to(dev) - v0,
+                                        softcap=softcap, form=form, compute_dtype=cdt(cfg))
+        lses.append(lse.to(row.device))
+        ts.append(t.to(row.device))
+    tgt = ts[0]
+    for t in ts[1:]:
+        tgt = tgt + t
+    return torch.logsumexp(torch.stack(lses), dim=0) - tgt
 
 
 # -- attention ----------------------------------------------------------------------
@@ -711,9 +746,9 @@ class RowOps:
     ``prefill``, ``decode_step`` and ``encode`` walk a placed model:
     attention, FFNs and the recurrent blocks (RWKV's time-mix and
     channel-mix, the RG-LRU) split over the row's model coordinates, the
-    embedding looked up on its vocab blocks, the KV cache and the
-    recurrent state on their shards, norms and the unembedding read whole
-    on the row's device.  Every operation is differentiable with respect to
+    embedding looked up, the logits and the training loss computed on its
+    vocab blocks, the KV cache and the recurrent state on their shards,
+    norms read whole on the row's device.  Every operation is differentiable with respect to
     the blocks it reads (:func:`row_tensors`)."""
 
     def __init__(self, cfg, row: Row):
@@ -727,6 +762,9 @@ class RowOps:
 
     def unembed(self, table, x_last):
         return unembed(self.cfg, table, x_last, self.row)
+
+    def xent(self, table, x, targets, **kw):
+        return xent(self.cfg, table, x, targets, self.row, **kw)
 
     def attend(self, p, h, kind, positions):
         return attention_prefill(self.cfg, p, h, kind, positions, self.row)[0]

@@ -142,10 +142,11 @@ class ShardedTrainStep:
       again in remat's recompute), RWKV's time-mix on its heads (K7
       likewise), the RG-LRU on its channels, the dense MLP, the experts,
       the shared expert and RWKV's channel-mix on its ``d_ff`` slice, the
-      embedding looked up on its vocab block, each from the coordinate's
-      own blocks; the partial
-      outputs summed on the row's device (its first coordinate's), where
-      norms, the MoE routing and aux loss, and K6 run.  Every block the
+      embedding looked up and the cross-entropy computed on its vocab
+      block (K6's partial form), each from the coordinate's own blocks;
+      the partial outputs summed, and the blocks' log-sum-exps combined,
+      on the row's device (its first coordinate's), where norms and the
+      MoE routing and aux loss run.  Every block the
       row reads requires gradients, so each block's gradient lands on its
       own device.  ``microbatches`` splits each row's batch further.
     * **Then** the gradients are summed over every microbatch of every data
@@ -171,13 +172,14 @@ class ShardedTrainStep:
     order and cast once, so the step rounds differently from the
     unsharded one by design.
 
-    Two differences from the reference's GSPMD step (``ROADMAP.md``):
-    K6 runs whole, once a data row, over the unembedding gathered at read
-    (a vocab-split CE needs K6 to return partial ``(max, sumexp, target
-    logit)`` triples; item 6f.2); and a batch the specs do not split by
-    rows (replicated, or split on the sequence at ``global_batch <=
-    seq_parallel_threshold``) runs whole on the first data row (item
-    6f.3).  ``rwkv`` and ``rglru`` blocks run on each model coordinate's
+    One difference from the reference's GSPMD step is left
+    (``ROADMAP.md`` item 6f.3): a batch the specs do not split by rows
+    (replicated, or split on the sequence at ``global_batch <=
+    seq_parallel_threshold``) runs whole on the first data row.  The
+    cross-entropy runs, as GSPMD splits the reference's, on each model
+    coordinate's vocab block of the unembedding, combined by log-sum-exp
+    (:func:`repro_torch.sharding.tensor_parallel.xent`), so no leaf split
+    on ``"model"`` is gathered.  ``rwkv`` and ``rglru`` blocks run on each model coordinate's
     heads or channels (K7 on a coordinate's heads, forward and remat's
     recompute), as attention and the FFNs do.
     """

@@ -21,8 +21,9 @@ step, bit for bit at a model axis of 1, else at 1e-6 / 1e-5):
   coordinate's heads (its q and KV heads, the row's rows); for RWKV6-7B
   and RecurrentGemma-9B likewise K7 (``wkv``) on each coordinate's heads
   and ``griffin.recurrence`` on its channels, its gates reading all of ξ;
-  and ``pl.gather`` takes no leaf split on ``"model"`` but the unembedding
-  (read whole for the cross-entropy);
+  the cross-entropy's ``XentPart`` runs once a model coordinate and a data
+  row, on that coordinate's vocab block of the unembedding and the row's
+  rows; and ``pl.gather`` takes no leaf at all, the unembedding included;
 * (d) on a (2, 2) mesh of two distinct devices (``cpu:0`` / ``cpu:1``,
   laid out as ``chip_smoke.py``'s ``sharded_mixed``), where a replicated
   leaf has a copy on each of a row's coordinates and only the first is
@@ -54,6 +55,7 @@ from repro_torch.data import tokens as tok
 from repro_torch.ft.resilience import reshard_tree
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.wkv import ops as wkv_ops
+from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.launch import inputs as inp
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import griffin
@@ -89,9 +91,9 @@ def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, mo
     params = reshard_tree(convert.lm_params_from_numpy(rparams, cfg, device="cpu"),
                           step.param_shardings)
     paths = {id(x): "/".join(map(str, p)) for p, x in flatten_with_paths(params)}
-    gathered, shapes, k7, widths = [], [], [], []
+    gathered, shapes, k7, widths, blocks = [], [], [], [], []
     real_gather, real_flash = pl.gather, flash_ops.flash_attention
-    real_wkv, real_rec = wkv_ops.wkv, griffin.recurrence
+    real_wkv, real_rec, real_part = wkv_ops.wkv, griffin.recurrence, xent_ops.XentPart.apply
     monkeypatch.setattr(pl, "gather", lambda x, *a, **k: (
         id(x) in paths and gathered.append(paths[id(x)])) or real_gather(x, *a, **k))
     monkeypatch.setattr(flash_ops, "flash_attention", lambda q, k, v, **kw: shapes.append(
@@ -101,6 +103,8 @@ def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, mo
     monkeypatch.setattr(griffin, "recurrence", lambda c, p, g, xf_all, xf, *a, **k: (
         widths.append((tuple(xf.shape), xf_all.shape[-1]))) or real_rec(c, p, g, xf_all, xf,
                                                                           *a, **k))
+    monkeypatch.setattr(xent_ops.XentPart, "apply", lambda x, w, *a: blocks.append(
+        (tuple(x.shape), tuple(w.shape))) or real_part(x, w, *a))
     _, _, m = step(params, step.init_opt_state(), _torch_batch(batches[0]))
     assert np.isfinite(float(m["loss"]))
 
@@ -123,8 +127,10 @@ def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, mo
             n_rwkv * coords * rows * passes)
     assert widths == [((B // rows, S, cfg.lru_width // coords), cfg.lru_width)] * (
         n_rec * coords * rows * passes)
-    table = "embed" if cfg.tie_embeddings else "unembed"
-    assert gathered == [table] * rows
+    # the loss on each coordinate's vocab block, the row's rows: no gather
+    assert blocks == [((B // rows, S, cfg.d_model), (cfg.vocab_size // coords, cfg.d_model))] * (
+        rows * coords)
+    assert gathered == []
 
 
 def _two_device_mesh_step(arch):
