@@ -40,13 +40,17 @@ against their plain PyTorch versions:
    under a window of 256, Qwen2-VL-7B's GQA 7:1 (28 query heads over 4
    KV heads, h 128) at S 509 / 1,000 and its train shape (4, 512), without
    the causal mask at Seamless-M4T's encoder (S = T = 1,000) and
-   cross-attention shapes (S 8 / 16 over T 509 / 1,000), strided views and
+   cross-attention shapes (S 8 / 16 over T 509 / 1,000), at a query offset
+   (``K5_OFFSET``: each data row's span of a batch-1 sequence at offsets 0
+   and S / 2, a ragged span of 129 at offset 383, a window of 64 at 200),
+   strided views and
    views whose rows are not 16-byte aligned (f32 2e-5, bf16 5e-2 and each row within 2e-2
    of its largest value); K7 on the RWKV6-7B
    shapes (H=64, h=64) at S 2/63/64/256/509, chunk 64 and 8, f32 and bf16
    inputs, from the zero state and (S 63/256/509) from a carried state,
    and two other head shapes, and at the shapes the sharded phases give it
-   (``K7_SHARDED``: a data row's rows, 32 heads a model coordinate) (o and
+   (``K7_SHARDED``: a data row's rows or span, 32 heads a model
+   coordinate, at batch 1 the second span from a carried state) (o and
    s_final at rtol 1e-4, atol 1e-5 plus the f32 rounding of two summation
    orders, see ``k7_checks``); K6
    (3xTF32 on the tensor cores) on the five train shapes (N, D, V) =
@@ -193,14 +197,21 @@ against their plain PyTorch versions:
    channels, no RWKV or RG-LRU leaf gathered, K7 only at ``K7_SHARDED``,
    losses and leaf norms (RWKV's median leaf) within ``SHARDED_RWKV_*`` /
    ``SHARDED_RG_*``, and RWKV6-7B's same steps at f32 compute, every
-   leaf norm and loss within ``SHARDED_F32_*``; each coordinate's bytes
+   leaf norm and loss within ``SHARDED_F32_*``; then at batch 1
+   (``SEQ_SPLIT_TRAIN``: the batch specs split the sequence, each data row
+   its span) beside the unsharded step at 1 microbatch: Llama-3.2-1B 1 x
+   4,096 on (2, 1) and (2, 2), K5 64 / 128 a step at offsets 0 and 2,048,
+   and RWKV6-7B, RecurrentGemma-9B and Qwen2-MoE-A2.7B 1 x 2,048 on (2, 2)
+   (K7 16 a step, half from a carried state), each within its (2, 2)
+   limits (Llama's: ``SEQ_SPLIT_LIMITS``); each coordinate's bytes
    equal to
    its specs' arithmetic, over distinct cards every copy of a block
    bit-equal across them, step ms and peak both ways, Llama's idle
    share unsharded and on (2, 2)), ``sharded_mixed`` (the branches
    that only distinct devices take, on one card: a widened reduced Llama
    at f32, tensor parallel on (2, 2) over cuda:0 and the CPU, every block
-   on both; its
+   on both, B 4 and B 1 (the sequence split: K/V and gradients cross the
+   two devices); its
    copies bit-equal across them, the losses within 1e-5 and the leaf
    norms within 1e-4 of the same steps over cuda:0 alone), ``reshard``
    (the params saved whole and restored with ``shardings=`` onto (4, 1);
@@ -209,22 +220,26 @@ against their plain PyTorch versions:
    sharded serving steps, ``jit_prefill_step`` / ``jit_decode_step``, on
    the same (2, 2) mesh beside the unsharded ``Model.prefill`` /
    ``make_decode_step`` on the same weights: Llama-3-8B whole at 4 x 509
-   and 4 x 128 tokens, RecurrentGemma-9B's first 3 layers and RWKV6-7B's
-   first 4 at 4 x 509 and 1 x 509, ``max_seq`` 1,024, 16 greedy steps
-   each, the sharded ones teacher-forced with the unsharded path's
-   tokens: the prefill's and every decode step's logits within
-   ``LM_LOGITS_TOL``, K5 once an
+   and 4 x 128 tokens (``max_seq`` 1,024) and 1 x 2,048 (``max_seq``
+   4,096), RecurrentGemma-9B's first 3 layers and RWKV6-7B's first 4 at 4
+   x 509 and 1 x 512 (``max_seq`` 1,024), 16 greedy steps each, the
+   sharded ones teacher-forced with the unsharded path's tokens; at batch
+   1 each data row prefills its span of the prompt: the prefill's and
+   every decode step's logits within ``LM_LOGITS_TOL``, K5 once an
    attention layer and K7 once an RWKV layer on each model coordinate of
-   each computing data row (Llama-3-8B K5 128, RecurrentGemma K5 4 / 2,
-   RWKV6-7B K7 16 / 8 on 32 heads a coordinate) and no kernel in a decode
-   step, no leaf gathered, each coordinate's cache bytes its specs'
+   each data row (Llama-3-8B K5 128, at batch 1 at offsets 0 and 1,024;
+   RecurrentGemma K5 4; RWKV6-7B K7 16 on 32 heads a coordinate, at batch
+   1 8 of them from a carried state) and no kernel in a decode step, a
+   batch-1 prompt of 509 raising, no leaf gathered, each coordinate's
+   cache bytes its specs'
    (Llama-3-8B: 4 of 8 KV heads; RecurrentGemma: a length block, and half
    the RG-LRU's channels of h and conv; RWKV6-7B: half the heads of s),
    ``next_tok`` placed by ``tok_spec``; TTFT, ms a decode step and
    greedy-token agreement (with the top-2 margin where they disagree)
    recorded; then the same steps on
    (2, 2) over [[cuda:0, cpu], [cpu, cuda:0]] against cuda:0 alone, f32,
-   widened reduced configs: logits within 1e-5, greedy tokens equal, every
+   widened reduced configs, batch 4 and batch 1: logits within 1e-5,
+   greedy tokens equal, every
    cache block on both devices bit-equal) and ``pipeline`` (GPipe, 2
    stages over cuda:0,
    or cuda:0 and cuda:1 when there are two, D 2,048, M 8, B 4, f32:
@@ -242,8 +257,9 @@ against their plain PyTorch versions:
     K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
     K6's, lm_train's and sharded_train's), RecurrentGemma,
     Qwen2-MoE and Qwen2-VL (B 4 x S 512) and at each shape the sharded
-    prefills and the sharded train steps gave it (a data row's rows, a
-    model coordinate's heads), K6
+    prefills and the sharded train steps gave it (a data row's rows or, at
+    batch 1, its span at its query offset, beside SDPA under the same mask;
+    a model coordinate's heads), K6
     at the five train shapes, and at the sharded train cells' data-row
     tokens over the whole vocab and, in its partial form, over one model
     coordinate's vocab block) with
@@ -2134,7 +2150,8 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
 # data row's rows and a model coordinate's heads.  Llama-3-8B: 16 query heads
 # over 4 KV heads (h 128) at prompts of 509 and 128; RecurrentGemma-9B's
 # local layer: 8 query heads over its one KV head (GQA 8:1, h 256, window
-# 2048) at batch 4 (two rows a data row) and batch 1 (the first data row)
+# 2048) at batch 4 (two rows a data row) and a batch-1 prompt of 509 whole;
+# batch-1 spans are K5_OFFSET's
 K5_SHARDED_SERVE = [(2, 509, 16, 4, 128, 0, 0.0), (2, 128, 16, 4, 128, 0, 0.0),
                     (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0)]
 K5_EXTRA += K5_SHARDED_SERVE
@@ -2154,6 +2171,24 @@ K5_EXTRA += K5_SHARDED_TRAIN
 K5_NONCAUSAL = [(1, 1000, 16, 16, 64, 1000), (4, 509, 16, 16, 64, 509),
                 (4, 1000, 16, 16, 64, 1000), (4, 8, 16, 16, 64, 509),
                 (4, 16, 16, 16, 64, 1000)]
+# K5 with a query offset, causal, (B, S, H, K, h, window, q_offset) over T =
+# q_offset + S keys: the spans of a sequence split over 2 data rows at batch 1
+# on (2, 2), a model coordinate's heads (sharded_serve's and sharded_train's
+# batch-1 runs: each row's span at offset 0 and at S): Llama-3-8B's prefill
+# of 2,048 (16 q heads over 4 KV, h 128), Llama-3.2-1B's train sequence of
+# 4,096 (16 over 4, h 64; on (2, 1) every head, 32 over 8),
+# RecurrentGemma-9B's local layer (8 over its 1, h 256, window 2,048) at the
+# prefill of 512 and the train sequence of 2,048, Qwen2-MoE-A2.7B's train
+# sequence of 2,048 (8 over 8, h 128); then a ragged
+# span of 129 at offset 383 (not a multiple of a key block) and a window of
+# 64 at offset 200 (the first key block read past key 0)
+K5_OFFSET = [(1, 1024, 16, 4, 128, 0, 0), (1, 1024, 16, 4, 128, 0, 1024),
+             (1, 2048, 16, 4, 64, 0, 0), (1, 2048, 16, 4, 64, 0, 2048),
+             (1, 2048, 32, 8, 64, 0, 0), (1, 2048, 32, 8, 64, 0, 2048),
+             (1, 256, 8, 1, 256, 2048, 0), (1, 256, 8, 1, 256, 2048, 256),
+             (1, 1024, 8, 1, 256, 2048, 0), (1, 1024, 8, 1, 256, 2048, 1024),
+             (1, 1024, 8, 8, 128, 0, 0), (1, 1024, 8, 8, 128, 0, 1024),
+             (1, 129, 32, 8, 64, 0, 383), (1, 100, 32, 8, 64, 64, 200)]
 K5_TOL = {"f32": 2e-5, "bf16": 5e-2}  # rtol = atol, tests/test_kernel_flash.py
 # bf16 also per output row (one query, one head): max |diff| within this
 # share of the row's largest |value|.  Two roundings to bf16 of nearly
@@ -2168,11 +2203,16 @@ K7_CHUNKS = (64, 8)
 K7_OTHER_SHAPES = [((1, 4, 24, 40), 63), ((2, 3, 64, 20), 200)]
 # K7 from a carried state (a chunked prefill's later pieces)
 K7_S0_SEQS = (63, 256, 509)
-# K7 at the shapes the sharded phases give it on (2, 2), (B, S, H, h): a
-# data row's rows and a model coordinate's 32 of RWKV6-7B's 64 heads, in
-# sharded_serve's prefills at batch 4 and 1 (S 509) and in sharded_train's
-# steps (B 4 x S 512); every K7 launch there must be at one of them
-K7_SHARDED = [(2, 509, 32, 64), (1, 509, 32, 64), (2, 512, 32, 64)]
+# K7 at the shapes the sharded phases give it on (2, 2), (B, S, H, h, from a
+# carried state): a data row's rows and a model coordinate's 32 of RWKV6-7B's
+# 64 heads, in sharded_serve's prefills at batch 4 (S 509) and in
+# sharded_train's steps (B 4 x S 512), and a batch-1 prompt of 509 whole; at
+# batch 1 a data row's span of the sequence, the first from the zero state
+# and the second from the state the first carried (the prefill of 512 and the
+# train sequence of 2,048); every K7 launch there must be at one of them
+K7_SHARDED = [(2, 509, 32, 64, False), (1, 509, 32, 64, False), (2, 512, 32, 64, False),
+              (1, 256, 32, 64, False), (1, 256, 32, 64, True), (1, 1024, 32, 64, False),
+              (1, 1024, 32, 64, True)]
 K7_RTOL, K7_ATOL = 1e-4, 1e-5  # tests/test_kernel_wkv.py:50
 # K7 timed at the served prompt lengths, 509 (prime) among them
 K7_TIMING_SEQS = (128, 509, 512, 1000)
@@ -2319,16 +2359,27 @@ def plain_kernels():
 
 def k5_cases() -> list:
     """Every shape ``k5_checks`` holds K5 at, in f32 and in bf16: (B, S,
-    T, H, K, h, window, softcap, causal)."""
-    cases = [(B, S, S, H, K, h, window, softcap, True) for B, S, H, K, h, window, softcap in
+    T, H, K, h, window, softcap, causal, q_offset)."""
+    cases = [(B, S, S, H, K, h, window, softcap, True, 0)
+             for B, S, H, K, h, window, softcap in
              [(B, S, 32, 8, 64, 0, 0.0) for S in K5_SEQS for B in (1, 2)] + K5_EXTRA]
-    return cases + [(B, S, T, H, K, h, 0, 0.0, False) for B, S, H, K, h, T in K5_NONCAUSAL]
+    cases += [(B, S, T, H, K, h, 0, 0.0, False, 0) for B, S, H, K, h, T in K5_NONCAUSAL]
+    return cases + [(B, S, off + S, H, K, h, window, 0.0, True, off)
+                    for B, S, H, K, h, window, off in K5_OFFSET]
+
+
+def k5_unheld(by_key) -> list:
+    """K5's launch keys at a shape ``k5_checks`` does not hold."""
+    held = set(k5_cases())
+    return [k for k in by_key if (*k[1:7], k[8], k[9], k[7], k[10]) not in held]
 
 
 def k5_checks(torch, np, report) -> None:
     """K5 against its plain version: the Llama shapes at every S and batch,
     a window, a softcap, head dims 128 and 256, the non-causal shapes
-    (``K5_NONCAUSAL``: T = S and T != S), and strided views."""
+    (``K5_NONCAUSAL``: T = S and T != S), the spans of a sequence split
+    over the data rows at a query offset (``K5_OFFSET``), and strided
+    views."""
     from repro_torch.kernels.flash.kernel import K5_LAUNCHES
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref
@@ -2339,16 +2390,17 @@ def k5_checks(torch, np, report) -> None:
     worst_gqa7 = {"f32": 0.0, "bf16": 0.0}  # Qwen2-VL's 28 query heads over 4
     worst_sharded = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_SERVE
     worst_sharded_train = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_TRAIN
+    worst_offset = {"f32": 0.0, "bf16": 0.0}  # K5_OFFSET, past offset 0
     worst_row = 0.0
     n_checks = 0
-    for ci, (B, S, T, H, K, h, window, softcap, causal) in enumerate(cases):
+    for ci, (B, S, T, H, K, h, window, softcap, causal, off) in enumerate(cases):
         rng = np.random.default_rng(9000 + ci)
         q = rng.standard_normal((B, S, H, h))
         k = rng.standard_normal((B, T, K, h))
         v = rng.standard_normal((B, T, K, h))
         for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             qt, kt, vt = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (q, k, v))
-            geom = dict(causal=causal, window=window, softcap=softcap)
+            geom = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
             before = K5_LAUNCHES.count
             y = flash_attention(qt, kt, vt, **geom)
             launches = K5_LAUNCHES.count - before
@@ -2358,7 +2410,7 @@ def k5_checks(torch, np, report) -> None:
             row_ok, row = (_rows_close(y, y_ref, K5_BF16_ROW_REL)
                            if kind == "bf16" else (True, 0.0))
             if launches != 1 or y.dtype != dtype or not (ok and row_ok):
-                raise AssertionError(f"K5 {(B, S, T, H, K, h, window, softcap, causal)} "
+                raise AssertionError(f"K5 {(B, S, T, H, K, h, window, softcap, causal, off)} "
                                      f"{kind}: {launches} launches, max abs err {err}, "
                                      f"worst row share {row}")
             worst[kind] = max(worst[kind], err)
@@ -2370,6 +2422,8 @@ def k5_checks(torch, np, report) -> None:
                 worst_sharded[kind] = max(worst_sharded[kind], err)
             if (B, S, H, K, h, window, softcap) in K5_SHARDED_TRAIN and causal:
                 worst_sharded_train[kind] = max(worst_sharded_train[kind], err)
+            if off:
+                worst_offset[kind] = max(worst_offset[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2406,6 +2460,9 @@ def k5_checks(torch, np, report) -> None:
                  "sharded_serve_max_abs_err": worst_sharded,
                  "sharded_train_checks": 2 * len(K5_SHARDED_TRAIN),
                  "sharded_train_max_abs_err": worst_sharded_train,
+                 "offset_checks": 2 * len(K5_OFFSET),
+                 "offset_cases": [list(c) for c in K5_OFFSET],
+                 "offset_max_abs_err": worst_offset,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2463,7 +2520,7 @@ def k7_checks(torch, np, report) -> None:
     cases += [(rwkv, S, chunk, True) for S in K7_S0_SEQS for chunk in K7_CHUNKS]
     cases += [(shape, S, 64, carried) for shape, S in K7_OTHER_SHAPES
               for carried in (False, True)]
-    cases += [((B, H, h, h), S, 64, False) for B, S, H, h in K7_SHARDED]
+    cases += [((B, H, h, h), S, 64, carried) for B, S, H, h, carried in K7_SHARDED]
     for (B, H, hk, hv), S, chunk, carried in cases:
         c = chunk_for(S, chunk)
         units = k7_round_units(hk, c)
@@ -3128,13 +3185,14 @@ def _chunk_for(S):
     return chunk_for(S, 64)
 
 
-def k5_bound(B, S, H, K, h, elem=2, causal=True, T=None):
+def k5_bound(B, S, H, K, h, elem=2, causal=True, T=None, q_offset=0):
     """(ms, by): q and o (B, S, H, h), k and v (B, T, K, h) moved once; 2
-    products of 2 h flops per visible (query, key) pair: S (S + 1) / 2 of
-    them under the causal mask (T = S), S T without it."""
-    T = S if T is None else T
+    products of 2 h flops per visible (query, key) pair: S q_offset + S (S
+    + 1) / 2 of them under the causal mask (query row i at position
+    q_offset + i, T = q_offset + S), S T without it."""
+    T = S + q_offset if T is None else T
     nbytes = (2 * B * S * H * h + 2 * B * T * K * h) * elem
-    pairs = S * (S + 1) // 2 if causal else S * T
+    pairs = S * q_offset + S * (S + 1) // 2 if causal else S * T
     return _roofline(nbytes, 4 * h * B * H * pairs)
 
 
@@ -3154,12 +3212,14 @@ def k7_ops(S, h, tile):
     return ops
 
 
-def k7_bound(B, S, H, h, elem=2):
-    """(ms, by): r/k/v (``elem`` bytes), logw, u, o and s_final (f32) once;
+def k7_bound(B, S, H, h, elem=2, carried=False):
+    """(ms, by): r/k/v (``elem`` bytes), logw, u, o, s_final (f32) and, when
+    ``carried``, s0 (f32) once;
     the function's least work, the fewest ``k7_ops`` over tiles of 1 to 64
     (the pair term grows with the tile, the state updates shrink with it),
     f32 on the CUDA cores, so at their peak."""
     nbytes = 3 * B * S * H * h * elem + 2 * B * S * H * h * 4 + H * h * 4 + B * H * h * h * 4
+    nbytes += B * H * h * h * 4 if carried else 0
     ops = min(k7_ops(S, h, tile) for tile in range(1, min(S, 64) + 1))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * H * ops / PEAK_OPS_PER_S["f32"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -3179,15 +3239,17 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
     the decoder's), K5 at Llama's train shape (B 8, S 512), and K5 at
     each shape the sharded prefills gave it (a data row's rows and a model
     coordinate's heads), and likewise at each shape the sharded train
-    steps gave it: event ms, device ms, plain ms, the library yardstick for
-    K5 (SDPA, causal or not as K5), the bound.  ``encdec_k5``: K5's
-    launches by key in the served enc-dec batches; ``serve_keys`` and
-    ``train_keys``: K5's and K7's launches by (arch,) + key in
-    ``sharded_serve``'s prefills and ``sharded_train``'s steps."""
+    steps gave it, a batch-1 span at its query offset among them: event
+    ms, device ms, plain ms, the library yardstick for K5 (SDPA, causal or
+    not as K5; at an offset with the same mask as a boolean ``attn_mask``),
+    the bound.  ``encdec_k5``: K5's launches by key in the served enc-dec
+    batches; ``serve_keys`` and ``train_keys``: K5's and K7's launches by
+    (arch,) + key in ``sharded_serve``'s prefills and ``sharded_train``'s
+    steps."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash.ops import flash_attention
-    from repro_torch.kernels.flash.ref import attention_ref
+    from repro_torch.kernels.flash.ref import attention_ref, visible
 
     entries = []
     rng = np.random.default_rng(11)
@@ -3217,39 +3279,47 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                                                                      16, 64, causal)))
               for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
                                            ("decoder", S, S, True))]
+    cases = [c + (0,) for c in cases]  # query offset 0
     for mode, by_key in (("sharded prefill", serve_keys["K5"]),
                          ("sharded train", train_keys["K5"])):
-        cases += [(mode, key[0], *key[2:9], n)
+        cases += [(mode, key[0], *key[2:9], n, key[11])
                   for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
-    for mode, arch, B, S, T, H, K, h, causal, launches in cases:
+    for mode, arch, B, S, T, H, K, h, causal, launches, off in cases:
         q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
                             device="cuda")
         k, v = (torch.as_tensor(rng.standard_normal((B, T, K, h)), dtype=torch.bfloat16,
                                 device="cuda") for _ in range(2))
-        kern = lambda: flash_attention(q, k, v, causal=causal)
-        plain = lambda: attention_ref(q, k, v, causal=causal)
+        kern = lambda: flash_attention(q, k, v, causal=causal, q_offset=off)
+        plain = lambda: attention_ref(q, k, v, causal=causal, q_offset=off)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                         enable_gqa=True)
+        if off:  # SDPA's is_causal aligns the mask top-left: the same mask as a tensor
+            mask = visible(S, T, causal=causal, window=0, q_offset=off, device="cuda")
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=True)
+            lib_name = "F.scaled_dot_product_attention(attn_mask=the offset causal mask"
+        else:
+            library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                             enable_gqa=True)
+            lib_name = f"F.scaled_dot_product_attention(is_causal={causal}"
         err = float((kern().float() - plain().float()).abs().max())
         t = _times(torch, kern, plain, library)
-        bms, bby = k5_bound(B, S, H, K, h, causal=causal, T=T)
+        bms, bby = k5_bound(B, S, H, K, h, causal=causal, T=T, q_offset=off)
+        at = f" at offset {off}" if off else ""
         report.emit({"phase": "timing", "kernel": "K5", "arch": arch, "mode": mode,
-                     "shape": f"B={B} S={S} T={T} H={H} K={K} h={h} causal={causal} bf16",
+                     "shape": f"B={B} S={S} T={T} H={H} K={K} h={h} causal={causal} "
+                              f"q_offset={off} bf16",
                      "launches": launches, "max_abs_err": err, "bound_ms": bms,
-                     "bound_by": bby,
-                     "library": f"F.scaled_dot_product_attention(is_causal={causal}, "
-                                f"enable_gqa), bf16",
-                     **t})
+                     "bound_by": bby, "library": f"{lib_name}, enable_gqa), bf16", **t})
+        row = "a row's span" if B == 1 else "a row's"  # batch 1: the sequence split
         entries.append({
             "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}, "
                      f"H={H} K={K} h={h}]"
                      if mode == "train" else
-                     f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, a row's B={B} "
-                     f"S={S}, a coordinate's H={H} K={K} h={h}]"
+                     f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, {row} B={B} "
+                     f"S={S}{at}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded prefill" else
-                     f"K5 flash_fwd_bf16 [{arch} sharded train attention, a row's B={B} "
-                     f"S={S}, a coordinate's H={H} K={K} h={h}]"
+                     f"K5 flash_fwd_bf16 [{arch} sharded train attention, {row} B={B} "
+                     f"S={S}{at}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded train" else
                      f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
                      if mode == "prefill" else
@@ -3275,24 +3345,28 @@ def k7_timing_phase(torch, np, report, rng, k7_launches, sharded=()) -> list:
     from repro_torch.kernels.wkv.ops import chunk_for, wkv
     from repro_torch.kernels.wkv.ref import wkv_chunked
 
-    cases = [("prefill", 1, S, 64, k7_launches) for S in K7_TIMING_SEQS]
-    cases += [(mode, key[2], key[3], key[4], n) for mode, key, n in sharded]
+    cases = [("prefill", 1, S, 64, k7_launches, False) for S in K7_TIMING_SEQS]
+    cases += [(mode, key[2], key[3], key[4], n, key[8]) for mode, key, n in sharded]
     entries = []
-    for mode, B, S, H, launches in cases:
+    for mode, B, S, H, launches, carried in cases:
         r, k, v, logw, u = _wkv_inputs(torch, np, rng, B, S, H, 64, torch.bfloat16)
+        s0 = (torch.as_tensor(rng.standard_normal((B, H, 64, 64)), dtype=torch.float32,
+                              device="cuda") if carried else None)
         c = chunk_for(S, 64)
-        kern = lambda: wkv(r, k, v, logw, u, chunk=64)
-        plain = lambda: wkv_chunked(r, k, v, logw, u, chunk=c)
+        kern = lambda: wkv(r, k, v, logw, u, chunk=64, s0=s0)
+        plain = lambda: wkv_chunked(r, k, v, logw, u, s0, chunk=c)
         err = float((kern()[0] - plain()[0]).abs().max())
         t = _times(torch, kern, plain, None)
-        bms, bby = k7_bound(B, S, H, 64)
+        bms, bby = k7_bound(B, S, H, 64, carried=carried)
         report.emit({"phase": "timing", "kernel": "K7", "kernels": K7_KERNELS, "mode": mode,
-                     "shape": f"B={B} S={S} H={H} h=64 chunk={c} tile={wkv_kernel.TILE} bf16",
+                     "shape": f"B={B} S={S} H={H} h=64 chunk={c} tile={wkv_kernel.TILE} "
+                              f"s0={carried} bf16",
                      "launches": launches, "max_abs_err": err, "bound_ms": bms,
                      "bound_by": bby, "library": "no library call", **t,
                      "device_ms_by_kernel": device_ms_by_kernel(torch, kern)})
         where = (f"prefill time-mix, S={S}" if mode == "prefill" else
-                 f"{mode} time-mix, a row's B={B} S={S}, a coordinate's H={H}")
+                 f"{mode} time-mix, a row's B={B} S={S}, a coordinate's H={H}"
+                 + (", from a carried state" if carried else ""))
         entries.append({
             "name": (f"K7 wkv_fwd_bf16 ({' + '.join(K7_KERNELS)}) [rwkv6-7b {where}, "
                      f"chunk={c}, tile={wkv_kernel.TILE}]"),
@@ -4088,25 +4162,26 @@ def _device_batch(pipe, step):
     return tok.device_batch(pipe, step, "cuda")
 
 
-def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile):
-    """SHARDED_STEPS + 1 steps of ``step_fn`` on the pipeline's batches,
-    every launch counter set to 0 just before each, the last under the
-    profiler when ``profile`` (else timed as the others); raises unless
-    each step's launches are ``want`` and its loss finite.  Returns
-    (params, state, the run's record, {"K5", "K6", "K7": launches by key})."""
+def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile,
+                 steps=SHARDED_STEPS + 1):
+    """``steps`` steps of ``step_fn`` on the pipeline's batches, every
+    launch counter set to 0 just before each, the last under the profiler
+    when ``profile`` (else timed as the others); raises unless each step's
+    launches are ``want`` and its loss finite.  Returns (params, state, the
+    run's record, {"K5", "K6", "K7": launches by key})."""
     counters = _counters()
     cards = range(torch.cuda.device_count())
     _sync_all(torch)
     for i in cards:
         torch.cuda.reset_peak_memory_stats(i)
     ms, losses, launches, by_key = [], [], [], {"K5": {}, "K6": {}, "K7": {}}
-    for s in range(SHARDED_STEPS + 1):
+    for s in range(steps):
         batch = _device_batch(pipe, s)
         _sync_all(torch)
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
-        profiling = profile and s == SHARDED_STEPS
+        profiling = profile and s == steps - 1
         if not profiling:
             params, state, m = step_fn(params, state, batch)
         else:
@@ -4137,11 +4212,12 @@ def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile):
     return params, state, rec, by_key
 
 
-def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S, profile):
+def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S, profile,
+                 steps=SHARDED_STEPS + 1):
     """``jit_train_step`` on ``_sharded_mesh(model=sizes_model)`` from the
-    CPU copy ``initial``: (params, state, step, the run's record with its
-    gathers by leaf, bytes a coordinate and copies across cards, {"K5",
-    "K6", "K7": launches by key})."""
+    CPU copy ``initial``, ``steps`` steps: (params, state, step, the run's
+    record with its gathers by leaf, bytes a coordinate and copies across
+    cards, {"K5", "K6", "K7": launches by key})."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.ft.resilience import reshard_tree
     from repro_torch.launch import inputs as inp
@@ -4159,7 +4235,8 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
     params = reshard_tree(initial, step.param_shardings)
     with _counting_gathers(params) as gathers:
         params, state, rec, k5 = _train_drive(torch, np, name, step, params,
-                                              step.init_opt_state(), pipe, want, profile)
+                                              step.init_opt_state(), pipe, want, profile,
+                                              steps)
     trees = (params, state.m, state.v)
     several, unequal = _copies_disagree(torch, trees)
     by_coord = _coordinate_bytes(np, list(zip(trees, (step.param_shardings,
@@ -4170,6 +4247,7 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
         for dev, n in x.device_bytes().items():
             by_card[str(dev)] = by_card.get(str(dev), 0) + n
     rec.update({"mesh": {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices.flat]},
+                "sequence_split": step.split_seq,
                 "gathers_by_leaf": gathers, "blocks_on_several_cards": several,
                 "blocks_with_unequal_copies": unequal,
                 "bytes_by_coordinate_held_vs_specs": by_coord, "bytes_by_card": by_card,
@@ -4178,10 +4256,120 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
     return params, state, step, rec, k5
 
 
+# sharded_train at batch 1: (sequence length, model axes, steps) a run.  The
+# batch specs split the sequence over the 2 data rows: each row its span of
+# S / 2 positions (K5 at the span's query offset over the rows' K/V, K7 and
+# the RG-LRU from the state the row before left, the MoE router from its
+# slot counts), beside the unsharded step at microbatches=1 on the same
+# tokens and held to each arch's (2, 2) limits, or SEQ_SPLIT_LIMITS' where
+# the split's own readings need another.  Llama-3.2-1B's 4,096 tokens are the
+# lm_train cell's in one sequence.
+SEQ_SPLIT_TRAIN = {"llama3.2-1b": (4096, (1, 2), 3), "qwen2-moe-a2.7b": (2048, (2,), 2),
+                   "rwkv6-7b": (2048, (2,), 2), "recurrentgemma-9b": (2048, (2,), 2)}
+# Llama-3.2-1B at batch 1: the joined K/V's gradient takes a bf16 rounding a
+# row (each row's attention VJP rounds its share, then they are summed),
+# which the batch split does not have.  Its CPU bf16 readings at 1 x 128 over
+# 3 seeds, on (2, 2) against the unsharded step, 3 steps
+# (tests/torch_precision_readings.py): losses 3.40e-4, leaf norms 7.01e-3;
+# the limits are 3x them, as SHARDED_TP_* are 3x the batch split's (its
+# first card reading: losses 1.25e-5, leaf norms 1.41e-2, over the batch
+# split's 1e-2).  The other archs' readings are within their (2, 2) limits.
+SEQ_SPLIT_LIMITS = {"llama3.2-1b": (1.0e-3, 2.1e-2, "max")}
+
+
+def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, names,
+                     keys_all, faults) -> dict:
+    """The batch-1 runs of SEQ_SPLIT_TRAIN for one arch from the CPU copy
+    ``initial``: the unsharded step at microbatches=1, then
+    ``jit_train_step`` on each mesh, the sequence split over the data rows.
+    Checks each run's losses and leaf norms at its arch's (2, 2) limits, its
+    launches a step (K5 and K7 once a layer a coordinate a row, twice with
+    remat; K6 once a row, its partial form on (2, 2)), K5 at the spans'
+    offsets 0 and S / 2, K7 from a carried state on the second row, and
+    what ``_sharded_faults`` checks.  Returns the runs' records by name;
+    adds their launch keys to ``keys_all`` and what they broke to
+    ``faults``."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = model.cfg
+    S, meshes, steps = SEQ_SPLIT_TRAIN[arch]
+    pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
+                                   seed=seed)
+    profile = arch == "llama3.2-1b"  # the idle share, unsharded and on (2, 2)
+    want_u = {k: 0 for k in _counters()}
+    want_u.update(per_step)
+    one = make_train_step(model, TrainStepConfig(microbatches=1, adamw=adamw))
+    params = tree_map(lambda p: p.to("cuda", copy=True), initial)
+    params, state, u, _ = _train_drive(torch, np, f"{arch} batch 1 unsharded", one, params,
+                                       opt.init_state(params), pipe, want_u, profile, steps)
+    want_norms = _leaf_norms(torch, (params, state.m, state.v))
+    del params, state
+    torch.cuda.empty_cache()
+    runs = {"batch1_unsharded": u}
+    n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
+    if arch in SEQ_SPLIT_LIMITS:
+        loss_rtol, norm_rtol, read = SEQ_SPLIT_LIMITS[arch]
+    elif cfg.moe is not None:
+        loss_rtol, norm_rtol, read = SHARDED_MOE_LOSS_RTOL, SHARDED_MOE_NORM_RTOL, "max"
+    else:
+        loss_rtol, norm_rtol, read = SHARDED_TP_LIMITS[arch]
+    for n_model in meshes:
+        name = f"batch1_sharded_2x{n_model}"
+        # each data row its span: K5 / K7 a layer a coordinate a row, twice
+        # with remat; K6 once a row (its partial form on each coordinate's block)
+        want = dict(want_u, K5=n_attn * n_model * 2 * 2, K7=n_rwkv * n_model * 2 * 2,
+                    K6=2 * n_model)
+        params, state, step, rec, by_key = _sharded_run(
+            torch, np, f"{arch} {name}", model, initial, pipe, n_model, want, 1, S,
+            profile and n_model > 1, steps)
+        norm_rel = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
+        loss_rel = _rel_errs(rec["losses"], u["losses"])
+        gap = max(norm_rel) if read == "max" else float(np.median(norm_rel))
+        carried = sum(n for k, n in by_key["K7"].items() if k[7])
+        offsets = sorted({k[10] for k in by_key["K5"]})
+        rec.update({"loss_rel_err": loss_rel, "leaves_norm_checked": len(norm_rel),
+                    "leaf_norm_max_rel_err": max(norm_rel),
+                    "leaf_norm_median_rel_err": float(np.median(norm_rel)),
+                    "leaf_norm_worst": sorted(zip(norm_rel, names), reverse=True)[:5],
+                    "loss_rtol": loss_rtol, "norm_rtol": norm_rtol, "norm_gap_gated": read,
+                    "k5_query_offsets": offsets, "k7_from_carried_state": carried,
+                    "k5_shapes": sorted(str(k[1:7] + k[10:]) for k in by_key["K5"]),
+                    "k7_shapes": sorted(str(k[1:6] + k[7:]) for k in by_key["K7"]),
+                    "k6_launches_by_entry_and_shape": {str(k[:4]): n
+                                                       for k, n in by_key["K6"].items()}})
+        entry = "xent_fwd_f32" if n_model == 1 else "xent_part_f32"
+        problems = _sharded_faults(cfg, rec, by_key)
+        problems += [f"K7 at {k} outside K7_SHARDED" for k in k7_unheld(by_key["K7"])]
+        if any(k[0] != entry for k in by_key["K6"]):
+            problems.append(f"K6 {sorted(by_key['K6'])}, want {entry} alone")
+        if not max(loss_rel) <= loss_rtol or not gap <= norm_rtol:
+            problems.append("outside its limits")
+        if not rec["sequence_split"] or (n_attn and offsets != [0, S // 2]):
+            problems.append(f"not split on the sequence: offsets {offsets}")
+        if carried != n_rwkv * n_model * 2 * steps:  # the second row's, twice with remat
+            problems.append(f"K7 from a carried state {carried} times")
+        if problems:
+            faults.append(f"{arch} {name}: {problems}; {rec['losses']} vs {u['losses']}, "
+                          f"leaf norms {max(norm_rel)}")
+        for kernel, keys in by_key.items():
+            for key, n in keys.items():
+                at = (arch,) + key
+                keys_all[kernel][at] = keys_all[kernel].get(at, 0) + n
+        runs[name] = rec
+        del params, state, step
+        torch.cuda.empty_cache()
+    return runs
+
+
 def k7_unheld(by_key) -> list:
-    """K7's launch keys at a shape ``K7_SHARDED`` does not hold."""
-    held = {(B, S, H, h, h) for B, S, H, h in K7_SHARDED}
-    return [k for k in by_key if tuple(k[1:6]) not in held]
+    """K7's launch keys at a shape ``K7_SHARDED`` does not hold (with or
+    without a carried state)."""
+    held = {(B, S, H, h, h, carried) for B, S, H, h, carried in K7_SHARDED}
+    return [k for k in by_key if (*k[1:6], k[7]) not in held]
 
 
 def _sharded_faults(cfg, rec, by_key) -> list:
@@ -4198,9 +4386,7 @@ def _sharded_faults(cfg, rec, by_key) -> list:
     if rec["blocks_with_unequal_copies"]:
         faults.append(f"{rec['blocks_with_unequal_copies']} blocks with unequal copies")
     faults += [f"{path} gathered {n} times" for path, n in rec["gathers_by_leaf"].items()]
-    checked = set(k5_cases())
-    faults += [f"K5 at {k} outside k5_cases" for k in k5
-               if (*k[1:7], k[8], k[9], k[7]) not in checked]
+    faults += [f"K5 at {k} outside k5_cases" for k in k5_unheld(k5)]
     faults += [f"K6 at {k} outside K6_CASES" for k in k6_unheld(by_key["K6"])]
     return faults
 
@@ -4363,6 +4549,9 @@ def sharded_train_phase(torch, np, report):
                 else:
                     del params, state, step
                 torch.cuda.empty_cache()
+            if not f32 and arch in SEQ_SPLIT_TRAIN:
+                runs.update(_seq_split_train(torch, np, arch, model, initial, per_step, adamw,
+                                             seed, names, keys_all, faults))
             report.emit({"phase": "sharded_train", "arch": arch, "layers": cfg.num_layers,
                          "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype,
                          "param_dtype": cfg.param_dtype, "remat_policy": model.remat_policy,
@@ -4378,11 +4567,14 @@ def sharded_train_phase(torch, np, report):
 # sharded_mixed: the sharded step over two distinct devices on one card.
 # Llama-3.2-1B's reduced config widened to K5's head dim (2 layers, d 256,
 # 4 heads of 64 over 2 KV heads, d_ff 512, vocab 1,024), f32 compute,
-# B 4 x S 64, 2 steps; against the same steps on (2, 2) over cuda:0 alone:
+# B 4 x S 64 and B 1 x S 64 (MIXED_BATCHES; batch 1 splits the sequence, so
+# each coordinate's K/V prefix crosses from the card to the CPU or back), 2
+# steps; against the same steps on (2, 2) over cuda:0 alone:
 # the losses within MIXED_LOSS_RTOL and every param / m / v leaf's norm
 # within MIXED_NORM_RTOL (the LM path's gradient tolerance: one data row
 # runs the plain versions on the CPU where the other mesh runs K5 and K6)
 MIXED_LOSS_RTOL, MIXED_NORM_RTOL = 1e-5, 1e-4
+MIXED_BATCHES = ((4, 64), (1, 64))
 
 
 def sharded_mixed_phase(torch, np, report) -> None:
@@ -4393,32 +4585,42 @@ def sharded_mixed_phase(torch, np, report) -> None:
     (the plain versions), the loss on each coordinate's vocab block on its
     device (K6's partial form on the card's two blocks a step, the plain
     block form on the CPU's), and each ZeRO-1 shard is updated on its own
-    device and copied to the block's holder on the other.  Checks: every
-    copy of a block bit-equal across the two devices, each coordinate's
-    bytes its specs', the losses and leaf norms within MIXED_LOSS_RTOL and
-    MIXED_NORM_RTOL of the same steps on (2, 2) over cuda:0 alone."""
+    device and copied to the block's holder on the other; at batch 1 each
+    data row computes its span of the sequence, the second row's
+    coordinates reading the first's K/V across the two devices.  Checks:
+    every copy of a block bit-equal across the two devices, each
+    coordinate's bytes its specs', the losses and leaf norms within
+    MIXED_LOSS_RTOL and MIXED_NORM_RTOL of the same steps on (2, 2) over
+    cuda:0 alone."""
     import dataclasses
 
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(cfgbase.get_reduced_config("llama3.2-1b"), d_model=256,
+                              num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512,
+                              vocab_size=1024, compute_dtype="float32")
+    model = Model(cfg, xent_impl="chunked", remat=True)
+    whole = model.init_params(torch.Generator("cpu").manual_seed(7), device="cpu")
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    for B, S in MIXED_BATCHES:
+        _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu)
+
+
+def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu) -> None:
+    """``sharded_mixed_phase`` at one batch: B x S, 2 steps each way."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.data import tokens as tok
     from repro_torch.ft.resilience import reshard_tree
     from repro_torch.kernels.xent.kernel import K6_LAUNCHES as k6
     from repro_torch.launch import inputs as inp
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.transformer import Model
     from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainStepConfig, jit_train_step
 
-    cfg = dataclasses.replace(cfgbase.get_reduced_config("llama3.2-1b"), d_model=256,
-                              num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512,
-                              vocab_size=1024, compute_dtype="float32")
-    B, S = 4, 64
-    model = Model(cfg, xent_impl="chunked", remat=True)
-    whole = model.init_params(torch.Generator("cpu").manual_seed(7), device="cpu")
     pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
                                    seed=7)
-    card, cpu = torch.device("cuda", 0), torch.device("cpu")
     runs = {}
     for name, devices in (("cuda:0", [card]), ("cuda:0+cpu", [card, cpu, cpu, card])):
         mesh = make_mesh((2, 2), ("data", "model"), devices=devices)
@@ -4449,6 +4651,7 @@ def sharded_mixed_phase(torch, np, report) -> None:
                                                           step.opt_state_shardings.v))), mesh)
         several, unequal = _copies_disagree(torch, trees)
         runs[name] = {"devices": [str(d) for d in mesh.devices.flat], "losses": losses,
+                      "sequence_split": step.split_seq,
                       "k6_launches_by_entry": k6_entries,
                       "norms": _leaf_norms(torch, trees), "blocks_on_several_devices": several,
                       "blocks_with_unequal_copies": unequal,
@@ -4464,26 +4667,31 @@ def sharded_mixed_phase(torch, np, report) -> None:
                  "leaf_norm_max_rel_err": norm_rel, "norm_rtol": MIXED_NORM_RTOL})
     if (not mixed["blocks_on_several_devices"] or mixed["blocks_with_unequal_copies"]
             or one["coordinates_off_their_specs"] or mixed["coordinates_off_their_specs"]
+            or mixed["sequence_split"] != (B == 1)
             or not loss_rel <= MIXED_LOSS_RTOL or not norm_rel <= MIXED_NORM_RTOL):
-        raise AssertionError(f"sharded_mixed: {runs}, losses {loss_rel} and leaf norms "
+        raise AssertionError(f"sharded_mixed B={B}: {runs}, losses {loss_rel} and leaf norms "
                              f"{norm_rel} off the one-card mesh's")
 
 
 # sharded_serve: the sharded prefill and decode steps (jit_prefill_step /
 # jit_decode_step) on _sharded_mesh, beside the unsharded Model.prefill and
 # make_decode_step on the same weights: (arch, seed, layers (None: all of
-# them), [(batch, prompt length)]), SERVE_SHARDED_STEPS greedy steps after
-# each prefill, max_seq SERVE_SHARDED_MAX_SEQ.  RecurrentGemma-9B keeps its
-# first pattern group (rglru, rglru, local) of 38 layers: its local layer's
-# one KV head leaves the cache split on length (over "model" at batch 4,
-# over ("data", "model") at batch 1), and its rglru layers run on each
-# coordinate's half of the width.  RWKV6-7B keeps 4 of its 32 layers, each
-# coordinate's 32 of 64 heads (K7 on them in the prefill) and its d_ff
-# slice, its state s on each coordinate's heads.
-SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509), (4, 128))),
-                 ("recurrentgemma-9b", 41, 3, ((4, 509), (1, 509))),
-                 ("rwkv6-7b", 42, 4, ((4, 509), (1, 509))))
-SERVE_SHARDED_STEPS, SERVE_SHARDED_MAX_SEQ = 16, 1024
+# them), [(batch, prompt length, max_seq)]), SERVE_SHARDED_STEPS greedy steps
+# after each prefill.  At batch 1 the batch specs split the prompt over the 2
+# data rows (sequence parallelism: each row its span, K5 at the span's query
+# offset over the rows' K/V, RWKV and the RG-LRU from the state the row
+# before left); such a prompt must split evenly (SERVE_SHARDED_UNEVEN
+# raises).  RecurrentGemma-9B keeps its first pattern group (rglru, rglru,
+# local) of 38 layers: its local layer's one KV head leaves the cache split
+# on length (over "model" at batch 4, over ("data", "model") at batch 1),
+# and its rglru layers run on each coordinate's half of the width.
+# RWKV6-7B keeps 4 of its 32 layers, each coordinate's 32 of 64 heads (K7 on
+# them in the prefill) and its d_ff slice, its state s on each coordinate's
+# heads.
+SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509, 1024), (4, 128, 1024), (1, 2048, 4096))),
+                 ("recurrentgemma-9b", 41, 3, ((4, 509, 1024), (1, 512, 1024))),
+                 ("rwkv6-7b", 42, 4, ((4, 509, 1024), (1, 512, 1024))))
+SERVE_SHARDED_STEPS, SERVE_SHARDED_UNEVEN = 16, 509
 # sharded_serve's distinct-device cases: f32, (2, 2) over cuda:0 and the
 # CPU against (2, 2) over cuda:0 alone, logits within SERVE_MIXED_TOL (rtol
 # = atol), prompts of SERVE_MIXED_S tokens (past the reduced window of 16:
@@ -4564,19 +4772,22 @@ def sharded_serve_phase(torch, np, report) -> dict:
     tokens: every data row's attention on each model coordinate's heads
     (K5 in the prefill), RWKV's time-mix on its heads (K7 in the prefill),
     the RG-LRU on its channels, the FFN on its ``d_ff`` slice, the KV cache
-    and the recurrent state on their shards.  Checks, for each batch: the
-    prefill's and every decode step's logits within LM_LOGITS_TOL of the
-    unsharded path's; K5 once an attention layer and K7 once an RWKV layer
-    a model coordinate a computing data row in the prefill and no kernel in
-    a decode step, both ways as the unsharded path's counts say; K5 and K7 only at shapes
-    ``k5_checks`` / ``k7_checks`` hold; no leaf gathered; every cache leaf
-    placed by its spec, each coordinate holding its spec's bytes
-    (Llama-3-8B: 4 of 8 KV heads a coordinate; RWKV's s and the RG-LRU's h
-    and conv: half the heads or channels); ``next_tok`` placed by the
-    reference's ``tok_spec``.  Records greedy-token agreement a step, TTFT
-    and ms a decode step both ways.  Then ``_sharded_serve_mixed``.
-    Returns {"K5" / "K7": their launches by (arch,) + key over the sharded
-    prefills}."""
+    and the recurrent state on their shards; at batch 1 each data row on
+    its span of the prompt (K5 at its query offset, K7 of the second row
+    from the first's state).  Checks, for each batch: the prefill's and
+    every decode step's logits within LM_LOGITS_TOL of the unsharded
+    path's; K5 once an attention layer and K7 once an RWKV layer a model
+    coordinate a data row in the prefill (at batch 1 half of RWKV's K7 from
+    a carried state) and no kernel in a decode step, both ways as the
+    unsharded path's counts say; K5 and K7 only at shapes ``k5_checks`` /
+    ``k7_checks`` hold; no leaf gathered; every cache leaf placed by its
+    spec, each coordinate holding its spec's bytes (Llama-3-8B: 4 of 8 KV
+    heads a coordinate; RWKV's s and the RG-LRU's h and conv: half the heads
+    or channels); ``next_tok`` placed by the reference's ``tok_spec``; a
+    batch-1 prompt of SERVE_SHARDED_UNEVEN tokens raises.  Records
+    greedy-token agreement a step, TTFT and ms a decode step both ways.
+    Then ``_sharded_serve_mixed``.  Returns {"K5" / "K7": their launches by
+    (arch,) + key over the sharded prefills}."""
     from repro_torch.ft.resilience import reshard_tree
     from repro_torch.serve.step import make_decode_step
     from repro_torch.sharding import tensor_parallel as tp
@@ -4586,7 +4797,7 @@ def sharded_serve_phase(torch, np, report) -> dict:
     t_phase = time.perf_counter()
     counters = _counters()
     mesh = _sharded_mesh(torch)
-    max_seq, steps = SERVE_SHARDED_MAX_SEQ, SERVE_SHARDED_STEPS
+    steps = SERVE_SHARDED_STEPS
     keys = {"K5": {}, "K7": {}}
     for arch, seed, layers, batches in SERVE_SHARDED:
         model, params = _lm_model(torch, arch, seed,
@@ -4595,23 +4806,25 @@ def sharded_serve_phase(torch, np, report) -> dict:
         policy = ShardingPolicy(mesh, cfg)
         rng = np.random.default_rng(seed)
         prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-                                   device="cuda") for B, S in batches]
+                                   device="cuda") for B, S, _ in batches]
         n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
         n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
-        udecode = make_decode_step(model, max_seq)
         # warm-up outside the timed runs: cuBLAS handles, the kernel library
-        model.prefill(params, {"tokens": prompts[0][:1, :8]}, max_seq)
-        unsharded = [_serve_run(torch, counters,
-                                lambda t=t: model.prefill(params, {"tokens": t}, max_seq),
-                                lambda c, tok, pos: udecode(params, c, tok, pos),
-                                t.shape[1], steps) for t in prompts]
-        for u in unsharded:
-            del u["cache"]
-        steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq) for B, S in batches]
+        model.prefill(params, {"tokens": prompts[0][:1, :8]}, batches[0][2])
+        unsharded = []
+        for t, (_, _, max_seq) in zip(prompts, batches):
+            udecode = make_decode_step(model, max_seq)
+            unsharded.append(_serve_run(
+                torch, counters, lambda: model.prefill(params, {"tokens": t}, max_seq),
+                lambda c, tok, pos: udecode(params, c, tok, pos), t.shape[1], steps))
+            del unsharded[-1]["cache"]
+        steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq)
+                          for B, S, max_seq in batches]
         placed = reshard_tree(params, steps_by_batch[0][0].param_shardings)
         del params
         torch.cuda.empty_cache()
-        for (B, S), t, u, (pre, dec) in zip(batches, prompts, unsharded, steps_by_batch):
+        for (B, S, max_seq), t, u, (pre, dec) in zip(batches, prompts, unsharded,
+                                                      steps_by_batch):
             # the decode steps are teacher-forced with the unsharded run's
             # tokens, so each step's logits are held against the unsharded
             # step's on the same history
@@ -4622,19 +4835,27 @@ def sharded_serve_phase(torch, np, report) -> dict:
             cache = sh.pop("cache")
             step_err = [_logits_gap(a, b) for a, b in zip(sh.pop("step_logits"),
                                                           u.pop("step_logits"))]
-            rows = 2 if B % 2 == 0 else 1
+            # every data row computes: its rows, or at batch 1 its span of the prompt
             want_pre = {k: 0 for k in counters}
-            want_pre["K5"] = n_attn * 2 * rows
-            want_pre["K7"] = n_rwkv * 2 * rows
+            want_pre["K5"] = n_attn * 2 * 2
+            want_pre["K7"] = n_rwkv * 2 * 2
+            k7_carried = sum(n for k, n in sh["k7_by_key"].items() if k[7])
+            want_carried = n_rwkv * 2 if B == 1 else 0  # the second row's spans
+            k5_offsets = sorted({k[10] for k in sh["k5_by_key"]})
+            uneven = None
+            if B == 1 and arch == "rwkv6-7b":  # a prompt the data rows do not divide
+                short = _sharded_steps(model, policy, 1, SERVE_SHARDED_UNEVEN, max_seq)[0]
+                try:
+                    short(placed, {"tokens": t[:, :SERVE_SHARDED_UNEVEN]})
+                    uneven = "ran"
+                except ValueError as e:
+                    uneven = f"ValueError: {e}"
             for kernel in keys:
                 for k, n in sh[f"{kernel.lower()}_by_key"].items():
                     keys[kernel][(arch,) + k] = keys[kernel].get((arch,) + k, 0) + n
             # every shape K5 and K7 ran at here is one k5_checks / k7_checks
             # held against the plain version
-            checked = set(k5_cases())
-            unchecked = [k for k in sh["k5_by_key"]
-                         if (*k[1:7], k[8], k[9], k[7]) not in checked]
-            unchecked += k7_unheld(sh["k7_by_key"])
+            unchecked = k5_unheld(sh["k5_by_key"]) + k7_unheld(sh["k7_by_key"])
             lk = sh["logits"]
             gap = _logits_gap(lk, u["logits"])
             err, rel = gap["max_abs"], gap["rel_rms"]
@@ -4658,6 +4879,10 @@ def sharded_serve_phase(torch, np, report) -> dict:
             rec = {"phase": "sharded_serve", "arch": arch, "layers": cfg.num_layers,
                    "d_model": cfg.d_model, "batch": B, "prompt": S, "max_seq": max_seq,
                    "decode_steps": steps, "compute_dtype": cfg.compute_dtype,
+                   "sequence_split": pre.split_seq, "k5_query_offsets": k5_offsets,
+                   "k7_from_carried_state": k7_carried,
+                   "uneven_prompt": None if uneven is None else
+                   {"prompt": SERVE_SHARDED_UNEVEN, "result": uneven},
                    "mesh": {"shape": mesh.shape,
                             "devices": [str(d) for d in mesh.devices.flat]},
                    "cache_layout": None if attn is None else tp.cache_layout(cache[attn]["k"]),
@@ -4691,13 +4916,16 @@ def sharded_serve_phase(torch, np, report) -> dict:
             if (not torch.isfinite(lk).all() or err > max_abs or rel > rel_rms
                     or steps_off or sh["prefill_launches"] != want_pre
                     or u["prefill_launches"] != {**no_kernels, "K5": n_attn, "K7": n_rwkv}
+                    or pre.split_seq != (B == 1) or k7_carried != want_carried
+                    or (B == 1 and n_attn and k5_offsets != [0, S // 2])
+                    or (uneven is not None and not uneven.startswith("ValueError"))
                     or any(c != no_kernels for c in sh["decode_launches"] + u["decode_launches"])
                     or bad or not placed_ok or unchecked or gathers or not state_split
                     or tuple(dec.tok_sharding.spec) != want_spec
                     or sh["next_tok_sharding"] != dec.tok_sharding
                     or (arch == "llama3-8b"
-                        and k_blocks != [(B // 2, max_seq, cfg.num_kv_heads // 2,
-                                          cfg.head_dim)])):
+                        and k_blocks != [(B // 2 if B % 2 == 0 else B, max_seq,
+                                          cfg.num_kv_heads // 2, cfg.head_dim)])):
                 raise AssertionError(f"sharded_serve {arch} batch {B}: {rec}")
             del cache
         del placed
@@ -4719,7 +4947,10 @@ def _sharded_serve_mixed(torch, np, report) -> None:
     at batch 1 (the combine across all four coordinates, two devices), and
     a widened reduced RWKV6-7B (4 heads of 64: K7 on the card's
     coordinates, its plain version on the CPU's, the state s on both) at
-    batch 4.  Checks: every step's logits within
+    batch 4; at batch 1 (RecurrentGemma, and Llama and RWKV too) each data
+    row prefills its span of the prompt, the second row's coordinates
+    reading the first's K/V and state across the two devices.  Checks:
+    every step's logits within
     SERVE_MIXED_TOL of cuda:0 alone, every cache block held on both devices
     bit-equal across them, each coordinate's cache bytes its specs'."""
     import dataclasses
@@ -4733,9 +4964,11 @@ def _sharded_serve_mixed(torch, np, report) -> None:
     wide = dict(d_model=256, num_heads=4, head_dim=64, d_ff=512, vocab_size=1024,
                 compute_dtype="float32")
     cases = (("llama3.2-1b", dict(num_kv_heads=2), 4),
+             ("llama3.2-1b", dict(num_kv_heads=2), 1),
              ("recurrentgemma-9b", dict(num_kv_heads=1, lru_width=256), 4),
              ("recurrentgemma-9b", dict(num_kv_heads=1, lru_width=256), 1),
-             ("rwkv6-7b", dict(num_kv_heads=4, rwkv_head_dim=64), 4))
+             ("rwkv6-7b", dict(num_kv_heads=4, rwkv_head_dim=64), 4),
+             ("rwkv6-7b", dict(num_kv_heads=4, rwkv_head_dim=64), 1))
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
     counters = _counters()
     for arch, changes, B in cases:
@@ -4756,7 +4989,7 @@ def _sharded_serve_mixed(torch, np, report) -> None:
             by_coord = _coordinate_bytes(np, [(run["cache"], dec.cache_shardings)], mesh)
             several, unequal = _copies_disagree(torch, [run["cache"]])
             runs[name] = {"logits": torch.stack([run["logits"]] + run["step_logits"]),
-                          "tokens": run["tokens"],
+                          "tokens": run["tokens"], "sequence_split": pre.split_seq,
                           "k5_prefill": run["prefill_launches"]["K5"],
                           "blocks_on_several_devices": several,
                           "blocks_with_unequal_copies": unequal,
@@ -4773,6 +5006,7 @@ def _sharded_serve_mixed(torch, np, report) -> None:
                      "logits_max_abs_err": err, "tol": SERVE_MIXED_TOL,
                      "greedy_tokens_equal": same_tokens})
         if (not ok or not same_tokens or not mixed["blocks_on_several_devices"]
+                or mixed["sequence_split"] != (B == 1)
                 or mixed["blocks_with_unequal_copies"] or one["coordinates_off_their_specs"]
                 or mixed["coordinates_off_their_specs"]):
             raise AssertionError(f"sharded_serve_mixed {arch} batch {B}: {runs}, logits "

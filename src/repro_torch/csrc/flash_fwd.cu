@@ -6,7 +6,10 @@
 // window w > 0: key > query - w) of scale * q.k, optionally tanh-softcapped,
 // times V; the online softmax keeps a running (max m, sum l, acc) in f32 and
 // the (S x T) score matrix never reaches device memory.  A row with no
-// visible key writes zeros (kernel.py:72-75).
+// visible key writes zeros (kernel.py:72-75).  Query row i sits at position
+// q_offset + i (a data row's span of a sequence split over the data axes;
+// 0 for a whole sequence): the key range and the mask take the offset
+// (flash_mask.cuh, shared by both kernels), the q and o rows stay local.
 //
 // What bounds it on an H100: at the Llama-3.2-1B prefill shapes (B=1,
 // S <= 1,024, H=32, K=8, h=64, bf16) a call reads q/k/v once (~5 MB at
@@ -42,6 +45,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -79,7 +84,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, Strides qs, Strides ks, Strides vs, Strides os, int S,
-                 int T_, int H, int G, float scale, int causal, int window, float softcap) {
+                 int T_, int H, int G, float scale, int causal, int window, int q_offset,
+                 float softcap) {
   constexpr int BK = key_block<HD>();
   constexpr int LD = ld<HD>();
   constexpr int LDP = BK + 1;
@@ -100,10 +106,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + b * ks.b + hk * ks.n;
   const T* vb = v + b * vs.b + hk * vs.n;
 
-  int kend = T_;
-  if (causal) kend = min(T_, q0 + kBQ);  // no key after the block's last row
-  int kbeg = window ? max(0, q0 - window + 1) : 0;
-  kbeg = (kbeg / BK) * BK;
+  const int kend = fm::key_end(T_, q_offset, q0, kBQ, causal);
+  const int kbeg = fm::key_begin(q_offset, q0, window, BK);
 
   float m = -INFINITY, l = 0.0f;
   float acc[HALF];
@@ -139,8 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int kj = k0 + half + 2 * c;
       float s = sc[c] * scale;
       if (softcap != 0.0f) s = tanhf(s / softcap) * softcap;
-      const bool ok = kj < T_ && (!causal || kj <= qi) && (window == 0 || kj > qi - window);
-      sc[c] = ok ? s : -INFINITY;
+      sc[c] = fm::visible(kj, qi, T_, q_offset, causal, window) ? s : -INFINITY;
       mblk = fmaxf(mblk, sc[c]);
     }
     mblk = fmaxf(mblk, __shfl_xor_sync(0xffffffffu, mblk, 1));
@@ -288,7 +291,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o, Strides qs,
                     Strides ks, Strides vs, Strides os, int S, int T_, int H, int G,
-                    float scale, int causal, int window, float softcap, int aligned) {
+                    float scale, int causal, int window, int q_offset, float softcap,
+                    int aligned) {
   constexpr int BK = Tc<HD>::BK, LD = Tc<HD>::LD;
   constexpr int NT = BK / 8;  // 8-key column tiles of the scores
   constexpr int DT = HD / 8;  // 8-wide column tiles of the output
@@ -306,10 +310,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ks.b + hk * ks.n;
   const bf16* vb = v + b * vs.b + hk * vs.n;
 
-  int kend = T_;
-  if (causal) kend = min(T_, q0 + kBQ);  // no key after the block's last row
-  int kbeg = window ? max(0, q0 - window + 1) : 0;
-  kbeg = (kbeg / BK) * BK;
+  const int kend = fm::key_end(T_, q_offset, q0, kBQ, causal);
+  const int kbeg = fm::key_begin(q_offset, q0, window, BK);
   const int nblk = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
   // Q and the first kStages - 1 key blocks, one commit group each (empty
@@ -369,8 +371,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // scale, softcap (on the f32 scores, before the mask and the max), mask
-    const bool edge = k0 + BK > T_ || (causal && k0 + BK - 1 > q0) ||
-                      (window && k0 < q0 + kBQ - window);
+    const bool edge = fm::edge(k0, BK, T_, q_offset, q0, kBQ, causal, window);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -381,8 +382,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (edge) {
           const int kj = k0 + j * 8 + 2 * tq + (e & 1);
           const int qi = r0 + (e >> 1) * 8;
-          const bool ok = kj < T_ && (!causal || kj <= qi) && (window == 0 || kj > qi - window);
-          x = ok ? x : -INFINITY;
+          x = fm::visible(kj, qi, T_, q_offset, causal, window) ? x : -INFINITY;
         }
         sc[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -454,7 +454,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
               int H, int K, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-              int causal, int window, float softcap, void* stream) {
+              int causal, int window, int q_offset, float softcap, void* stream) {
   const size_t smem = Tc<HD>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -469,18 +469,18 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd_tc_kernel<HD><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), qs, ks, vs, os, S, T_, H, H / K, scale, causal, window, softcap,
-      aligned);
+      static_cast<bf16*>(o), qs, ks, vs, os, S, T_, H, H / K, scale, causal, window, q_offset,
+      softcap, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S, int T_,
               int H, int K, Strides qs, Strides ks, Strides vs, Strides os, float scale,
-              int causal, int window, float softcap, void* stream) {
+              int causal, int window, int q_offset, float softcap, void* stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     return launch_tc<HD>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal, window,
-                         softcap, stream);
+                         q_offset, softcap, stream);
   } else {
     const size_t smem = smem_bytes<HD>();
     cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
@@ -490,7 +490,8 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int S
     const dim3 grid((S + kBQ - 1) / kBQ, B * H);
     flash_fwd_kernel<T, HD><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), qs, ks, vs, os, S, T_, H, H / K, scale, causal, window, softcap);
+        static_cast<T*>(o), qs, ks, vs, os, S, T_, H, H / K, scale, causal, window, q_offset,
+        softcap);
     return static_cast<int>(cudaGetLastError());
   }
 }
@@ -500,18 +501,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
            int K, int hd, long long qsb, long long qss, long long qsn, long long ksb,
            long long kss, long long ksn, long long vsb, long long vss, long long vsn,
            long long osb, long long oss, long long osn, float scale, int causal, int window,
-           float softcap, void* stream) {
+           int q_offset, float softcap, void* stream) {
   const Strides qs{qsb, qss, qsn}, ks{ksb, kss, ksn}, vs{vsb, vss, vsn}, os{osb, oss, osn};
   switch (hd) {
     case 64:
       return launch_hd<T, 64>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal,
-                              window, softcap, stream);
+                              window, q_offset, softcap, stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal,
-                               window, softcap, stream);
+                               window, q_offset, softcap, stream);
     case 256:
       return launch_hd<T, 256>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal,
-                               window, softcap, stream);
+                               window, q_offset, softcap, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -524,9 +525,10 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* 
                              long long qsn, long long ksb, long long kss, long long ksn,
                              long long vsb, long long vss, long long vsn, long long osb,
                              long long oss, long long osn, float scale, int causal,
-                             int window, float softcap, void* stream) {
+                             int window, int q_offset, float softcap, void* stream) {
   return launch<float>(q, k, v, o, B, S, T_, H, K, hd, qsb, qss, qsn, ksb, kss, ksn, vsb,
-                       vss, vsn, osb, oss, osn, scale, causal, window, softcap, stream);
+                       vss, vsn, osb, oss, osn, scale, causal, window, q_offset, softcap,
+                       stream);
 }
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B,
@@ -534,8 +536,8 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
                               long long qsn, long long ksb, long long kss, long long ksn,
                               long long vsb, long long vss, long long vsn, long long osb,
                               long long oss, long long osn, float scale, int causal,
-                              int window, float softcap, void* stream) {
+                              int window, int q_offset, float softcap, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, B, S, T_, H, K, hd, qsb, qss, qsn, ksb, kss, ksn,
-                               vsb, vss, vsn, osb, oss, osn, scale, causal, window, softcap,
-                               stream);
+                               vsb, vss, vsn, osb, oss, osn, scale, causal, window, q_offset,
+                               softcap, stream);
 }

@@ -40,6 +40,7 @@ SOURCES = {
 # Library name -> the csrc headers its source includes (hashed into its key).
 _HEADERS = {name: ("conv_pool_math.cuh",) for name in
             ("conv_pool", "conv_pool_q8", "conv_pool_dw", "conv_pool_dw_q8")}
+_HEADERS["flash_fwd"] = ("flash_mask.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -26,8 +26,10 @@ class FlashAttention(torch.autograd.Function):
     Forward K5 (``attention_ref`` on the CPU), backward the plain VJP."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int, scale: float, softcap: float):
-        ctx.geom = dict(causal=causal, window=window, scale=scale, softcap=softcap)
+    def forward(ctx, q, k, v, causal: bool, window: int, scale: float, softcap: float,
+                q_offset: int = 0):
+        ctx.geom = dict(causal=causal, window=window, scale=scale, softcap=softcap,
+                        q_offset=q_offset)
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cuda":
             return kernel.flash_attention_fwd(q, k, v, **ctx.geom)
@@ -42,20 +44,22 @@ class FlashAttention(torch.autograd.Function):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             out = ref.attention_ref(*leaves, **ctx.geom)
             dq, dk, dv = torch.autograd.grad(out, leaves, g)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q (B, S, H, h), k/v (B, T, K, h) → (B, S, H, h) in ``q.dtype``."""
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
+    """q (B, S, H, h), k/v (B, T, K, h) → (B, S, H, h) in ``q.dtype``; query
+    row i at position ``q_offset + i``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    kernel.check_offset(q_offset, q.shape[1], k.shape[1], causal)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
-                                 softcap=softcap)
+                                 softcap=softcap, q_offset=q_offset)
     if q.device.type == "cuda":
         return FlashAttention.apply(q, k, v, bool(causal), int(window), float(scale),
-                                    float(softcap))
+                                    float(softcap), int(q_offset))
     raise ValueError(f"flash_attention: no implementation for {q.device}")

@@ -7,6 +7,11 @@ zeros, as the TPU kernel does (``kernel.py:72-75``) and K5 does, where the
 reference's oracle spreads a uniform softmax over masked keys.  Causal rows
 over ``T >= S`` keys always see at least their own position, so the two
 agree wherever the serving path calls them.
+
+``q_offset`` places query row i at position ``q_offset + i`` (a data row's
+span of a sequence split over the data axes): the rows ``a:b`` of the whole
+sequence's attention are ``attention_ref(q[:, a:b], k[:, :b], v[:, :b],
+q_offset=a)``.  K5's kernels mask by the same rule (``csrc/flash_mask.cuh``).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ def attention_ref(
     window: int = 0,
     scale: Optional[float] = None,
     softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     B, S, H, h = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -36,14 +42,22 @@ def attention_ref(
     s = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    qi = torch.arange(S, device=q.device)[:, None]
-    kj = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kj <= qi
-    if window:
-        mask &= kj > qi - window
+    mask = visible(S, T, causal=causal, window=window, q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1) * mask.any(dim=-1, keepdim=True)
     out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
     return out.reshape(B, S, H, h).to(q.dtype)
+
+
+def visible(S: int, T: int, *, causal: bool, window: int, q_offset: int = 0,
+            device=None) -> torch.Tensor:
+    """(S, T) bool: query row i (at position ``q_offset + i``) may see key
+    j: causal j <= q_offset + i, with a window j > q_offset + i - window."""
+    pos = q_offset + torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= pos
+    if window:
+        mask &= kj > pos - window
+    return mask

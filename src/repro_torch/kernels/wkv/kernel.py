@@ -6,9 +6,10 @@ chunked wkv6 forward from the zero state, as the TPU kernel's, or from a
 carried state ``s0``.  One call launches two kernels, ``wkv_intra_kernel``
 (each tile's intra-tile output, every tile at once) and
 ``wkv_carry_kernel`` (the state carried through the tiles in order, split
-into 16-column slices), and ticks ``K7_LAUNCHES`` once.  The kernel tiles S
-by its own tile (``TILE``) whatever the reference's chunk, since the result
-does not depend on it.
+into 16-column slices), and ticks ``K7_LAUNCHES`` once, its key ending in
+whether the call carried a state in.  The kernel tiles S by its own tile
+(``TILE``) whatever the reference's chunk, since the result does not depend
+on it.
 """
 from __future__ import annotations
 
@@ -84,5 +85,5 @@ def wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tenso
     fn.restype = ctypes.c_int
     fn.argtypes = [type(a) for a in args]
     build.check(fn(*args), fn_name)
-    K7_LAUNCHES.add((fn_name, B, S, H, hk, hv, chunk))
+    K7_LAUNCHES.add((fn_name, B, S, H, hk, hv, chunk, s0 is not None))
     return o, s_final

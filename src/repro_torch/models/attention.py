@@ -136,22 +136,31 @@ def _out_proj(cfg, p, out: torch.Tensor) -> torch.Tensor:
     return out.to(cd).flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
-def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str,
-                   positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
+                   prefix=None, q_offset: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Self-attention over a whole prompt, through K5; returns (y, k, v)
     with k after RoPE, the values a KV cache holds (the reference projects
     them a second time in ``_prefill_cache``; the numbers are the same).
     The causal kinds ``attn``, ``swa`` and ``local``, and the encoder's
-    ``enc``, which sees every position (``causal=False``)."""
+    ``enc``, which sees every position (``causal=False``).
+
+    A data row's span of a sequence split over the data axes starts at
+    position ``q_offset`` and reads ``prefix``, the (k, v) of the positions
+    before it (the rows before computed them): its queries run K5 with
+    ``q_offset`` over the prefix and its own keys, and the k, v returned are
+    both, positions 0 up to the span's end."""
     if kind not in ("attn", "swa", "local", "enc"):
         raise ValueError(f"unknown attention kind {kind!r}")
     q, k, v = _project_qkv(cfg, p, x, x)
     q = _rope(cfg, q, positions, kind)
     k = _rope(cfg, k, positions, kind)
+    if prefix is not None:
+        k, v = torch.cat([prefix[0], k], dim=1), torch.cat([prefix[1], v], dim=1)
     out = flash_ops.flash_attention(q, k, v, causal=kind != "enc",
                                     window=_window(cfg, kind),
                                     scale=1.0 / np.sqrt(cfg.head_dim),
-                                    softcap=cfg.attn_softcap)
+                                    softcap=cfg.attn_softcap, q_offset=q_offset)
     return _out_proj(cfg, p, out), k, v
 
 
@@ -236,24 +245,27 @@ def _write_slots(cache: dict, index, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def fill_kv_cache(cache: dict, spec: KVCacheSpec, k: torch.Tensor, v: torch.Tensor,
-                  positions: torch.Tensor) -> dict:
+                  positions: torch.Tensor, first: int = 0) -> dict:
     """Write a prompt's K/V (B, S, K, h) into a fresh cache, in place: a ring
     keeps the last ``length`` positions at their slots, a linear cache the
     prompt in its first S slots.  An int8 cache stores them quantized, and
     its slots past the prompt take the scale the reference's quantization of
-    its zero padding gives, the floor 1e-8 (``transformer.py:179-182``)."""
+    its zero padding gives, the floor 1e-8 (``transformer.py:179-182``).
+    ``first``: the prompt's first position, past 0 for a data row's span of
+    a sequence split over the data axes (the rows before filled the slots
+    of the positions before it)."""
     S = k.shape[1]
-    if spec.ring and S >= spec.length:
-        keep = slice(S - spec.length, S)
+    if spec.ring and (S >= spec.length or first):
+        keep = slice(max(0, S - spec.length), S)
         slots = (positions[0, keep] % spec.length).long()
         _write_slots(cache, (slice(None), slots), k[:, keep], v[:, keep])
         cache["pos"][:, slots] = positions[:, keep].to(torch.int32)
     else:
-        _write_slots(cache, (slice(None), slice(0, S)), k, v)
-        cache["pos"][:, :S] = positions.to(torch.int32)
+        _write_slots(cache, (slice(None), slice(first, first + S)), k, v)
+        cache["pos"][:, first:first + S] = positions.to(torch.int32)
         if "k_scale" in cache:
-            cache["k_scale"][:, S:] = 1e-8
-            cache["v_scale"][:, S:] = 1e-8
+            cache["k_scale"][:, first + S:] = 1e-8
+            cache["v_scale"][:, first + S:] = 1e-8
     return cache
 
 

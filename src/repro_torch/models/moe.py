@@ -10,6 +10,12 @@ Tokens past an expert's capacity are dropped (their gate zeroed), in the
 reference's order: the capacity slot of each (token, choice) is its place
 in the flattened (S·k) order of its batch row.  A drop changes a token's
 output by a whole expert, so the port keeps exactly the reference's rule.
+A data row's span of a sequence split over the data axes
+(:func:`apply_moe_span`) keeps it too: the capacity is the whole token
+group's, each choice's slot counts the choices of the group's earlier
+tokens in the rows before (the carried per-expert counts, reset at a group
+boundary), and the aux loss is taken once, on the last span, from the
+router sums over the whole sequence.
 The expert products are plain ``torch.einsum`` (cuBLAS on the card): the
 reference computes them outside any Pallas kernel.
 """
@@ -49,11 +55,13 @@ def init_moe_params(cfg, gen: torch.Generator, device) -> dict:
     return p
 
 
-def route(cfg, p: dict, x: torch.Tensor, C: int) -> dict:
+def route(cfg, p: dict, x: torch.Tensor, C: int, counts=None) -> dict:
     """The router's decisions for x (B, S, D) at capacity C: ``probs``
     (B, S, E), ``onehot_e`` (B, S, k, E; the top-k experts), ``gate``
     (B, S, k; renormalised, zeroed where dropped), ``pos`` (each choice's
-    slot) and ``keep`` (pos < C)."""
+    slot) and ``keep`` (pos < C).  ``counts`` (B, E): the choices each
+    expert already took in this token group (the tokens before ``x``),
+    which every slot follows; None for a group's first token."""
     k, E = cfg.moe.top_k, cfg.moe.num_experts
     B, S, _ = x.shape
     logits = x.float() @ p["router"].float()  # (B, S, E)
@@ -63,6 +71,8 @@ def route(cfg, p: dict, x: torch.Tensor, C: int) -> dict:
     onehot_e = F.one_hot(idx, E).float()  # (B, S, k, E)
     flat = onehot_e.reshape(B, S * k, E)
     pos = torch.cumsum(flat, dim=1) - flat  # entries before me
+    if counts is not None:
+        pos = pos + counts[:, None].to(pos.device)
     pos = (pos * flat).sum(dim=-1).reshape(B, S, k).to(torch.int32)
     keep = pos < C
     return {"probs": probs, "onehot_e": onehot_e, "pos": pos, "keep": keep,
@@ -95,14 +105,19 @@ def expert_mix(cfg, p: dict, x: torch.Tensor, combine: torch.Tensor) -> torch.Te
     return torch.einsum("bsec,becd->bsd", combine.to(cd), out_e)
 
 
+def group_length(S: int, group_size: int = 4096) -> int:
+    """The length of the token groups :func:`token_groups` cuts a row of S
+    tokens into."""
+    return group_size if S > group_size and S % group_size == 0 else S
+
+
 def token_groups(x: torch.Tensor, group_size: int = 4096) -> torch.Tensor:
     """x (B, S, D) with each row longer than ``group_size`` and a multiple
     of it split into rows of ``group_size`` tokens, each routed with its
     own capacity, as in the reference; ``x`` itself otherwise."""
     B, S, D = x.shape
-    if S > group_size and S % group_size == 0:
-        return x.reshape(B * (S // group_size), group_size, D)
-    return x
+    G = group_length(S, group_size)
+    return x if G == S else x.reshape(B * (S // G), G, D)
 
 
 def plan(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25):
@@ -127,6 +142,67 @@ def aux_loss(cfg, r: dict) -> torch.Tensor:
     token_frac = r["onehot_e"].sum(dim=2).mean(dim=(0, 1))  # (E,)
     prob_mean = r["probs"].mean(dim=(0, 1))  # (E,)
     return m.num_experts * torch.sum(token_frac * prob_mean) * m.router_aux_weight
+
+
+def aux_from_sums(cfg, frac: torch.Tensor, prob: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`aux_loss` from the sums over ``n`` tokens of the choices each
+    expert took (``frac``, (E,)) and of its router probability (``prob``)."""
+    m = cfg.moe
+    return m.num_experts * torch.sum((frac / n) * (prob / n)) * m.router_aux_weight
+
+
+def plan_span(cfg, p: dict, x: torch.Tensor, span, carry, capacity_factor: float = 1.25,
+              group_size: int = 4096):
+    """:func:`plan` for a data row's span of a sequence split over the data
+    axes: x (B, S_r, D), the positions ``span.start``..``span.stop`` of a
+    sequence of ``span.total``.  The span is cut where a token group of the
+    whole sequence ends; each piece is routed at the capacity of a whole
+    group, its slots after the ``carry["counts"]`` of the group's earlier
+    tokens (the rows before; reset at a group's first token).  Returns
+    ([(first, last, decisions, combine)] of the pieces, in order, the carry
+    for the next row: ``counts`` (B, E), and the sums over the sequence so
+    far of each expert's choices (``frac``) and router probability
+    (``prob``), f32 (E,))."""
+    G = group_length(span.total, group_size)
+    C = capacity(cfg, G, capacity_factor)
+    carry = carry or {}
+    counts, frac, prob = carry.get("counts"), carry.get("frac"), carry.get("prob")
+    pieces, a, S = [], 0, x.shape[1]
+    while a < S:
+        pos = span.start + a
+        b = min(S, a + G - pos % G)
+        if pos % G == 0:
+            counts = None
+        r = route(cfg, p, x[:, a:b], C, counts)
+        pieces.append((a, b, r, combine_weights(r, C)))
+        took = r["onehot_e"].sum(dim=2)  # (B, b - a, E)
+        n = took.sum(dim=1)
+        counts = n if counts is None else counts.to(n.device) + n
+        f, pr = took.sum(dim=(0, 1)), r["probs"].sum(dim=(0, 1))
+        frac = f if frac is None else frac.to(f.device) + f
+        prob = pr if prob is None else prob.to(pr.device) + pr
+        a = b
+    return pieces, {"counts": counts, "frac": frac, "prob": prob}
+
+
+def span_aux(cfg, span, carry: dict, batch: int, device) -> torch.Tensor:
+    """The span's share of the aux loss: the whole sequence's
+    (:func:`aux_from_sums`) on its last span, an f32 zero before."""
+    if span.stop < span.total:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return aux_from_sums(cfg, carry["frac"], carry["prob"], batch * span.total)
+
+
+def apply_moe_span(cfg, p: dict, x: torch.Tensor, span, carry,
+                   capacity_factor: float = 1.25, group_size: int = 4096):
+    """:func:`apply_moe` on a data row's span (:func:`plan_span`): (out,
+    its share of the aux loss (:func:`span_aux`), the carry)."""
+    pieces, carry = plan_span(cfg, p, x, span, carry, capacity_factor, group_size)
+    out = torch.cat([expert_mix(cfg, p, x[:, a:b], combine) for a, b, _, combine in pieces],
+                    dim=1)
+    if cfg.moe.d_ff_shared:
+        out = out + mlp_mod.apply_mlp(cfg, p["shared"], x) * shared_gate(cfg, p, x)
+    return out.to(x.dtype), span_aux(cfg, span, carry, x.shape[0], x.device), carry
 
 
 def apply_moe(cfg, p: dict, x: torch.Tensor, capacity_factor: float = 1.25,

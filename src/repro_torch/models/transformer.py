@@ -75,6 +75,18 @@ object:
 :class:`repro_torch.sharding.tensor_parallel.RowOps` on one data row of a
 mesh.
 
+**Sequence parallelism.**  Where the batch specs split the sequence over
+the data axes (batch 1, the reference's ``seq_parallel_threshold``), each
+data row of the sharded steps walks its own contiguous span of positions
+(:class:`Span`) through :meth:`Model.train_span` / :meth:`Model.prefill_span`,
+the rows in order: each layer takes what the rows before it left (its
+carry: an attention layer's K/V, which its queries read through K5 with a
+query offset; RWKV's ``s``, ``tm_x`` and ``cm_x``; the RG-LRU's ``h`` and
+conv tail; a MoE layer's per-expert slot counts and router sums) and hands
+on its own.  Serving reads a recurrent layer's carry from the cache the row
+before wrote.  The first span, with nothing carried, is the whole-sequence
+walk's arithmetic on its positions.
+
 Every prefill or training attention over more than one query row runs K5
 (causal, or not for the encoder and the cross-attention) and every
 multi-token RWKV time-mix K7 (on the card, each inside a
@@ -170,34 +182,63 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, device,
     return p
 
 
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """A data row's positions ``[start, stop)`` of a sequence of ``total``
+    positions that the batch specs split over the data axes."""
+
+    start: int
+    stop: int
+    total: int
+
+
 def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                     positions: torch.Tensor, rwkv_chunk: int,
-                    memory: Optional[torch.Tensor] = None, ops=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    memory: Optional[torch.Tensor] = None, ops=None,
+                    span: Optional[Span] = None, carry: Optional[dict] = None):
     """One layer over a whole sequence with no cache (the training forward
     and its encoder; RG-LRU and RWKV from the zero state), each sub-block
     through ``ops`` (:class:`LocalOps` by default): (x, aux), aux the MoE
     FFN's load-balancing loss, an f32 zero for any other layer.  A
     decoder layer's cross sub-block runs when there is a ``memory``
-    (reference ``transformer.py:124-126``)."""
+    (reference ``transformer.py:124-126``).
+
+    On a data row's ``span`` the layer starts from ``carry``, what the rows
+    before left it (None for the first row), and returns (x, aux, its
+    carry for the next row); a MoE layer's aux is the whole sequence's on
+    the last span and zero before."""
     ops = ops or LocalOps(cfg)
     r = ops.read(p)
     h = apply_norm(cfg, r["norm1"], x)
+    carry, new = carry or {}, {}
     if kind in ATTN_KINDS or kind == "enc":
-        x = x + ops.attend(p["attn"], h, kind, positions)
+        if span is None:
+            x = x + ops.attend(p["attn"], h, kind, positions)
+        else:
+            a, new["kv"] = ops.attend_span(p["attn"], h, kind, positions, span.start,
+                                           carry.get("kv"))
+            x = x + a
         if memory is not None and "cross" in p:
             x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
-        f, aux = ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))
-        return x + f, aux
+        hf = apply_norm(cfg, r["norm2"], x)
+        if span is None:
+            f, aux = ops.ffn(p["ffn"], hf)
+            return x + f, aux
+        f, aux, moe_carry = ops.ffn_span(p["ffn"], hf, span, carry.get("moe"))
+        if moe_carry is not None:
+            new["moe"] = moe_carry
+        return x + f, aux, new
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rglru":
-        a, _ = ops.rglru(p["rec"], h, None)
+        a, state = ops.rglru(p["rec"], h, carry or None)
         x = x + a
-        return x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x)), aux
-    a, _, _ = ops.time_mix(p["tm"], h, None, None, chunk=rwkv_chunk)
+        x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
+        return (x, aux) if span is None else (x, aux, state)
+    a, s, tm_x = ops.time_mix(p["tm"], h, carry.get("s"), carry.get("tm_x"), chunk=rwkv_chunk)
     x = x + a
-    c, _ = ops.channel_mix(p["tm"], apply_norm(cfg, r["norm2"], x), None)
-    return x + c, aux
+    c, cm_x = ops.channel_mix(p["tm"], apply_norm(cfg, r["norm2"], x), carry.get("cm_x"))
+    x = x + c
+    return (x, aux) if span is None else (x, aux, {"s": s, "tm_x": tm_x, "cm_x": cm_x})
 
 
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
@@ -259,10 +300,22 @@ class LocalOps:
     def attend(self, p, h, kind, positions):
         return attention.attend_train(self.cfg, p, h, kind, positions)
 
-    def attend_prefill(self, p, h, kind, positions, state, spec):
-        a, k, v = attention.attend_prefill(self.cfg, p, h, kind, positions)
-        attention.fill_kv_cache(state, spec, k, v, positions)
-        return a, state
+    def attend_span(self, p, h, kind, positions, start: int, kv):
+        """Attention of a data row's span from position ``start`` over
+        ``kv``, the (k, v) of the positions before it (None at 0): (out,
+        the (k, v) up to the span's end, for the next row)."""
+        a, k, v = attention.attend_prefill(self.cfg, p, h, kind, positions, prefix=kv,
+                                           q_offset=start)
+        return a, (k, v)
+
+    def attend_prefill(self, p, h, kind, positions, state, spec, start: int = 0, kv=None):
+        """The prompt's attention (a data row's span from ``start`` over
+        ``kv``, as :meth:`attend_span`), its K/V written into ``state``:
+        (out, state, the (k, v) up to the span's end)."""
+        a, k, v = attention.attend_prefill(self.cfg, p, h, kind, positions, prefix=kv,
+                                           q_offset=start)
+        attention.fill_kv_cache(state, spec, k[:, start:], v[:, start:], positions, start)
+        return a, state, (k, v)
 
     def attend_decode(self, p, h, kind, pos, state, spec):
         return attention.attend_decode(self.cfg, p, h, state, kind, pos, spec)
@@ -278,6 +331,14 @@ class LocalOps:
             return moe.apply_moe(self.cfg, p, x)
         return mlp.apply_mlp(self.cfg, p, x), torch.zeros((), dtype=torch.float32,
                                                            device=x.device)
+
+    def ffn_span(self, p, x, span, carry):
+        """:meth:`ffn` on a data row's span: (out, aux, the carry; None
+        for the dense MLP), the MoE layer's through
+        :func:`repro_torch.models.moe.apply_moe_span`."""
+        if "router" in p:
+            return moe.apply_moe_span(self.cfg, p, x, span, carry)
+        return self.ffn(p, x) + (None,)
 
     def mlp(self, p, x):
         return mlp.apply_mlp(self.cfg, p, x)
@@ -391,33 +452,47 @@ class Model:
         """Mean CE over masked positions.  x: (B, S, D); targets: (B, S);
         the unembedding of ``params`` as it is placed, through ``ops.xent``
         (on a mesh, each model coordinate's vocab block)."""
-        denom = torch.clamp(mask.sum(), min=1.0)
+        total, count = self._xent_sum(params, x, targets, mask, ops)
+        return total / torch.clamp(count, min=1.0)
+
+    def _xent_sum(self, params, x, targets, mask, ops=None):
+        """(Σ of the masked CE, the mask's total): :meth:`_xent` before its
+        division, so that the spans of a split sequence add up."""
         ce = (ops or LocalOps(self.cfg)).xent(
             self._unembed_matrix(params), x, targets, softcap=self.cfg.logit_softcap,
             form=self.xent_impl, chunk=self.xent_chunk, seq_chunk=self.xent_seq_chunk)
-        return (ce * mask).sum() / denom
+        return (ce * mask).sum(), mask.sum()
 
     def _stack(self, layers, kinds, x: torch.Tensor, memory=None,
-               remat: bool = False, ops=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               remat: bool = False, ops=None, span: Optional[Span] = None, carry=None):
         """One stack of layers over whole sequences with no cache, each
         sub-block through ``ops`` (:class:`LocalOps` by default), each layer
         under ``checkpoint`` (with ``remat_policy``'s context) when
         ``remat``: (x, the sum of the layers' aux losses in layer order).
         The non-reentrant ``checkpoint`` runs the layer's Python again in
         the backward pass, so ``ops``' per-device work is recomputed on its
-        own devices."""
+        own devices.  On a data row's ``span`` each layer starts from its
+        entry of ``carry`` (None: the first row), an input of its
+        checkpoint, and the stack returns (x, aux, each layer's carry)."""
         B, S = x.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        p0 = 0 if span is None else span.start
+        positions = torch.arange(p0, p0 + S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in zip(kinds, layers):
+        carried = []
+        for i, (kind, p) in enumerate(zip(kinds, layers)):
             args = (self.cfg, kind, p, x, positions, self.rwkv_chunk, memory, ops)
+            if span is not None:
+                args += (span, carry[i] if carry else None)
             if remat:
-                x, a = checkpoint(_sequence_block, *args, use_reentrant=False,
-                                  context_fn=REMAT_CONTEXTS[self.remat_policy])
+                out = checkpoint(_sequence_block, *args, use_reentrant=False,
+                                 context_fn=REMAT_CONTEXTS[self.remat_policy])
             else:
-                x, a = _sequence_block(*args)
+                out = _sequence_block(*args)
+            x, a = out[:2]
+            carried += out[2:]
             aux = aux + a
-        return x, aux
+        return (x, aux) if span is None else (x, aux, carried)
 
     def train_loss(self, params, batch: dict, ops=None) -> Tuple[torch.Tensor, dict]:
         """(loss, {"ce", "aux"}) of the batch against ``batch["targets"]``
@@ -447,6 +522,31 @@ class Model:
             mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
         ce = self._xent(params, x, targets, mask, ops)
         return ce + aux, {"ce": ce, "aux": aux}
+
+    def train_span(self, params, batch: dict, span: Span, carry=None, ops=None,
+                   memory: Optional[torch.Tensor] = None):
+        """:meth:`train_loss`'s forward on a data row's ``span`` of a
+        sequence split over the data axes (``batch`` the span's tokens or
+        embeds, targets and mask), each layer from its entry of ``carry``
+        (what the rows before left; None for the first row).  An enc-dec
+        decoder attends to ``memory``, the whole sequence's encoding.
+        Returns (Σ of the span's masked CE, its mask total, its share of the
+        aux loss (the whole sequence's on the last span), each layer's
+        carry): the sequence's loss is Σ CE / Σ mask + Σ aux over the
+        spans."""
+        cfg = self.cfg
+        ops = ops or LocalOps(cfg)
+        x, aux, carry = self._stack(params["layers"], cfg.blocks(),
+                                    self._input(params, batch, ops), memory,
+                                    remat=self.remat, ops=ops, span=span, carry=carry)
+        if not cfg.is_encdec:
+            x = apply_norm(cfg, ops.read(params)["final_norm"], x)
+        targets = batch["targets"]
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32, device=x.device)
+        total, count = self._xent_sum(params, x, targets, mask, ops)
+        return total, count, aux, carry
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, device="cuda") -> List[dict]:
@@ -495,7 +595,23 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         if states is None:
             states = self.init_cache(B, max_seq, x.device)
-        return self._walk(ops, params, x, states, positions, max_seq, memory, decode=False)
+        return self._walk(ops, params, x, states, positions, max_seq, memory, decode=False)[:2]
+
+    def prefill_span(self, params, batch: dict, max_seq: int, states, span: Span, carry=None,
+                     ops=None, memory: Optional[torch.Tensor] = None):
+        """:meth:`prefill` of a data row's ``span`` of a prompt split over
+        the data axes into the cache ``states`` (the rows before filled
+        theirs), each attention and MoE layer from its entry of ``carry``
+        (None for the first row), each recurrent layer from the state the
+        row before wrote.  Returns (states, the prompt's last-token logits
+        on its last span, else None, each layer's carry)."""
+        ops = ops or LocalOps(self.cfg)
+        x = self._input(params, batch, ops)
+        B, S = x.shape[:2]
+        positions = torch.arange(span.start, span.start + S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+        return self._walk(ops, params, x, states, positions, max_seq, memory, decode=False,
+                          span=span, carry=carry)
 
     def decode_step(self, params, states: List[dict], tokens: torch.Tensor,
                     pos, max_seq: int, memory: Optional[torch.Tensor] = None,
@@ -508,36 +624,55 @@ class Model:
         ops = ops or LocalOps(self.cfg)
         x = self._embed(params, tokens, ops)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(tokens.shape[0])
-        states, logits = self._walk(ops, params, x, states, pos, max_seq, memory, decode=True)
+        states, logits, _ = self._walk(ops, params, x, states, pos, max_seq, memory,
+                                       decode=True)
         return logits, states
 
     def _walk(self, ops, params, x: torch.Tensor, states: List[dict], positions,
-              max_seq: int, memory, decode: bool) -> Tuple[List[dict], torch.Tensor]:
+              max_seq: int, memory, decode: bool, span: Optional[Span] = None,
+              carry=None) -> Tuple[List[dict], Optional[torch.Tensor], List[dict]]:
         """The decoder stack over ``x`` with a cache, the one layer walk of
-        the prefill (``positions`` (B, S), empty ``states`` filled) and of a
-        decode step (``positions`` the (B,) slots' positions, ``states``
-        read and updated), each sub-block through ``ops``.  Returns (the
-        states, the last position's logits)."""
+        the prefill (``positions`` (B, S), empty ``states`` filled; on a data
+        row's ``span``, from the ``carry`` of the rows before and the states
+        they wrote) and of a decode step (``positions`` the (B,) slots'
+        positions, ``states`` read and updated), each sub-block through
+        ``ops``.  Returns (the states, the last position's logits (None on a
+        span before the last), each layer's carry (on a span))."""
         cfg = self.cfg
-        out = []
-        for kind, p, state in zip(cfg.blocks(), params["layers"], states):
+        out, carried = [], []
+        for i, (kind, p, state) in enumerate(zip(cfg.blocks(), params["layers"], states)):
             r = ops.read(p)
             h = apply_norm(cfg, r["norm1"], x)
+            prev, new = (carry[i] if carry else {}), {}
             if kind in ATTN_KINDS:
                 spec = attention.cache_spec(cfg, kind, max_seq)
-                attend = ops.attend_decode if decode else ops.attend_prefill
-                a, state = attend(p["attn"], h, kind, positions, state, spec)
+                if decode:
+                    a, state = ops.attend_decode(p["attn"], h, kind, positions, state, spec)
+                elif span is None:
+                    a, state, _ = ops.attend_prefill(p["attn"], h, kind, positions, state, spec)
+                else:
+                    a, state, new["kv"] = ops.attend_prefill(p["attn"], h, kind, positions,
+                                                             state, spec, span.start,
+                                                             prev.get("kv"))
                 x = x + a
                 if memory is not None and "cross" in p:
                     x = x + ops.cross(p["cross"], apply_norm(cfg, r["norm_x"], x), memory)
-                x = x + ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))[0]
-            elif kind == "rglru":
-                a, new = ops.rglru(p["rec"], h, ops.read_state(state))
-                state = ops.write_state(state, new)
+                hf = apply_norm(cfg, r["norm2"], x)
+                if span is None:
+                    x = x + ops.ffn(p["ffn"], hf)[0]
+                else:
+                    f, _, moe_carry = ops.ffn_span(p["ffn"], hf, span, prev.get("moe"))
+                    x = x + f
+                    if moe_carry is not None:
+                        new["moe"] = moe_carry
+            elif kind == "rglru":  # a later span from the state the row before wrote
+                a, rec = ops.rglru(p["rec"], h, ops.read_state(state))
+                state = ops.write_state(state, rec)
                 x = x + a
                 x = x + ops.mlp(p["ffn"], apply_norm(cfg, r["norm2"], x))
-            else:
-                st = ops.read_state(state) if decode else dict.fromkeys(state)
+            else:  # a prompt's first span from the zero state, a later one from the cache
+                st = (ops.read_state(state) if decode or (span is not None and span.start)
+                      else dict.fromkeys(state))
                 a, s_new, tm_x = ops.time_mix(p["tm"], h, st["s"], st["tm_x"],
                                               chunk=self.rwkv_chunk)
                 x = x + a
@@ -545,5 +680,8 @@ class Model:
                 x = x + c
                 state = ops.write_state(state, {"s": s_new, "tm_x": tm_x, "cm_x": cm_x})
             out.append(state)
+            carried.append(new)
+        if span is not None and span.stop < span.total:
+            return out, None, carried
         x = apply_norm(cfg, ops.read(params)["final_norm"], x)
-        return out, self._logits_last(params, x[:, -1], ops)
+        return out, self._logits_last(params, x[:, -1], ops), carried

@@ -15,7 +15,9 @@ device.  PyTorch runs them eagerly (:class:`ShardedPrefillStep`,
 ``prefill`` / ``decode_step`` with each layer's attention, FFN and
 recurrent block split over the row's model coordinates and the KV cache
 and recurrent state read on their shards
-(:class:`repro_torch.sharding.tensor_parallel.RowOps`).
+(:class:`repro_torch.sharding.tensor_parallel.RowOps`).  A prompt whose
+sequence the batch specs split over the data axes (batch 1) is prefilled
+span by span, each data row its own (``Model.prefill_span``).
 
 Requests pad up to the nearest bucket, so an executor only ever sees the
 batch sizes on the ladder; in the port, preparing a bucket means running its
@@ -28,6 +30,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from repro_torch.device import current
 from repro_torch.kernels import build
 from repro_torch.sharding import placement as pl
 from repro_torch.sharding import tensor_parallel as tp
@@ -195,10 +198,19 @@ class ShardedPrefillStep(_ShardedServeStep):
       (``tokens`` (B, S), or ``embeds`` (B, S, D); ``src_embeds`` for an
       enc-dec config, encoded first) as whole tensors.
     * **Each data row** computes its contiguous rows when the batch specs
-      split the batch over the data axes; otherwise (batch 1: the specs
-      split the sequence) the prompt runs whole on the first data row,
-      still split along ``"model"``, and its cache is written into its
-      length blocks across ``("data", "model")``.
+      split the batch over the data axes.  When they split the sequence
+      (batch 1, the reference's sequence parallelism), data row j computes
+      the prompt's positions ``[j S / dp, (j + 1) S / dp)``, the rows in
+      order, still split along ``"model"``: its attention reads the K/V the
+      rows before computed (K5 with its first position as the query
+      offset), its recurrent layers start from the state the row before
+      wrote into the cache, its MoE router from their slot counts; each row
+      writes its slots of the cache (split on length across ``("data",
+      "model")``, or on heads), and the logits are the last row's.  A
+      prompt the data rows do not divide raises, as the reference's jit
+      does.  An enc-dec config's ``src_embeds`` are encoded whole on the
+      first data row (``ROADMAP.md`` item 6f.3b).  Any other batch runs
+      whole on the first data row.
     * **Out:** the cache placed by ``cache_specs``, fresh each call (its
       blocks made on their devices), and the last-token logits (B, V) f32
       whole on the mesh's first device.
@@ -208,6 +220,7 @@ class ShardedPrefillStep(_ShardedServeStep):
                  batch: int, max_seq: int):
         super().__init__(model, policy, abstract_params, abstract_cache, batch, max_seq)
         self.split_rows = tp.splits_rows(batch_specs, policy.dp)
+        self.split_seq = not self.split_rows and tp.splits_sequence(batch_specs, policy.dp)
 
     def fresh_cache(self) -> list:
         """A placed cache of the step's batch, every slot empty."""
@@ -221,6 +234,8 @@ class ShardedPrefillStep(_ShardedServeStep):
             raise ValueError(f"a batch of {B} for a step built for {self.batch}")
         params = self._params(params)
         cache = self.fresh_cache()
+        if self.split_seq:
+            return cache, self._over_sequence(params, batch, cache)
         logits = []
         for row in self._rows(self.split_rows):
             part = {k: _rows_of(v, row) for k, v in batch.items()}
@@ -228,6 +243,27 @@ class ShardedPrefillStep(_ShardedServeStep):
                                        ops=tp.RowOps(self.model.cfg, row), states=cache)
             logits.append(lg.to(self.home))
         return cache, torch.cat(logits)
+
+    def _over_sequence(self, params, batch: dict, cache: list) -> torch.Tensor:
+        """The prompt span by span over the data rows into ``cache``; its
+        last-token logits on the mesh's first device."""
+        x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        rows = tp.rows_over_sequence(self.mesh, self.coords_by_row, self.batch, x.shape[1])
+        cfg = self.model.cfg
+        memory = None
+        if cfg.is_encdec and "src_embeds" in batch:
+            first = rows[0]
+            with current(first.device):
+                memory = self.model.encode(params, batch["src_embeds"].to(first.device),
+                                           tp.RowOps(cfg, first))
+        carry = None
+        for row in rows:
+            part = {k: tp.span_of(v, row) for k, v in batch.items() if k != "src_embeds"}
+            with current(row.device):
+                _, logits, carry = self.model.prefill_span(
+                    params, part, self.max_seq, cache, row.span, carry,
+                    ops=tp.RowOps(cfg, row), memory=memory)
+        return logits.to(self.home)
 
 
 class ShardedDecodeStep(_ShardedServeStep):

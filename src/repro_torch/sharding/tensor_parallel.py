@@ -88,10 +88,22 @@ sub-block whose output projection is not split on its input (its heads or
 ``d_ff`` do not divide ``"model"``) is computed once, on the row's device,
 and taken once.
 
-**One difference from the reference's GSPMD steps is left**
-(``ROADMAP.md`` item 6f.3): a batch the specs split on the sequence (batch
-1) runs whole on the first data row, still split along ``"model"``
-(sequence parallelism).
+**Sequence parallelism.**  A batch the specs split on the sequence (batch
+1: ``P(None, dp)``) gives each data row a contiguous span of S / dp
+positions (:func:`rows_over_sequence`, ``Row.span``), the rows in order,
+each still split along ``"model"``: a coordinate joins the K/V of its KV
+heads that the rows before computed (on their devices at its model index,
+moved to its own) to its span's and runs K5 with the span's first position
+as the query offset; RWKV and the RG-LRU start from the state the row
+before left (:class:`Blocks` in training, the cache in serving), and the
+MoE router from the carried slot counts
+(:func:`repro_torch.models.moe.plan_span`).  A sequence the data axes do not
+divide raises, as the reference's jit does.
+
+**One difference from the reference's GSPMD steps is left** (``ROADMAP.md``
+item 6f.3b): an enc-dec config's encoder runs whole on the first data row
+at batch 1, where the reference splits ``src_embeds`` on the sequence too;
+its decoder splits.
 """
 from __future__ import annotations
 
@@ -106,7 +118,7 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import attention, griffin, mlp, moe, rwkv6
 from repro_torch.models.common import cdt
-from repro_torch.models.transformer import LocalOps
+from repro_torch.models.transformer import LocalOps, Span
 from repro_torch.sharding import placement as pl
 
 MODEL = "model"
@@ -140,14 +152,29 @@ def splits_rows(batch_specs: Optional[dict], dp_axes: Sequence[str]) -> bool:
     return bool(specs) and firsts == {tuple(dp_axes)}
 
 
+def splits_sequence(batch_specs: Optional[dict], dp_axes: Sequence[str]) -> bool:
+    """Whether ``batch_specs`` split the sequence (dim 1) over the data axes,
+    the reference's sequence parallelism at ``global_batch <=
+    seq_parallel_threshold``; raises if they disagree on that axis."""
+    from repro_torch.sharding.policy import is_spec
+
+    specs = {k: v for k, v in (batch_specs or {}).items() if is_spec(v)}
+    seconds = {tuple(pl.axes_of(s[1])) if len(s) > 1 else () for s in specs.values()}
+    if len(seconds) > 1:
+        raise ValueError(f"batch specs {specs} disagree on the sequence axis")
+    return bool(specs) and bool(dp_axes) and seconds == {tuple(dp_axes)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Row:
     """One data row at work: its mesh coordinates in model order, their
-    devices, and the batch rows ``[rows[0], rows[1])`` it computes."""
+    devices, the batch rows ``[rows[0], rows[1])`` it computes and, when the
+    sequence is split over the data rows, its span of positions."""
 
     coords: Tuple[tuple, ...]
     devices: Tuple[torch.device, ...]
     rows: Tuple[int, int]
+    span: Optional[Span] = None
 
     @property
     def device(self) -> torch.device:
@@ -163,6 +190,26 @@ def rows_at_work(mesh, coords_by_row: List[list], batch: int, split: bool) -> Li
     per = batch // n
     return [Row(tuple(cs), tuple(mesh.device(c) for c in cs), (j * per, (j + 1) * per))
             for j, cs in enumerate(coords_by_row[:n])]
+
+
+def rows_over_sequence(mesh, coords_by_row: List[list], batch: int, seq: int) -> List[Row]:
+    """The rows that compute a batch whose sequence the specs split: data
+    row j the positions ``[j S / dp, (j + 1) S / dp)`` of every batch row.
+    Raises when the data rows do not divide the sequence, as the
+    reference's jit does."""
+    n = len(coords_by_row)
+    if seq % n:
+        raise ValueError(f"a sequence of {seq} does not split over {n} data rows")
+    per = seq // n
+    return [Row(tuple(cs), tuple(mesh.device(c) for c in cs), (0, batch),
+                Span(j * per, (j + 1) * per, seq))
+            for j, cs in enumerate(coords_by_row)]
+
+
+def span_of(x: torch.Tensor, row: Row) -> torch.Tensor:
+    """The row's span of positions of a whole batch leaf (B, S, ...) on the
+    row's device."""
+    return x[:, row.span.start:row.span.stop].to(row.device)
 
 
 # -- reading blocks ---------------------------------------------------------------
@@ -326,18 +373,24 @@ def _heads(p: dict, c, key: str) -> Tuple[int, int]:
 
 
 def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
-                      row: Row, memory: Optional[torch.Tensor] = None):
+                      row: Row, memory: Optional[torch.Tensor] = None, prefix=None,
+                      q_offset: int = 0):
     """``attention.attend_prefill`` (or ``attend_cross`` with ``memory``)
     split on heads: each coordinate projects its q and KV heads, applies
     RoPE (not to a memory), runs K5 on them and its ``wo`` block; one
     query row over a memory (a decode step's cross-attention) runs
-    ``_sdpa_ref``.  Returns (the summed output on the row's device, [(KV
-    head range, k, v)] covering every KV head once, for the cache)."""
+    ``_sdpa_ref``.  On a data row's span from position ``q_offset``, each
+    coordinate first joins ``prefix[i]``, the (k, v) its model index held
+    up to the span (the row before's, on its device), to its own, and runs
+    K5 with ``q_offset`` over them.  Returns (the summed output on the row's
+    device, [(KV head range, k, v)] of the span's positions covering every
+    KV head once, for the cache, [(k, v)] of each coordinate up to the
+    span's end, for the row after)."""
     group = cfg.num_heads // cfg.num_kv_heads
     q_split = split_dim(p["wq"]) is not None
     kv_split = split_dim(p["wk"]) is not None
     scale = 1.0 / np.sqrt(cfg.head_dim)
-    parts, kv = [], []
+    parts, kv, joined = [], [], []
     for i, (c, dev) in enumerate(_workers(row, q_split)):
         lp = _local(p, c)
         with current(dev):
@@ -348,6 +401,9 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch
                 pos = positions.to(dev)
                 q = attention._rope(cfg, q, pos, kind)
                 k = attention._rope(cfg, k, pos, kind)
+            if prefix is not None:
+                k = torch.cat([prefix[i][0].to(dev), k], dim=1)
+                v = torch.cat([prefix[i][1].to(dev), v], dim=1)
             kq, vq = k, v
             if q_split and not kv_split:
                 pick = kv_pick(_heads(p, c, "wq"), group)
@@ -355,15 +411,17 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch
             if memory is None:
                 out = flash_ops.flash_attention(q, kq, vq, causal=kind != "enc",
                                                 window=attention._window(cfg, kind),
-                                                scale=scale, softcap=cfg.attn_softcap)
+                                                scale=scale, softcap=cfg.attn_softcap,
+                                                q_offset=q_offset)
             elif x.shape[1] > 1:
                 out = flash_ops.flash_attention(q, kq, vq, causal=False, window=0, scale=scale)
             else:
                 out = attention._sdpa_ref(q, kq, vq, None, scale)
             parts.append(attention._out_proj(cfg, lp, out))
+        joined.append((k, v))
         if kv_split or i == 0:
-            kv.append((_heads(p, c, "wk"), k, v))
-    return sum_partials(parts, row.device, cdt(cfg)), kv
+            kv.append((_heads(p, c, "wk"), k[:, q_offset:], v[:, q_offset:]))
+    return sum_partials(parts, row.device, cdt(cfg)), kv, joined
 
 
 def cache_layout(k: pl.Placed) -> str:
@@ -384,30 +442,30 @@ def _quantized(k: torch.Tensor, v: torch.Tensor, state: dict):
     return [("k", k.to(state["k"].dtype)), ("v", v.to(state["v"].dtype))]
 
 
-def fill_cache(state: dict, spec: attention.KVCacheSpec, kv, S: int, row: Row) -> None:
-    """``attention.fill_kv_cache`` into a placed layer cache: each KV head
-    range's slots into the blocks that hold them (every holder), the
-    positions likewise.  A ring keeps the last ``length`` positions at
-    their slots (``pos % length``: a rotation of them)."""
+def fill_cache(state: dict, spec: attention.KVCacheSpec, kv, row: Row, start: int = 0) -> None:
+    """``attention.fill_kv_cache`` into a placed layer cache: the K/V of the
+    positions ``[start, start + S)`` (``kv``: each KV head range's), each
+    into the slots' blocks (every holder), the positions likewise.  A ring
+    keeps the last ``length`` positions at their slots (``pos % length``: a
+    rotation of them, written as at most two runs of slots); a data row's
+    span after the first starts at its ``start``."""
     L = spec.length
-    if spec.ring and S >= L:
-        shift = (S - L) % L
-
-        def slots(t):
-            return torch.roll(t[:, S - L:], shift, dims=1)
-        n, first = L, S - L
-    else:
-        def slots(t):
-            return t
-        n, first = S, 0
+    stop = start + kv[0][1].shape[1]
+    first = max(start, stop - L) if spec.ring else start  # the positions kept
+    runs = [(first, stop)]  # runs of positions whose slots are contiguous
+    if spec.ring and first % L + (stop - first) > L:
+        wrap = first + L - first % L
+        runs = [(first, wrap), (wrap, stop)]
     rows = row.rows
-    for heads, k, v in kv:
-        for name, val in _quantized(slots(k), slots(v), state):
-            pl.write(state[name], (rows, (0, n), heads), val)
-    pos = torch.arange(first, S, dtype=torch.int32, device=row.device)
-    if first:
-        pos = torch.roll(pos, shift)
-    pl.write(state["pos"], (rows, (0, n)), pos[None].expand(rows[1] - rows[0], n))
+    for a, b in runs:
+        slot0 = a % L if spec.ring else a
+        for heads, k, v in kv:
+            for name, val in _quantized(k[:, a - start:b - start], v[:, a - start:b - start],
+                                        state):
+                pl.write(state[name], (rows, (slot0, slot0 + b - a), heads), val)
+        pos = torch.arange(a, b, dtype=torch.int32, device=row.device)
+        pl.write(state["pos"], (rows, (slot0, slot0 + b - a)),
+                 pos[None].expand(rows[1] - rows[0], b - a))
 
 
 def _valid(cfg, kind: str, cpos: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
@@ -570,18 +628,30 @@ def dense_mlp(cfg, p: dict, x: torch.Tensor, row: Row) -> torch.Tensor:
     return sum_partials(parts, row.device, cdt(cfg))
 
 
-def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row, span: Optional[Span] = None,
+            carry: Optional[dict] = None):
     """``moe.apply_moe`` with the experts' and the shared expert's ``d_ff``
     split: routing, capacity, drops, the shared gate and the aux loss
     (``moe.aux_loss``) once on the row's device, then each coordinate's
-    expert and shared-expert partials.  Returns (out, aux)."""
-    xg = moe.token_groups(x)
-    r, combine = moe.plan(cfg, {"router": whole(p["router"], row)}, xg)
+    expert and shared-expert partials.  Returns (out, aux).  On a data
+    row's ``span``, routed by ``moe.plan_span`` from ``carry`` (the rows
+    before's counts and sums, moved to the row's device): (out, its share
+    of the aux loss, the carry)."""
+    router = {"router": whole(p["router"], row)}
+    if span is None:
+        xg = moe.token_groups(x)
+        r, combine = moe.plan(cfg, router, xg)
+        pieces = [(0, xg.shape[1], r, combine)]
+    else:
+        xg = x
+        pieces, carry = moe.plan_span(cfg, router, x, span, carry)
     experts = {k: p[k] for k in ("wi", "wg", "wo") if k in p}
     parts = []
     for c, dev in _workers(row, split_dim(p["wi"]) is not None):
         with current(dev):
-            parts.append(moe.expert_mix(cfg, _local(experts, c), xg.to(dev), combine.to(dev)))
+            mixed = [moe.expert_mix(cfg, _local(experts, c), xg[:, a:b].to(dev),
+                                    combine.to(dev)) for a, b, _, combine in pieces]
+            parts.append(mixed[0] if len(mixed) == 1 else torch.cat(mixed, dim=1))
     if cfg.moe.d_ff_shared:  # the gate after the MLPs, as apply_moe orders them:
         # the backward then sums x's gradient in the same order
         shared = []
@@ -591,7 +661,9 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torc
         sg = moe.shared_gate(cfg, {"shared_gate": whole(p["shared_gate"], row)}, xg)
         parts += [h * sg.to(h.device) for h in shared]
     out = sum_partials(parts, row.device, cdt(cfg)).to(x.dtype).reshape(x.shape)
-    return out, moe.aux_loss(cfg, r)
+    if span is None:
+        return out, moe.aux_loss(cfg, pieces[0][2])
+    return out, moe.span_aux(cfg, span, carry, x.shape[0], row.device), carry
 
 
 def ffn(cfg, p: dict, x: torch.Tensor, row: Row) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -623,6 +695,26 @@ def own_block(x: pl.Placed, c, row: Row) -> Tuple[pl.Region, torch.Tensor]:
     return region, x.shard(c)[pl.slices_within(region, outer)]
 
 
+def state_block(x, i: int, c, row: Row, dev) -> Tuple[Optional[pl.Region], torch.Tensor]:
+    """Coordinate ``c`` (the row's ``i``-th)'s block of an incoming
+    recurrent state: its own block of a placed leaf (:func:`own_block`), or
+    the block the row before's ``i``-th coordinate computed (a
+    :class:`Blocks` carry, the next span of a split sequence), moved to
+    ``dev``."""
+    if isinstance(x, Blocks):
+        region, t = x.parts[i]
+        return region, t.to(dev)
+    return own_block(x, c, row)
+
+
+def _on_row(x, row: Row):
+    """A carried whole state (a tensor, a dict of them, or None) on the
+    row's device."""
+    if isinstance(x, dict):
+        return {k: _on_row(v, row) for k, v in x.items()}
+    return None if x is None else x.to(row.device)
+
+
 def time_mix(cfg, p: dict, x: torch.Tensor, state, last_x, row: Row, chunk: int):
     """``rwkv6.time_mix`` split on heads: the token-shift inputs and the
     decay LoRA's hidden layer once on the row's device (they read
@@ -633,17 +725,21 @@ def time_mix(cfg, p: dict, x: torch.Tensor, state, last_x, row: Row, chunk: int)
     ``state`` (None: zero), the group norm on its channels and its
     ``wo`` rows' partial, summed by :func:`sum_partials`.  Returns (out, the
     new state as :class:`Blocks`, the new ``last_x``).  Heads that do not
-    divide ``"model"`` run whole on the row's device (``state`` whole)."""
+    divide ``"model"`` run whole on the row's device (``state`` whole).
+    ``state`` may also be the :class:`Blocks` the row before computed, and
+    ``last_x`` its ``last_x`` (a split sequence's next span)."""
+    last_x = _on_row(last_x, row)
     if split_dim(p["bonus_u"]) is None:
-        return rwkv6.time_mix(cfg, reader(p, row), x, state, last_x, chunk=chunk)
+        return rwkv6.time_mix(cfg, reader(p, row), x, _on_row(state, row), last_x,
+                              chunk=chunk)
     mixed = rwkv6.time_mix_inputs(reader(p, row), x, rwkv6._shift(x, last_x))
     hd = cfg.rwkv_head_dim
     parts, blocks = [], []
-    for c, dev in zip(row.coords, row.devices):
+    for i, (c, dev) in enumerate(zip(row.coords, row.devices)):
         lp = _local(p, c)
         h0, h1 = p["bonus_u"].region_at(c)[0]
         with current(dev):
-            region, s0 = (None, None) if state is None else own_block(state, c, row)
+            region, s0 = (None, None) if state is None else state_block(state, i, c, row, dev)
             out, s_new = rwkv6.heads_mix(cfg, lp, [t.to(dev) for t in mixed], s0, chunk,
                                          slice(h0 * hd, h1 * hd))
         parts.append(out)
@@ -659,7 +755,7 @@ def channel_mix(cfg, p: dict, x: torch.Tensor, last_x, row: Row):
     ``cm_wr`` on its output columns: each coordinate's slice of the gate
     ``r``, concatenated, not summed.  Returns (cat(r) * Σ kv, the new
     ``last_x``); at one model coordinate the unsharded bits."""
-    xk, xr = rwkv6.channel_inputs(reader(p, row), x, last_x)
+    xk, xr = rwkv6.channel_inputs(reader(p, row), x, _on_row(last_x, row))
     kv = []
     for c, dev in _workers(row, split_dim(p["cm_wk"]) is not None):
         with current(dev):
@@ -682,21 +778,23 @@ def rglru(cfg, p: dict, x: torch.Tensor, state, row: Row):
     read every input channel: the activation is gathered, not a leaf);
     then its gates, the scan (or ``rg_lru_step``) from its block of ``h``
     and its ``w_out`` rows' partial, summed by :func:`sum_partials`.
-    Returns (out, the new state {"h", "conv"} as :class:`Blocks`, or None
-    from ``state`` None, the zero state of training).  A width that does
-    not divide ``"model"`` runs whole on the row's device (``state``
-    whole)."""
+    Returns (out, the new state {"h", "conv"} as :class:`Blocks`; their
+    regions None from ``state`` None, the zero state of training).
+    ``state`` may also hold the :class:`Blocks` the row before computed (a
+    split sequence's next span).  A width that does not divide ``"model"``
+    runs whole on the row's device (``state`` whole)."""
     if split_dim(p["w_rec"]) is None:
-        return griffin.griffin_block(cfg, reader(p, row), x, state)
+        return griffin.griffin_block(cfg, reader(p, row), x, _on_row(state, row))
     work = []  # (device, local params, channels, gate, ξ, new conv tail, h0, regions)
-    for c, dev in zip(row.coords, row.devices):
+    for i, (c, dev) in enumerate(zip(row.coords, row.devices)):
         lp = _local(p, c)
         cols = slice(*p["w_rec"].region_at(c)[-1])
-        tail = h0 = regions = None
+        tail = h0 = None
+        regions = (None, None)
         with current(dev):
             if state is not None:
-                (rh, h0), (rc, tail) = own_block(state["h"], c, row), own_block(state["conv"],
-                                                                                 c, row)
+                (rh, h0), (rc, tail) = (state_block(state["h"], i, c, row, dev),
+                                        state_block(state["conv"], i, c, row, dev))
                 regions = (rh, rc)
             gate, xf, tail = griffin.rec_inputs(cfg, lp, x.to(dev), tail, cols)
         work.append((dev, lp, cols, gate, xf, tail, h0, regions))
@@ -711,11 +809,9 @@ def rglru(cfg, p: dict, x: torch.Tensor, state, row: Row):
         with current(dev):
             out, h_last = griffin.recurrence(cfg, lp, gate, xf_on[dev], xf, h0, step, cols)
         parts.append(out)
-        if regions is not None:
-            h_blocks.append((regions[0], h_last))
-            conv_blocks.append((regions[1], tail))
-    new = None if state is None else {"h": Blocks(tuple(h_blocks)),
-                                      "conv": Blocks(tuple(conv_blocks))}
+        h_blocks.append((regions[0], h_last))
+        conv_blocks.append((regions[1], tail))
+    new = {"h": Blocks(tuple(h_blocks)), "conv": Blocks(tuple(conv_blocks))}
     return sum_partials(parts, row.device, cdt(cfg)), new
 
 
@@ -769,10 +865,16 @@ class RowOps:
     def attend(self, p, h, kind, positions):
         return attention_prefill(self.cfg, p, h, kind, positions, self.row)[0]
 
-    def attend_prefill(self, p, h, kind, positions, state, spec):
-        a, kv = attention_prefill(self.cfg, p, h, kind, positions, self.row)
-        fill_cache(state, spec, kv, h.shape[1], self.row)
-        return a, state
+    def attend_span(self, p, h, kind, positions, start, kv):
+        a, _, joined = attention_prefill(self.cfg, p, h, kind, positions, self.row,
+                                         prefix=kv, q_offset=start)
+        return a, joined
+
+    def attend_prefill(self, p, h, kind, positions, state, spec, start=0, kv=None):
+        a, cache_kv, joined = attention_prefill(self.cfg, p, h, kind, positions, self.row,
+                                                prefix=kv, q_offset=start)
+        fill_cache(state, spec, cache_kv, self.row, start)
+        return a, state, joined
 
     def attend_decode(self, p, h, kind, pos, state, spec):
         return attention_decode(self.cfg, p, h, state, kind, pos, spec, self.row), state
@@ -782,6 +884,11 @@ class RowOps:
 
     def ffn(self, p, x):
         return ffn(self.cfg, p, x, self.row)
+
+    def ffn_span(self, p, x, span, carry):
+        if "router" in p:
+            return moe_ffn(self.cfg, p, x, self.row, span, carry)
+        return self.ffn(p, x) + (None,)
 
     def mlp(self, p, x):
         return dense_mlp(self.cfg, p, x, self.row)

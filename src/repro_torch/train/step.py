@@ -24,7 +24,9 @@ placements: params by ``ShardingPolicy.param_specs``, the AdamW moments by
 placements out as in.  PyTorch runs it eagerly (:class:`ShardedTrainStep`):
 each data row's loss and gradients tensor parallel over its model
 coordinates (:mod:`repro_torch.sharding.tensor_parallel`), each as GSPMD
-splits the reference's compute along ``"model"``.
+splits the reference's compute along ``"model"``; at batch 1 each data row
+computes its own span of the sequence, as the reference's batch specs
+split it.
 """
 from __future__ import annotations
 
@@ -172,11 +174,29 @@ class ShardedTrainStep:
     order and cast once, so the step rounds differently from the
     unsharded one by design.
 
-    One difference from the reference's GSPMD step is left
-    (``ROADMAP.md`` item 6f.3): a batch the specs do not split by rows
-    (replicated, or split on the sequence at ``global_batch <=
-    seq_parallel_threshold``) runs whole on the first data row.  The
-    cross-entropy runs, as GSPMD splits the reference's, on each model
+    **A batch the specs split on the sequence** (``global_batch <=
+    seq_parallel_threshold`` that the data axes do not divide: batch 1)
+    computes ``make_train_step(TrainStepConfig(microbatches=m))``, each
+    microbatch's sequence as one slice: data row j runs the positions ``[j
+    S / dp, (j + 1) S / dp)`` through ``Model.train_span``, the rows in
+    order (each under its device), each layer reading what the rows before
+    left it (K/V joined to its own and read through K5 with a query offset,
+    RWKV's and the RG-LRU's state, the MoE slot counts and router sums);
+    the loss is Σ over the rows of their masked CE sums over the
+    sequence's mask total, plus the whole sequence's aux; then one
+    ``torch.autograd.grad`` over the union of the rows' blocks (autograd
+    carries each row's gradient back into the K/V and state the rows
+    before handed on) and the accumulation as above.  A sequence the data
+    rows do not divide raises, as the reference's jit does, and so do
+    microbatches that do not divide the batch (a batch of 1 into 2).  A
+    batch the specs replicate (split neither way; every data row of the
+    reference computes the same) runs once, on the first data row.
+
+    **One difference from the reference's GSPMD step is left**
+    (``ROADMAP.md`` item 6f.3b): at batch 1 an enc-dec config's encoder
+    runs whole on the first data row, its memory read by every row's
+    decoder span; the reference splits ``src_embeds`` on the sequence
+    too.  The cross-entropy runs, as GSPMD splits the reference's, on each model
     coordinate's vocab block of the unembedding, combined by log-sum-exp
     (:func:`repro_torch.sharding.tensor_parallel.xent`), so no leaf split
     on ``"model"`` is gathered.  ``rwkv`` and ``rglru`` blocks run on each model coordinate's
@@ -196,6 +216,7 @@ class ShardedTrainStep:
         self.rows = tp.data_rows(self.mesh, policy.dp)  # each row's coordinates
         self.home = self.mesh.device(self.rows[0][0])
         self.split_rows = tp.splits_rows(batch_specs, policy.dp)
+        self.split_seq = not self.split_rows and tp.splits_sequence(batch_specs, policy.dp)
 
     def init_opt_state(self) -> opt.AdamWState:
         """Step 0 and zero f32 moments, each block made on its device."""
@@ -218,30 +239,39 @@ class ShardedTrainStep:
         shards = [[((b, self.mesh.device(c)), x.sharding.region(b, x.shape), c)
                    for b, held in x.copies().items() for c, _ in held] for x in M]
 
-        rows = tp.rows_at_work(self.mesh, self.rows, batch["targets"].shape[0],
-                               self.split_rows)
+        B, S = batch["targets"].shape
         m = cfg.microbatches
-        n = len(rows) * m
         acc: List[Dict] = [{} for _ in P]
         loss_sum, metrics = None, {}
-        for row, rb in zip(rows, microbatches(batch, len(rows))):
-            rb = {k: v.to(row.device) for k, v in rb.items()}
-            reads = [tp.row_tensors(x, row) for x in P]  # [(block, tensor)] a leaf
-            tensors = [t for r in reads for _, t in r]
-            ops = tp.RowOps(model.cfg, row)
-            # the backward pass on this thread alone: the autograd engine
-            # runs each card's (and the CPU's) nodes on a thread of its own,
-            # and two threads reaching one remat layer's nodes at once
-            # would both run its non-reentrant recompute
-            with (current(row.device), _requiring_grad(tensors),
-                  torch.autograd.set_multithreading_enabled(False)):
-                for mb in microbatches(rb, m):
-                    loss, metrics, grads = _loss_and_grads(model, params, mb, tensors, ops,
-                                                           materialize=False)
-                    loss = loss.to(self.home)
-                    loss_sum = loss if loss_sum is None else loss_sum + loss
-                    self._accumulate(acc, grads, reads, P, shards, gdt)
-                    del grads
+        if self.split_seq:
+            rows = tp.rows_over_sequence(self.mesh, self.rows, B // m, S)
+            n = m
+            for mb in microbatches(batch, m):
+                loss, metrics, grads, reads = self._over_sequence(params, mb, rows, P)
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                self._accumulate(acc, grads, reads, P, shards, gdt)
+                del grads
+        else:
+            rows = tp.rows_at_work(self.mesh, self.rows, B, self.split_rows)
+            n = len(rows) * m
+            for row, rb in zip(rows, microbatches(batch, len(rows))):
+                rb = {k: v.to(row.device) for k, v in rb.items()}
+                reads = [tp.row_tensors(x, row) for x in P]  # [(block, tensor)] a leaf
+                tensors = [t for r in reads for _, t in r]
+                ops = tp.RowOps(model.cfg, row)
+                # the backward pass on this thread alone: the autograd engine
+                # runs each card's (and the CPU's) nodes on a thread of its own,
+                # and two threads reaching one remat layer's nodes at once
+                # would both run its non-reentrant recompute
+                with (current(row.device), _requiring_grad(tensors),
+                      torch.autograd.set_multithreading_enabled(False)):
+                    for mb in microbatches(rb, m):
+                        loss, metrics, grads = _loss_and_grads(model, params, mb, tensors, ops,
+                                                               materialize=False)
+                        loss = loss.to(self.home)
+                        loss_sum = loss if loss_sum is None else loss_sum + loss
+                        self._accumulate(acc, grads, reads, P, shards, gdt)
+                        del grads
 
         if n > 1:
             loss = loss_sum / n
@@ -256,6 +286,44 @@ class ShardedTrainStep:
         metrics.update(om)
         metrics["loss"] = loss
         return params, opt.AdamWState(step=new_step, m=opt_state.m, v=opt_state.v), metrics
+
+    def _over_sequence(self, params, batch: dict, rows, P):
+        """One microbatch whose sequence is split over the data ``rows``:
+        (loss, metrics, the gradients of every block the rows read, those
+        blocks as [(block, tensor)] a leaf, each tensor once)."""
+        model, cfg = self.model, self.model.cfg
+        reads = []
+        for x in P:
+            seen, mine = set(), []
+            for row in rows:
+                for b, t in tp.row_tensors(x, row):
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        mine.append((b, t))
+            reads.append(mine)
+        tensors = [t for r in reads for _, t in r]
+        # one backward on this thread alone (see __call__)
+        with _requiring_grad(tensors), torch.autograd.set_multithreading_enabled(False):
+            memory = None
+            if cfg.is_encdec:
+                first = rows[0]
+                with current(first.device):
+                    memory = model.encode(params, batch["src_embeds"].to(first.device),
+                                          tp.RowOps(cfg, first), remat=model.remat)
+            ce = count = aux = carry = None
+            for row in rows:
+                part = {k: tp.span_of(v, row) for k, v in batch.items() if k != "src_embeds"}
+                with current(row.device):
+                    c, k, a, carry = model.train_span(params, part, row.span, carry,
+                                                      tp.RowOps(cfg, row), memory)
+                c, k, a = (t.to(self.home) for t in (c, k, a))
+                ce, count, aux = (c, k, a) if ce is None else (ce + c, count + k, aux + a)
+            ce = ce / torch.clamp(count, min=1.0)
+            loss = ce + aux
+            with current(self.home):
+                grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                            materialize_grads=False)
+        return loss.detach(), {"ce": ce.detach(), "aux": aux.detach()}, grads, reads
 
     @staticmethod
     def _accumulate(acc, grads, reads, P, shards, gdt):

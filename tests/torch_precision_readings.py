@@ -20,7 +20,12 @@ from.  Run it from the repo root on a CPU:
 * ``gaps``: at seeds 0-2, ``tests/test_torch_tp_train.py``'s readings:
   3 steps on a (2, 2) mesh against the 2-microbatch step, in bf16 (the
   largest loss gap, the largest and the median leaf-norm gap, the five
-  widest leaves) and in f32 (the largest loss and leaf-norm gaps).
+  widest leaves) and in f32 (the largest loss and leaf-norm gaps);
+* ``batch 1 split``: at seeds 0-2, ``tests/test_torch_seq_parallel.py``'s
+  readings: 3 steps at batch 1 x 128 with the sequence split over the data
+  rows of (2, 1) and (2, 2) against the unsharded step, in bf16 (the
+  largest loss gap, the largest and the median leaf-norm gap), which
+  ``chip_smoke.py``'s ``SEQ_SPLIT_LIMITS`` come from.
 """
 import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import contextlib
@@ -32,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import test_torch_seq_parallel as sp
 import test_torch_sharded_train as st
 import test_torch_tp_train as tpt
 from repro_torch import convert
@@ -133,6 +139,15 @@ def gaps(arch, seed):
           f"{max(tpt._rel(f32[0][1], f32[1][1])):.3g}")
 
 
+def split_gaps(arch, seed):
+    out = []
+    for sizes in ((2, 1), (2, 2)):
+        losses, norms = sp.bf16_gaps(arch, seed, sizes)
+        out.append(f"{sizes} loss {max(losses):.3g}, leaf norms max {max(norms):.3g} "
+                   f"median {np.median(norms):.3g}")
+    print(f"{arch} batch 1 split, seed {seed}: " + "; ".join(out))
+
+
 if __name__ == "__main__":
     for arch in sys.argv[1:] or ["rwkv6-7b"]:
         f64_errors(arch)
@@ -140,3 +155,5 @@ if __name__ == "__main__":
             bf16_noise(arch, seed)
         for seed in range(3):
             gaps(arch, seed)
+        for seed in range(3):
+            split_gaps(arch, seed)
