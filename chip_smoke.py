@@ -203,7 +203,10 @@ against their plain PyTorch versions:
    4,096 on (2, 1) and (2, 2), K5 64 / 128 a step at offsets 0 and 2,048,
    and RWKV6-7B, RecurrentGemma-9B and Qwen2-MoE-A2.7B 1 x 2,048 on (2, 2)
    (K7 16 a step, half from a carried state), each within its (2, 2)
-   limits (Llama's: ``SEQ_SPLIT_LIMITS``); each coordinate's bytes
+   limits (Llama's: ``SEQ_SPLIT_LIMITS``), and Seamless-M4T-large-v2's 2
+   encoder and 2 decoder layers at 1 x 1,024 frames + 1 x 512 tokens on
+   (2, 2), each data row encoding its 512 frames over both rows' K/V (K5 48
+   a step, K6's partial form 4; ``SEQ_SPLIT_LIMITS``); each coordinate's bytes
    equal to
    its specs' arithmetic, over distinct cards every copy of a block
    bit-equal across them, step ms and peak both ways, Llama's idle
@@ -211,7 +214,8 @@ against their plain PyTorch versions:
    that only distinct devices take, on one card: a widened reduced Llama
    at f32, tensor parallel on (2, 2) over cuda:0 and the CPU, every block
    on both, B 4 and B 1 (the sequence split: K/V and gradients cross the
-   two devices); its
+   two devices), and a widened reduced Seamless-M4T at B 1 (64 frames: the
+   encoder's K/V joined across the two devices); its
    copies bit-equal across them, the losses within 1e-5 and the leaf
    norms within 1e-4 of the same steps over cuda:0 alone), ``reshard``
    (the params saved whole and restored with ``shardings=`` onto (4, 1);
@@ -222,9 +226,14 @@ against their plain PyTorch versions:
    ``make_decode_step`` on the same weights: Llama-3-8B whole at 4 x 509
    and 4 x 128 tokens (``max_seq`` 1,024) and 1 x 2,048 (``max_seq``
    4,096), RecurrentGemma-9B's first 3 layers and RWKV6-7B's first 4 at 4
-   x 509 and 1 x 512 (``max_seq`` 1,024), 16 greedy steps each, the
+   x 509 and 1 x 512 (``max_seq`` 1,024), and Seamless-M4T-large-v2 whole
+   at 4 x 509 frames + 8 tokens and 1 x 1,000 frames + 16 (``max_seq`` 64,
+   its decode steps with the memory), 16 greedy steps each, the
    sharded ones teacher-forced with the unsharded path's tokens; at batch
-   1 each data row prefills its span of the prompt: the prefill's and
+   1 each data row prefills its span of the prompt, and encodes its span
+   of the frames layer by layer over both rows' K/V (Seamless K5 96 a
+   stack, the encoder's at (1, 500, 8, 8, 64) over 1,000 frames; an
+   utterance of 999 frames raising): the prefill's and
    every decode step's logits within ``LM_LOGITS_TOL``, K5 once an
    attention layer and K7 once an RWKV layer on each model coordinate of
    each data row (Llama-3-8B K5 128, at batch 1 at offsets 0 and 1,024;
@@ -2153,7 +2162,9 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
 # 2048) at batch 4 (two rows a data row) and a batch-1 prompt of 509 whole;
 # batch-1 spans are K5_OFFSET's
 K5_SHARDED_SERVE = [(2, 509, 16, 4, 128, 0, 0.0), (2, 128, 16, 4, 128, 0, 0.0),
-                    (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0)]
+                    (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0),
+                    # Seamless-M4T's decoder at 4 x 8 tokens: two rows, 8 of 16 heads
+                    (2, 8, 8, 8, 64, 0, 0.0)]
 K5_EXTRA += K5_SHARDED_SERVE
 # K5 at the shapes the sharded train steps of sharded_train give it: a data
 # row's rows and a model coordinate's heads.  Llama-3.2-1B's B 8 split over 2
@@ -2171,6 +2182,16 @@ K5_EXTRA += K5_SHARDED_TRAIN
 K5_NONCAUSAL = [(1, 1000, 16, 16, 64, 1000), (4, 509, 16, 16, 64, 509),
                 (4, 1000, 16, 16, 64, 1000), (4, 8, 16, 16, 64, 509),
                 (4, 16, 16, 16, 64, 1000)]
+# ... and at the shapes the sharded phases give Seamless-M4T's encoder and
+# cross-attention on (2, 2), a model coordinate's 8 of 16 heads: sharded_serve
+# at 4 x 509 frames (two rows a data row, every frame) and at 1 x 1,000
+# frames, where each data row's 500 frames' queries read all 1,000 frames
+# (the encoder's sequence split) and its 8 of 16 tokens' read them too, and
+# sharded_train at 1 x 1,024 frames and 512 tokens
+K5_ENCODER_SPLIT = [(2, 509, 8, 8, 64, 509), (2, 8, 8, 8, 64, 509),
+                    (1, 500, 8, 8, 64, 1000), (1, 8, 8, 8, 64, 1000),
+                    (1, 512, 8, 8, 64, 1024), (1, 256, 8, 8, 64, 1024)]
+K5_NONCAUSAL += K5_ENCODER_SPLIT
 # K5 with a query offset, causal, (B, S, H, K, h, window, q_offset) over T =
 # q_offset + S keys: the spans of a sequence split over 2 data rows at batch 1
 # on (2, 2), a model coordinate's heads (sharded_serve's and sharded_train's
@@ -2188,6 +2209,10 @@ K5_OFFSET = [(1, 1024, 16, 4, 128, 0, 0), (1, 1024, 16, 4, 128, 0, 1024),
              (1, 256, 8, 1, 256, 2048, 0), (1, 256, 8, 1, 256, 2048, 256),
              (1, 1024, 8, 1, 256, 2048, 0), (1, 1024, 8, 1, 256, 2048, 1024),
              (1, 1024, 8, 8, 128, 0, 0), (1, 1024, 8, 8, 128, 0, 1024),
+             # Seamless-M4T's decoder spans: the served prompt of 16, the
+             # train sequence of 512 (8 of 16 heads, h 64)
+             (1, 8, 8, 8, 64, 0, 0), (1, 8, 8, 8, 64, 0, 8),
+             (1, 256, 8, 8, 64, 0, 0), (1, 256, 8, 8, 64, 0, 256),
              (1, 129, 32, 8, 64, 0, 383), (1, 100, 32, 8, 64, 64, 200)]
 K5_TOL = {"f32": 2e-5, "bf16": 5e-2}  # rtol = atol, tests/test_kernel_flash.py
 # bf16 also per output row (one query, one head): max |diff| within this
@@ -2391,6 +2416,7 @@ def k5_checks(torch, np, report) -> None:
     worst_sharded = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_SERVE
     worst_sharded_train = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_TRAIN
     worst_offset = {"f32": 0.0, "bf16": 0.0}  # K5_OFFSET, past offset 0
+    worst_encoder = {"f32": 0.0, "bf16": 0.0}  # K5_ENCODER_SPLIT
     worst_row = 0.0
     n_checks = 0
     for ci, (B, S, T, H, K, h, window, softcap, causal, off) in enumerate(cases):
@@ -2424,6 +2450,8 @@ def k5_checks(torch, np, report) -> None:
                 worst_sharded_train[kind] = max(worst_sharded_train[kind], err)
             if off:
                 worst_offset[kind] = max(worst_offset[kind], err)
+            if not causal and (B, S, H, K, h, T) in K5_ENCODER_SPLIT:
+                worst_encoder[kind] = max(worst_encoder[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2463,6 +2491,8 @@ def k5_checks(torch, np, report) -> None:
                  "offset_checks": 2 * len(K5_OFFSET),
                  "offset_cases": [list(c) for c in K5_OFFSET],
                  "offset_max_abs_err": worst_offset,
+                 "encoder_split_checks": 2 * len(K5_ENCODER_SPLIT),
+                 "encoder_split_max_abs_err": worst_encoder,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -3311,15 +3341,16 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                      "launches": launches, "max_abs_err": err, "bound_ms": bms,
                      "bound_by": bby, "library": f"{lib_name}, enable_gqa), bf16", **t})
         row = "a row's span" if B == 1 else "a row's"  # batch 1: the sequence split
+        over = "" if causal else f" over T={T}, no mask"  # an enc-dec's encoder or cross
         entries.append({
             "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}, "
                      f"H={H} K={K} h={h}]"
                      if mode == "train" else
                      f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, {row} B={B} "
-                     f"S={S}{at}, a coordinate's H={H} K={K} h={h}]"
+                     f"S={S}{at}{over}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded prefill" else
                      f"K5 flash_fwd_bf16 [{arch} sharded train attention, {row} B={B} "
-                     f"S={S}{at}, a coordinate's H={H} K={K} h={h}]"
+                     f"S={S}{at}{over}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded train" else
                      f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
                      if mode == "prefill" else
@@ -3346,7 +3377,12 @@ def k7_timing_phase(torch, np, report, rng, k7_launches, sharded=()) -> list:
     from repro_torch.kernels.wkv.ref import wkv_chunked
 
     cases = [("prefill", 1, S, 64, k7_launches, False) for S in K7_TIMING_SEQS]
-    cases += [(mode, key[2], key[3], key[4], n, key[8]) for mode, key, n in sharded]
+    # one row a (mode, shape): the bf16 and f32 sharded runs' launches summed
+    merged = {}
+    for mode, key, n in sharded:
+        at = (mode, key[2], key[3], key[4], key[8])
+        merged[at] = merged.get(at, 0) + n
+    cases += [(mode, B, S, H, n, carried) for (mode, B, S, H, carried), n in merged.items()]
     entries = []
     for mode, B, S, H, launches, carried in cases:
         r, k, v, logw, u = _wkv_inputs(torch, np, rng, B, S, H, 64, torch.bfloat16)
@@ -3423,13 +3459,16 @@ K6_CASES = [
     (32, 16, 37, 0.0, 0.1),
     # a data row's rows (and a microbatch's) of Llama-3.2-1B's, Qwen2-MoE's,
     # RWKV6-7B's and RecurrentGemma-9B's train batches in sharded_train and
-    # the 2-microbatch steps: the first rows of the train shapes' inputs
-    # above (k6_checks keeps those); split in K6_PART_BLOCKS, they are the
-    # vocab blocks sharded_train gives K6's partial form
+    # the 2-microbatch steps, at the train shapes' D and V; split in
+    # K6_PART_BLOCKS, they are the vocab blocks sharded_train gives K6's
+    # partial form
     (2048, 2048, 128256, 0.0, None),
     (1024, 2048, 151936, 0.0, None),
     (1024, 4096, 65536, 0.0, None),
     (1024, 4096, 256000, 0.0, None),
+    # Seamless-M4T-large-v2's batch-1 train sequence of 512 tokens split over
+    # 2 data rows (d 1,024, its untied V 256,208): a row's span of 256
+    (256, 1024, 256208, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -3486,44 +3525,34 @@ TRAIN_STRICT = (("llama3.2-1b", 30, 2), ("rwkv6-7b", 31, 2), ("recurrentgemma-9b
 REMAT_DOTS_LOSS_RTOL = 1e-6
 
 
-def _xent_inputs(torch, np, rng, N, D, V, w_std):
+def _xent_inputs(torch, seed, N, D, V, w_std=None):
     """x ~ N(0, 1) (N, D), w (V, D) of std ``w_std`` (1/sqrt(D) if None),
-    f32 on the card, and int32 targets with 0, V - 1 and an id inside the
-    last (partial) vocab tile among them."""
-    x = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32, device="cuda")
-    w = torch.as_tensor(rng.standard_normal((V, D)) * (w_std or D ** -0.5),
-                        dtype=torch.float32, device="cuda")
-    t = rng.integers(0, V, N).astype(np.int32)
+    f32, and int32 targets with 0, V - 1 and an id inside the last
+    (partial) vocab tile among them, drawn on the card from a generator
+    seeded with ``seed`` (a vocabulary's weights drawn on the host take
+    seconds a hundred million)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((N, D), generator=gen, device="cuda")
+    w = torch.randn((V, D), generator=gen, device="cuda") * (w_std or D ** -0.5)
+    t = torch.randint(0, V, (N,), generator=gen, device="cuda", dtype=torch.int32)
     last_tile = (V - 1) // 128 * 128
-    t[:3] = [0, V - 1, last_tile + (V - 1 - last_tile) // 2]
-    return x, w, torch.as_tensor(t, device="cuda")
+    t[:3] = torch.tensor([0, V - 1, last_tile + (V - 1 - last_tile) // 2], dtype=torch.int32)
+    return x, w, t
 
 
-def k6_checks(torch, np, report) -> None:
+def k6_checks(torch, report) -> None:
     """K6 against its plain version (``seq_chunked_xent``) on K6_CASES, at the
     automatic split count and (small cases) at one split, per token within
-    K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M.  A case whose D, V and
-    w std an earlier case had takes that case's first N rows (drawing a
-    vocabulary's weights on the host takes seconds)."""
+    K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M, each case's inputs
+    drawn by ``_xent_inputs``."""
     from repro_torch.kernels.xent import ref as xent_ref
     from repro_torch.kernels.xent.kernel import K6_LAUNCHES, fused_xent_fwd, split_count
 
     eps = torch.finfo(torch.float32).eps
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, part_rows = [], []
-    kept = {}  # (D, V, w std) -> inputs a later case takes its first rows of
     for ci, (N, D, V, cap, w_std) in enumerate(K6_CASES):
-        key = (D, V, w_std)
-        if key in kept and kept[key][0].shape[0] >= N:
-            x, w, t = kept[key]
-            x, t = x[:N], t[:N]
-        else:
-            rng = np.random.default_rng(6000 + ci)
-            x, w, t = _xent_inputs(torch, np, rng, N, D, V, w_std)
-        if any((d, v, s) == key and n <= N for n, d, v, _, s in K6_CASES[ci + 1:]):
-            kept[key] = (x, w, t)
-        else:
-            kept.pop(key, None)
+        x, w, t = _xent_inputs(torch, 6000 + ci, N, D, V, w_std)
         with torch.no_grad():
             want = xent_ref.seq_chunked_xent(x[None], w, t[None], softcap=cap)[0]
         M = x.norm(dim=1) * w.norm(dim=1).max()
@@ -3709,14 +3738,17 @@ def grad_checks(torch, np, report) -> None:
 
 def _train_model(torch, arch, seed, layers, compute_dtype=None):
     """(model, params, cfg): the registry config at full width (``layers``
-    layers if given), ``xent_impl="chunked"``, remat on, f32 params from a
-    seeded generator on the card (never stored in the compute dtype)."""
+    layers if given, an enc-dec's encoder too), ``xent_impl="chunked"``,
+    remat on, f32 params from a seeded generator on the card (never stored
+    in the compute dtype)."""
     import dataclasses
 
     from repro_torch.configs import base as cfgbase
     from repro_torch.models.transformer import Model
 
     changes = {} if layers is None else {"num_layers": layers}
+    if layers is not None and cfgbase.get_config(arch).is_encdec:
+        changes["encoder_layers"] = layers
     if compute_dtype:
         changes["compute_dtype"] = compute_dtype
     cfg = dataclasses.replace(cfgbase.get_config(arch), **changes)
@@ -4155,16 +4187,34 @@ def _counting_gathers(params):
         pl.gather = real
 
 
-def _device_batch(pipe, step):
-    """The token pipeline's batch ``step`` on the card."""
+def _device_batch(pipe, step, frames=None):
+    """The token pipeline's batch ``step`` on the card; with ``frames`` (T,
+    D), an enc-dec's ``src_embeds`` (B, T, D) ~ N(0, 1) beside it, f32,
+    drawn on the card from the pipeline's seed and the step (the audio
+    frontend is a stub: precomputed frame embeddings)."""
+    import torch
+
     from repro_torch.data import tokens as tok
 
-    return tok.device_batch(pipe, step, "cuda")
+    batch = tok.device_batch(pipe, step, "cuda")
+    if frames is not None:
+        gen = torch.Generator("cuda").manual_seed(1000 * pipe.seed + step)
+        batch["src_embeds"] = torch.randn((pipe.global_batch, *frames), generator=gen,
+                                          device="cuda")
+    return batch
+
+
+def _k5_layers(cfg) -> int:
+    """The attention layers that run K5 in a prefill or a train forward:
+    the decoder's, and an enc-dec's encoder layers and cross sub-blocks."""
+    n = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    return n + (cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0)
 
 
 def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile,
-                 steps=SHARDED_STEPS + 1):
-    """``steps`` steps of ``step_fn`` on the pipeline's batches, every
+                 steps=SHARDED_STEPS + 1, frames=None):
+    """``steps`` steps of ``step_fn`` on the pipeline's batches (an enc-dec's
+    frames beside them: ``_device_batch``), every
     launch counter set to 0 just before each, the last under the profiler
     when ``profile`` (else timed as the others); raises unless each step's
     launches are ``want`` and its loss finite.  Returns (params, state, the
@@ -4176,7 +4226,7 @@ def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile,
         torch.cuda.reset_peak_memory_stats(i)
     ms, losses, launches, by_key = [], [], [], {"K5": {}, "K6": {}, "K7": {}}
     for s in range(steps):
-        batch = _device_batch(pipe, s)
+        batch = _device_batch(pipe, s, frames)
         _sync_all(torch)
         for c in counters.values():
             c.reset()
@@ -4213,7 +4263,7 @@ def _train_drive(torch, np, name, step_fn, params, state, pipe, want, profile,
 
 
 def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S, profile,
-                 steps=SHARDED_STEPS + 1):
+                 steps=SHARDED_STEPS + 1, frames=None):
     """``jit_train_step`` on ``_sharded_mesh(model=sizes_model)`` from the
     CPU copy ``initial``, ``steps`` steps: (params, state, step, the run's
     record with its gathers by leaf, bytes a coordinate and copies across
@@ -4236,7 +4286,7 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
     with _counting_gathers(params) as gathers:
         params, state, rec, k5 = _train_drive(torch, np, name, step, params,
                                               step.init_opt_state(), pipe, want, profile,
-                                              steps)
+                                              steps, frames)
     trees = (params, state.m, state.v)
     several, unequal = _copies_disagree(torch, trees)
     by_coord = _coordinate_bytes(np, list(zip(trees, (step.param_shardings,
@@ -4256,16 +4306,28 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
     return params, state, step, rec, k5
 
 
-# sharded_train at batch 1: (sequence length, model axes, steps) a run.  The
+# sharded_train at batch 1: (sequence length, model axes, steps, frames,
+# (seed, layers) of a cell with no batch split, else None) a run.  The
 # batch specs split the sequence over the 2 data rows: each row its span of
 # S / 2 positions (K5 at the span's query offset over the rows' K/V, K7 and
 # the RG-LRU from the state the row before left, the MoE router from its
 # slot counts), beside the unsharded step at microbatches=1 on the same
 # tokens and held to each arch's (2, 2) limits, or SEQ_SPLIT_LIMITS' where
 # the split's own readings need another.  Llama-3.2-1B's 4,096 tokens are the
-# lm_train cell's in one sequence.
-SEQ_SPLIT_TRAIN = {"llama3.2-1b": (4096, (1, 2), 3), "qwen2-moe-a2.7b": (2048, (2,), 2),
-                   "rwkv6-7b": (2048, (2,), 2), "recurrentgemma-9b": (2048, (2,), 2)}
+# lm_train cell's in one sequence (2 steps a run, the second profiled).
+# Seamless-M4T-large-v2 at full width, 2 + 2 of its 24 + 24 layers (AdamW's
+# 16 B a parameter at full depth is ~37 GB beside the vocab's), bf16 compute,
+# f32 params: 1 x 1,024 frames + 1 x 512 tokens, the frames split too (each
+# data row encodes its 512, layer by layer over both rows' K/V).
+SEQ_SPLIT_TRAIN = {"llama3.2-1b": (4096, (1, 2), 2, None, None),
+                   "qwen2-moe-a2.7b": (2048, (2,), 2, None, None),
+                   "rwkv6-7b": (2048, (2,), 2, None, None),
+                   "recurrentgemma-9b": (2048, (2,), 2, None, None),
+                   "seamless-m4t-large-v2": (512, (2,), 2, 1024, (25, 2))}
+# sharded_train's cells in order: (arch, the model axes of its batch-split
+# runs, none for a batch-1 cell alone)
+SHARDED_TRAIN = (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,)), ("rwkv6-7b", (2,)),
+                 ("recurrentgemma-9b", (2,)), ("seamless-m4t-large-v2", ()))
 # Llama-3.2-1B at batch 1: the joined K/V's gradient takes a bf16 rounding a
 # row (each row's attention VJP rounds its share, then they are summed),
 # which the batch split does not have.  Its CPU bf16 readings at 1 x 128 over
@@ -4274,7 +4336,13 @@ SEQ_SPLIT_TRAIN = {"llama3.2-1b": (4096, (1, 2), 3), "qwen2-moe-a2.7b": (2048, (
 # the limits are 3x them, as SHARDED_TP_* are 3x the batch split's (its
 # first card reading: losses 1.25e-5, leaf norms 1.41e-2, over the batch
 # split's 1e-2).  The other archs' readings are within their (2, 2) limits.
-SEQ_SPLIT_LIMITS = {"llama3.2-1b": (1.0e-3, 2.1e-2, "max")}
+# Seamless-M4T-large-v2 (2 + 2 layers; no batch-split cell to borrow
+# limits from): its CPU bf16 readings at 1 x 128 tokens beside 256 frames
+# over 3 seeds, on (2, 2) against the unsharded step, 3 steps
+# (tests/torch_precision_readings.py): losses 2.39e-4, leaf norms 1.08e-2;
+# 3x them, rounded up.
+SEQ_SPLIT_LIMITS = {"llama3.2-1b": (1.0e-3, 2.1e-2, "max"),
+                    "seamless-m4t-large-v2": (7.2e-4, 3.3e-2, "max")}
 
 
 def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, names,
@@ -4285,8 +4353,10 @@ def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, nam
     Checks each run's losses and leaf norms at its arch's (2, 2) limits, its
     launches a step (K5 and K7 once a layer a coordinate a row, twice with
     remat; K6 once a row, its partial form on (2, 2)), K5 at the spans'
-    offsets 0 and S / 2, K7 from a carried state on the second row, and
-    what ``_sharded_faults`` checks.  Returns the runs' records by name;
+    offsets 0 and S / 2, K7 from a carried state on the second row, an
+    enc-dec's frames split too (every encoder K5 launch on a row's half of
+    the frames over all of them, none over the whole), and what
+    ``_sharded_faults`` checks.  Returns the runs' records by name;
     adds their launch keys to ``keys_all`` and what they broke to
     ``faults``."""
     from repro_torch.data import tokens as tok
@@ -4295,7 +4365,8 @@ def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, nam
     from repro_torch.tree import tree_map
 
     cfg = model.cfg
-    S, meshes, steps = SEQ_SPLIT_TRAIN[arch]
+    S, meshes, steps, T, _ = SEQ_SPLIT_TRAIN[arch]
+    frames = None if T is None else (T, cfg.d_model)
     pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=1,
                                    seed=seed)
     profile = arch == "llama3.2-1b"  # the idle share, unsharded and on (2, 2)
@@ -4304,12 +4375,13 @@ def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, nam
     one = make_train_step(model, TrainStepConfig(microbatches=1, adamw=adamw))
     params = tree_map(lambda p: p.to("cuda", copy=True), initial)
     params, state, u, _ = _train_drive(torch, np, f"{arch} batch 1 unsharded", one, params,
-                                       opt.init_state(params), pipe, want_u, profile, steps)
+                                       opt.init_state(params), pipe, want_u, profile, steps,
+                                       frames)
     want_norms = _leaf_norms(torch, (params, state.m, state.v))
     del params, state
     torch.cuda.empty_cache()
     runs = {"batch1_unsharded": u}
-    n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+    n_attn = _k5_layers(cfg)
     n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
     if arch in SEQ_SPLIT_LIMITS:
         loss_rtol, norm_rtol, read = SEQ_SPLIT_LIMITS[arch]
@@ -4325,12 +4397,17 @@ def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, nam
                     K6=2 * n_model)
         params, state, step, rec, by_key = _sharded_run(
             torch, np, f"{arch} {name}", model, initial, pipe, n_model, want, 1, S,
-            profile and n_model > 1, steps)
+            profile and n_model > 1, steps, frames)
         norm_rel = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
         loss_rel = _rel_errs(rec["losses"], u["losses"])
         gap = max(norm_rel) if read == "max" else float(np.median(norm_rel))
         carried = sum(n for k, n in by_key["K7"].items() if k[7])
         offsets = sorted({k[10] for k in by_key["K5"]})
+        if frames is not None:  # the encoder: each row's half of the frames over all
+            enc = sum(n for k, n in by_key["K5"].items() if k[1:4] == (1, T // 2, T)
+                      and not k[7])
+            rec["encoder_k5_split"] = enc
+            rec["encoder_k5_whole"] = sum(n for k, n in by_key["K5"].items() if k[2] == T)
         rec.update({"loss_rel_err": loss_rel, "leaves_norm_checked": len(norm_rel),
                     "leaf_norm_max_rel_err": max(norm_rel),
                     "leaf_norm_median_rel_err": float(np.median(norm_rel)),
@@ -4352,6 +4429,10 @@ def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, nam
             problems.append(f"not split on the sequence: offsets {offsets}")
         if carried != n_rwkv * n_model * 2 * steps:  # the second row's, twice with remat
             problems.append(f"K7 from a carried state {carried} times")
+        if frames is not None and (rec["encoder_k5_whole"] or rec["encoder_k5_split"]
+                                   != cfg.encoder_layers * n_model * 2 * 2 * steps):
+            problems.append(f"encoder K5 {rec['encoder_k5_split']} on a row's frames, "
+                            f"{rec['encoder_k5_whole']} on all of them")
         if problems:
             faults.append(f"{arch} {name}: {problems}; {rec['losses']} vs {u['losses']}, "
                           f"leaf norms {max(norm_rel)}")
@@ -4391,6 +4472,137 @@ def _sharded_faults(cfg, rec, by_key) -> list:
     return faults
 
 
+def _batch_split_train(torch, np, arch, f32, model, params, initial, meshes, adamw, seed, B,
+                       S, per_step, names, keys_all, faults):
+    """The batch-split runs of one cell of ``sharded_train_phase``, from
+    ``params`` on the card and their CPU copy ``initial``: the unsharded
+    step at 2 microbatches (and, at f32 compute, at 1), then
+    ``jit_train_step`` on each of ``meshes``.  Returns (the runs' records
+    by name, Llama's (2, 2) ((params, state), step) or None); adds their
+    launch keys to ``keys_all`` and what they broke to ``faults``."""
+    from repro_torch.data import tokens as tok
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import TrainStepConfig, make_train_step, microbatches
+    from repro_torch.tree import tree_map
+
+    cfg = model.cfg
+    tag = " f32" if f32 else ""
+    kept = None
+    pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B, seed=seed)
+    aux_check = None
+    if cfg.moe is not None:  # each data row's aux loss through RowOps, first batch
+        from repro_torch.ft.resilience import reshard_tree
+        from repro_torch.sharding.policy import ShardingPolicy
+
+        mesh = _sharded_mesh(torch, 2)
+        policy = ShardingPolicy(mesh, cfg)
+        placed = reshard_tree(params, policy.shardings(policy.param_specs(params)))
+        rows = tp.rows_at_work(mesh, tp.data_rows(mesh, policy.dp), B, True)
+        aux_check = []
+        with torch.no_grad():
+            for row, mb in zip(rows, microbatches(_device_batch(pipe, 0), 2)):
+                _, mu = model.train_loss(params, mb)
+                _, ms = model.train_loss(placed, {k: v.to(row.device) for k, v in
+                                                  mb.items()}, ops=tp.RowOps(cfg, row))
+                aux_check.append([float(mu["aux"]), float(ms["aux"])])
+        del placed
+    unsharded = make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))
+    want_u = {k: 0 for k in _counters()}
+    want_u.update({k: 2 * n for k, n in per_step.items()})
+    # Llama's idle share, unsharded and on (2, 2)
+    profile = cfg.moe is None and not f32
+    params, state, u, _ = _train_drive(torch, np, f"{arch}{tag} unsharded",
+                                       unsharded, params, opt.init_state(params),
+                                       pipe, want_u, profile)
+    want_norms = _leaf_norms(torch, (params, state.m, state.v))
+    del params, state
+    torch.cuda.empty_cache()
+    runs = {"unsharded_2_microbatches": u}
+    if f32:  # the unsharded step's own sums in another order: 1 microbatch
+        one = make_train_step(model, TrainStepConfig(microbatches=1, adamw=adamw))
+        params = tree_map(lambda p: p.to("cuda", copy=True), initial)
+        params, state, u1, _ = _train_drive(
+            torch, np, f"{arch}{tag} unsharded, 1 microbatch", one, params,
+            opt.init_state(params), pipe, {**want_u, **per_step}, False)
+        probe = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
+        u1.update({"leaf_norm_max_rel_err": max(probe),
+                   "leaf_norm_median_rel_err": float(np.median(probe)),
+                   "leaf_norm_worst": sorted(zip(probe, names), reverse=True)[:5]})
+        runs["unsharded_1_microbatch"] = u1
+        del params, state
+        torch.cuda.empty_cache()
+    for n_model in meshes:
+        name = f"sharded_2x{n_model}"
+        n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+        n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
+        # K6 once a data row (its partial form on each model coordinate's block)
+        want = dict(want_u, K5=n_attn * n_model * 2 * 2, K7=n_rwkv * n_model * 2 * 2,
+                    K6=2 * n_model)
+        params, state, step, rec, by_key = _sharded_run(
+            torch, np, f"{arch}{tag} {name}", model, initial, pipe, n_model, want, B, S,
+            profile and n_model > 1)
+        norm_rel = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
+        loss_rel = _rel_errs(rec["losses"], u["losses"])
+        rec.update({"loss_rel_err": loss_rel, "leaves_norm_checked": len(norm_rel),
+                    "leaf_norm_max_rel_err": max(norm_rel),
+                    "leaf_norm_median_rel_err": float(np.median(norm_rel)),
+                    "leaf_norm_worst": sorted(zip(norm_rel, names), reverse=True)[:5],
+                    "step1_loss_bit_equal": rec["losses"][0] == u["losses"][0]})
+        if n_model == 1:
+            rec.update(loss_rtol=SHARDED_LOSS_RTOL, norm_rtol=SHARDED_NORM_RTOL)
+            bad = (not rec["step1_loss_bit_equal"]
+                   or max(loss_rel) > SHARDED_LOSS_RTOL
+                   or not max(norm_rel) <= SHARDED_NORM_RTOL)
+        elif f32:
+            norm_rtol = max(SHARDED_F32_NORM_RTOL,
+                            SHARDED_F32_PROBE_FACTOR * u1["leaf_norm_max_rel_err"])
+            rec.update(loss_rtol=SHARDED_F32_LOSS_RTOL, norm_rtol=norm_rtol)
+            bad = (not max(loss_rel) <= SHARDED_F32_LOSS_RTOL
+                   or not max(norm_rel) <= norm_rtol)
+        elif cfg.moe is None:
+            loss_rtol, norm_rtol, read = SHARDED_TP_LIMITS[arch]
+            gap = max(norm_rel) if read == "max" else float(np.median(norm_rel))
+            rec.update(loss_rtol=loss_rtol, norm_rtol=norm_rtol, norm_gap_gated=read)
+            bad = not max(loss_rel) <= loss_rtol or not gap <= norm_rtol
+        else:
+            aux_rel = [abs(s_ - u_) / abs(u_) if u_ else float("inf")
+                       for u_, s_ in aux_check]
+            rec.update(loss_rtol=SHARDED_MOE_LOSS_RTOL,
+                       norm_rtol=SHARDED_MOE_NORM_RTOL,
+                       aux_unsharded_vs_rowops=aux_check, aux_rel_err=aux_rel,
+                       aux_rtol=SHARDED_MOE_AUX_RTOL)
+            bad = (not max(loss_rel) <= SHARDED_MOE_LOSS_RTOL
+                   or not max(norm_rel) <= SHARDED_MOE_NORM_RTOL
+                   or not max(aux_rel) <= SHARDED_MOE_AUX_RTOL)
+        rec["k7_shapes"] = sorted(str(k[1:6]) for k in by_key["K7"])
+        rec["k6_launches_by_entry_and_shape"] = {str(k[:4]): n
+                                                 for k, n in by_key["K6"].items()}
+        entry = "xent_fwd_f32" if n_model == 1 else "xent_part_f32"
+        if any(k[0] != entry for k in by_key["K6"]):
+            faults.append(f"{arch}{tag} {name}: K6 {sorted(by_key['K6'])}, want "
+                          f"{entry} alone")
+        problems = (_sharded_faults(cfg, rec, by_key)
+                    + (["outside its limits"] if bad else [])
+                    + [f"K7 at {k} outside K7_SHARDED"
+                       for k in k7_unheld(by_key["K7"])])
+        if problems:
+            faults.append(f"{arch}{tag} {name}: {problems}; {rec['losses']} vs "
+                          f"{u['losses']}, leaf norms {max(norm_rel)}")
+        for kernel, keys in by_key.items():
+            for key, n in keys.items():
+                at = (arch,) + key
+                keys_all[kernel][at] = keys_all[kernel].get(at, 0) + n
+        runs[name] = rec
+        if (arch, n_model) == ("llama3.2-1b", 2):
+            kept = (params, state), step
+        else:
+            del params, state, step
+        torch.cuda.empty_cache()
+    return runs, kept
+
+
 def sharded_train_phase(torch, np, report):
     """The train cells through ``jit_train_step`` beside the unsharded step
     with 2 microbatches (see SHARDED_STEPS' comment): Llama-3.2-1B at full
@@ -4410,150 +4622,52 @@ def sharded_train_phase(torch, np, report):
     placement, each coordinate's bytes equal to its specs' arithmetic, and
     (over distinct cards) every copy of a block bit-equal across the cards;
     Qwen2-MoE's aux loss nonzero and each row's within SHARDED_MOE_AUX_RTOL
-    through RowOps.  Records step ms, peak memory, Llama's idle share of a
+    through RowOps (``_batch_split_train``).  Then the batch-1 runs of
+    SEQ_SPLIT_TRAIN (``_seq_split_train``), Seamless-M4T-large-v2's among
+    them (a cell with no batch split: 2 + 2 layers, its frames and tokens
+    split over the data rows).  Records step ms, peak memory, Llama's idle share of a
     profiled step unsharded and on (2, 2), gathers by leaf, bytes at each
     coordinate and on each card, each run's five widest leaf-norm gaps.
     Returns (the (2, 2) Llama state, its step, {"K5" / "K6" / "K7": their
     launches by (arch,) + key over the sharded runs})."""
-    from repro_torch.data import tokens as tok
     from repro_torch.launch.train import adamw_config
-    from repro_torch.sharding import tensor_parallel as tp
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.step import TrainStepConfig, make_train_step, microbatches
     from repro_torch.tree import flatten_with_paths, tree_map
 
     t_phase = time.perf_counter()
     adamw = adamw_config(SHARDED_STEPS + 1)
     keys_all, faults = {"K5": {}, "K6": {}, "K7": {}}, []
     out = None
-    for arch, meshes in (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,)),
-                         ("rwkv6-7b", (2,)), ("recurrentgemma-9b", (2,))):
-        seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+    for arch, meshes in SHARDED_TRAIN:
+        if arch in TRAIN_RUNS:
+            seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+        else:  # a batch-1 cell alone
+            S, _, _, _, (seed, layers) = SEQ_SPLIT_TRAIN[arch]
+            B, per_step = 1, None
         # the bf16 cell, then, for SHARDED_F32_ARCHS, the same steps at f32 compute
         for f32 in (False, True) if arch in SHARDED_F32_ARCHS else (False,):
-            tag = " f32" if f32 else ""
             model, params, cfg = _train_model(torch, arch, seed, layers,
                                               "float32" if f32 else None)
             # each sharded run's start
             initial = tree_map(lambda p: p.to("cpu", copy=True), params)
-            pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=S,
-                                           global_batch=B, seed=seed)
-            aux_check = None
-            if cfg.moe is not None:  # each data row's aux loss through RowOps, first batch
-                from repro_torch.ft.resilience import reshard_tree
-                from repro_torch.sharding.policy import ShardingPolicy
-
-                mesh = _sharded_mesh(torch, 2)
-                policy = ShardingPolicy(mesh, cfg)
-                placed = reshard_tree(params, policy.shardings(policy.param_specs(params)))
-                rows = tp.rows_at_work(mesh, tp.data_rows(mesh, policy.dp), B, True)
-                aux_check = []
-                with torch.no_grad():
-                    for row, mb in zip(rows, microbatches(_device_batch(pipe, 0), 2)):
-                        _, mu = model.train_loss(params, mb)
-                        _, ms = model.train_loss(placed, {k: v.to(row.device) for k, v in
-                                                          mb.items()}, ops=tp.RowOps(cfg, row))
-                        aux_check.append([float(mu["aux"]), float(ms["aux"])])
-                del placed
-            unsharded = make_train_step(model, TrainStepConfig(microbatches=2, adamw=adamw))
-            want_u = {k: 0 for k in _counters()}
-            want_u.update({k: 2 * n for k, n in per_step.items()})
-            # Llama's idle share, unsharded and on (2, 2)
-            profile = cfg.moe is None and not f32
-            params, state, u, _ = _train_drive(torch, np, f"{arch}{tag} unsharded",
-                                               unsharded, params, opt.init_state(params),
-                                               pipe, want_u, profile)
-            want_norms = _leaf_norms(torch, (params, state.m, state.v))
-            del params, state
-            torch.cuda.empty_cache()
-            runs = {"unsharded_2_microbatches": u}
             names = [f"{kind} {'/'.join(map(str, path))}" for kind in ("param", "m", "v")
                      for path, _ in flatten_with_paths(initial)]
-            if f32:  # the unsharded step's own sums in another order: 1 microbatch
-                one = make_train_step(model, TrainStepConfig(microbatches=1, adamw=adamw))
-                params = tree_map(lambda p: p.to("cuda", copy=True), initial)
-                params, state, u1, _ = _train_drive(
-                    torch, np, f"{arch}{tag} unsharded, 1 microbatch", one, params,
-                    opt.init_state(params), pipe, {**want_u, **per_step}, False)
-                probe = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
-                u1.update({"leaf_norm_max_rel_err": max(probe),
-                           "leaf_norm_median_rel_err": float(np.median(probe)),
-                           "leaf_norm_worst": sorted(zip(probe, names), reverse=True)[:5]})
-                runs["unsharded_1_microbatch"] = u1
-                del params, state
-                torch.cuda.empty_cache()
-            for n_model in meshes:
-                name = f"sharded_2x{n_model}"
-                n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
-                n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
-                # K6 once a data row (its partial form on each model coordinate's block)
-                want = dict(want_u, K5=n_attn * n_model * 2 * 2, K7=n_rwkv * n_model * 2 * 2,
-                            K6=2 * n_model)
-                params, state, step, rec, by_key = _sharded_run(
-                    torch, np, f"{arch}{tag} {name}", model, initial, pipe, n_model, want, B, S,
-                    profile and n_model > 1)
-                norm_rel = _rel_errs(_leaf_norms(torch, (params, state.m, state.v)), want_norms)
-                loss_rel = _rel_errs(rec["losses"], u["losses"])
-                rec.update({"loss_rel_err": loss_rel, "leaves_norm_checked": len(norm_rel),
-                            "leaf_norm_max_rel_err": max(norm_rel),
-                            "leaf_norm_median_rel_err": float(np.median(norm_rel)),
-                            "leaf_norm_worst": sorted(zip(norm_rel, names), reverse=True)[:5],
-                            "step1_loss_bit_equal": rec["losses"][0] == u["losses"][0]})
-                if n_model == 1:
-                    rec.update(loss_rtol=SHARDED_LOSS_RTOL, norm_rtol=SHARDED_NORM_RTOL)
-                    bad = (not rec["step1_loss_bit_equal"]
-                           or max(loss_rel) > SHARDED_LOSS_RTOL
-                           or not max(norm_rel) <= SHARDED_NORM_RTOL)
-                elif f32:
-                    norm_rtol = max(SHARDED_F32_NORM_RTOL,
-                                    SHARDED_F32_PROBE_FACTOR * u1["leaf_norm_max_rel_err"])
-                    rec.update(loss_rtol=SHARDED_F32_LOSS_RTOL, norm_rtol=norm_rtol)
-                    bad = (not max(loss_rel) <= SHARDED_F32_LOSS_RTOL
-                           or not max(norm_rel) <= norm_rtol)
-                elif cfg.moe is None:
-                    loss_rtol, norm_rtol, read = SHARDED_TP_LIMITS[arch]
-                    gap = max(norm_rel) if read == "max" else float(np.median(norm_rel))
-                    rec.update(loss_rtol=loss_rtol, norm_rtol=norm_rtol, norm_gap_gated=read)
-                    bad = not max(loss_rel) <= loss_rtol or not gap <= norm_rtol
-                else:
-                    aux_rel = [abs(s_ - u_) / abs(u_) if u_ else float("inf")
-                               for u_, s_ in aux_check]
-                    rec.update(loss_rtol=SHARDED_MOE_LOSS_RTOL,
-                               norm_rtol=SHARDED_MOE_NORM_RTOL,
-                               aux_unsharded_vs_rowops=aux_check, aux_rel_err=aux_rel,
-                               aux_rtol=SHARDED_MOE_AUX_RTOL)
-                    bad = (not max(loss_rel) <= SHARDED_MOE_LOSS_RTOL
-                           or not max(norm_rel) <= SHARDED_MOE_NORM_RTOL
-                           or not max(aux_rel) <= SHARDED_MOE_AUX_RTOL)
-                rec["k7_shapes"] = sorted(str(k[1:6]) for k in by_key["K7"])
-                rec["k6_launches_by_entry_and_shape"] = {str(k[:4]): n
-                                                         for k, n in by_key["K6"].items()}
-                entry = "xent_fwd_f32" if n_model == 1 else "xent_part_f32"
-                if any(k[0] != entry for k in by_key["K6"]):
-                    faults.append(f"{arch}{tag} {name}: K6 {sorted(by_key['K6'])}, want "
-                                  f"{entry} alone")
-                problems = (_sharded_faults(cfg, rec, by_key)
-                            + (["outside its limits"] if bad else [])
-                            + [f"K7 at {k} outside K7_SHARDED"
-                               for k in k7_unheld(by_key["K7"])])
-                if problems:
-                    faults.append(f"{arch}{tag} {name}: {problems}; {rec['losses']} vs "
-                                  f"{u['losses']}, leaf norms {max(norm_rel)}")
-                for kernel, keys in by_key.items():
-                    for key, n in keys.items():
-                        at = (arch,) + key
-                        keys_all[kernel][at] = keys_all[kernel].get(at, 0) + n
-                runs[name] = rec
-                if (arch, n_model) == ("llama3.2-1b", 2):
-                    out = (params, state), step
-                else:
-                    del params, state, step
-                torch.cuda.empty_cache()
+            runs = {}
+            if meshes:
+                runs, kept = _batch_split_train(torch, np, arch, f32, model, params, initial,
+                                                meshes, adamw, seed, B, S, per_step, names,
+                                                keys_all, faults)
+                out = kept or out
+            del params
+            torch.cuda.empty_cache()
+            if per_step is None:  # remat: forward + recompute
+                per_step = {"K5": 2 * _k5_layers(cfg), "K6": 1}
             if not f32 and arch in SEQ_SPLIT_TRAIN:
                 runs.update(_seq_split_train(torch, np, arch, model, initial, per_step, adamw,
                                              seed, names, keys_all, faults))
+            encdec = ({"encoder_layers": cfg.encoder_layers,
+                       "frames": SEQ_SPLIT_TRAIN[arch][3]} if cfg.is_encdec else {})
             report.emit({"phase": "sharded_train", "arch": arch, "layers": cfg.num_layers,
-                         "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype,
+                         "batch": B, "seq": S, **encdec, "compute_dtype": cfg.compute_dtype,
                          "param_dtype": cfg.param_dtype, "remat_policy": model.remat_policy,
                          **runs})
             del initial
@@ -4575,6 +4689,11 @@ def sharded_train_phase(torch, np, report):
 # runs the plain versions on the CPU where the other mesh runs K5 and K6)
 MIXED_LOSS_RTOL, MIXED_NORM_RTOL = 1e-5, 1e-4
 MIXED_BATCHES = ((4, 64), (1, 64))
+# ... and Seamless-M4T-large-v2's reduced config widened alike (2 + 2 layers,
+# d 256, 4 heads of 64 over 4 KV heads), B 1 x MIXED_ENCDEC frames + S 64
+# tokens: each data row encodes its half of the frames, the second row's
+# coordinates reading the first's K/V across the two devices and back
+MIXED_ENCDEC = 64
 
 
 def sharded_mixed_phase(torch, np, report) -> None:
@@ -4587,7 +4706,9 @@ def sharded_mixed_phase(torch, np, report) -> None:
     block form on the CPU's), and each ZeRO-1 shard is updated on its own
     device and copied to the block's holder on the other; at batch 1 each
     data row computes its span of the sequence, the second row's
-    coordinates reading the first's K/V across the two devices.  Checks:
+    coordinates reading the first's K/V across the two devices; then a
+    widened reduced Seamless-M4T at batch 1 (``MIXED_ENCDEC`` frames), its
+    encoder's K/V joined across the two devices both ways.  Checks:
     every copy of a block bit-equal across the two devices, each
     coordinate's bytes its specs', the losses and leaf norms within
     MIXED_LOSS_RTOL and MIXED_NORM_RTOL of the same steps on (2, 2) over
@@ -4605,10 +4726,19 @@ def sharded_mixed_phase(torch, np, report) -> None:
     card, cpu = torch.device("cuda", 0), torch.device("cpu")
     for B, S in MIXED_BATCHES:
         _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu)
+    cfg = dataclasses.replace(cfgbase.get_reduced_config("seamless-m4t-large-v2"), d_model=256,
+                              num_heads=4, num_kv_heads=4, head_dim=64, d_ff=512,
+                              vocab_size=1024, compute_dtype="float32")
+    model = Model(cfg, xent_impl="chunked", remat=True)
+    whole = model.init_params(torch.Generator("cpu").manual_seed(7), device="cpu")
+    _sharded_mixed_batch(torch, np, report, cfg, model, whole, 1, MIXED_BATCHES[-1][1], card,
+                         cpu, frames=(MIXED_ENCDEC, cfg.d_model))
 
 
-def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu) -> None:
-    """``sharded_mixed_phase`` at one batch: B x S, 2 steps each way."""
+def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu,
+                         frames=None) -> None:
+    """``sharded_mixed_phase`` at one batch: B x S (an enc-dec's ``frames``
+    beside them), 2 steps each way."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.data import tokens as tok
     from repro_torch.ft.resilience import reshard_tree
@@ -4635,7 +4765,7 @@ def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu) 
         losses = []
         k6.reset()
         for s in range(2):
-            params, state, m = step(params, state, tok.device_batch(pipe, s, "cuda"))
+            params, state, m = step(params, state, _device_batch(pipe, s, frames))
             losses.append(float(m["loss"]))
         # K6's partial form on each vocab block the card holds, the CPU's plain
         k6_entries = {}
@@ -4661,22 +4791,25 @@ def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu) 
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mixed["losses"], one["losses"]))
     norm_rel = max(abs(a - b) / b if b else abs(a)
                    for a, b in zip(mixed.pop("norms"), one.pop("norms")))
-    report.emit({"phase": "sharded_mixed", "layers": cfg.num_layers, "d_model": cfg.d_model,
-                 "batch": B, "seq": S, "compute_dtype": cfg.compute_dtype, **runs,
+    report.emit({"phase": "sharded_mixed", "arch": cfg.name, "layers": cfg.num_layers,
+                 "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model, "batch": B,
+                 "seq": S, "frames": None if frames is None else frames[0],
+                 "compute_dtype": cfg.compute_dtype, **runs,
                  "loss_max_rel_err": loss_rel, "loss_rtol": MIXED_LOSS_RTOL,
                  "leaf_norm_max_rel_err": norm_rel, "norm_rtol": MIXED_NORM_RTOL})
     if (not mixed["blocks_on_several_devices"] or mixed["blocks_with_unequal_copies"]
             or one["coordinates_off_their_specs"] or mixed["coordinates_off_their_specs"]
             or mixed["sequence_split"] != (B == 1)
             or not loss_rel <= MIXED_LOSS_RTOL or not norm_rel <= MIXED_NORM_RTOL):
-        raise AssertionError(f"sharded_mixed B={B}: {runs}, losses {loss_rel} and leaf norms "
-                             f"{norm_rel} off the one-card mesh's")
+        raise AssertionError(f"sharded_mixed {cfg.name} B={B}: {runs}, losses {loss_rel} and "
+                             f"leaf norms {norm_rel} off the one-card mesh's")
 
 
 # sharded_serve: the sharded prefill and decode steps (jit_prefill_step /
 # jit_decode_step) on _sharded_mesh, beside the unsharded Model.prefill and
 # make_decode_step on the same weights: (arch, seed, layers (None: all of
-# them), [(batch, prompt length, max_seq)]), SERVE_SHARDED_STEPS greedy steps
+# them), [(batch, prompt length, max_seq, an enc-dec's frames else None)]),
+# SERVE_SHARDED_STEPS greedy steps
 # after each prefill.  At batch 1 the batch specs split the prompt over the 2
 # data rows (sequence parallelism: each row its span, K5 at the span's query
 # offset over the rows' K/V, RWKV and the RG-LRU from the state the row
@@ -4688,10 +4821,20 @@ def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu) 
 # RWKV6-7B keeps 4 of its 32 layers, each coordinate's 32 of 64 heads (K7 on
 # them in the prefill) and its d_ff slice, its state s on each coordinate's
 # heads.
-SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509, 1024), (4, 128, 1024), (1, 2048, 4096))),
-                 ("recurrentgemma-9b", 41, 3, ((4, 509, 1024), (1, 512, 1024))),
-                 ("rwkv6-7b", 42, 4, ((4, 509, 1024), (1, 512, 1024))))
-SERVE_SHARDED_STEPS, SERVE_SHARDED_UNEVEN = 16, 509
+# Seamless-M4T-large-v2 at full size (24 + 24 layers) on its encdec cell's
+# traffic (ENCDEC_BATCHES): 4 utterances of 509 frames + 8-token prompts
+# (the batch split) and 1 of 1,000 frames + a 16-token prompt (each data row
+# encodes its 500 frames, layer by layer over both rows' K/V, and prefills
+# its 8 tokens), ENCDEC_MAX_SEQ, its decode steps with the memory; an
+# utterance of SERVE_SHARDED_UNEVEN_FRAMES raises at batch 1.
+SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509, 1024, None), (4, 128, 1024, None),
+                                          (1, 2048, 4096, None))),
+                 ("recurrentgemma-9b", 41, 3, ((4, 509, 1024, None), (1, 512, 1024, None))),
+                 ("rwkv6-7b", 42, 4, ((4, 509, 1024, None), (1, 512, 1024, None))),
+                 ("seamless-m4t-large-v2", 43, None,
+                  tuple((B, S, ENCDEC_MAX_SEQ, T) for B, (T, S) in zip((ENCDEC_LANES, 1),
+                                                                       ENCDEC_BATCHES))))
+SERVE_SHARDED_STEPS, SERVE_SHARDED_UNEVEN, SERVE_SHARDED_UNEVEN_FRAMES = 16, 509, 999
 # sharded_serve's distinct-device cases: f32, (2, 2) over cuda:0 and the
 # CPU against (2, 2) over cuda:0 alone, logits within SERVE_MIXED_TOL (rtol
 # = atol), prompts of SERVE_MIXED_S tokens (past the reduced window of 16:
@@ -4752,6 +4895,8 @@ def _logits_gap(got, want) -> dict:
 
 
 def _sharded_steps(model, policy, B, S, max_seq):
+    """The sharded prefill and decode steps (the latter ``with_memory`` for
+    an enc-dec config)."""
     from repro_torch.configs import base as cfgbase
     from repro_torch.launch import inputs as inp
     from repro_torch.serve.step import jit_decode_step, jit_prefill_step
@@ -4759,7 +4904,8 @@ def _sharded_steps(model, policy, B, S, max_seq):
     aparams, acache = inp.abstract_params(model), inp.abstract_cache(model, B, max_seq)
     specs = policy.batch_specs(cfgbase.ShapeConfig("prefill", S, B, "prefill"))
     return (jit_prefill_step(model, policy, aparams, acache, specs, B, max_seq),
-            jit_decode_step(model, policy, aparams, acache, B, max_seq))
+            jit_decode_step(model, policy, aparams, acache, B, max_seq,
+                            with_memory=model.cfg.is_encdec))
 
 
 def sharded_serve_phase(torch, np, report) -> dict:
@@ -4774,7 +4920,10 @@ def sharded_serve_phase(torch, np, report) -> dict:
     the RG-LRU on its channels, the FFN on its ``d_ff`` slice, the KV cache
     and the recurrent state on their shards; at batch 1 each data row on
     its span of the prompt (K5 at its query offset, K7 of the second row
-    from the first's state).  Checks, for each batch: the prefill's and
+    from the first's state); Seamless-M4T-large-v2's utterances encoded in
+    the prefill (at batch 1 each data row its half of the frames, layer by
+    layer over both rows' K/V), its decode steps reading the memory whole.
+    Checks, for each batch: the prefill's and
     every decode step's logits within LM_LOGITS_TOL of the unsharded
     path's; K5 once an attention layer and K7 once an RWKV layer a model
     coordinate a data row in the prefill (at batch 1 half of RWKV's K7 from
@@ -4784,7 +4933,10 @@ def sharded_serve_phase(torch, np, report) -> dict:
     spec, each coordinate holding its spec's bytes (Llama-3-8B: 4 of 8 KV
     heads a coordinate; RWKV's s and the RG-LRU's h and conv: half the heads
     or channels); ``next_tok`` placed by the reference's ``tok_spec``; a
-    batch-1 prompt of SERVE_SHARDED_UNEVEN tokens raises.  Records
+    batch-1 prompt of SERVE_SHARDED_UNEVEN tokens raises, and an utterance
+    of SERVE_SHARDED_UNEVEN_FRAMES frames; Seamless's encoder K5 once a
+    layer a coordinate a data row (96 a prefill) on a row's rows, at batch
+    1 on its 500 frames over all 1,000 and never over the whole.  Records
     greedy-token agreement a step, TTFT and ms a decode step both ways.
     Then ``_sharded_serve_mixed``.  Returns {"K5" / "K7": their launches by
     (arch,) + key over the sharded prefills}."""
@@ -4806,31 +4958,41 @@ def sharded_serve_phase(torch, np, report) -> dict:
         policy = ShardingPolicy(mesh, cfg)
         rng = np.random.default_rng(seed)
         prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-                                   device="cuda") for B, S, _ in batches]
-        n_attn = sum(kind in ("attn", "swa", "local") for kind in cfg.blocks())
+                                   device="cuda") for B, S, _, _ in batches]
+        # an enc-dec's utterances: (B, T, D) frame embeddings ~ N(0, 1)
+        srcs = [None if T is None else torch.randn(
+            (B, T, cfg.d_model), generator=torch.Generator("cuda").manual_seed(seed + i),
+            device="cuda") for i, (B, _, _, T) in enumerate(batches)]
+        inputs = [{"tokens": t} if src is None else {"tokens": t, "src_embeds": src}
+                  for t, src in zip(prompts, srcs)]
+        n_attn = _k5_layers(cfg)
         n_rwkv = sum(kind == "rwkv" for kind in cfg.blocks())
         # warm-up outside the timed runs: cuBLAS handles, the kernel library
-        model.prefill(params, {"tokens": prompts[0][:1, :8]}, batches[0][2])
+        model.prefill(params, {k: v[:1, :8] for k, v in inputs[0].items()}, batches[0][2])
+        # the decode steps' memory (an enc-dec's encoder output, whole, as the
+        # reference's decode step takes it), made outside the timed runs
+        memories = [None if src is None else model.encode(params, src) for src in srcs]
         unsharded = []
-        for t, (_, _, max_seq) in zip(prompts, batches):
+        for batch, memory, (_, S, max_seq, _) in zip(inputs, memories, batches):
             udecode = make_decode_step(model, max_seq)
             unsharded.append(_serve_run(
-                torch, counters, lambda: model.prefill(params, {"tokens": t}, max_seq),
-                lambda c, tok, pos: udecode(params, c, tok, pos), t.shape[1], steps))
+                torch, counters, lambda: model.prefill(params, batch, max_seq),
+                lambda c, tok, pos: udecode(params, c, tok, pos, memory), S, steps))
             del unsharded[-1]["cache"]
         steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq)
-                          for B, S, max_seq in batches]
+                          for B, S, max_seq, _ in batches]
         placed = reshard_tree(params, steps_by_batch[0][0].param_shardings)
         del params
         torch.cuda.empty_cache()
-        for (B, S, max_seq), t, u, (pre, dec) in zip(batches, prompts, unsharded,
-                                                      steps_by_batch):
+        for (B, S, max_seq, T), batch, memory, u, (pre, dec) in zip(
+                batches, inputs, memories, unsharded, steps_by_batch):
+            extra = () if memory is None else (memory,)
             # the decode steps are teacher-forced with the unsharded run's
             # tokens, so each step's logits are held against the unsharded
             # step's on the same history
             with _counting_gathers(placed) as gathers:
-                sh = _serve_run(torch, counters, lambda: pre(placed, {"tokens": t}),
-                                lambda c, tok, pos: dec(placed, c, tok, pos), S, steps,
+                sh = _serve_run(torch, counters, lambda: pre(placed, batch),
+                                lambda c, tok, pos: dec(placed, c, tok, pos, *extra), S, steps,
                                 force=u["tokens"])
             cache = sh.pop("cache")
             step_err = [_logits_gap(a, b) for a, b in zip(sh.pop("step_logits"),
@@ -4842,11 +5004,24 @@ def sharded_serve_phase(torch, np, report) -> dict:
             k7_carried = sum(n for k, n in sh["k7_by_key"].items() if k[7])
             want_carried = n_rwkv * 2 if B == 1 else 0  # the second row's spans
             k5_offsets = sorted({k[10] for k in sh["k5_by_key"]})
+            encoder = None
+            if T is not None:  # each data row's rows, or at batch 1 its half of the frames
+                want_key = (B // 2, T, T) if B % 2 == 0 else (B, T // 2, T)
+                encoder = {
+                    "k5_key": want_key, "want": cfg.encoder_layers * 2 * 2,
+                    "launches": sum(n for k, n in sh["k5_by_key"].items()
+                                    if k[1:4] == want_key and not k[7]),
+                    "over_every_frame_at_batch_1": sum(n for k, n in sh["k5_by_key"].items()
+                                                       if B == 1 and k[2] == T)}
             uneven = None
-            if B == 1 and arch == "rwkv6-7b":  # a prompt the data rows do not divide
-                short = _sharded_steps(model, policy, 1, SERVE_SHARDED_UNEVEN, max_seq)[0]
+            if B == 1 and arch in ("rwkv6-7b", "seamless-m4t-large-v2"):
+                # a prompt, or an utterance, the data rows do not divide
+                n = SERVE_SHARDED_UNEVEN_FRAMES if T else SERVE_SHARDED_UNEVEN
+                short = _sharded_steps(model, policy, 1, n if T is None else S, max_seq)[0]
+                cut = ({"tokens": batch["tokens"][:, :n]} if T is None else
+                       dict(batch, src_embeds=batch["src_embeds"][:, :n]))
                 try:
-                    short(placed, {"tokens": t[:, :SERVE_SHARDED_UNEVEN]})
+                    short(placed, cut)
                     uneven = "ran"
                 except ValueError as e:
                     uneven = f"ValueError: {e}"
@@ -4881,8 +5056,10 @@ def sharded_serve_phase(torch, np, report) -> dict:
                    "decode_steps": steps, "compute_dtype": cfg.compute_dtype,
                    "sequence_split": pre.split_seq, "k5_query_offsets": k5_offsets,
                    "k7_from_carried_state": k7_carried,
+                   "frames": T, "encoder_k5": encoder,
                    "uneven_prompt": None if uneven is None else
-                   {"prompt": SERVE_SHARDED_UNEVEN, "result": uneven},
+                   {"prompt" if T is None else "frames": SERVE_SHARDED_UNEVEN_FRAMES if T else
+                    SERVE_SHARDED_UNEVEN, "result": uneven},
                    "mesh": {"shape": mesh.shape,
                             "devices": [str(d) for d in mesh.devices.flat]},
                    "cache_layout": None if attn is None else tp.cache_layout(cache[attn]["k"]),
@@ -4919,6 +5096,8 @@ def sharded_serve_phase(torch, np, report) -> dict:
                     or pre.split_seq != (B == 1) or k7_carried != want_carried
                     or (B == 1 and n_attn and k5_offsets != [0, S // 2])
                     or (uneven is not None and not uneven.startswith("ValueError"))
+                    or (encoder is not None and (encoder["launches"] != encoder["want"]
+                                                 or encoder["over_every_frame_at_batch_1"]))
                     or any(c != no_kernels for c in sh["decode_launches"] + u["decode_launches"])
                     or bad or not placed_ok or unchecked or gathers or not state_split
                     or tuple(dec.tok_sharding.spec) != want_spec
@@ -5161,12 +5340,14 @@ def k6_f32_bound_ms(N, D, V):
 
 def k6_timing_phase(torch, np, report, train_counts, sharded_k6) -> list:
     """K6 at each train cell's shape (``K6_TRAIN_SHAPES``), and at each
-    (entry, N, D, V) that ``sharded_train`` launched for that arch
-    (``sharded_k6``: K6's launches by (arch, entry, N, D, V, ...)): a data
-    row's tokens over the whole vocab, or in the partial form over one
-    model coordinate's vocab block; beside each block, the same row over
-    the whole vocab as a reading (the first rows and the first block of
-    the train shape's inputs).  CUDA-event ms and profiler device ms,
+    (entry, N, D, V) that ``sharded_train`` launched for that arch or for
+    a batch-1 cell of SEQ_SPLIT_TRAIN's with no lm_train cell, at its
+    sequence, width and vocab (``sharded_k6``: K6's launches by
+    (arch, entry, N, D, V, ...)): a data row's tokens over the whole vocab,
+    or in the partial form over one model coordinate's vocab block; beside
+    each block, the same row over the whole vocab as a reading (the first
+    rows and the first block of the train shape's inputs,
+    ``_xent_inputs``).  CUDA-event ms and profiler device ms,
     beside its plain version (``seq_chunked_xent`` / ``xent_block_ref``),
     the library call ``F.cross_entropy(x @ w.T, t, reduction="none")``
     (f32, TF32 off; for a block, the same matmul, log-sum-exp and target
@@ -5174,6 +5355,7 @@ def k6_timing_phase(torch, np, report, train_counts, sharded_k6) -> list:
     kernels-line entry for each shape the main path launched."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import base as cfgbase
     from repro_torch.kernels.xent import ref as xent_ref
     from repro_torch.kernels.xent.kernel import fused_xent_fwd, fused_xent_part
 
@@ -5183,19 +5365,25 @@ def k6_timing_phase(torch, np, report, train_counts, sharded_k6) -> list:
     by_arch = {}
     for k in sharded_k6:
         by_arch.setdefault(k[0], set()).add(k[1:5])
-    if not set(by_arch) <= set(K6_TRAIN_SHAPES):
+    all_shapes = dict(K6_TRAIN_SHAPES)
+    for arch, (S, *_) in SEQ_SPLIT_TRAIN.items():
+        if arch not in all_shapes:  # only the shapes sharded_train launched are timed
+            cfg = cfgbase.get_config(arch)
+            all_shapes[arch] = (S, cfg.d_model, cfg.vocab_size)
+    if not set(by_arch) <= set(all_shapes):
         raise AssertionError(f"K6 timing: sharded_train ran {sorted(by_arch)}, "
-                             f"K6_TRAIN_SHAPES holds {sorted(K6_TRAIN_SHAPES)}")
+                             f"K6_TRAIN_SHAPES and SEQ_SPLIT_TRAIN hold "
+                             f"{sorted(all_shapes)}")
     entries = []
-    for arch, (N, D, V) in K6_TRAIN_SHAPES.items():
-        rng = np.random.default_rng(66)
-        x_all, w_all, t_all = _xent_inputs(torch, np, rng, N, D, V, None)
+    for arch, (N, D, V) in all_shapes.items():
+        x_all, w_all, t_all = _xent_inputs(torch, 66, N, D, V)
         rows = by_arch.get(arch, set())
         rows |= {("xent_fwd_f32", n, d, V) for e, n, d, _ in rows if e == "xent_part_f32"}
         if any(d != D or n > N or v > V for _, n, d, v in rows):
             raise AssertionError(f"K6 timing: {arch}'s sharded shapes {sorted(rows)} "
                                  f"outside its train shape {(N, D, V)}")
-        shapes = [("train loss", "xent_fwd_f32", N, V, train_counts[arch]["K6"])]
+        shapes = ([("train loss", "xent_fwd_f32", N, V, train_counts[arch]["K6"])]
+                  if arch in K6_TRAIN_SHAPES else [])
         shapes += [("sharded row, whole vocab" if entry == "xent_fwd_f32" else
                     "sharded row, a coordinate's vocab block", entry, n, v,
                     launched(arch, entry, n, D, v)) for entry, n, _, v in sorted(rows)]
@@ -5298,7 +5486,7 @@ def main(argv=None) -> int:
 
     if args.sharded_only:
         k5_checks(torch, np, report)
-        k6_checks(torch, np, report)
+        k6_checks(torch, report)
         k7_checks(torch, np, report)
         state, step, _ = sharded_train_phase(torch, np, report)
         sharded_mixed_phase(torch, np, report)
@@ -5313,7 +5501,7 @@ def main(argv=None) -> int:
     dw_checks(torch, np, report)
     strided_view_checks(torch, np, report)
     k5_checks(torch, np, report)
-    k6_checks(torch, np, report)
+    k6_checks(torch, report)
     k7_checks(torch, np, report)
     grad_checks(torch, np, report)
     engines = engine_phase(torch, np, report)

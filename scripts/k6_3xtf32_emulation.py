@@ -4,8 +4,9 @@ K6 (``src/repro_torch/csrc/xent_fwd.cu``) runs its logits on the tensor
 cores: each f32 operand split into a TF32 high and low part, three TF32
 products a slice of 8 along D, summed in f32.  This script runs that
 arithmetic's model (``repro_torch.kernels.xent.ref.xent_3xtf32``) on every
-row of ``chip_smoke.K6_CASES``, with the same inputs as ``chip_smoke.py``
-(seed, distributions, targets), on the first 64 tokens at the full D and V,
+row of ``chip_smoke.K6_CASES``, with ``chip_smoke.py``'s distributions and
+targets (drawn here on the CPU, the card's draws being the card's own
+generator's), on the first 64 tokens at the full D and V,
 against the plain version (``seq_chunked_xent``, f32), and prints per case
 the worst per-token |diff| in f32 epsilons of M = |x_n| max_v |w_v| and
 whether every token is within the gate
@@ -33,9 +34,9 @@ sys.path.insert(0, str(ROOT))
 
 
 def inputs(np, torch, seed, N, D, V, w_std, tokens, rows_per_draw=8192):
-    """``chip_smoke._xent_inputs``'s x, w and targets, drawn in the same
-    order from the same generator (w in blocks of rows, which draws the same
-    stream), on the CPU; the first ``tokens`` rows of x and targets."""
+    """x, w and targets of ``chip_smoke._xent_inputs``' distributions, drawn
+    on the CPU from ``seed`` (w in blocks of rows); the first ``tokens`` rows
+    of x and targets."""
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.standard_normal((N, D)), dtype=torch.float32)
     w = torch.empty((V, D), dtype=torch.float32)

@@ -4,9 +4,11 @@ decode, with a float or an int8 KV cache.
 The port's counterpart of ``repro/models/attention.py``.  Every attention
 over more than one query row goes through
 :func:`repro_torch.kernels.flash.ops.flash_attention`: K5 on the card, its
-plain version on the CPU.  That covers the causal kinds, the encoder's
-``"enc"`` kind and the decoder's cross-attention over the encoder's memory
-(:func:`attend_cross`), the last two with ``causal=False``; the reference
+plain version on the CPU.  That covers the causal kinds, the encoder
+(:func:`encoder_kv` and :func:`attend_encoder_span`, a span of the frames
+over every frame's K/V) and the decoder's cross-attention over the
+encoder's memory (:func:`attend_cross`), the last two with
+``causal=False``; the reference
 sends only the causal kinds to its flash kernel and computes the other two
 with ``_sdpa_ref``, which is the same function.  Decode attention
 (:func:`attend_decode`, and :func:`attend_cross` at one query row) runs
@@ -70,18 +72,18 @@ def init_attn_params(cfg, gen: torch.Generator, device, cross: bool = False) -> 
     return p
 
 
-def _project_qkv(cfg, p, xq: torch.Tensor, xkv: torch.Tensor):
+def _project(cfg, p, x: torch.Tensor, name: str) -> torch.Tensor:
+    """One of the q / k / v projections (``name`` "q", "k" or "v"), its
+    bias added where the params have one: (B, S, D) @ (D, n, h) → (B, S,
+    n, h), one aten.mm."""
     cd = cdt(cfg)
+    w = p["w" + name]
+    y = (x.to(cd) @ w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return y + p["b" + name].to(cd) if "b" + name in p else y
 
-    def proj(x, w):  # (B, S, D) @ (D, n, h) → (B, S, n, h), one aten.mm
-        return (x.to(cd) @ w.to(cd).reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
-    q, k, v = proj(xq, p["wq"]), proj(xkv, p["wk"]), proj(xkv, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
-    return q, k, v
+def _project_qkv(cfg, p, xq: torch.Tensor, xkv: torch.Tensor):
+    return _project(cfg, p, xq, "q"), _project(cfg, p, xkv, "k"), _project(cfg, p, xkv, "v")
 
 
 def _rope(cfg, x, positions, kind: str):
@@ -142,23 +144,22 @@ def attend_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Te
     """Self-attention over a whole prompt, through K5; returns (y, k, v)
     with k after RoPE, the values a KV cache holds (the reference projects
     them a second time in ``_prefill_cache``; the numbers are the same).
-    The causal kinds ``attn``, ``swa`` and ``local``, and the encoder's
-    ``enc``, which sees every position (``causal=False``).
+    The causal kinds ``attn``, ``swa`` and ``local`` (the encoder's runs
+    through :func:`attend_encoder_span`).
 
     A data row's span of a sequence split over the data axes starts at
     position ``q_offset`` and reads ``prefix``, the (k, v) of the positions
     before it (the rows before computed them): its queries run K5 with
     ``q_offset`` over the prefix and its own keys, and the k, v returned are
     both, positions 0 up to the span's end."""
-    if kind not in ("attn", "swa", "local", "enc"):
+    if kind not in ("attn", "swa", "local"):
         raise ValueError(f"unknown attention kind {kind!r}")
     q, k, v = _project_qkv(cfg, p, x, x)
     q = _rope(cfg, q, positions, kind)
     k = _rope(cfg, k, positions, kind)
     if prefix is not None:
         k, v = torch.cat([prefix[0], k], dim=1), torch.cat([prefix[1], v], dim=1)
-    out = flash_ops.flash_attention(q, k, v, causal=kind != "enc",
-                                    window=_window(cfg, kind),
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=_window(cfg, kind),
                                     scale=1.0 / np.sqrt(cfg.head_dim),
                                     softcap=cfg.attn_softcap, q_offset=q_offset)
     return _out_proj(cfg, p, out), k, v
@@ -168,6 +169,32 @@ def attend_train(cfg, p: dict, x: torch.Tensor, kind: str,
                  positions: torch.Tensor) -> torch.Tensor:
     """Self-attention over a full sequence (training, prefill), through K5."""
     return attend_prefill(cfg, p, x, kind, positions)[0]
+
+
+def encoder_kv(cfg, p: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's K (after RoPE at ``positions``) and V of ``x``: on a
+    data row's span of the frames, the first half of the layer's attention
+    (:func:`attend_encoder_span` reads every row's)."""
+    return _rope(cfg, _project(cfg, p, x, "k"), positions, "enc"), _project(cfg, p, x, "v")
+
+
+def encoder_queries(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The encoder's queries of ``x``, after RoPE at ``positions``."""
+    return _rope(cfg, _project(cfg, p, x, "q"), positions, "enc")
+
+
+def attend_encoder_span(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The encoder's attention of a span of the frames (``x`` at
+    ``positions``) over ``k`` / ``v`` of every frame (:func:`encoder_kv` of
+    each span, joined in order), through K5 without the mask.  The query
+    offset stays 0: an unmasked call reads every key whatever its queries'
+    positions."""
+    out = flash_ops.flash_attention(encoder_queries(cfg, p, x, positions), k, v, causal=False,
+                                    window=0, scale=1.0 / np.sqrt(cfg.head_dim),
+                                    softcap=cfg.attn_softcap)
+    return _out_proj(cfg, p, out)
 
 
 def attend_cross(cfg, p: dict, x: torch.Tensor,  # (B, S, D) decoder side

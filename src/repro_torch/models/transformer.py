@@ -85,7 +85,11 @@ query offset; RWKV's ``s``, ``tm_x`` and ``cm_x``; the RG-LRU's ``h`` and
 conv tail; a MoE layer's per-expert slot counts and router sums) and hands
 on its own.  Serving reads a recurrent layer's carry from the cache the row
 before wrote.  The first span, with nothing carried, is the whole-sequence
-walk's arithmetic on its positions.
+walk's arithmetic on its positions.  An enc-dec config's frames split too
+(the specs put ``src_embeds`` on the data axes alike): the encoder is not
+causal, so :meth:`Model.encode_spans` walks it layer by layer across the
+rows, every row's K/V of a layer before any row's attention of it, and
+hands the decoder the memory as the rows' spans.
 
 Every prefill or training attention over more than one query row runs K5
 (causal, or not for the encoder and the cross-attention) and every
@@ -196,8 +200,8 @@ def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                     positions: torch.Tensor, rwkv_chunk: int,
                     memory: Optional[torch.Tensor] = None, ops=None,
                     span: Optional[Span] = None, carry: Optional[dict] = None):
-    """One layer over a whole sequence with no cache (the training forward
-    and its encoder; RG-LRU and RWKV from the zero state), each sub-block
+    """One decoder layer over a whole sequence with no cache (the training
+    forward; RG-LRU and RWKV from the zero state), each sub-block
     through ``ops`` (:class:`LocalOps` by default): (x, aux), aux the MoE
     FFN's load-balancing loss, an f32 zero for any other layer.  A
     decoder layer's cross sub-block runs when there is a ``memory``
@@ -211,7 +215,7 @@ def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     r = ops.read(p)
     h = apply_norm(cfg, r["norm1"], x)
     carry, new = carry or {}, {}
-    if kind in ATTN_KINDS or kind == "enc":
+    if kind in ATTN_KINDS:
         if span is None:
             x = x + ops.attend(p["attn"], h, kind, positions)
         else:
@@ -239,6 +243,23 @@ def _sequence_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     c, cm_x = ops.channel_mix(p["tm"], apply_norm(cfg, r["norm2"], x), carry.get("cm_x"))
     x = x + c
     return (x, aux) if span is None else (x, aux, {"s": s, "tm_x": tm_x, "cm_x": cm_x})
+
+
+def _encoder_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ops):
+    """An encoder layer's first half on a data row's span of the frames:
+    the norm and the span's K/V, as ``ops`` holds them (:meth:`LocalOps.
+    encode_kv`)."""
+    return ops.encode_kv(p["attn"], apply_norm(cfg, ops.read(p)["norm1"], x), positions)
+
+
+def _encoder_rest(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ops,
+                  kvs: list) -> torch.Tensor:
+    """The rest of the encoder layer on the span: its queries over every
+    row's K/V (``kvs``, in row order), ``wo``, the residual and the FFN."""
+    r = ops.read(p)
+    x = x + ops.encode_attend(p["attn"], apply_norm(cfg, r["norm1"], x), positions, kvs)
+    f, _ = ops.ffn(p["ffn"], apply_norm(cfg, r["norm2"], x))
+    return x + f
 
 
 def _init_block_state(cfg: ModelConfig, kind: str, batch: int, max_seq: int, dtype,
@@ -322,6 +343,16 @@ class LocalOps:
 
     def cross(self, p, h, memory):
         return attention.attend_cross(self.cfg, p, h, memory)
+
+    def encode_kv(self, p, h, positions):
+        """A span's encoder K/V (:func:`repro_torch.models.attention.encoder_kv`)."""
+        return attention.encoder_kv(self.cfg, p, h, positions)
+
+    def encode_attend(self, p, h, positions, kvs):
+        """A span's encoder attention over ``kvs``, every span's K/V in order."""
+        return attention.attend_encoder_span(self.cfg, p, h, positions,
+                                             torch.cat([k for k, _ in kvs], dim=1),
+                                             torch.cat([v for _, v in kvs], dim=1))
 
     def ffn(self, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """The FFN after attention: (out, aux), aux the MoE layer's
@@ -529,7 +560,9 @@ class Model:
         sequence split over the data axes (``batch`` the span's tokens or
         embeds, targets and mask), each layer from its entry of ``carry``
         (what the rows before left; None for the first row).  An enc-dec
-        decoder attends to ``memory``, the whole sequence's encoding.
+        decoder attends to ``memory``, the encoder's output: whole, or (the
+        sharded steps' ``RowOps``) the data rows' spans of it
+        (:meth:`encode_spans`) joined on each device.
         Returns (Σ of the span's masked CE, its mask total, its share of the
         aux loss (the whole sequence's on the last span), each layer's
         carry): the sequence's loss is Σ CE / Σ mask + Σ aux over the
@@ -565,14 +598,48 @@ class Model:
                remat: bool = False) -> torch.Tensor:
         """The encoder (enc-dec configs): frame embeddings (B, T, D) → the
         memory (B, T, D) the decoder attends to, through the ``enc`` layers
-        (K5, ``causal=False``; each under ``checkpoint`` when ``remat``, as
-        the training loss runs them) and the decoder's ``final_norm``, as in
-        the reference (``transformer.py:417-427``)."""
+        (K5, ``causal=False``; under ``checkpoint`` when ``remat``, as the
+        training loss runs them) and the decoder's ``final_norm``, as in the
+        reference (``transformer.py:417-427``): :meth:`encode_spans` over
+        one span of every frame."""
+        T = src_embeds.shape[1]
+        return self.encode_spans(params, [src_embeds], [Span(0, T, T)],
+                                 [ops or LocalOps(self.cfg)], remat=remat)[0]
+
+    def encode_spans(self, params, srcs: List[torch.Tensor], spans: List[Span], ops_by_row: list,
+                     remat: bool = False) -> List[torch.Tensor]:
+        """:meth:`encode` of frames split over data rows: row j holds
+        ``srcs[j]`` (B, T_j, D), the frames ``spans[j]`` of the utterance, and
+        computes through ``ops_by_row[j]``.  The encoder sees every frame, so
+        the walk goes layer by layer across the rows: (a) every row's norm
+        and K/V of its span (:meth:`LocalOps.encode_kv`), then (b) every
+        row's queries over all rows' K/V in row order
+        (:meth:`LocalOps.encode_attend`: K5 without the mask), ``wo``, the
+        residual and the FFN on its span.  No row holds the whole activation.
+        Under ``remat`` each row's (a) and (b) run under ``checkpoint``, and
+        (b)'s inputs hold every row's K/V, so the one backward recomputes
+        each and hands each row's K/V its share of the gradient from every
+        row's queries.  Returns the memory as spans: row j's (B, T_j, D)
+        after ``final_norm``, on its device."""
         cfg = self.cfg
-        ops = ops or LocalOps(cfg)
-        x, _ = self._stack(params["enc_layers"], ("enc",) * cfg.encoder_layers,
-                           src_embeds.to(cdt(cfg)), remat=remat, ops=ops)
-        return apply_norm(cfg, ops.read(params)["final_norm"], x)
+        xs = [s.to(cdt(cfg)) for s in srcs]
+        positions = [torch.arange(sp.start, sp.stop, dtype=torch.int32,
+                                  device=x.device)[None].expand(x.shape[0], -1)
+                     for sp, x in zip(spans, xs)]
+        context = REMAT_CONTEXTS[self.remat_policy]
+
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+            return fn(*args)
+
+        for p in params["enc_layers"]:
+            kvs = [run(_encoder_kv, cfg, p, x, pos, ops)
+                   for x, pos, ops in zip(xs, positions, ops_by_row)]
+            xs = [run(_encoder_rest, cfg, p, x, pos, ops, kvs)
+                  for x, pos, ops in zip(xs, positions, ops_by_row)]
+        return [apply_norm(cfg, ops.read(params)["final_norm"], x)
+                for x, ops in zip(xs, ops_by_row)]
 
     def prefill(self, params, batch: dict, max_seq: int,
                 memory: Optional[torch.Tensor] = None, ops=None,
@@ -603,8 +670,11 @@ class Model:
         the data axes into the cache ``states`` (the rows before filled
         theirs), each attention and MoE layer from its entry of ``carry``
         (None for the first row), each recurrent layer from the state the
-        row before wrote.  Returns (states, the prompt's last-token logits
-        on its last span, else None, each layer's carry)."""
+        row before wrote; an enc-dec decoder attends to ``memory``, whole or
+        (the sharded steps' ``RowOps``) as the data rows' spans
+        (:meth:`encode_spans`) joined on each device.  Returns (states, the
+        prompt's last-token logits on its last span, else None, each layer's
+        carry)."""
         ops = ops or LocalOps(self.cfg)
         x = self._input(params, batch, ops)
         B, S = x.shape[:2]

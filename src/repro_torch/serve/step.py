@@ -208,9 +208,13 @@ class ShardedPrefillStep(_ShardedServeStep):
       writes its slots of the cache (split on length across ``("data",
       "model")``, or on heads), and the logits are the last row's.  A
       prompt the data rows do not divide raises, as the reference's jit
-      does.  An enc-dec config's ``src_embeds`` are encoded whole on the
-      first data row (``ROADMAP.md`` item 6f.3b).  Any other batch runs
-      whole on the first data row.
+      does.  An enc-dec config's ``src_embeds`` (B, T, D) split likewise:
+      data row j encodes the frames ``[j T / dp, (j + 1) T / dp)``, layer by
+      layer over every row's K/V
+      (:func:`repro_torch.sharding.tensor_parallel.encode_over_rows`), and
+      each row's cross sub-blocks read the rows' memory spans joined once
+      on each device; a number of frames the data rows do not divide raises
+      too.  Any other batch runs whole on the first data row.
     * **Out:** the cache placed by ``cache_specs``, fresh each call (its
       blocks made on their devices), and the last-token logits (B, V) f32
       whole on the mesh's first device.
@@ -245,17 +249,17 @@ class ShardedPrefillStep(_ShardedServeStep):
         return cache, torch.cat(logits)
 
     def _over_sequence(self, params, batch: dict, cache: list) -> torch.Tensor:
-        """The prompt span by span over the data rows into ``cache``; its
-        last-token logits on the mesh's first device."""
+        """The prompt span by span over the data rows into ``cache`` (an
+        enc-dec config's frames encoded over the rows first); its last-token
+        logits on the mesh's first device."""
         x = batch["embeds"] if "embeds" in batch else batch["tokens"]
         rows = tp.rows_over_sequence(self.mesh, self.coords_by_row, self.batch, x.shape[1])
         cfg = self.model.cfg
         memory = None
         if cfg.is_encdec and "src_embeds" in batch:
-            first = rows[0]
-            with current(first.device):
-                memory = self.model.encode(params, batch["src_embeds"].to(first.device),
-                                           tp.RowOps(cfg, first))
+            memory = tp.memory_by_device(
+                tp.encode_over_rows(self.model, params, batch["src_embeds"], self.mesh,
+                                    self.coords_by_row), rows)
         carry = None
         for row in rows:
             part = {k: tp.span_of(v, row) for k, v in batch.items() if k != "src_embeds"}

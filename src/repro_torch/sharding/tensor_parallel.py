@@ -97,13 +97,19 @@ moved to its own) to its span's and runs K5 with the span's first position
 as the query offset; RWKV and the RG-LRU start from the state the row
 before left (:class:`Blocks` in training, the cache in serving), and the
 MoE router from the carried slot counts
-(:func:`repro_torch.models.moe.plan_span`).  A sequence the data axes do not
-divide raises, as the reference's jit does.
-
-**One difference from the reference's GSPMD steps is left** (``ROADMAP.md``
-item 6f.3b): an enc-dec config's encoder runs whole on the first data row
-at batch 1, where the reference splits ``src_embeds`` on the sequence too;
-its decoder splits.
+(:func:`repro_torch.models.moe.plan_span`).  An enc-dec config's frames
+split the same way (the specs put ``src_embeds`` on ``P(None, dp, None)``),
+each data row its own span of ``T / dp`` frames (:func:`encode_over_rows`):
+the encoder sees every frame, so :meth:`repro_torch.models.transformer.Model.
+encode_spans` goes layer by layer across the rows, first every row's K/V of
+its span on each model coordinate (:func:`encoder_kv`), then every row's
+queries over all rows' K/V joined on each coordinate's device
+(:func:`attention_encode_rows`: K5 without the mask, one launch a layer a
+coordinate a row), and the decoder's cross sub-blocks read the memory's
+spans joined once on each device (:func:`memory_by_device`), as GSPMD
+gathers the reference's.  A
+sequence or a number of frames the data axes do not divide raises, as the
+reference's jit does.
 """
 from __future__ import annotations
 
@@ -210,6 +216,20 @@ def span_of(x: torch.Tensor, row: Row) -> torch.Tensor:
     """The row's span of positions of a whole batch leaf (B, S, ...) on the
     row's device."""
     return x[:, row.span.start:row.span.stop].to(row.device)
+
+
+def encode_over_rows(model, params, frames: torch.Tensor, mesh, coords_by_row: List[list],
+                     remat: bool = False) -> List[torch.Tensor]:
+    """The encoder of ``frames`` (B, T, D) split over the data rows, each
+    its span of ``T / dp`` frames, layer by layer
+    (:meth:`repro_torch.models.transformer.Model.encode_spans` with each
+    row's :class:`RowOps`): the memory as the rows' spans, each on its
+    row's device.  Raises when the data rows do not divide ``T``, as the
+    reference's jit does."""
+    rows = rows_over_sequence(mesh, coords_by_row, frames.shape[0], frames.shape[1])
+    return model.encode_spans(params, [span_of(frames, r) for r in rows],
+                              [r.span for r in rows], [RowOps(model.cfg, r) for r in rows],
+                              remat=remat)
 
 
 # -- reading blocks ---------------------------------------------------------------
@@ -372,10 +392,25 @@ def _heads(p: dict, c, key: str) -> Tuple[int, int]:
     return p[key].region_at(c)[1]
 
 
+def memory_by_device(spans: List[torch.Tensor], rows: List[Row]) -> dict:
+    """The encoder's memory from the data rows' spans
+    (:func:`encode_over_rows`), joined in row order once on each device of
+    ``rows``, where their cross sub-blocks read it: {device: (B, T, D)}."""
+    devices = dict.fromkeys(d for r in rows for d in r.devices)
+    return {d: torch.cat([m.to(d) for m in spans], dim=1) for d in devices}
+
+
+def _memory_on(memory, dev) -> torch.Tensor:
+    """The encoder's memory on ``dev``: a whole tensor moved there, or its
+    copy joined there (:func:`memory_by_device`)."""
+    return memory[dev] if isinstance(memory, dict) else memory.to(dev)
+
+
 def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch.Tensor,
                       row: Row, memory: Optional[torch.Tensor] = None, prefix=None,
                       q_offset: int = 0):
-    """``attention.attend_prefill`` (or ``attend_cross`` with ``memory``)
+    """``attention.attend_prefill`` (or ``attend_cross`` with ``memory``,
+    whole or joined on each device by :func:`memory_by_device`)
     split on heads: each coordinate projects its q and KV heads, applies
     RoPE (not to a memory), runs K5 on them and its ``wo`` block; one
     query row over a memory (a decode step's cross-attention) runs
@@ -396,7 +431,7 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch
         with current(dev):
             xq = x.to(dev)
             q, k, v = attention._project_qkv(cfg, lp, xq, xq if memory is None
-                                             else memory.to(dev))
+                                             else _memory_on(memory, dev))
             if memory is None:
                 pos = positions.to(dev)
                 q = attention._rope(cfg, q, pos, kind)
@@ -409,7 +444,7 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch
                 pick = kv_pick(_heads(p, c, "wq"), group)
                 kq, vq = _take(k, pick), _take(v, pick)
             if memory is None:
-                out = flash_ops.flash_attention(q, kq, vq, causal=kind != "enc",
+                out = flash_ops.flash_attention(q, kq, vq, causal=True,
                                                 window=attention._window(cfg, kind),
                                                 scale=scale, softcap=cfg.attn_softcap,
                                                 q_offset=q_offset)
@@ -422,6 +457,50 @@ def attention_prefill(cfg, p: dict, x: torch.Tensor, kind: str, positions: torch
         if kv_split or i == 0:
             kv.append((_heads(p, c, "wk"), k[:, q_offset:], v[:, q_offset:]))
     return sum_partials(parts, row.device, cdt(cfg)), kv, joined
+
+
+def encoder_kv(cfg, p: dict, h: torch.Tensor, positions: torch.Tensor, row: Row) -> list:
+    """A data row's span of the frames, an encoder layer's first half on
+    each model coordinate that computes its attention: k (after RoPE at the
+    span's absolute ``positions``) and v of the coordinate's KV heads
+    (every KV head where ``"model"`` does not divide them).  Returns [(k,
+    v)] in model order, each on its coordinate's device."""
+    out = []
+    for c, dev in _workers(row, split_dim(p["wq"]) is not None):
+        with current(dev):
+            out.append(attention.encoder_kv(cfg, _local(p, c), h.to(dev), positions.to(dev)))
+    return out
+
+
+def attention_encode_rows(cfg, p: dict, h: torch.Tensor, positions: torch.Tensor, row: Row,
+                          kvs: list) -> torch.Tensor:
+    """The encoder's attention of a data row's span on each model
+    coordinate: its q heads of ``h`` (RoPE at the span's absolute
+    ``positions``) over every row's k and v of its KV heads (``kvs``: each
+    row's :func:`encoder_kv`, in row order, moved to the coordinate's device
+    and joined), K5 without the mask over all ``T`` frames, and its ``wo``
+    block's partial; summed on the row's device.  One K5 launch a
+    coordinate, and no combine: every coordinate's queries see every key.
+    The query offset is 0, as an unmasked call reads every key whatever its
+    queries' positions."""
+    group = cfg.num_heads // cfg.num_kv_heads
+    q_split = split_dim(p["wq"]) is not None
+    kv_split = split_dim(p["wk"]) is not None
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    parts = []
+    for i, (c, dev) in enumerate(_workers(row, q_split)):
+        lp = _local(p, c)
+        with current(dev):
+            q = attention.encoder_queries(cfg, lp, h.to(dev), positions.to(dev))
+            k = torch.cat([kv[i][0].to(dev) for kv in kvs], dim=1)
+            v = torch.cat([kv[i][1].to(dev) for kv in kvs], dim=1)
+            if q_split and not kv_split:
+                pick = kv_pick(_heads(p, c, "wq"), group)
+                k, v = _take(k, pick), _take(v, pick)
+            out = flash_ops.flash_attention(q, k, v, causal=False, window=0, scale=scale,
+                                            softcap=cfg.attn_softcap, q_offset=0)
+            parts.append(attention._out_proj(cfg, lp, out))
+    return sum_partials(parts, row.device, cdt(cfg))
 
 
 def cache_layout(k: pl.Placed) -> str:
@@ -881,6 +960,12 @@ class RowOps:
 
     def cross(self, p, h, memory):
         return attention_prefill(self.cfg, p, h, "attn", None, self.row, memory=memory)[0]
+
+    def encode_kv(self, p, h, positions):
+        return encoder_kv(self.cfg, p, h, positions, self.row)
+
+    def encode_attend(self, p, h, positions, kvs):
+        return attention_encode_rows(self.cfg, p, h, positions, self.row, kvs)
 
     def ffn(self, p, x):
         return ffn(self.cfg, p, x, self.row)

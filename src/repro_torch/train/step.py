@@ -25,8 +25,8 @@ placements out as in.  PyTorch runs it eagerly (:class:`ShardedTrainStep`):
 each data row's loss and gradients tensor parallel over its model
 coordinates (:mod:`repro_torch.sharding.tensor_parallel`), each as GSPMD
 splits the reference's compute along ``"model"``; at batch 1 each data row
-computes its own span of the sequence, as the reference's batch specs
-split it.
+computes its own span of the sequence (an enc-dec config's frames too),
+as the reference's batch specs split it.
 """
 from __future__ import annotations
 
@@ -48,6 +48,12 @@ class TrainStepConfig:
     microbatches: int = 1
     grad_dtype: str = "float32"  # "bfloat16" → compressed grad accumulation
     adamw: opt.AdamWConfig = opt.AdamWConfig()
+
+
+def _rounds_alike(a: torch.device, b: torch.device) -> bool:
+    """Whether devices ``a`` and ``b`` run AdamW's arithmetic to the same
+    bits: devices of one type do, a card and the CPU do not."""
+    return a.type == b.type
 
 
 @contextlib.contextmanager
@@ -158,7 +164,12 @@ class ShardedTrainStep:
       block that the row read (a replicated leaf is read from the row's
       first coordinate only); clipped by the global norm of the whole
       gradient; AdamW updates each shard on its device; each param block
-      takes the updated regions, from the devices that updated them.
+      takes the updated regions, from the devices that updated them.  A
+      region whose moment block devices of two types hold (a card and the
+      CPU, whose ``sqrt`` rounds apart in the last bit) is summed and
+      updated only on the holders of its first holder's type, and the
+      others take its moments from the first, so the copies of a block stay
+      bit-equal on any mesh; devices of one type each update their own.
     * **Out:** params and moments updated in place (``donate=True``; else
       on copies), in the placements they came in.
 
@@ -186,17 +197,22 @@ class ShardedTrainStep:
     sequence's mask total, plus the whole sequence's aux; then one
     ``torch.autograd.grad`` over the union of the rows' blocks (autograd
     carries each row's gradient back into the K/V and state the rows
-    before handed on) and the accumulation as above.  A sequence the data
-    rows do not divide raises, as the reference's jit does, and so do
-    microbatches that do not divide the batch (a batch of 1 into 2).  A
-    batch the specs replicate (split neither way; every data row of the
-    reference computes the same) runs once, on the first data row.
+    before handed on) and the accumulation as above.  An enc-dec config's
+    ``src_embeds`` split on the frames likewise: data row j encodes ``[j T /
+    dp, (j + 1) T / dp)``, layer by layer over every row's K/V
+    (:func:`repro_torch.sharding.tensor_parallel.encode_over_rows`, each
+    row's layer under remat's ``checkpoint`` with the other rows' K/V among
+    its inputs), inside the same graph, so the one backward hands each
+    row's K/V its share from every row's queries and the encoder blocks
+    their gradients through ``row_tensors``; every row's decoder span reads
+    the memory's spans, joined once on each device.  A sequence or a
+    number of frames the data rows do not divide raises, as the reference's
+    jit does, and so do microbatches that do not divide the batch (a batch
+    of 1 into 2).  A batch the specs replicate (split neither way; every
+    data row of the reference computes the same) runs once, on the first
+    data row.
 
-    **One difference from the reference's GSPMD step is left**
-    (``ROADMAP.md`` item 6f.3b): at batch 1 an enc-dec config's encoder
-    runs whole on the first data row, its memory read by every row's
-    decoder span; the reference splits ``src_embeds`` on the sequence
-    too.  The cross-entropy runs, as GSPMD splits the reference's, on each model
+    The cross-entropy runs, as GSPMD splits the reference's, on each model
     coordinate's vocab block of the unembedding, combined by log-sum-exp
     (:func:`repro_torch.sharding.tensor_parallel.xent`), so no leaf split
     on ``"model"`` is gathered.  ``rwkv`` and ``rglru`` blocks run on each model coordinate's
@@ -235,9 +251,16 @@ class ShardedTrainStep:
         opt_state = opt.AdamWState(*(tree_map(place, x, s) for x, s in
                                      zip(opt_state, self.opt_state_shardings)))
         P, M, V = leaves(params), leaves(opt_state.m), leaves(opt_state.v)
-        # each moment block: (key, region, a coordinate holding it)
-        shards = [[((b, self.mesh.device(c)), x.sharding.region(b, x.shape), c)
-                   for b, held in x.copies().items() for c, _ in held] for x in M]
+        # each moment block: (key, region, a coordinate holding it, whether
+        # it updates the region: its device rounds as the first holder's)
+        shards = []
+        for x in M:
+            mine = []
+            for b, held in x.copies().items():
+                first = self.mesh.device(held[0][0])
+                mine += [((b, self.mesh.device(c)), x.sharding.region(b, x.shape), c,
+                          _rounds_alike(self.mesh.device(c), first)) for c, _ in held]
+            shards.append(mine)
 
         B, S = batch["targets"].shape
         m = cfg.microbatches
@@ -306,10 +329,9 @@ class ShardedTrainStep:
         with _requiring_grad(tensors), torch.autograd.set_multithreading_enabled(False):
             memory = None
             if cfg.is_encdec:
-                first = rows[0]
-                with current(first.device):
-                    memory = model.encode(params, batch["src_embeds"].to(first.device),
-                                          tp.RowOps(cfg, first), remat=model.remat)
+                memory = tp.memory_by_device(
+                    tp.encode_over_rows(model, params, batch["src_embeds"], self.mesh,
+                                        self.rows, remat=model.remat), rows)
             ce = count = aux = carry = None
             for row in rows:
                 part = {k: tp.span_of(v, row) for k, v in batch.items() if k != "src_embeds"}
@@ -328,14 +350,16 @@ class ShardedTrainStep:
     @staticmethod
     def _accumulate(acc, grads, reads, P, shards, gdt):
         """Add one microbatch's gradients into each moment block's region,
-        on that block's device: the region's part of the gradient of every
-        copy of the param block that holds it (a copy the row did not read
-        has none; no copy read: zeros)."""
+        on the block's device where it updates the region: the region's
+        part of the gradient of every copy of the param block that holds it
+        (a copy the row did not read has none; no copy read: zeros)."""
         j = 0
         for i, (x, mine, read) in enumerate(zip(P, shards, reads)):
             got = grads[j:j + len(read)]
             j += len(read)
-            for key, region, _ in mine:
+            for key, region, _, updates in mine:
+                if not updates:
+                    continue
                 g, inside = None, False
                 for (b, _), gb in zip(read, got):
                     outer = x.sharding.region(b, x.shape)
@@ -358,7 +382,7 @@ class ShardedTrainStep:
         sq = []
         for a, mine in zip(acc, shards):
             seen, parts = set(), []
-            for key, region, _ in mine:
+            for key, region, _, _ in mine:
                 if region not in seen:
                     seen.add(region)
                     parts.append(torch.sum(torch.square(a[key].float())).to(home))
@@ -375,8 +399,10 @@ class ShardedTrainStep:
 
         with torch.no_grad():
             for x, mx, vx, a, mine, decay in zip(P, M, V, acc, shards, self.decay):
-                done = {}  # region -> devices that updated it
-                for key, region, coord in mine:
+                done = {}  # region -> [(moment key, param block)] of its updates
+                for key, region, coord, updates in mine:
+                    if not updates:
+                        continue
                     s, lr_d, bc1_d, bc2_d = scalars(key[1])
                     pb = x.sharding.block(coord, x.ndim)
                     outer = x.sharding.region(pb, x.shape)
@@ -384,14 +410,22 @@ class ShardedTrainStep:
                     g = opt.scaled(a[key], s)
                     opt.adamw_update(acfg, p, g, mx.store[key], vx.store[key], decay,
                                      lr_d, bc1_d, bc2_d)
-                    done.setdefault(region, []).append(key[1])
-                # every param block takes the regions other devices updated
+                    done.setdefault(region, []).append((key, pb))
+                # a moment copy that did not update its region takes the first
+                # update's; every param block the regions other devices updated
+                for key, region, _, updates in mine:
+                    if not updates:
+                        src = done[region][0][0]
+                        mx.store[key].copy_(mx.store[src])
+                        vx.store[key].copy_(vx.store[src])
                 for (pb, dev), t in x.store.items():
                     outer = x.sharding.region(pb, x.shape)
-                    for region, devs in done.items():
-                        if dev not in devs and pl.contains(outer, region):
-                            src = x.store[(pb, devs[0])][pl.slices_within(region, outer)]
-                            t[pl.slices_within(region, outer)].copy_(src)
+                    for region, ups in done.items():
+                        if dev not in {k[1] for k, _ in ups} and pl.contains(outer, region):
+                            src, spb = ups[0]
+                            from_ = x.store[(spb, src[1])][
+                                pl.slices_within(region, x.sharding.region(spb, x.shape))]
+                            t[pl.slices_within(region, outer)].copy_(from_)
         step_placed = pl.place(new_step, self.opt_state_shardings.step)
         return step_placed, {"grad_norm": gnorm, "lr": lr}
 

@@ -35,8 +35,10 @@ CPU repeated, a sequence of 32:
   (prefilled and trained from ``embeds``, M-RoPE); RWKV6-7B; and
   RecurrentGemma-9B;
 * a sequence of 30 over 4 data rows raises ``ValueError`` in the port's
-  steps and in the reference's jit (in a subprocess of 4 CPU devices), and
-  2 microbatches of a batch of 1 raise.
+  steps and in the reference's jit (in a subprocess of 4 CPU devices), as
+  do 30 frames of an enc-dec's ``src_embeds`` in the reference's jit, and
+  2 microbatches of a batch of 1 raise.  The enc-dec encoder's split:
+  ``tests/test_torch_encoder_split.py``.
 
 Units: ``attention_ref`` at a query offset equals the rows of the whole
 attention (GQA, causal, window, softcap) and so does its VJP; ``route``
@@ -101,6 +103,7 @@ S, STEPS = 32, 4
 MAX_SEQ = {"mixtral-8x7b": 32}  # 40 otherwise: the 4 decode steps past the prompt
 REF_TOL, PORT_TOL = 1e-4, 1e-5
 DROP_FACTOR = 0.25  # Qwen2-MoE's capacity factor here: 8 slots an expert, drops
+ENCDEC_FRAMES = 2  # frames a token in the enc-dec's bf16 runs, as chip_smoke's 1,024 / 512
 # RWKV6's m and v: step 2's gradient of ``bonus_u`` cancels to the f32 noise
 # floor, where a sum in another order moves v by a share of LEAF_TOL (the
 # wkv scan's chunks end at each span's end, and its VJP sums each span's
@@ -391,45 +394,6 @@ def test_spans_longer_than_a_ring(kv_dtype):
         _close(a, b, PORT_TOL)
 
 
-def test_an_encdec_decoder_splits_its_encoder_runs_whole(monkeypatch):
-    """Seamless-M4T-large-v2 reduced on (2, 2) at batch 1: the encoder runs
-    once, whole, on the first data row (``ROADMAP.md`` item 6f.3b), every
-    row's decoder span reads its memory; the prefill's logits and cache and
-    two train steps within 1e-5 of the unsharded path (the params with
-    ``test_torch_sharded_train.py``'s allowance of a learning rate a step
-    where the gradient's RMS is under 1e-6)."""
-    arch = "seamless-m4t-large-v2"
-    model = _model(arch)
-    cfg = model.cfg
-    params = model.init_params(torch.Generator().manual_seed(0), device="cpu")
-    g = torch.Generator().manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=g),
-             "src_embeds": torch.randn(1, 10, cfg.d_model, generator=g)}
-    _, prefill, _ = _steps(model, (2, 2), 40)
-    encoded, real = [], Model.encode
-    monkeypatch.setattr(Model, "encode", lambda self, p, x, *a, **k: encoded.append(
-        tuple(x.shape)) or real(self, p, x, *a, **k))
-    cache, logits = prefill(reshard_tree(params, prefill.param_shardings), batch)
-    assert prefill.split_seq and encoded == [(1, 10, cfg.d_model)]
-    ucache, ulogits = make_prefill_step(model, 40)(params, batch)
-    _close(logits, ulogits, PORT_TOL)
-    for layer, want in zip(cache, ucache):
-        for name, x in layer.items():
-            _close(pl.gather(x, "cpu"), want[name], PORT_TOL)
-    batch["targets"] = torch.roll(batch["tokens"], -1, dims=1)
-    step = _train_step(model, (2, 2))
-    placed, state = reshard_tree(params, step.param_shardings), step.init_opt_state()
-    uparams, ustate, uvs = params, opt.init_state(params), []
-    unsharded = make_train_step(model, TrainStepConfig(adamw=opt.AdamWConfig(**ADAMW)))
-    for _ in range(2):
-        placed, state, m = step(placed, state, batch)
-        uparams, ustate, um = unsharded(uparams, ustate, batch)
-        uvs.append(jax.tree.map(np.copy, convert.lm_params_to_numpy(ustate.v, cfg)))
-        np.testing.assert_allclose(float(m["loss"]), float(um["loss"]), rtol=PORT_TOL)
-    _assert_leaves_close(_whole(placed), convert.lm_params_to_numpy(uparams, cfg), cfg,
-                         PORT_TOL, 1.0, step_vs=uvs)
-
-
 _REFERENCE_JIT = """
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, NamedSharding
@@ -438,29 +402,35 @@ from repro.sharding.policy import ShardingPolicy
 
 mesh = Mesh(np.array(jax.devices()).reshape(4, 1), ("data", "model"))
 policy = ShardingPolicy(mesh, base.get_reduced_config("llama3.2-1b"))
-for seq in (32, 30):
-    spec = policy.batch_specs(base.ShapeConfig("p", seq, 1, "prefill"))["tokens"]
+for name, seq, shape in (("tokens", 32, (1, 32)), ("tokens", 30, (1, 30)),
+                         ("src_embeds", 32, (1, 32, 8)), ("src_embeds", 32, (1, 30, 8))):
+    spec = policy.batch_specs(base.ShapeConfig("p", seq, 1, "prefill"))[name]
     f = jax.jit(lambda t: t + 1, in_shardings=NamedSharding(mesh, spec))
     try:
-        f(jnp.zeros((1, seq), jnp.int32))
-        print(seq, tuple(spec), "ok")
+        f(jnp.zeros(shape, jnp.int32))
+        print(name, shape[1], tuple(spec), "ok")
     except ValueError as e:
-        print(seq, tuple(spec), "ValueError", "divisible" in str(e))
+        print(name, shape[1], tuple(spec), "ValueError", "divisible" in str(e))
 """
 
 
 def test_a_sequence_the_data_rows_do_not_divide_raises():
     """(1, 30) on 4 data rows: the reference's jit raises (4 CPU devices,
     a subprocess) and so do the port's prefill and train steps; (1, 32)
-    runs in both.  Two microbatches of a batch of 1 raise."""
+    runs in both.  So does an enc-dec's ``src_embeds`` of 30 frames beside
+    a prompt of 32 tokens in the reference's jit (the port's steps:
+    ``tests/test_torch_encoder_split.py``).  Two microbatches of a batch of
+    1 raise."""
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                JAX_PLATFORMS="cpu")
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-c", textwrap.dedent(_REFERENCE_JIT)], env=env,
                          capture_output=True, text=True, timeout=120, check=True).stdout
-    assert out.split("\n")[:2] == ["32 (None, 'data') ok",
-                                   "30 (None, 'data') ValueError True"]
+    assert out.split("\n")[:4] == ["tokens 32 (None, 'data') ok",
+                                   "tokens 30 (None, 'data') ValueError True",
+                                   "src_embeds 32 (None, 'data', None) ok",
+                                   "src_embeds 30 (None, 'data', None) ValueError True"]
     model = _model("llama3.2-1b")
     params = _params("llama3.2-1b", model)
     _, prefill, _ = _steps(model, (4, 1), 40)
@@ -494,8 +464,9 @@ def test_rows_over_the_sequence():
 
 def _bf16_run(arch, seed, sizes, seq=128, steps=3):
     """The reduced config in bf16 from seed ``seed``, ``steps`` steps on the
-    token pipeline's batch-1 sequences of ``seq``: split over a mesh of
-    ``sizes``, or unsharded (``sizes`` None).  Returns (each step's loss,
+    token pipeline's batch-1 sequences of ``seq`` (an enc-dec config's
+    beside ``ENCDEC_FRAMES * seq`` frames): split over a mesh of ``sizes``,
+    or unsharded (``sizes`` None).  Returns (each step's loss,
     each param / m / v leaf's f64 norm after the steps)."""
     cfg = dataclasses.replace(base.get_reduced_config(arch), compute_dtype="bfloat16")
     model = Model(cfg, xent_impl="chunked", remat=True)
@@ -514,7 +485,12 @@ def _bf16_run(arch, seed, sizes, seq=128, steps=3):
         params, state = reshard_tree(params, step.param_shardings), step.init_opt_state()
     losses = []
     for s in range(steps):
-        params, state, m = step(params, state, tok.device_batch(pipe, s, "cpu"))
+        batch = tok.device_batch(pipe, s, "cpu")
+        if cfg.is_encdec:  # ENCDEC_FRAMES frames a token, ~ N(0, 1), from the seed and step
+            batch["src_embeds"] = torch.randn(
+                1, ENCDEC_FRAMES * seq, cfg.d_model,
+                generator=torch.Generator().manual_seed(1000 * seed + s))
+        params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
     return losses, [float(torch.linalg.vector_norm(pl.gather(x, "cpu").double()))
                     for t in (params, state.m, state.v) for x in leaves(t)]
@@ -530,7 +506,7 @@ def bf16_gaps(arch, seed, sizes=(2, 2)):
     return rel(losses, ulosses), rel(norms, unorms)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b", "seamless-m4t-large-v2"])
 def test_bf16_gaps_of_the_split_within_the_chip_limits(arch):
     """The readings ``chip_smoke.py``'s batch-1 ``sharded_train`` limits were
     set from (``SEQ_SPLIT_LIMITS``, 3x the largest over 3 seeds:

@@ -29,7 +29,10 @@ step, bit for bit at a model axis of 1, else at 1e-6 / 1e-5):
   leaf has a copy on each of a row's coordinates and only the first is
   read, every replicated leaf's param and ZeRO-1 moments after 2 steps
   equal the unsharded step's within the tensor-parallel tolerance, and
-  every copy of every block is bit-equal across the two devices;
+  every copy of every block is bit-equal across the two devices; there each
+  holder updates its own copy, and where the two stand-ins round apart
+  (``_rounds_alike`` patched) a region is updated once and copied, so
+  copies stay bit-equal even with one device's update nudged by an ulp;
 * the bf16 gaps ``chip_smoke.py``'s ``sharded_train`` limits were set from
   (and RWKV's f32 gaps, which its f32 run is held to), and, against the
   same steps at f32 compute, that Qwen2-MoE's widest leaf-norm gaps are
@@ -64,6 +67,7 @@ from repro_torch.sharding import placement as pl
 from repro_torch.sharding import tensor_parallel as tp
 from repro_torch.sharding.policy import ShardingPolicy
 from repro_torch.train import optimizer as opt
+from repro_torch.train import step as train_step
 from repro_torch.train.step import (TrainStepConfig, jit_train_step, make_train_step,
                                     microbatches)
 from repro_torch.tree import flatten_with_paths, leaves
@@ -148,6 +152,66 @@ def _two_device_mesh_step(arch):
                           TrainStepConfig(adamw=opt.AdamWConfig(**ADAMW)),
                           batch_specs=policy.batch_specs(base.ShapeConfig("t", S, B, "train")))
     return model, step
+
+
+def _nudged_steps(arch, monkeypatch):
+    """Two steps on ``_two_device_mesh_step``'s mesh with ``cpu:1``'s AdamW
+    update of a param region nudged by one ulp after it (as a CPU's
+    ``sqrt`` and a card's round apart): (params, state, the moment blocks'
+    (block, device) copies, the updates' count, the nudged ones')."""
+    model, step = _two_device_mesh_step(arch)
+    rparams, batches = _setup(arch)
+    placed = reshard_tree(convert.lm_params_from_numpy(rparams, model.cfg, device="cpu"),
+                          step.param_shardings)
+    on = {t.untyped_storage().data_ptr(): dev for x in leaves(placed)
+          for (_, dev), t in x.store.items()}
+    real, updates, nudged = opt.adamw_update, [], []
+
+    def update(cfg, p, *args):
+        real(cfg, p, *args)
+        updates.append(p.numel())
+        if on[p.untyped_storage().data_ptr()] == torch.device("cpu", 1):
+            p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+            nudged.append(p.numel())
+
+    monkeypatch.setattr(opt, "adamw_update", update)
+    state = step.init_opt_state()
+    for b in batches[:2]:
+        placed, state, _ = step(placed, state, _torch_batch(b))
+    copies = sum(len(held) for x in leaves(state.m) for held in x.copies().values())
+    return placed, state, copies, len(updates), len(nudged)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-large-v2"])
+def test_each_region_updated_once_keeps_the_copies_bit_equal(arch, monkeypatch):
+    """Two stand-in devices whose AdamW rounds apart (``_rounds_alike``
+    false for ``cpu:0`` and ``cpu:1``, and ``cpu:1``'s updates nudged by an
+    ulp, as a CPU's ``sqrt`` and a card's round apart): each moment region
+    is updated on one device and the other holders take its result, so
+    every block's copies, params and moments, stay bit-equal, and ``cpu:1``
+    updated some regions (so the nudge is in the values).  Seamless-M4T's
+    LayerNorm biases, replicated and zero at first, are where a card and a
+    CPU first drifted apart."""
+    monkeypatch.setattr(train_step, "_rounds_alike", lambda a, b: a == b)
+    placed, state, copies, updates, nudged = _nudged_steps(arch, monkeypatch)
+    regions = sum(len(x.copies()) for x in leaves(state.m))
+    assert nudged and updates == 2 * regions < 2 * copies
+    for tree in (placed, state.m, state.v):
+        for path, x in flatten_with_paths(tree):
+            for held in x.copies().values():
+                assert all(torch.equal(t, held[0][1]) for _, t in held[1:]), path
+
+
+def test_devices_of_one_type_each_update_their_own_copy(monkeypatch):
+    """On devices of one type (``cpu:0`` and ``cpu:1``, as four cards of one
+    kind) every holder of a moment region updates its own copy, as they
+    round alike, and none is copied across: with ``cpu:1``'s updates nudged,
+    its param copies hold the nudge and ``cpu:0``'s do not."""
+    placed, state, copies, updates, nudged = _nudged_steps("llama3.2-1b", monkeypatch)
+    assert updates == 2 * copies and nudged
+    unequal = sum(not all(torch.equal(t, held[0][1]) for _, t in held[1:])
+                  for x in leaves(placed) for held in x.copies().values())
+    assert unequal > 0
 
 
 def test_replicated_leaf_update_on_two_devices():
