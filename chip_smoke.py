@@ -121,20 +121,27 @@ against their plain PyTorch versions:
    (``c_export_phase``); no gcc fails the run;
 6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
    RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B, Nemotron-4-15B and
-   Qwen2-VL-7B's text decoder (8 requests, 4 lanes, 16 new tokens each) at
-   full width and depth, bf16 compute (each layer's weights stored in bf16
-   as it is drawn), through ``Engine``, one model at a time: every request
-   done, K5 = 16 / K7 = 32 / K5 = 12 / K5 = 24 / K5 = 32 / K5 = 32 / K5 =
-   28 launches per prefill (no other kernel), the KV/state bytes
-   (268,959,744 / 136,314,880 / 54,788,096 / 805,699,584 / 537,395,200 /
-   537,395,200 / 235,339,776 B), each prompt's
+   Qwen2-VL-7B's text decoder (8 requests, 4 lanes, 16 new tokens each),
+   and Gemma3-1B (16 requests of up to 1,716 tokens, 8 lanes, ``max_seq``
+   2,048, 32 new tokens) at full width, at full depth but for
+   ``LM_ENGINE_LAYERS`` (RWKV6-7B 16, RecurrentGemma-9B 20, Qwen2-MoE 12,
+   Llama-3-8B 16 and Qwen2-VL 14 layers), bf16 compute (each layer's
+   weights stored in bf16 as it is drawn), through ``Engine``, one model
+   at a time: every request done, K5 = 16 / K7 = 16 / K5 = 6 / K5 = 12 /
+   K5 = 16 / K5 = 32 / K5 = 14 / K5 = 26 launches per prefill (no other
+   kernel; Gemma3's 22 with its window of 512, 4 without), the KV/state
+   bytes (268,959,744 / 68,157,440 / 27,557,888 / 402,849,792 /
+   268,697,600 / 537,395,200 / 117,669,888 / 160,006,144 B: Gemma3's 22
+   local layers keep rings of 512 slots), a
+   Gemma3 request whose decode steps wrap the rings (509 + 32) decoded
+   again and held against a prefill of the whole sequence, each prompt's
    logits against the plain path on the card (the same model with K5/K7
    swapped for their plain versions, ``plain_kernels``), TTFT, prefill and
    decode tokens/s, peak memory, and the device time of K5 / K7, the
    RG-LRU scan and the MoE einsums over the served prompts' prefills;
    Qwen2-VL-7B then from patch embeddings (``vl_embeds_phase``): 4 lanes
    of 509 embedding rows through ``Model.prefill(batch={"embeds": ...})``,
-   K5 28 launches, then 16 greedy decode steps on tokens, none, the
+   K5 14 launches, then 16 greedy decode steps on tokens, none, the
    prefill's logits against the plain path (``LM_LOGITS_TOL``), TTFT, ms a
    decode step and peak memory;
    then Seamless-M4T-large-v2 at full size (``encdec_phase``): two batches
@@ -150,28 +157,32 @@ against their plain PyTorch versions:
    the first prefill's and decode step's logits within
    tests/test_kv_quant.py's tolerances, ms a decode step both ways;
 7. holds each served architecture at full width, 2 layers (RecurrentGemma 3;
-   Seamless 2 encoder and 2 decoder layers over 200 frames, its training
-   loss and gradients too, at step 9's limits), f32 compute, kernel path
-   against plain path: prefill and 4 decode steps at 1e-4; then
+   Gemma3 6, over a prompt of 600 past its window; Seamless 2 encoder and
+   2 decoder layers over 200 frames, its training loss and gradients too,
+   at step 9's limits), f32 compute, kernel path against plain path:
+   prefill and 4 decode steps at 1e-4; then
    RWKV6-7B at full depth (32 layers) on prompts of 200 and 509 tokens,
    kernel path against plain path layer by layer, at f32 compute (final
    logits and K7's share of each layer held, see ``RWKV_F32_DRIFT_TOL``);
 8. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
-   step of 2 microbatches, then a profiled step), and RWKV6-7B (2 layers),
-   RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2) and Qwen2-VL-7B (2, on the
-   launcher's embeds batches, and a step of 2 microbatches) at full width
-   (B 4 x S 512, 2 steps, then a profiled step): f32 params, bf16 compute,
-   remat, ``xent_impl="chunked"``, the launcher's AdamW, token-pipeline
-   batches; every loss finite, launches per step pinned (Llama K5 32, K6
-   1, or 64 and 2 with 2 microbatches; RWKV K7 4, K6 1; RecurrentGemma K5
-   2, Qwen2-MoE and Qwen2-VL K5 4, K6 1; no other kernel), every parameter
+   step of 2 microbatches, then a profiled step), Gemma3-1B at full width
+   and depth (B 4 x S 1,024, 2 steps, then a profiled step), and RWKV6-7B
+   (2 layers), RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2) and Qwen2-VL-7B
+   (2, on the launcher's embeds batches, and a step of 2 microbatches) at
+   full width (B 4 x S 512, 2 steps, then a profiled step): f32 params,
+   bf16 compute, remat, ``xent_impl="chunked"``, the launcher's AdamW,
+   token-pipeline batches; every loss finite, launches per step pinned
+   (Llama K5 32, K6 1, or 64 and 2 with 2 microbatches; Gemma3 K5 52, K6 1
+   at V 262,144 on the tied table; RWKV K7 4, K6 1; RecurrentGemma K5 2,
+   Qwen2-MoE and Qwen2-VL K5 4, K6 1; no other kernel), every parameter
    leaf with a nonzero finite gradient (an embeds batch's unread
    ``embed``: zero),
    step 1's loss and grad norm against the plain path (1e-2 and 5e-2
    relative); step ms, tokens/s, peak memory, K6's device ms per step,
    the device's idle share and MFU (on the active parameters for MoE);
-9. holds the five trained architectures at full width, 2 layers
-   (RecurrentGemma 3), f32 compute, kernel path against plain path: step
+9. holds the six trained architectures at full width, 2 layers
+   (RecurrentGemma 3; Gemma3 6, at S 640), f32 compute, kernel path
+   against plain path: step
    1's loss at 1e-5 relative, every gradient leaf at rtol 1e-3 and 1e-3 of
    the leaf's largest value, and the losses of 2 AdamW steps at 1e-5
    relative; then (``remat_dots_phase``) one Llama-3.2-1B train step's
@@ -180,12 +191,13 @@ against their plain PyTorch versions:
    then the multi-card half of training on the card: ``sharded_train``
    (3 steps of ``jit_train_step`` beside the unsharded step with 2
    microbatches, params by ``ShardingPolicy``, the AdamW moments ZeRO-1
-   split: Llama-3.2-1B whole, B 8 x S 512, on ("data", "model") = (2, 1)
-   over cuda:0 twice, each data row's rows through K5 and K6 whole: step
-   1's loss bit-equal, the others within 1e-5 relative, the f64 norm of
-   every param and moment leaf within 1e-6 relative, K5 64 and K6 2 a
-   step; then tensor parallel on (2, 2), over four cards when there are
-   four, else over cuda:0 four times: K5 128 (on each model coordinate's
+   split: Llama-3.2-1B at full width, 4 of its 16 layers, B 8 x S 512,
+   on ("data", "model") = (2, 1) over cuda:0 twice, each data row's rows
+   through K5 and K6 whole: step 1's loss bit-equal, the others within
+   1e-5 relative, the f64 norm of every param and moment leaf within 1e-6
+   relative, K5 16 and K6 2 a step; then tensor parallel on (2, 2), over
+   four cards when there are four, else over cuda:0 four times: K5 32 (on
+   each model coordinate's
    heads) and K6's partial form 4 a step (on each model coordinate's vocab
    block of the unembedding, a data row's rows), no leaf gathered, losses
    and leaf norms within the limits
@@ -197,13 +209,18 @@ against their plain PyTorch versions:
    channels, no RWKV or RG-LRU leaf gathered, K7 only at ``K7_SHARDED``,
    losses and leaf norms (RWKV's median leaf) within ``SHARDED_RWKV_*`` /
    ``SHARDED_RG_*``, and RWKV6-7B's same steps at f32 compute, every
-   leaf norm and loss within ``SHARDED_F32_*``; then at batch 1
+   leaf norm and loss within ``SHARDED_F32_*``; Gemma3-1B's 6 layers (one
+   5:1 group), B 4 x S 1,024, on (2, 2): K5 48 on 2 of 4 query heads a
+   coordinate, local and global, K6's partial form 4 on the tied table's
+   vocab blocks, within its ``SHARDED_TP_LIMITS``; then at batch 1
    (``SEQ_SPLIT_TRAIN``: the batch specs split the sequence, each data row
    its span) beside the unsharded step at 1 microbatch: Llama-3.2-1B 1 x
-   4,096 on (2, 1) and (2, 2), K5 64 / 128 a step at offsets 0 and 2,048,
-   and RWKV6-7B, RecurrentGemma-9B and Qwen2-MoE-A2.7B 1 x 2,048 on (2, 2)
-   (K7 16 a step, half from a carried state), each within its (2, 2)
-   limits (Llama's: ``SEQ_SPLIT_LIMITS``), and Seamless-M4T-large-v2's 2
+   4,096 on (2, 1) and (2, 2), K5 16 / 32 a step at offsets 0 and 2,048,
+   and RWKV6-7B, RecurrentGemma-9B, Qwen2-MoE-A2.7B and Gemma3-1B 1 x 2,048
+   on (2, 2) (K7 16 a step, half from a carried state; Gemma3's local
+   queries of the second row over the first row's last 511 keys), each
+   within its (2, 2) limits (Llama's and Gemma3's: ``SEQ_SPLIT_LIMITS``),
+   and Seamless-M4T-large-v2's 2
    encoder and 2 decoder layers at 1 x 1,024 frames + 1 x 512 tokens on
    (2, 2), each data row encoding its 512 frames over both rows' K/V (K5 48
    a step, K6's partial form 4; ``SEQ_SPLIT_LIMITS``); each coordinate's bytes
@@ -226,9 +243,12 @@ against their plain PyTorch versions:
    ``make_decode_step`` on the same weights: Llama-3-8B whole at 4 x 509
    and 4 x 128 tokens (``max_seq`` 1,024) and 1 x 2,048 (``max_seq``
    4,096), RecurrentGemma-9B's first 3 layers and RWKV6-7B's first 4 at 4
-   x 509 and 1 x 512 (``max_seq`` 1,024), and Seamless-M4T-large-v2 whole
+   x 509 and 1 x 512 (``max_seq`` 1,024), Seamless-M4T-large-v2 whole
    at 4 x 509 frames + 8 tokens and 1 x 1,000 frames + 16 (``max_seq`` 64,
-   its decode steps with the memory), 16 greedy steps each, the
+   its decode steps with the memory), and Gemma3-1B whole at 4 x 1,000
+   (``max_seq`` 2,048) and 1 x 2,048 (``max_seq`` 4,096), its caches split
+   on length (the rings of 512 slots in blocks of 256 or 128, overrun in
+   the prefill and wrapped in decode), 16 greedy steps each, the
    sharded ones teacher-forced with the unsharded path's tokens; at batch
    1 each data row prefills its span of the prompt, and encodes its span
    of the frames layer by layer over both rows' K/V (Seamless K5 96 a
@@ -238,7 +258,8 @@ against their plain PyTorch versions:
    attention layer and K7 once an RWKV layer on each model coordinate of
    each data row (Llama-3-8B K5 128, at batch 1 at offsets 0 and 1,024;
    RecurrentGemma K5 4; RWKV6-7B K7 16 on 32 heads a coordinate, at batch
-   1 8 of them from a carried state) and no kernel in a decode step, a
+   1 8 of them from a carried state; Gemma3-1B K5 104, 2 of 4 query heads
+   a coordinate) and no kernel in a decode step, a
    batch-1 prompt of 509 raising, no leaf gathered, each coordinate's
    cache bytes its specs'
    (Llama-3-8B: 4 of 8 KV heads; RecurrentGemma: a length block, and half
@@ -261,7 +282,10 @@ against their plain PyTorch versions:
     RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's, Nemotron-4-15B's and
     Qwen2-VL-7B's served shapes at S 509 and at Seamless-M4T's batch of 4
     at 1,000 frames (encoder and cross-attention without the mask,
-    decoder), K7 at S 128/509/512/1000 (each of its two kernels by name)
+    decoder), at Gemma3-1B's served S 1,000 and train shape (B 4 x S
+    1,024), under its window of 512 and without (SDPA's yardstick with
+    the window as a boolean mask), K7 at S 128/509/512/1000 (each of its
+    two kernels by name)
     and at each shape the sharded phases gave it,
     K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
     K6's, lm_train's and sharded_train's), RecurrentGemma,
@@ -269,7 +293,7 @@ against their plain PyTorch versions:
     prefills and the sharded train steps gave it (a data row's rows or, at
     batch 1, its span at its query offset, beside SDPA under the same mask;
     a model coordinate's heads), K6
-    at the five train shapes, and at the sharded train cells' data-row
+    at the six train shapes, and at the sharded train cells' data-row
     tokens over the whole vocab and, in its partial form, over one model
     coordinate's vocab block) with
     CUDA events
@@ -2154,7 +2178,16 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             # Qwen2-VL-7B: 28 query heads over 4 KV heads (GQA 7:1, h 128) at
             # its longest served prompt, at 1,000 tokens and at its train shape
             (1, 509, 28, 4, 128, 0, 0.0), (1, 1000, 28, 4, 128, 0, 0.0),
-            (4, 512, 28, 4, 128, 0, 0.0)]
+            (4, 512, 28, 4, 128, 0, 0.0),
+            # Gemma3-1B: 4 query heads over one KV head (GQA 4:1, h 256), its
+            # 22 local layers with the window of 512 (it bites past 512 keys)
+            # and its 4 global layers without, at served prompts just past
+            # the window, of 1,000 and of 1,716 (the longest lm_engine
+            # serves), and at its train shape (B 4 x S 1,024)
+            (1, 513, 4, 1, 256, 512, 0.0), (1, 1000, 4, 1, 256, 512, 0.0),
+            (1, 1000, 4, 1, 256, 0, 0.0), (1, 1716, 4, 1, 256, 512, 0.0),
+            (1, 1716, 4, 1, 256, 0, 0.0), (4, 1024, 4, 1, 256, 512, 0.0),
+            (4, 1024, 4, 1, 256, 0, 0.0)]
 # K5 at the shapes the sharded prefills of sharded_serve give it on (2, 2): a
 # data row's rows and a model coordinate's heads.  Llama-3-8B: 16 query heads
 # over 4 KV heads (h 128) at prompts of 509 and 128; RecurrentGemma-9B's
@@ -2164,7 +2197,10 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
 K5_SHARDED_SERVE = [(2, 509, 16, 4, 128, 0, 0.0), (2, 128, 16, 4, 128, 0, 0.0),
                     (2, 509, 8, 1, 256, 2048, 0.0), (1, 509, 8, 1, 256, 2048, 0.0),
                     # Seamless-M4T's decoder at 4 x 8 tokens: two rows, 8 of 16 heads
-                    (2, 8, 8, 8, 64, 0, 0.0)]
+                    (2, 8, 8, 8, 64, 0, 0.0),
+                    # Gemma3-1B at 4 x 1,000: two rows, 2 of 4 query heads over
+                    # its one KV head, local (window 512) and global
+                    (2, 1000, 2, 1, 256, 512, 0.0), (2, 1000, 2, 1, 256, 0, 0.0)]
 K5_EXTRA += K5_SHARDED_SERVE
 # K5 at the shapes the sharded train steps of sharded_train give it: a data
 # row's rows and a model coordinate's heads.  Llama-3.2-1B's B 8 split over 2
@@ -2173,7 +2209,10 @@ K5_EXTRA += K5_SHARDED_SERVE
 # RecurrentGemma-9B's local layer, 8 heads over its one KV head (h 256,
 # window 2048) on (2, 2)
 K5_SHARDED_TRAIN = [(4, 512, 32, 8, 64, 0, 0.0), (4, 512, 16, 4, 64, 0, 0.0),
-                    (2, 512, 8, 8, 128, 0, 0.0), (2, 512, 8, 1, 256, 2048, 0.0)]
+                    (2, 512, 8, 8, 128, 0, 0.0), (2, 512, 8, 1, 256, 2048, 0.0),
+                    # Gemma3-1B's B 4 x S 1,024: 2 of 4 query heads over its one
+                    # KV head, local (window 512) and global layers
+                    (2, 1024, 2, 1, 256, 512, 0.0), (2, 1024, 2, 1, 256, 0, 0.0)]
 K5_EXTRA += K5_SHARDED_TRAIN
 # K5 without the causal mask, (B, S, H, K, h, T): Seamless-M4T's encoder
 # self-attention over 1,000 frames (S = T), one utterance and its served
@@ -2213,6 +2252,11 @@ K5_OFFSET = [(1, 1024, 16, 4, 128, 0, 0), (1, 1024, 16, 4, 128, 0, 1024),
              # train sequence of 512 (8 of 16 heads, h 64)
              (1, 8, 8, 8, 64, 0, 0), (1, 8, 8, 8, 64, 0, 8),
              (1, 256, 8, 8, 64, 0, 0), (1, 256, 8, 8, 64, 0, 256),
+             # Gemma3-1B's prefill of 2,048 and train sequence of 2,048: 2 of 4
+             # query heads over its one KV head (h 256), the local layers'
+             # window of 512 reaching back over the first row's last 511 keys
+             (1, 1024, 2, 1, 256, 512, 0), (1, 1024, 2, 1, 256, 512, 1024),
+             (1, 1024, 2, 1, 256, 0, 0), (1, 1024, 2, 1, 256, 0, 1024),
              (1, 129, 32, 8, 64, 0, 383), (1, 100, 32, 8, 64, 64, 200)]
 K5_TOL = {"f32": 2e-5, "bf16": 5e-2}  # rtol = atol, tests/test_kernel_flash.py
 # bf16 also per output row (one query, one head): max |diff| within this
@@ -2264,11 +2308,15 @@ K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches bo
 # Qwen2-VL-7B's (served from tokens through Engine, and vl_embeds' prefill
 # from embeds) is its first reading on an H100 80GB HBM3 at 700 W, 0.0679 /
 # 0.0163 served and 0.0684 / 0.0151 from embeds, with ~3.5x / 3x headroom
-# (K5 in all 28 layers).
+# (K5 in all 28 layers).  Gemma3-1B's is its first reading on an H100 80GB
+# HBM3 at 700 W, 0.1016 / 0.0227 served (the ring decode against a prefill
+# 0.0742 / 0.0177, sharded_serve's steps 0.1133 / 0.0221 at most), with
+# ~3.5x / 3x headroom (K5 in all 26 layers, 22 of them windowed).
 LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75),
                  "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2),
                  "llama3-8b": (0.25, 0.05), "nemotron-4-15b": (0.3, 0.06),
-                 "seamless-m4t-large-v2": (0.2, 0.04), "qwen2-vl-7b": (0.25, 0.05)}
+                 "seamless-m4t-large-v2": (0.2, 0.04), "qwen2-vl-7b": (0.25, 0.05),
+                 "gemma3-1b": (0.36, 0.07)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
 # RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
 # on the prompts below, at f32 compute: the final logits' (max |difference|,
@@ -2300,11 +2348,26 @@ LM_ENGINES = {
     # bias, M-RoPE in text mode), as Engine serves it; vl_embeds then drives
     # the same model from patch embeddings
     "qwen2-vl-7b": (6, 4, 1024, 16, (1, 128, 129, 509), (4, 2, 513), "K5"),
+    # Gemma3-1B: 22 local layers (K5 with the window of 512, h 256, GQA 4:1)
+    # and 4 global ones (K5 without; RoPE theta 1M), tied embeddings scaled
+    # by sqrt(d_model); the window is under max_seq, so the local layers'
+    # caches are rings of 512 slots: prompts of 512 and 513 fill and
+    # overrun them in the prefill, 509 + 32 new tokens wraps them in decode
+    "gemma3-1b": (7, 8, 2048, 32, (1, 128, 509, 512, 513, 1000, 1500), (9, 2, 2017), "K5"),
 }
-LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 136_314_880,
-               "recurrentgemma-9b": 54_788_096, "qwen2-moe-a2.7b": 805_699_584,
-               "llama3-8b": 537_395_200, "nemotron-4-15b": 537_395_200,
-               "qwen2-vl-7b": 235_339_776}
+# lm_engine's depth where it cuts the config's, to keep the run's time
+# within its bound as archs were added: Llama-3-8B 16 of 32 layers
+# (sharded_serve serves it whole), RWKV6-7B 16 of 32 (rwkv_drift walks all
+# 32 at f32 and bf16), Qwen2-MoE-A2.7B 12 of 24, Qwen2-VL-7B 14 of 28 (and
+# vl_embeds on the same model), RecurrentGemma-9B 20 of 38 (six whole
+# (rglru, rglru, local) groups and two rglru layers); every other served
+# arch whole
+LM_ENGINE_LAYERS = {"llama3-8b": 16, "rwkv6-7b": 16, "qwen2-moe-a2.7b": 12,
+                    "qwen2-vl-7b": 14, "recurrentgemma-9b": 20}
+LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 68_157_440,
+               "recurrentgemma-9b": 27_557_888, "qwen2-moe-a2.7b": 402_849_792,
+               "llama3-8b": 268_697_600, "nemotron-4-15b": 537_395_200,
+               "qwen2-vl-7b": 117_669_888, "gemma3-1b": 160_006_144}
 # A name every kernel of K5 / K7 has in the profiler
 LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 # Plain-PyTorch parts of the served prefills timed as profiler ranges:
@@ -2313,11 +2376,16 @@ LM_RANGES = (("repro_torch.models.griffin", "rg_lru", "rg_lru_scan"),
              ("repro_torch.models.moe", "expert_mix", "moe_expert_einsums"))
 # lm_strict: (arch, seed, prompt, layers); RecurrentGemma takes its first
 # 3 layers, (rglru, rglru, local), so that K5 runs in the strict pass;
-# Seamless-M4T 2 encoder and 2 decoder layers over LM_STRICT_SRC frames
+# Seamless-M4T 2 encoder and 2 decoder layers over LM_STRICT_SRC frames;
+# Gemma3-1B one whole 5:1 group (5 local layers, 1 global) on a prompt past
+# its window, so the prefill overruns the rings and the decode steps write
+# and read them wrapped.  The cache holds max(LM_STRICT_MAX_SEQ, prompt + 4)
 LM_STRICT = (("llama3.2-1b", 10, 129, 2), ("rwkv6-7b", 11, 200, 2),
              ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2),
              ("seamless-m4t-large-v2", 14, 16, 2), ("llama3-8b", 15, 200, 2),
-             ("nemotron-4-15b", 16, 200, 2), ("qwen2-vl-7b", 17, 200, 2))
+             ("nemotron-4-15b", 16, 200, 2), ("qwen2-vl-7b", 17, 200, 2),
+             ("gemma3-1b", 18, 600, 6))
+LM_STRICT_MAX_SEQ = 512
 LM_STRICT_SRC = 200
 # Seamless-M4T-large-v2 served (encdec_phase): (frames, prompt tokens) of
 # each batch of ENCDEC_LANES utterances of one length (the reference has no
@@ -2417,6 +2485,8 @@ def k5_checks(torch, np, report) -> None:
     worst_sharded_train = {"f32": 0.0, "bf16": 0.0}  # K5_SHARDED_TRAIN
     worst_offset = {"f32": 0.0, "bf16": 0.0}  # K5_OFFSET, past offset 0
     worst_encoder = {"f32": 0.0, "bf16": 0.0}  # K5_ENCODER_SPLIT
+    worst_window = {"f32": 0.0, "bf16": 0.0}  # a window some query row sees past
+    n_window = 0
     worst_row = 0.0
     n_checks = 0
     for ci, (B, S, T, H, K, h, window, softcap, causal, off) in enumerate(cases):
@@ -2452,6 +2522,9 @@ def k5_checks(torch, np, report) -> None:
                 worst_offset[kind] = max(worst_offset[kind], err)
             if not causal and (B, S, H, K, h, T) in K5_ENCODER_SPLIT:
                 worst_encoder[kind] = max(worst_encoder[kind], err)
+            if window and off + S > window:
+                worst_window[kind] = max(worst_window[kind], err)
+                n_window += 1
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2493,6 +2566,7 @@ def k5_checks(torch, np, report) -> None:
                  "offset_max_abs_err": worst_offset,
                  "encoder_split_checks": 2 * len(K5_ENCODER_SPLIT),
                  "encoder_split_max_abs_err": worst_encoder,
+                 "window_bites_checks": n_window, "window_bites_max_abs_err": worst_window,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2649,6 +2723,59 @@ def lm_state_bytes(cfg, lanes: int, max_seq: int) -> int:
     return total
 
 
+def _ring_layers(cfg, max_seq: int) -> int:
+    """The attention layers whose cache is a ring at ``max_seq``."""
+    from repro_torch.models.attention import cache_spec
+
+    return sum(cache_spec(cfg, kind, max_seq).ring for kind in cfg.blocks()
+               if kind in ("attn", "swa", "local"))
+
+
+def _k5_by_window(by_key) -> dict:
+    """K5's launches by the window they ran with (0: none)."""
+    out = {}
+    for key, n in by_key.items():
+        out[key[8]] = out.get(key[8], 0) + n
+    return out
+
+
+def _ring_decode_check(torch, np, model, params, req, max_seq, limit) -> dict:
+    """A served request whose decode wraps the rings: its prompt prefilled
+    alone, then its served tokens fed back through ``make_decode_step``
+    (teacher-forced); the logits of the step at the first position past the
+    window (its K/V written over the ring's slot 0) and of the last step,
+    each against ``Model.prefill`` of the whole sequence up to that
+    position (a linear pass over every key).  Raises unless both are
+    finite and within ``limit`` (max abs, relative 2-norm)."""
+    from repro_torch.serve.step import make_decode_step
+
+    cfg = model.cfg
+    P = len(req.prompt)
+    seq = np.concatenate([req.prompt, np.asarray(req.out_tokens, np.int32)])
+    first, last = cfg.window, P + len(req.out_tokens) - 2
+    cache, _ = model.prefill(params, {"tokens": torch.as_tensor(seq[None, :P],
+                                                                device="cuda")}, max_seq)
+    decode = make_decode_step(model, max_seq)
+    gaps = {}
+    for pos in range(P, last + 1):
+        tok = torch.as_tensor(seq[None, pos:pos + 1], device="cuda")
+        at = torch.tensor([pos], dtype=torch.int32, device="cuda")
+        _, logits, cache = decode(params, cache, tok, at)
+        if pos in (first, last):
+            _, want = model.prefill(params, {"tokens": torch.as_tensor(
+                seq[None, :pos + 1], device="cuda")}, max_seq)
+            gaps[pos] = {"max_abs": float((logits - want).abs().max()),
+                         "rel_rms": float((logits - want).norm() / want.norm()),
+                         "finite": bool(torch.isfinite(logits).all())}
+    del cache
+    out = {"prompt": P, "positions": sorted(gaps), "ring_slots": cfg.window,
+           "logits_vs_prefill": {str(k): v for k, v in gaps.items()}, "limit": limit}
+    if not all(g["finite"] and g["max_abs"] <= limit[0] and g["rel_rms"] <= limit[1]
+               for g in gaps.values()):
+        raise AssertionError(f"{cfg.name}: decode over a wrapped ring {out}")
+    return out
+
+
 def lm_engine_phase(torch, np, report) -> dict:
     """Serve each of ``LM_ENGINES`` at full width and depth through
     ``Engine``, one at a time; returns {arch: launch counts by key} for the
@@ -2661,7 +2788,8 @@ def lm_engine_phase(torch, np, report) -> dict:
     counters = _counters()
     out = {}
     for arch, (seed, lanes, max_seq, max_new, fixed, drawn, kern) in LM_ENGINES.items():
-        model, params = _lm_model(torch, arch, seed)
+        model, params = _lm_model(torch, arch, seed, **(
+            {"num_layers": LM_ENGINE_LAYERS[arch]} if arch in LM_ENGINE_LAYERS else {}))
         cfg = model.cfg
         lens = _prompt_lengths(np, fixed, drawn)
         rng = np.random.default_rng(seed)
@@ -2696,6 +2824,15 @@ def lm_engine_phase(torch, np, report) -> dict:
                 raise AssertionError(f"{arch}: {k} launched {count} times for "
                                      f"{stats.prefills} prefills (want "
                                      f"{per_layer[k] * stats.prefills})")
+        # K5 a prefill by window: the windowed layers' with theirs, the others' without
+        by_window = _k5_by_window(counts["K5"][1])
+        want_window = {}
+        for kind in cfg.blocks():
+            if kind in ("attn", "swa", "local"):
+                w = cfg.window if kind in ("swa", "local") else 0
+                want_window[w] = want_window.get(w, 0) + stats.prefills
+        if kern == "K5" and by_window != want_window:
+            raise AssertionError(f"{arch}: K5 by window {by_window}, want {want_window}")
         plan = engine.plan_report()
         kv = plan["kv_state_bytes"]
         want = lm_state_bytes(cfg, lanes, max_seq)
@@ -2734,6 +2871,14 @@ def lm_engine_phase(torch, np, report) -> dict:
                                      f"{int(lk[0].argmax())} vs served {req.out_tokens[0]}")
             worst = {"max_abs": max(worst["max_abs"], err),
                      "rel_rms": max(worst["rel_rms"], rel)}
+        # a request whose decode steps wrap the rings (Gemma3-1B's 509 + 32)
+        rings = _ring_layers(cfg, max_seq)
+        wraps = [r for r in reqs if rings and len(r.prompt) < cfg.window
+                 < len(r.prompt) + max_new - 1]
+        ring_decode = (_ring_decode_check(torch, np, model, params, wraps[0], max_seq,
+                                          LM_LOGITS_TOL[arch]) if wraps else None)
+        if rings and ring_decode is None:
+            raise AssertionError(f"{arch}: no served request wraps its rings in decode")
 
         # -- numbers -------------------------------------------------------------
         serve_ts = tracer.spans("serve")[0][0]
@@ -2752,6 +2897,8 @@ def lm_engine_phase(torch, np, report) -> dict:
             "tokens_out": stats.tokens_out, "wall_s": stats.wall_s,
             "tokens_per_s": stats.tokens_per_s,
             **{f"{k.lower()}_launches": c for k, (c, _) in counts.items()},
+            "k5_launches_by_window": {str(w): n for w, n in sorted(by_window.items())},
+            "ring_cache_layers": rings, "ring_decode": ring_decode,
             "plan_report": plan,
             f"{kern.lower()}_device_ms_served_prefills": kern_device_ms,
             f"{kern.lower()}_kernel_records_served_prefills": kern_records,
@@ -3055,14 +3202,16 @@ def lm_strict_phase(torch, np, report) -> None:
             batch["src_embeds"] = torch.as_tensor(
                 rng.standard_normal((1, LM_STRICT_SRC, cfg.d_model)), dtype=torch.float32,
                 device="cuda")
+        max_seq = max(LM_STRICT_MAX_SEQ, S + 4)
         for side in ("kernel", "plain"):
             with plain_kernels() if side == "plain" else contextlib.nullcontext():
                 memory = model.encode(params, batch["src_embeds"]) if cfg.is_encdec else None
-                cache, logits = model.prefill(params, batch, 512, memory=memory)
+                cache, logits = model.prefill(params, batch, max_seq, memory=memory)
                 steps = []
                 for t in range(4):
                     tok = torch.as_tensor(toks[None, S + t: S + t + 1], device="cuda")
-                    lt, cache = model.decode_step(params, cache, tok, S + t, 512, memory=memory)
+                    lt, cache = model.decode_step(params, cache, tok, S + t, max_seq,
+                                                  memory=memory)
                     steps.append(lt)
             out[side] = (memory, logits, steps)
             del cache
@@ -3075,6 +3224,7 @@ def lm_strict_phase(torch, np, report) -> None:
         if not all(ok for ok, _ in errs):
             raise AssertionError(f"{arch} strict: max abs errs {[e for _, e in errs]}")
         line = {"phase": "lm_strict", "arch": arch, "layers": layers, "prompt": S,
+                "max_seq": max_seq, "ring_caches": _ring_layers(cfg, max_seq),
                 "compute_dtype": "float32", "tf32": False,
                 "max_abs_err": {"prefill": errs[0][1],
                                 "decode": [e for _, e in errs[1:5]]},
@@ -3215,14 +3365,20 @@ def _chunk_for(S):
     return chunk_for(S, 64)
 
 
-def k5_bound(B, S, H, K, h, elem=2, causal=True, T=None, q_offset=0):
-    """(ms, by): q and o (B, S, H, h), k and v (B, T, K, h) moved once; 2
-    products of 2 h flops per visible (query, key) pair: S q_offset + S (S
-    + 1) / 2 of them under the causal mask (query row i at position
-    q_offset + i, T = q_offset + S), S T without it."""
+def k5_bound(B, S, H, K, h, elem=2, causal=True, T=None, q_offset=0, window=0):
+    """(ms, by): q and o (B, S, H, h), k and v (B, T, K, h) moved once (with
+    a window, only the keys some query sees); 2 products of 2 h flops per
+    visible (query, key) pair: S q_offset + S (S + 1) / 2 of them under the
+    causal mask (query row i at position q_offset + i, T = q_offset + S),
+    min(q_offset + i + 1, window) for row i under a window, S T without a
+    mask."""
     T = S + q_offset if T is None else T
+    if window:
+        pairs = sum(min(q_offset + i + 1, window) for i in range(S))
+        T = min(T, S + window - 1)
+    else:
+        pairs = S * q_offset + S * (S + 1) // 2 if causal else S * T
     nbytes = (2 * B * S * H * h + 2 * B * T * K * h) * elem
-    pairs = S * q_offset + S * (S + 1) // 2 if causal else S * T
     return _roofline(nbytes, 4 * h * B * H * pairs)
 
 
@@ -3278,6 +3434,7 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
     steps."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import base as cfgbase
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref, visible
 
@@ -3309,41 +3466,55 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                                                                      16, 64, causal)))
               for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
                                            ("decoder", S, S, True))]
-    cases = [c + (0,) for c in cases]  # query offset 0
+    cases = [c + (0, 0) for c in cases]  # no window, query offset 0
+    # Gemma3-1B's served prompt of 1,000 and train shape (B 4 x S 1,024): its
+    # local layers under the window of 512, its global layers without (a
+    # train step launches K5 on every layer alike)
+    served = _k5_by_window(lm_counts["gemma3-1b"]["K5"][1])
+    blocks = cfgbase.get_config("gemma3-1b").blocks()
+    window = cfgbase.get_config("gemma3-1b").window
+    for w, n in ((window, blocks.count("local")), (0, blocks.count("attn"))):
+        cases.append(("prefill", "gemma3-1b", 1, 1000, 1000, 4, 1, 256, True, served[w], w, 0))
+        cases.append(("train", "gemma3-1b", 4, 1024, 1024, 4, 1, 256, True,
+                      train_counts["gemma3-1b"]["K5"] * n // len(blocks), w, 0))
     for mode, by_key in (("sharded prefill", serve_keys["K5"]),
                          ("sharded train", train_keys["K5"])):
-        cases += [(mode, key[0], *key[2:9], n, key[11])
+        cases += [(mode, key[0], *key[2:9], n, key[9], key[11])
                   for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
-    for mode, arch, B, S, T, H, K, h, causal, launches, off in cases:
+    for mode, arch, B, S, T, H, K, h, causal, launches, window, off in cases:
         q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
                             device="cuda")
         k, v = (torch.as_tensor(rng.standard_normal((B, T, K, h)), dtype=torch.bfloat16,
                                 device="cuda") for _ in range(2))
-        kern = lambda: flash_attention(q, k, v, causal=causal, q_offset=off)
-        plain = lambda: attention_ref(q, k, v, causal=causal, q_offset=off)
+        kern = lambda: flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+        plain = lambda: attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if off:  # SDPA's is_causal aligns the mask top-left: the same mask as a tensor
-            mask = visible(S, T, causal=causal, window=0, q_offset=off, device="cuda")
+        if off or (window and window < T):
+            # SDPA's is_causal aligns the mask top-left and has no window:
+            # the same mask as a tensor
+            mask = visible(S, T, causal=causal, window=window, q_offset=off, device="cuda")
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                              enable_gqa=True)
-            lib_name = "F.scaled_dot_product_attention(attn_mask=the offset causal mask"
+            lib_name = ("F.scaled_dot_product_attention(attn_mask=the "
+                        + ("offset " if off else "") + ("windowed " if window else "")
+                        + "causal mask")
         else:
             library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                              enable_gqa=True)
             lib_name = f"F.scaled_dot_product_attention(is_causal={causal}"
         err = float((kern().float() - plain().float()).abs().max())
         t = _times(torch, kern, plain, library)
-        bms, bby = k5_bound(B, S, H, K, h, causal=causal, T=T, q_offset=off)
-        at = f" at offset {off}" if off else ""
+        bms, bby = k5_bound(B, S, H, K, h, causal=causal, T=T, q_offset=off, window=window)
+        at = (f" at offset {off}" if off else "") + (f", window {window}" if window else "")
         report.emit({"phase": "timing", "kernel": "K5", "arch": arch, "mode": mode,
                      "shape": f"B={B} S={S} T={T} H={H} K={K} h={h} causal={causal} "
-                              f"q_offset={off} bf16",
+                              f"window={window} q_offset={off} bf16",
                      "launches": launches, "max_abs_err": err, "bound_ms": bms,
                      "bound_by": bby, "library": f"{lib_name}, enable_gqa), bf16", **t})
         row = "a row's span" if B == 1 else "a row's"  # batch 1: the sequence split
         over = "" if causal else f" over T={T}, no mask"  # an enc-dec's encoder or cross
         entries.append({
-            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}, "
+            "name": (f"K5 flash_fwd_bf16 [{arch} train attention, B={B} S={S}{at}, "
                      f"H={H} K={K} h={h}]"
                      if mode == "train" else
                      f"K5 flash_fwd_bf16 [{arch} sharded prefill attention, {row} B={B} "
@@ -3352,7 +3523,8 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                      f"K5 flash_fwd_bf16 [{arch} sharded train attention, {row} B={B} "
                      f"S={S}{at}{over}, a coordinate's H={H} K={K} h={h}]"
                      if mode == "sharded train" else
-                     f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}, H={H} K={K} h={h}]"
+                     f"K5 flash_fwd_bf16 [{arch} prefill attention, S={S}{at}, H={H} K={K} "
+                     f"h={h}]"
                      if mode == "prefill" else
                      f"K5 flash_fwd_bf16 [{arch} {mode} attention, B={B} S={S} T={T}, "
                      f"{'causal' if causal else 'no mask'}]"),
@@ -3469,6 +3641,13 @@ K6_CASES = [
     # Seamless-M4T-large-v2's batch-1 train sequence of 512 tokens split over
     # 2 data rows (d 1,024, its untied V 256,208): a row's span of 256
     (256, 1024, 256208, 0.0, None),
+    # Gemma3-1B's tied table (d 1,152: 18 of K6's 64-deep stages, V 262,144:
+    # 2,048 vocab tiles): lm_train's B 4 x S 1,024, and a data row's tokens
+    # in sharded_train, B 4 x S 1,024 over 2 rows and 1 x 2,048 split on the
+    # sequence (their blocks in K6_PART_BLOCKS)
+    (4096, 1152, 262144, 0.0, None),
+    (2048, 1152, 262144, 0.0, None),
+    (1024, 1152, 262144, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -3507,17 +3686,22 @@ STRICT_LOSS_RTOL, STRICT_GRAD_RTOL = 1e-5, 1e-3
 # RecurrentGemma-9B one (rglru, rglru, local) group, so K5 runs on its
 # local layer (1 + 1); Qwen2-MoE-A2.7B and Qwen2-VL-7B 2 attention layers
 # (2 + 2); Qwen2-VL trains on the launcher's embeds batch, and its
-# microbatches=2 step splits a batch without tokens.
+# microbatches=2 step splits a batch without tokens.  Gemma3-1B at full
+# depth (1.0 B params: AdamW's 16 GB fit), B 4 x S 1,024 so its window of
+# 512 bites: K5 26 forward + 26 recompute, K6 at V 262,144 on the tied table.
 TRAIN_RUNS = {
     "llama3.2-1b": (20, None, 8, 512, 4, True, {"K5": 32, "K6": 1}),
     "rwkv6-7b": (21, 2, 4, 512, 2, False, {"K7": 4, "K6": 1}),
     "recurrentgemma-9b": (22, 3, 4, 512, 2, False, {"K5": 2, "K6": 1}),
     "qwen2-moe-a2.7b": (23, 2, 4, 512, 2, False, {"K5": 4, "K6": 1}),
     "qwen2-vl-7b": (24, 2, 4, 512, 2, True, {"K5": 4, "K6": 1}),
+    "gemma3-1b": (26, None, 4, 1024, 2, False, {"K5": 52, "K6": 1}),
 }
-# train_strict: (arch, seed, layers) at f32 compute
-TRAIN_STRICT = (("llama3.2-1b", 30, 2), ("rwkv6-7b", 31, 2), ("recurrentgemma-9b", 32, 3),
-                ("qwen2-moe-a2.7b", 33, 2), ("qwen2-vl-7b", 34, 2))
+# train_strict: (arch, seed, layers, seq) at f32 compute, batch 2; Gemma3-1B
+# one whole 5:1 group on sequences past its window
+TRAIN_STRICT = (("llama3.2-1b", 30, 2, 256), ("rwkv6-7b", 31, 2, 256),
+                ("recurrentgemma-9b", 32, 3, 256), ("qwen2-moe-a2.7b", 33, 2, 256),
+                ("qwen2-vl-7b", 34, 2, 256), ("gemma3-1b", 35, 6, 640))
 # remat_dots: Llama-3.2-1B's train cell, one step's loss and gradients under
 # each policy from the same params and batch: losses within
 # REMAT_DOTS_LOSS_RTOL (the same forward: "dots" keeps the matmul outputs
@@ -3945,10 +4129,10 @@ def train_strict_phase(torch, np, report) -> None:
     from repro_torch.train import optimizer as opt
     from repro_torch.train.step import TrainStepConfig, make_train_step, value_and_grad
 
-    for arch, seed, layers in TRAIN_STRICT:
+    for arch, seed, layers, seq in TRAIN_STRICT:
         model, params_k, cfg = _train_model(torch, arch, seed, layers, "float32")
         _, params_p, _ = _train_model(torch, arch, seed, layers, "float32")
-        pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=256,
+        pipe = tok.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                        global_batch=2, seed=seed)
 
         def batch_at(s):
@@ -3976,7 +4160,7 @@ def train_strict_phase(torch, np, report) -> None:
             raise AssertionError(f"{arch} train_strict: loss rel {loss_rel}, step losses "
                                  f"{losses}, leaves off {bad[:5]}")
         report.emit({"phase": "train_strict", "arch": arch, "layers": layers,
-                     "compute_dtype": "float32", "tf32": False, "batch": 2, "seq": 256,
+                     "compute_dtype": "float32", "tf32": False, "batch": 2, "seq": seq,
                      "loss_rel_err": loss_rel, "worst_leaf_err_of_max": worst,
                      "aux": {"kernel": float(m_k["aux"]), "plain": float(m_p["aux"])},
                      "adamw_step_losses": losses, "adamw_step_loss_rel_err": rel,
@@ -4095,7 +4279,11 @@ SHARDED_RG_LOSS_RTOL, SHARDED_RG_NORM_RTOL = 4.4e-4, 4.7e-2
 SHARDED_TP_LIMITS = {"llama3.2-1b": (SHARDED_TP_LOSS_RTOL, SHARDED_TP_NORM_RTOL, "max"),
                      "rwkv6-7b": (SHARDED_RWKV_LOSS_RTOL, SHARDED_RWKV_MEDIAN_NORM_RTOL,
                                   "median"),
-                     "recurrentgemma-9b": (SHARDED_RG_LOSS_RTOL, SHARDED_RG_NORM_RTOL, "max")}
+                     "recurrentgemma-9b": (SHARDED_RG_LOSS_RTOL, SHARDED_RG_NORM_RTOL, "max"),
+                     # Gemma3-1B's CPU bf16 readings on (2, 2) over 3 seeds
+                     # (tests/torch_precision_readings.py): losses 1.15e-4,
+                     # leaf norms 6.69e-3; 3x them, rounded up
+                     "gemma3-1b": (3.5e-4, 2.1e-2, "max")}
 SHARDED_F32_ARCHS = ("rwkv6-7b",)
 SHARDED_F32_LOSS_RTOL, SHARDED_F32_NORM_RTOL, SHARDED_F32_PROBE_FACTOR = 1e-5, 1e-4, 3.0
 SHARDED_MOE_LOSS_RTOL, SHARDED_MOE_NORM_RTOL, SHARDED_MOE_AUX_RTOL = 8.1e-4, 3.2e-1, 3.2e-3
@@ -4319,15 +4507,24 @@ def _sharded_run(torch, np, name, model, initial, pipe, sizes_model, want, B, S,
 # 16 B a parameter at full depth is ~37 GB beside the vocab's), bf16 compute,
 # f32 params: 1 x 1,024 frames + 1 x 512 tokens, the frames split too (each
 # data row encodes its 512, layer by layer over both rows' K/V).
+# Gemma3-1B at 1 x 2,048: each data row's span of 1,024, the second row's
+# local layers reading the first row's last 511 keys through the window.
 SEQ_SPLIT_TRAIN = {"llama3.2-1b": (4096, (1, 2), 2, None, None),
                    "qwen2-moe-a2.7b": (2048, (2,), 2, None, None),
                    "rwkv6-7b": (2048, (2,), 2, None, None),
                    "recurrentgemma-9b": (2048, (2,), 2, None, None),
-                   "seamless-m4t-large-v2": (512, (2,), 2, 1024, (25, 2))}
+                   "seamless-m4t-large-v2": (512, (2,), 2, 1024, (25, 2)),
+                   "gemma3-1b": (2048, (2,), 2, None, None)}
 # sharded_train's cells in order: (arch, the model axes of its batch-split
 # runs, none for a batch-1 cell alone)
 SHARDED_TRAIN = (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,)), ("rwkv6-7b", (2,)),
-                 ("recurrentgemma-9b", (2,)), ("seamless-m4t-large-v2", ()))
+                 ("recurrentgemma-9b", (2,)), ("seamless-m4t-large-v2", ()),
+                 ("gemma3-1b", (2,)))
+# sharded_train's depth where it cuts an lm_train cell's (each trains whole
+# in lm_train): Gemma3-1B at full width, 6 of its 26 layers, one whole 5:1
+# group (both layer kinds and both RoPE thetas); Llama-3.2-1B 4 of its 16,
+# to keep the run's time within its bound as archs were added
+SHARDED_LAYERS = {"gemma3-1b": 6, "llama3.2-1b": 4}
 # Llama-3.2-1B at batch 1: the joined K/V's gradient takes a bf16 rounding a
 # row (each row's attention VJP rounds its share, then they are summed),
 # which the batch split does not have.  Its CPU bf16 readings at 1 x 128 over
@@ -4341,8 +4538,12 @@ SHARDED_TRAIN = (("llama3.2-1b", (1, 2)), ("qwen2-moe-a2.7b", (2,)), ("rwkv6-7b"
 # over 3 seeds, on (2, 2) against the unsharded step, 3 steps
 # (tests/torch_precision_readings.py): losses 2.39e-4, leaf norms 1.08e-2;
 # 3x them, rounded up.
+# Gemma3-1B (6 layers): its CPU bf16 readings of the split at 1 x 128 over 3
+# seeds on (2, 2): losses 1.85e-4, leaf norms 7.09e-3 (the batch split's
+# 6.69e-3); 3x them, rounded up.
 SEQ_SPLIT_LIMITS = {"llama3.2-1b": (1.0e-3, 2.1e-2, "max"),
-                    "seamless-m4t-large-v2": (7.2e-4, 3.3e-2, "max")}
+                    "seamless-m4t-large-v2": (7.2e-4, 3.3e-2, "max"),
+                    "gemma3-1b": (5.6e-4, 2.2e-2, "max")}
 
 
 def _seq_split_train(torch, np, arch, model, initial, per_step, adamw, seed, names,
@@ -4606,14 +4807,15 @@ def _batch_split_train(torch, np, arch, f32, model, params, initial, meshes, ada
 def sharded_train_phase(torch, np, report):
     """The train cells through ``jit_train_step`` beside the unsharded step
     with 2 microbatches (see SHARDED_STEPS' comment): Llama-3.2-1B at full
-    width and depth (B 8 x S 512, bf16 compute, f32 master weights, remat
-    "block", the launcher's AdamW) on (2, 1) and, tensor parallel, on (2,
-    2); Qwen2-MoE-A2.7B's 2 layers, RWKV6-7B's 2 and RecurrentGemma-9B's 3
-    (B 4 x S 512) on (2, 2), and RWKV6-7B's again at f32 compute
-    (SHARDED_F32_ARCHS).  Checks each run's losses and leaf norms at its
-    limits (RWKV's bf16 median leaf), its launches a step (K5 once an attention layer a model
-    coordinate a data row and again in remat's recompute: Llama 64 on (2,
-    1) and 128 on (2, 2), Qwen2-MoE 16, RecurrentGemma 8; K7 likewise once
+    width, 4 of its 16 layers (SHARDED_LAYERS; B 8 x S 512, bf16 compute,
+    f32 master weights, remat "block", the launcher's AdamW) on (2, 1) and,
+    tensor parallel, on (2, 2); Qwen2-MoE-A2.7B's 2 layers, RWKV6-7B's 2,
+    RecurrentGemma-9B's 3 (B 4 x S 512) and Gemma3-1B's 6 (B 4 x S 1,024)
+    on (2, 2), and RWKV6-7B's again at f32 compute (SHARDED_F32_ARCHS).
+    Checks each run's losses and leaf norms at its limits (RWKV's bf16
+    median leaf), its launches a step (K5 once an attention layer a model
+    coordinate a data row and again in remat's recompute: Llama 16 on (2,
+    1) and 32 on (2, 2), Qwen2-MoE 16, RecurrentGemma 8, Gemma3 48; K7 likewise once
     an RWKV layer, on a coordinate's 32 heads: RWKV6-7B 16; K6 once a data
     row on (2, 1), 2, and its partial form once a model coordinate a data
     row on (2, 2), 4), that no leaf is gathered (the unembedding neither:
@@ -4640,6 +4842,8 @@ def sharded_train_phase(torch, np, report):
     for arch, meshes in SHARDED_TRAIN:
         if arch in TRAIN_RUNS:
             seed, layers, B, S, _, _, per_step = TRAIN_RUNS[arch]
+            if arch in SHARDED_LAYERS:  # a cut of the lm_train cell's depth
+                layers, per_step = SHARDED_LAYERS[arch], None
         else:  # a batch-1 cell alone
             S, _, _, _, (seed, layers) = SEQ_SPLIT_TRAIN[arch]
             B, per_step = 1, None
@@ -4652,6 +4856,8 @@ def sharded_train_phase(torch, np, report):
             names = [f"{kind} {'/'.join(map(str, path))}" for kind in ("param", "m", "v")
                      for path, _ in flatten_with_paths(initial)]
             runs = {}
+            if per_step is None:  # remat: forward + recompute
+                per_step = {"K5": 2 * _k5_layers(cfg), "K6": 1}
             if meshes:
                 runs, kept = _batch_split_train(torch, np, arch, f32, model, params, initial,
                                                 meshes, adamw, seed, B, S, per_step, names,
@@ -4659,8 +4865,6 @@ def sharded_train_phase(torch, np, report):
                 out = kept or out
             del params
             torch.cuda.empty_cache()
-            if per_step is None:  # remat: forward + recompute
-                per_step = {"K5": 2 * _k5_layers(cfg), "K6": 1}
             if not f32 and arch in SEQ_SPLIT_TRAIN:
                 runs.update(_seq_split_train(torch, np, arch, model, initial, per_step, adamw,
                                              seed, names, keys_all, faults))
@@ -4827,13 +5031,21 @@ def _sharded_mixed_batch(torch, np, report, cfg, model, whole, B, S, card, cpu,
 # encodes its 500 frames, layer by layer over both rows' K/V, and prefills
 # its 8 tokens), ENCDEC_MAX_SEQ, its decode steps with the memory; an
 # utterance of SERVE_SHARDED_UNEVEN_FRAMES raises at batch 1.
+# Gemma3-1B whole (26 layers): 4 x 1,000 (two rows a data row, 2 of 4 query
+# heads a model coordinate over the replicated KV head; every cache split on
+# length over "model", the local layers' rings of 512 slots in blocks of
+# 256, overrun in the prefill and wrapped in decode) and 1 x 2,048,
+# max_seq 4,096 (each data row's span of 1,024 filling the rings from its
+# start, the second row's local queries reading the first row's last 511
+# keys; the cache split on length over ("data", "model")).
 SERVE_SHARDED = (("llama3-8b", 40, None, ((4, 509, 1024, None), (4, 128, 1024, None),
                                           (1, 2048, 4096, None))),
                  ("recurrentgemma-9b", 41, 3, ((4, 509, 1024, None), (1, 512, 1024, None))),
                  ("rwkv6-7b", 42, 4, ((4, 509, 1024, None), (1, 512, 1024, None))),
                  ("seamless-m4t-large-v2", 43, None,
                   tuple((B, S, ENCDEC_MAX_SEQ, T) for B, (T, S) in zip((ENCDEC_LANES, 1),
-                                                                       ENCDEC_BATCHES))))
+                                                                       ENCDEC_BATCHES))),
+                 ("gemma3-1b", 44, None, ((4, 1000, 2048, None), (1, 2048, 4096, None))))
 SERVE_SHARDED_STEPS, SERVE_SHARDED_UNEVEN, SERVE_SHARDED_UNEVEN_FRAMES = 16, 509, 999
 # sharded_serve's distinct-device cases: f32, (2, 2) over cuda:0 and the
 # CPU against (2, 2) over cuda:0 alone, logits within SERVE_MIXED_TOL (rtol
@@ -5039,6 +5251,14 @@ def sharded_serve_phase(torch, np, report) -> dict:
                          if kind in ("attn", "swa", "local")), None)
             k_blocks = (None if attn is None else
                         sorted({tuple(cache[attn]["k"].shard(c).shape) for c in mesh.coords()}))
+            # each attention kind's first layer: a ring's blocks beside a linear cache's
+            by_kind = {}
+            for i, kind in enumerate(cfg.blocks()):
+                if kind in ("attn", "swa", "local") and kind not in by_kind:
+                    by_kind[kind] = {"layout": tp.cache_layout(cache[i]["k"]),
+                                     "slots": cache[i]["k"].shape[1],
+                                     "k_block_shapes": sorted({tuple(cache[i]["k"].shard(c).shape)
+                                                               for c in mesh.coords()})}
             # the recurrent state on each coordinate's heads or channels
             state_blocks = {name: sorted({tuple(layer[name].shard(c).shape)
                                           for c in mesh.coords()})
@@ -5064,7 +5284,8 @@ def sharded_serve_phase(torch, np, report) -> dict:
                             "devices": [str(d) for d in mesh.devices.flat]},
                    "cache_layout": None if attn is None else tp.cache_layout(cache[attn]["k"]),
                    "k_spec": None if attn is None else str(tuple(cache[attn]["k"].sharding.spec)),
-                   "k_block_shapes": k_blocks,
+                   "k_block_shapes": k_blocks, "cache_by_kind": by_kind,
+                   "ring_cache_layers": _ring_layers(cfg, max_seq),
                    "state_block_shapes": state_blocks, "state_split_on_model": state_split,
                    "gathers_by_leaf": gathers,
                    "logits_vs_unsharded": gap,
@@ -5318,7 +5539,8 @@ PEAK_TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 K6_TRAIN_SHAPES = {"llama3.2-1b": (4096, 2048, 128256), "rwkv6-7b": (2048, 4096, 65536),
                    "recurrentgemma-9b": (2048, 4096, 256000),
                    "qwen2-moe-a2.7b": (2048, 2048, 151936),
-                   "qwen2-vl-7b": (2048, 3584, 152064)}
+                   "qwen2-vl-7b": (2048, 3584, 152064),
+                   "gemma3-1b": (4096, 1152, 262144)}
 K6_ROUTE = ("3xTF32 on the tensor cores: mma.sync.m16n8k8 TF32 products of hi/lo "
             "splits of each f32 operand, f32 accumulation")
 

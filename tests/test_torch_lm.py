@@ -11,7 +11,9 @@ them.  Those two, Seamless-M4T, the Griffin and MoE families and
 Qwen2-VL (from ``embeds``) also pass the port's counterparts of
 ``tests/test_arch_smoke.py``: a finite loss and finite gradients, and
 decode equal to the full forward.  The port's
-``Engine`` emits the reference ``Engine``'s tokens and plan.  One case
+``Engine`` emits the reference ``Engine``'s tokens and plan, also on the
+reduced gemma3 widened to Gemma3-1B's attention geometry (4 query heads
+over one KV head of 256), its rings of 16 slots overrun and wrapped.  One case
 runs the configs' own bf16 compute, on logits at 5e-2.  The Griffin and
 MoE families keep their f32-read leaves in f32 under
 ``store_compute_dtype`` and carry their params across and back bit for
@@ -199,6 +201,57 @@ def test_engine_matches_the_reference_engine(seed, lanes):
                  device="cpu")
     stats = eng.run(reqs)
     assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in rreqs]
+    assert (stats.prefills, stats.decode_steps, stats.tokens_out) == \
+        (rstats.prefills, rstats.decode_steps, rstats.tokens_out)
+    assert eng.plan_report() == reng.plan_report()
+    assert cache_bytes(eng.cache) == eng.plan_report()["kv_state_bytes"]
+
+
+# The reduced Gemma3-1B widened to its full attention geometry: 4 query
+# heads over one KV head of 256 (its reduced window of 16 kept), f32
+GEMMA_WIDE = dict(num_heads=4, num_kv_heads=1, head_dim=256, compute_dtype="float32")
+
+
+def test_gemma3_attention_geometry_rings_match_the_reference():
+    """Gemma3-1B's attention geometry at the reduced width: a prompt of 40
+    overruns the local layers' rings of 16 slots, then 8 greedy decode
+    steps wrap them again; the prefill's and every step's logits and every
+    cache leaf within 1e-4 of the reference's.  Then both engines, 2 lanes,
+    ``max_seq`` 64, 8 new tokens to prompts of 40, 12 (its ring wraps in
+    decode), 16 and 17 (the prefill fills it, overruns it): the same
+    tokens, stats and plan."""
+    rcfg, cfg = _pair("gemma3-1b", **GEMMA_WIDE)
+    rmodel = RefModel(rcfg)
+    rparams = rmodel.init_params(jax.random.PRNGKey(8))
+    params = _port_params(rparams, cfg)
+    model = Model(cfg)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    rcache, rlogits = rmodel.prefill(rparams, {"tokens": jnp.asarray(tokens)}, 64)
+    cache, logits = make_prefill_step(model, 64)(params, {"tokens": torch.as_tensor(tokens)})
+    _close(logits, rlogits)
+    _check_caches(cache, rcache, cfg)
+    decode = make_decode_step(model, 64)
+    tok = np.argmax(np.asarray(rlogits), -1)[:, None].astype(np.int32)
+    for step in range(8):
+        pos = np.array([40 + step], np.int32)
+        rlogits, rcache = rmodel.decode_step(rparams, rcache, jnp.asarray(tok),
+                                             jnp.asarray(pos), 64)
+        _, logits, cache = decode(params, cache, torch.as_tensor(tok), torch.as_tensor(pos))
+        _close(logits, rlogits)
+        tok = np.argmax(np.asarray(rlogits), -1)[:, None].astype(np.int32)
+    _check_caches(cache, rcache, cfg)
+    assert sorted(cache[0]["pos"][0].tolist()) == list(range(32, 48))  # the ring wrapped
+
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (40, 12, 16, 17)]
+    rreqs = [RefRequest(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    reng = RefEngine(rmodel, rparams, lanes=2, max_seq=64)
+    rstats = reng.run(rreqs)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    eng = Engine(model, params, lanes=2, max_seq=64, device="cpu")
+    stats = eng.run(reqs)
+    assert all(r.done and len(r.out_tokens) == 8 for r in reqs)
     assert [r.out_tokens for r in reqs] == [r.out_tokens for r in rreqs]
     assert (stats.prefills, stats.decode_steps, stats.tokens_out) == \
         (rstats.prefills, rstats.decode_steps, rstats.tokens_out)

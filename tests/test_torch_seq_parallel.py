@@ -32,8 +32,10 @@ CPU repeated, a sequence of 32:
   its ring of 16 slots wraps); Qwen2-MoE-A2.7B at a capacity factor of 0.25
   in both packages, where the whole sequence's routing drops choices
   (asserted), so the carried slot counts decide the drops; Qwen2-VL-7B
-  (prefilled and trained from ``embeds``, M-RoPE); RWKV6-7B; and
-  RecurrentGemma-9B;
+  (prefilled and trained from ``embeds``, M-RoPE); RWKV6-7B;
+  RecurrentGemma-9B; and Gemma3-1B (5 local layers of a window of 16 to 1
+  global, tied embeddings: each span of 16, so the second row's local
+  queries reach back into the first row's keys);
 * a sequence of 30 over 4 data rows raises ``ValueError`` in the port's
   steps and in the reference's jit (in a subprocess of 4 CPU devices), as
   do 30 frames of an enc-dec's ``src_embeds`` in the reference's jit, and
@@ -97,7 +99,7 @@ from test_torch_sharded_serve import assert_placed_as
 from test_torch_sharded_train import ADAMW, LEAF_TOL, LOSS_RTOL, _assert_leaves_close, _whole
 
 ARCHS = ["llama3.2-1b", "mixtral-8x7b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "rwkv6-7b",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "gemma3-1b"]
 MESHES = {"2x1": (2, 1), "2x2": (2, 2), "4x1": (4, 1)}
 S, STEPS = 32, 4
 MAX_SEQ = {"mixtral-8x7b": 32}  # 40 otherwise: the 4 decode steps past the prompt
@@ -506,7 +508,8 @@ def bf16_gaps(arch, seed, sizes=(2, 2)):
     return rel(losses, ulosses), rel(norms, unorms)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b", "seamless-m4t-large-v2",
+                                  "gemma3-1b"])
 def test_bf16_gaps_of_the_split_within_the_chip_limits(arch):
     """The readings ``chip_smoke.py``'s batch-1 ``sharded_train`` limits were
     set from (``SEQ_SPLIT_LIMITS``, 3x the largest over 3 seeds:

@@ -29,7 +29,10 @@ length, its ``rglru`` blocks on each coordinate's channels) and RWKV6-7B
 ``tests/test_torch_sharded_serve_recurrent.py``.
 
 Also held here, against the reference's steps and the unsharded path:
-batch 1 on (2, 2) with the cache length split over ("data", "model"), and
+batch 1 on (2, 2) with the cache length split over ("data", "model"); the
+reduced gemma3 widened to Gemma3-1B's attention geometry (4 q heads over
+1 KV head of 256) on (2, 2) at batch 2 and 1, its rings of 16 slots
+overrun by a prompt of 40 and wrapped by 8 decode steps; and
 a misaligned GQA shape (12 q heads over 3 KV heads on a model axis of 2
 and 4, with the cache split on length and whole).  And: the int8 KV cache
 under the sharded decode at ``tests/test_kv_quant.py``'s tolerances; the
@@ -105,19 +108,20 @@ def _reference_steps(rmodel, max_seq):
     return _REFERENCE_STEPS[key]
 
 
-def reference_run(rmodel, rparams, inputs, fed=None, max_seq=MAX_SEQ):
+def reference_run(rmodel, rparams, inputs, fed=None, max_seq=MAX_SEQ, seq=S, steps=STEPS):
     """The reference's jitted ``make_prefill_step`` and
-    ``make_decode_step`` on one device: (the logits of the prefill and of
-    each decode step, the token fed to each step).  The steps are fed
-    ``fed``, or with ``fed=None`` STEPS greedy tokens."""
+    ``make_decode_step`` on one device, after a prompt of ``seq`` tokens:
+    (the logits of the prefill and of each decode step, the token fed to
+    each step).  The steps are fed ``fed``, or with ``fed=None`` ``steps``
+    greedy tokens."""
     prefill, encode, decode = _reference_steps(rmodel, max_seq)
     cache, logits = prefill(rparams, {k: jnp.asarray(v) for k, v in inputs.items()})
     memory = (encode(rparams, jnp.asarray(inputs["src_embeds"]))
               if rmodel.cfg.is_encdec else None)
     out, feeds = [np.asarray(logits)], []
-    for step in range(STEPS if fed is None else len(fed)):
+    for step in range(steps if fed is None else len(fed)):
         tok = np.argmax(out[-1], -1)[:, None].astype(np.int32) if fed is None else fed[step]
-        pos = jnp.full((tok.shape[0],), S + step, jnp.int32)
+        pos = jnp.full((tok.shape[0],), seq + step, jnp.int32)
         args = (rparams, cache, jnp.asarray(tok), pos) + ((memory,) if memory is not None else ())
         _, logits, cache = decode(*args)
         out.append(np.asarray(logits))
@@ -156,43 +160,45 @@ def _memory(model, params, inputs):
     return model.encode(params, torch.as_tensor(inputs["src_embeds"]))
 
 
-def run_unsharded(model, params, inputs, fed, max_seq=MAX_SEQ):
-    """The port's unsharded prefill and decode steps: (logits a step, next
-    tokens a step, the cache after them)."""
+def run_unsharded(model, params, inputs, fed, max_seq=MAX_SEQ, seq=S):
+    """The port's unsharded prefill and decode steps after a prompt of
+    ``seq`` tokens: (logits a step, next tokens a step, the cache after
+    them)."""
     cache, logits = make_prefill_step(model, max_seq)(params, _torch(inputs))
     memory = _memory(model, params, inputs)
     decode = make_decode_step(model, max_seq)
     out, nxt = [logits], []
     for step, tok in enumerate(fed):
-        pos = torch.full((tok.shape[0],), S + step, dtype=torch.int32)
+        pos = torch.full((tok.shape[0],), seq + step, dtype=torch.int32)
         n, logits, cache = decode(params, cache, torch.as_tensor(tok), pos, memory)
         out.append(logits)
         nxt.append(n)
     return out, nxt, cache
 
 
-def sharded_steps(model, sizes, batch=B, max_seq=MAX_SEQ, **kw):
+def sharded_steps(model, sizes, batch=B, max_seq=MAX_SEQ, seq=S, **kw):
     mesh = make_mesh(sizes, ("data", "model"), device="cpu")
     policy = ShardingPolicy(mesh, model.cfg)
     aparams, acache = inp.abstract_params(model), inp.abstract_cache(model, batch, max_seq)
-    specs = policy.batch_specs(base.ShapeConfig("p", S, batch, "prefill"))
+    specs = policy.batch_specs(base.ShapeConfig("p", seq, batch, "prefill"))
     return (policy, jit_prefill_step(model, policy, aparams, acache, specs, batch, max_seq),
             jit_decode_step(model, policy, aparams, acache, batch, max_seq,
                             with_memory=model.cfg.is_encdec, **kw))
 
 
-def run_sharded(model, params, inputs, fed, sizes, batch=B, max_seq=MAX_SEQ, **kw):
-    """The sharded steps from whole params: (logits a step, next_tok a
-    step (placed), the placed cache, the prefill and decode steps)."""
+def run_sharded(model, params, inputs, fed, sizes, batch=B, max_seq=MAX_SEQ, seq=S, **kw):
+    """The sharded steps from whole params after a prompt of ``seq`` tokens:
+    (logits a step, next_tok a step (placed), the placed cache, the prefill
+    and decode steps)."""
     memory = _memory(model, params, inputs)
-    _, prefill, decode = sharded_steps(model, sizes, batch, max_seq, **kw)
+    _, prefill, decode = sharded_steps(model, sizes, batch, max_seq, seq, **kw)
     if memory is not None:  # split over the data axes, as the reference's spec
         memory = pl.place(memory, decode.memory_sharding)
     params = reshard_tree(params, prefill.param_shardings)
     cache, logits = prefill(params, _torch(inputs))
     out, nxt = [logits], []
     for step, tok in enumerate(fed):
-        pos = pl.place(torch.full((tok.shape[0],), S + step, dtype=torch.int32),
+        pos = pl.place(torch.full((tok.shape[0],), seq + step, dtype=torch.int32),
                        decode.pos_sharding)
         args = (params, cache, torch.as_tensor(tok), pos) + ((memory,) if memory is not None
                                                              else ())
@@ -389,6 +395,58 @@ def test_misaligned_gqa_groups(sizes, max_seq):
     for got, want, ref in zip(s_logits, u_logits, ref_logits):
         _close(got, want, PORT_TOL)
         _close(got, ref, REF_TOL)
+    for layer, want in zip(s_cache, u_cache):
+        for name, x in layer.items():
+            _close(pl.gather(x, "cpu"), want[name], PORT_TOL)
+
+
+# The reduced Gemma3-1B widened to its full attention geometry: 4 query
+# heads over 1 KV head of 256, the reduced window of 16, f32
+GEMMA_WIDE = dict(num_heads=4, num_kv_heads=1, head_dim=256, compute_dtype="float32")
+GEMMA_PROMPT, GEMMA_STEPS, GEMMA_MAX_SEQ = 40, 8, 64
+
+
+@functools.lru_cache(maxsize=None)
+def _gemma_wide_reference():
+    rcfg = dataclasses.replace(ref_base.get_reduced_config("gemma3-1b"), **GEMMA_WIDE)
+    rmodel = RefModel(rcfg)
+    return rmodel, jax.jit(rmodel.init_params)(jax.random.PRNGKey(3))
+
+
+@pytest.mark.parametrize("batch", [2, 1])
+def test_gemma3_attention_geometry_rings_on_2x2(batch):
+    """Gemma3-1B's attention geometry (4 query heads over one KV head of
+    256; 5 local layers of a window of 16 to 1 global) on (2, 2): 2 query
+    heads a model coordinate over the replicated KV head, every cache split
+    on length (over "model", at batch 1 over ("data", "model"), the rings of
+    16 slots in blocks of 8 / 4).  A prompt of 40 overruns the rings in the
+    prefill (at batch 1 each data row fills them from its span's start) and
+    8 greedy decode steps wrap them again: every step within 1e-4 of the
+    reference's jitted steps and 1e-5 of the port's unsharded path, the
+    cache leaves too."""
+    rmodel, rparams = _gemma_wide_reference()
+    cfg = dataclasses.replace(base.get_reduced_config("gemma3-1b"), **GEMMA_WIDE)
+    model = Model(cfg)
+    params = convert.lm_params_from_numpy(jax.tree.map(np.asarray, rparams), cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    inputs = {"tokens": rng.integers(0, cfg.vocab_size, (batch, GEMMA_PROMPT)).astype(np.int32)}
+    kw = dict(max_seq=GEMMA_MAX_SEQ, seq=GEMMA_PROMPT)
+    ref_logits, fed = reference_run(rmodel, rparams, inputs, steps=GEMMA_STEPS, **kw)
+    u_logits, _, u_cache = run_unsharded(model, params, inputs, fed, **kw)
+    s_logits, _, s_cache, prefill, _ = run_sharded(model, params, inputs, fed, (2, 2),
+                                                   batch=batch, **kw)
+    assert prefill.split_seq == (batch == 1)
+    for got, want, ref in zip(s_logits, u_logits, ref_logits):
+        _close(got, want, PORT_TOL)
+        _close(got, ref, REF_TOL)
+    blocks = {2: ("model",), 1: (("data", "model"),)}[batch]
+    for layer, kind in zip(s_cache, cfg.blocks()):
+        assert tp.cache_layout(layer["k"]) == "length"
+        assert tuple(layer["k"].sharding.spec)[1:2] == blocks
+        assert layer["k"].shape[1] == (cfg.window if kind == "local" else GEMMA_MAX_SEQ)
+    last = GEMMA_PROMPT + GEMMA_STEPS - 1  # the ring's slots hold the last 16 positions
+    ring = pl.gather(s_cache[0]["pos"], "cpu")
+    assert sorted(ring[0].tolist()) == list(range(last - cfg.window + 1, last + 1))
     for layer, want in zip(s_cache, u_cache):
         for name, x in layer.items():
             _close(pl.gather(x, "cpu"), want[name], PORT_TOL)

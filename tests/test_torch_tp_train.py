@@ -13,9 +13,10 @@ step, bit for bit at a model axis of 1, else at 1e-6 / 1e-5):
 
 * (a) on ("data", "model") = (2, 1) the step's loss is bit-equal to the
   port's ``make_train_step(microbatches=2)``, for Seamless-M4T (the
-  encoder and cross-attention), Qwen2-VL (an ``embeds`` batch) and
-  Qwen2-MoE (the aux loss);
-* (b) the same three on (1, 2) and (2, 2) against the reference;
+  encoder and cross-attention), Qwen2-VL (an ``embeds`` batch),
+  Qwen2-MoE (the aux loss) and Gemma3-1B (local and global layers, the
+  tied table's lookup and loss on one vocab block);
+* (b) the same four on (1, 2) and (2, 2) against the reference;
 * (c) on (2, 2), ``flash_attention`` runs once an attention layer, a model
   coordinate and a data row, and once more in remat's recompute, on that
   coordinate's heads (its q and KV heads, the row's rows); for RWKV6-7B
@@ -72,7 +73,7 @@ from repro_torch.train.step import (TrainStepConfig, jit_train_step, make_train_
                                     microbatches)
 from repro_torch.tree import flatten_with_paths, leaves
 
-ARCHS = ["seamless-m4t-large-v2", "qwen2-vl-7b", "qwen2-moe-a2.7b"]
+ARCHS = ["seamless-m4t-large-v2", "qwen2-vl-7b", "qwen2-moe-a2.7b", "gemma3-1b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -87,7 +88,7 @@ def test_tp_step_matches_the_reference_microbatched_step(arch, mesh):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-large-v2", "qwen2-moe-a2.7b",
-                                  "rwkv6-7b", "recurrentgemma-9b"])
+                                  "rwkv6-7b", "recurrentgemma-9b", "gemma3-1b"])
 def test_attention_on_each_coordinates_heads_and_no_split_leaf_gathered(arch, monkeypatch):
     model, step = _sharded(arch, (2, 2))
     cfg = model.cfg
@@ -316,8 +317,9 @@ def test_bf16_gaps_within_the_chip_limits():
     """The readings ``chip_smoke.py``'s ``sharded_train`` limits were set
     from (about 3x the largest; PERF.md): the reduced Llama-3.2-1B and
     Qwen2-MoE-A2.7B in bf16 on a (2, 2) CPU mesh, 3 seeds, 3 steps (the
-    card's 2 timed and 1 profiled), and RWKV6-7B and RecurrentGemma-9B at
-    seed 0 (their 3 seeds are a one-off run, PERF.md), printed under ``-s``
+    card's 2 timed and 1 profiled), and RWKV6-7B, RecurrentGemma-9B and
+    Gemma3-1B at seed 0 (their 3 seeds are a one-off run,
+    ``tests/torch_precision_readings.py``), printed under ``-s``
     and held within the card's limits: each run's widest leaf-norm gap, or
     its median where ``SHARDED_TP_LIMITS`` gates the median (RWKV)."""
     cs = _chip_smoke()
@@ -325,7 +327,8 @@ def test_bf16_gaps_within_the_chip_limits():
               "qwen2-moe-a2.7b": (cs.SHARDED_MOE_LOSS_RTOL, cs.SHARDED_MOE_NORM_RTOL, "max",
                                   cs.SHARDED_MOE_AUX_RTOL, 3),
               "rwkv6-7b": (*cs.SHARDED_TP_LIMITS["rwkv6-7b"], 0.0, 1),
-              "recurrentgemma-9b": (*cs.SHARDED_TP_LIMITS["recurrentgemma-9b"], 0.0, 1)}
+              "recurrentgemma-9b": (*cs.SHARDED_TP_LIMITS["recurrentgemma-9b"], 0.0, 1),
+              "gemma3-1b": (*cs.SHARDED_TP_LIMITS["gemma3-1b"], 0.0, 1)}
     for arch, (loss_rtol, norm_rtol, read, aux_rtol, seeds) in limits.items():
         of = {"max": max, "median": lambda g: float(np.median(g))}[read]
         loss, norm, aux = (max(v) for v in zip(*(
