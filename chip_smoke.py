@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--out FILE] [--mesh-only | --sharded-only]
+    python3 chip_smoke.py [--out FILE] [--mesh-only | --sharded-only | --examples-only]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
 and the LM serving path, served, the paper's train → fuse → plan → emit C
@@ -35,7 +35,7 @@ against their plain PyTorch versions:
    of each kernel through strided arena views, as the executors make
    them; K5 on the Llama-3.2-1B attention
    shapes (H=32, K=8, h=64) at S 1/17/128/129/512/1000 and batch 1/2, a
-   window, a softcap, h=128 and 256, RecurrentGemma-9B's and
+   window, a softcap, h=32, 128 and 256, RecurrentGemma-9B's and
    Qwen2-MoE's served shapes at S 509 and RecurrentGemma's at S 1000
    under a window of 256, Qwen2-VL-7B's GQA 7:1 (28 query heads over 4
    KV heads, h 128) at S 509 / 1,000 and its train shape (4, 512), without
@@ -118,7 +118,14 @@ against their plain PyTorch versions:
    AdamW steps on the synthetic digits), fused, planned (8,800 B),
    emitted and built, its C engine held to the card's ``CNNEngine`` (K1)
    on 16 held-out digits at rtol 1e-4, atol 1e-5, at least 7 right
-   (``c_export_phase``); no gcc fails the run;
+   (``c_export_phase``); no gcc fails the run; then runs the repo's eleven
+   user entry points on the port as a user does (``examples_phase``: the nine
+   ``examples/torch_*.py``, ``scripts/torch_emit_c_artifacts.py`` and
+   ``scripts/torch_obs_report.py ds_cnn --timed``, each ``--device cuda`` in
+   a fresh process, four at a time, at reduced ``--steps`` / ``--requests``):
+   each exits 0 with ``ok`` last, launches the kernels ``EXAMPLES`` lists for
+   it (its ``kernels:`` line) and runs ``nvcc`` 0 times (``--examples-only``
+   builds, runs this phase and stops);
 6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
    RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B, Nemotron-4-15B and
    Qwen2-VL-7B's text decoder (8 requests, 4 lanes, 16 new tokens each),
@@ -986,16 +993,9 @@ def _kernel_steps(fused_graph):
 
 
 def _counters():
-    from repro_torch.kernels.conv_pool.depthwise import K3_LAUNCHES
-    from repro_torch.kernels.conv_pool.kernel import K1_LAUNCHES
-    from repro_torch.kernels.flash.kernel import K5_LAUNCHES
-    from repro_torch.kernels.wkv.kernel import K7_LAUNCHES
-    from repro_torch.kernels.xent.kernel import K6_LAUNCHES
-    from repro_torch.quant.kernel_q8 import K2_LAUNCHES, K4_LAUNCHES
+    from repro_torch.kernels import launch_counters
 
-    return {"K1": K1_LAUNCHES, "K2": K2_LAUNCHES, "K3": K3_LAUNCHES,
-            "K4": K4_LAUNCHES, "K5": K5_LAUNCHES, "K6": K6_LAUNCHES,
-            "K7": K7_LAUNCHES}
+    return launch_counters()
 
 
 def engine_phase(torch, np, report):
@@ -2006,6 +2006,86 @@ def c_export_phase(torch, np, report, engines) -> None:
                  "seconds": time.perf_counter() - t0})
 
 
+# The repo's user entry points on the port, each run as a user runs it (a
+# fresh process, ``--device cuda``): (script, reduced arguments the reference
+# entry point also takes, outputs under build/examples/, the kernels it must
+# launch), longest first.  EXAMPLES_AT_ONCE processes run at a time: each
+# spends ~10 s starting Python, PyTorch and its CUDA context (184 s for the
+# eleven one at a time on an H100 host).
+EXAMPLES_OUT = ROOT / "build" / "examples"
+EXAMPLES = (
+    ("examples/torch_train_llm.py", ("--steps", "20", "--ckpt-dir", "build/examples/train_ckpt"),
+     ("K5", "K6")),
+    ("examples/torch_deploy_microcontroller.py", ("--steps", "150"), ("K1", "K2")),
+    ("scripts/torch_emit_c_artifacts.py", ("--out", "build/examples/c-engines"), ()),
+    ("examples/torch_plan_residual_dag.py", (), ("K1", "K2")),
+    ("examples/torch_deploy_ds_cnn.py", (), ("K1", "K2", "K3", "K4")),
+    ("examples/torch_serve_llm.py", (), ("K5",)),
+    ("examples/torch_serve_cnn.py", ("--requests", "32"), ("K1", "K2", "K4")),
+    ("scripts/torch_obs_report.py", ("ds_cnn", "--timed", "--out", "build/examples/obs"),
+     ("K1", "K2", "K3", "K4")),
+    ("examples/torch_stream_kws.py", (), ("K4",)),
+    ("examples/torch_trace_serving.py", ("--out", "build/examples/trace"), ("K1",)),
+    ("examples/torch_quickstart.py", (), ("K1",)),
+)
+EXAMPLES_AT_ONCE = 4
+
+
+def _run_example(script, extra, want) -> dict:
+    """One entry point in a process of its own; raises unless it exits 0
+    with ``ok`` last, every kernel of ``want`` launched and no ``nvcc``
+    run."""
+    cmd = [sys.executable, script, "--device", "cuda", *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    (EXAMPLES_OUT / f"{Path(script).stem}.log").write_text(proc.stdout + proc.stderr)
+    lines = proc.stdout.strip().splitlines()
+    counts = [json.loads(ln[len("kernels:"):]) for ln in lines if ln.startswith("kernels:")]
+    faults = []
+    if proc.returncode != 0:
+        faults.append(f"exit code {proc.returncode}")
+    if not lines or lines[-1] != "ok":
+        faults.append("last line is not 'ok'")
+    if len(counts) != 1:
+        faults.append("no single 'kernels:' line")
+    else:
+        counts = counts[0]
+        faults += [f"{k} launched 0 times" for k in want if counts.get(k, 0) < 1]
+        if counts.get("nvcc_runs") != 0:
+            faults.append(f"nvcc ran {counts.get('nvcc_runs')} times")
+    if faults:
+        raise AssertionError(f"examples {script}: {'; '.join(faults)}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    return {"script": script, "args": cmd[2:], "seconds": seconds, "kernels": counts,
+            "want": list(want), "stdout": lines}
+
+
+def examples_phase(report) -> dict:
+    """Each of the repo's entry points on the port (``EXAMPLES``) in a
+    process of its own, ``python <script> --device cuda ...``, up to
+    EXAMPLES_AT_ONCE at a time: exit code 0, ``ok`` as its last line, and
+    its ``kernels:`` line (the process's launch counters,
+    ``repro_torch.kernels.launch_counts``) showing every kernel listed for
+    it launched and ``nvcc`` run 0 times: the kernels load from
+    ``build/kernels/``, built by ``build_phase``.  Each entry's wall seconds
+    (process start to exit, beside the others) and its output are recorded;
+    the output is also kept in ``build/examples/<name>.log``.  Returns the
+    entries by script name."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    EXAMPLES_OUT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EXAMPLES_AT_ONCE) as pool:
+        runs = [pool.submit(_run_example, *e) for e in EXAMPLES]
+        entries = {Path(e[0]).stem: r.result() for e, r in zip(EXAMPLES, runs)}
+    report.emit({"phase": "examples", "at_once": EXAMPLES_AT_ONCE, "entries": entries,
+                 "seconds": time.perf_counter() - t0})
+    return entries
+
+
 # Per kernel: (function name, type, depthwise, engines of the main path it
 # runs in, source, TPU kernel it replaces).
 KERNELS = {
@@ -2187,7 +2267,13 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             (1, 513, 4, 1, 256, 512, 0.0), (1, 1000, 4, 1, 256, 512, 0.0),
             (1, 1000, 4, 1, 256, 0, 0.0), (1, 1716, 4, 1, 256, 512, 0.0),
             (1, 1716, 4, 1, 256, 0, 0.0), (4, 1024, 4, 1, 256, 512, 0.0),
-            (4, 1024, 4, 1, 256, 0, 0.0)]
+            (4, 1024, 4, 1, 256, 0, 0.0),
+            # the repo's entry points (examples_phase): torch_serve_llm's
+            # serve-demo-50m (8 query heads over 4 KV heads, h 32) at its
+            # shortest, a middle and its longest prompt, and
+            # torch_train_llm's microbatch (B 4 x S 128, 2 heads over 1, h 64)
+            (1, 4, 8, 4, 32, 0, 0.0), (1, 41, 8, 4, 32, 0, 0.0), (1, 47, 8, 4, 32, 0, 0.0),
+            (4, 128, 2, 1, 64, 0, 0.0)]
 # K5 at the shapes the sharded prefills of sharded_serve give it on (2, 2): a
 # data row's rows and a model coordinate's heads.  Llama-3-8B: 16 query heads
 # over 4 KV heads (h 128) at prompts of 509 and 128; RecurrentGemma-9B's
@@ -2469,7 +2555,7 @@ def k5_unheld(by_key) -> list:
 
 def k5_checks(torch, np, report) -> None:
     """K5 against its plain version: the Llama shapes at every S and batch,
-    a window, a softcap, head dims 128 and 256, the non-causal shapes
+    a window, a softcap, head dims 32, 128 and 256, the non-causal shapes
     (``K5_NONCAUSAL``: T = S and T != S), the spans of a sequence split
     over the data rows at a query offset (``K5_OFFSET``), and strided
     views."""
@@ -3417,7 +3503,7 @@ def _roofline(nbytes, ops):
 
 
 def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
-                    serve_keys, train_keys) -> list:
+                    serve_keys, train_keys, demo_k5) -> list:
     """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
     also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
     Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
@@ -3431,7 +3517,9 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
     the bound.  ``encdec_k5``: K5's launches by key in the served enc-dec
     batches; ``serve_keys`` and ``train_keys``: K5's and K7's launches by
     (arch,) + key in ``sharded_serve``'s prefills and ``sharded_train``'s
-    steps."""
+    steps; ``demo_k5``: K5's launches in ``examples_phase``'s run of
+    ``examples/torch_serve_llm.py`` (serve-demo-50m, h 32, timed at its
+    longest prompt)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import base as cfgbase
@@ -3466,6 +3554,7 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
                                                                      16, 64, causal)))
               for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
                                            ("decoder", S, S, True))]
+    cases.append(("prefill", "serve-demo-50m", 1, 47, 47, 8, 4, 32, True, demo_k5))
     cases = [c + (0, 0) for c in cases]  # no window, query offset 0
     # Gemma3-1B's served prompt of 1,000 and train shape (B 4 x S 1,024): its
     # local layers under the window of 512, its global layers without (a
@@ -3648,6 +3737,8 @@ K6_CASES = [
     (4096, 1152, 262144, 0.0, None),
     (2048, 1152, 262144, 0.0, None),
     (1024, 1152, 262144, 0.0, None),
+    # examples/torch_train_llm.py's microbatch: 4 x 128 tokens, d 128, tied V 512
+    (512, 128, 512, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -5673,6 +5764,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, serve the six CNN engines, run the mesh phase and "
                          "stop (on a machine of several cards: the mesh over them all)")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build, run the repo's entry points on the port (the examples "
+                         "phase) and stop")
     ap.add_argument("--sharded-only", action="store_true",
                     help="build, check K5, K6 and K7, run the sharded_train, sharded_mixed, "
                          "reshard, sharded_serve and pipeline phases and stop (on a "
@@ -5706,6 +5800,9 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if args.examples_only:
+        examples_phase(report)
+        return stop_early()
     if args.sharded_only:
         k5_checks(torch, np, report)
         k6_checks(torch, report)
@@ -5735,6 +5832,7 @@ def main(argv=None) -> int:
     report_phase(torch, np, report)
     residual_phase(torch, np, report)
     c_export_phase(torch, np, report, engines)
+    examples = examples_phase(report)
     lm_counts = lm_engine_phase(torch, np, report)
     encdec_k5 = encdec_phase(torch, np, report)
     kv_int8_phase(torch, np, report)
@@ -5752,7 +5850,8 @@ def main(argv=None) -> int:
     pipeline_phase(torch, np, report)
     entries = timing_phase(torch, np, report, engines)
     entries += lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
-                               serve_keys, sharded_counts)
+                               serve_keys, sharded_counts,
+                               examples["torch_serve_llm"]["kernels"]["K5"])
     entries += k6_timing_phase(torch, np, report, train_counts, sharded_counts["K6"])
     for net in engines:
         run = engines[net]["run"]

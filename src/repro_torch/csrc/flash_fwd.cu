@@ -504,6 +504,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
            int q_offset, float softcap, void* stream) {
   const Strides qs{qsb, qss, qsn}, ks{ksb, kss, ksn}, vs{vsb, vss, vsn}, os{osb, oss, osn};
   switch (hd) {
+    case 32:
+      return launch_hd<T, 32>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal,
+                              window, q_offset, softcap, stream);
     case 64:
       return launch_hd<T, 64>(q, k, v, o, B, S, T_, H, K, qs, ks, vs, os, scale, causal,
                               window, q_offset, softcap, stream);

@@ -36,11 +36,11 @@ def _render(digit: int, rng: np.random.Generator, size: int = 32) -> np.ndarray:
         n = int(6 * scale)
         xs = np.linspace(ox + x0 * scale, ox + x1 * scale, n)
         ys = np.linspace(oy + y0 * scale, oy + y1 * scale, n)
-        for dx in range(-thick, thick + 1):
-            for dy in range(-thick, thick + 1):
-                xi = np.clip(xs + dx, 0, size - 1).astype(int)
-                yi = np.clip(ys + dy, 0, size - 1).astype(int)
-                img[yi, xi] = 1.0
+        # every (dx, dy) offset of the pen at once: (dx, dy, point)
+        d = np.arange(-thick, thick + 1)
+        xi = np.clip(xs[None, None, :] + d[:, None, None], 0, size - 1).astype(int)
+        yi = np.clip(ys[None, None, :] + d[None, :, None], 0, size - 1).astype(int)
+        img[yi, xi] = 1.0
     img += rng.normal(0, 0.08, img.shape).astype(np.float32)
     # the paper's threshold filter: dark pixels snapped to pure black
     img = np.clip(img, 0.0, 1.0)

@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.conv_pool.kernel import LaunchCounter
 
 K5_LAUNCHES = LaunchCounter()
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 256)
 _FN = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
 
 

@@ -56,7 +56,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_sources():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + sorted((ROOT / "scripts").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -102,7 +104,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/serve/step.py",
             "src/repro_torch/train/pipeline.py",
             "src/repro_torch/models/griffin.py",
-            "src/repro_torch/models/moe.py"} <= names
+            "src/repro_torch/models/moe.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_train_llm.py",
+            "scripts/torch_emit_c_artifacts.py",
+            "scripts/torch_obs_report.py"} <= names
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -216,6 +222,27 @@ ENTRY_POINTS = {
                        "m": {"embed": np.zeros((4, 2), np.float32)},
                        "v": {"embed": np.zeros((4, 2), np.float32)}})(), _llama()),
 }
+
+
+def _script_main(rel: str):
+    """The ``main`` of the entry-point script at ``rel`` (from the repo root)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"entry_{Path(rel).stem}", ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+# The repo's user entry points on the port, each called as ``main([])``.
+ENTRY_POINTS.update({
+    f"{rel}:main": (lambda rel=rel: _script_main(rel)([]))
+    for rel in ("examples/torch_quickstart.py", "examples/torch_deploy_microcontroller.py",
+                "examples/torch_deploy_ds_cnn.py", "examples/torch_plan_residual_dag.py",
+                "examples/torch_serve_cnn.py", "examples/torch_serve_llm.py",
+                "examples/torch_stream_kws.py", "examples/torch_trace_serving.py",
+                "examples/torch_train_llm.py", "scripts/torch_emit_c_artifacts.py",
+                "scripts/torch_obs_report.py")})
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
@@ -508,9 +535,9 @@ def test_lm_wrappers_check_before_launching():
         q = torch.empty(1, 8, 4, 64, device="cuda")
         kv = torch.empty(1, 8, 2, 64, device="cuda")
         with pytest.raises(ValueError, match="head dim"):
-            flash_kernel.flash_attention_fwd(torch.empty(1, 8, 4, 32, device="cuda"),
-                                             torch.empty(1, 8, 2, 32, device="cuda"),
-                                             torch.empty(1, 8, 2, 32, device="cuda"))
+            flash_kernel.flash_attention_fwd(torch.empty(1, 8, 4, 96, device="cuda"),
+                                             torch.empty(1, 8, 2, 96, device="cuda"),
+                                             torch.empty(1, 8, 2, 96, device="cuda"))
         with pytest.raises(ValueError, match="KV heads"):
             flash_kernel.flash_attention_fwd(q, torch.empty(1, 8, 3, 64, device="cuda"),
                                              torch.empty(1, 8, 3, 64, device="cuda"))
