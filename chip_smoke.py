@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card (Hopper, sm_90a).
 
-    python3 chip_smoke.py [--out FILE] [--mesh-only | --sharded-only | --examples-only]
+    python3 chip_smoke.py [--out FILE] [--mesh-only | --sharded-only | --examples-only
+                           | --mixtral-only]
 
 Drives the port's paths — the paper's sequential pipeline, the DAG path
 and the LM serving path, served, the paper's train → fuse → plan → emit C
@@ -129,19 +130,24 @@ against their plain PyTorch versions:
 6. serves Llama-3.2-1B (16 requests, 8 lanes, 32 new tokens), RWKV6-7B,
    RecurrentGemma-9B, Qwen2-MoE-A2.7B, Llama-3-8B, Nemotron-4-15B and
    Qwen2-VL-7B's text decoder (8 requests, 4 lanes, 16 new tokens each),
-   and Gemma3-1B (16 requests of up to 1,716 tokens, 8 lanes, ``max_seq``
-   2,048, 32 new tokens) at full width, at full depth but for
-   ``LM_ENGINE_LAYERS`` (RWKV6-7B 16, RecurrentGemma-9B 20, Qwen2-MoE 12,
-   Llama-3-8B 16 and Qwen2-VL 14 layers), bf16 compute (each layer's
+   Gemma3-1B (16 requests of up to 1,716 tokens, 8 lanes, ``max_seq``
+   2,048, 32 new tokens) and Mixtral-8x7B (10 requests of 1 to 8,192
+   tokens, 4 lanes, ``max_seq`` 8,448, 16 new tokens) at full width, at
+   full depth but for ``LM_ENGINE_LAYERS`` (RWKV6-7B 16, RecurrentGemma-9B
+   20, Qwen2-MoE 12, Llama-3-8B 16, Qwen2-VL 14 and Mixtral 8 layers),
+   bf16 compute (each layer's
    weights stored in bf16 as it is drawn), through ``Engine``, one model
    at a time: every request done, K5 = 16 / K7 = 16 / K5 = 6 / K5 = 12 /
-   K5 = 16 / K5 = 32 / K5 = 14 / K5 = 26 launches per prefill (no other
-   kernel; Gemma3's 22 with its window of 512, 4 without), the KV/state
-   bytes (268,959,744 / 68,157,440 / 27,557,888 / 402,849,792 /
-   268,697,600 / 537,395,200 / 117,669,888 / 160,006,144 B: Gemma3's 22
-   local layers keep rings of 512 slots), a
-   Gemma3 request whose decode steps wrap the rings (509 + 32) decoded
-   again and held against a prefill of the whole sequence, each prompt's
+   K5 = 16 / K5 = 32 / K5 = 14 / K5 = 26 / K5 = 8 launches per prefill (no
+   other kernel; Gemma3's 22 with its window of 512, 4 without; Mixtral's
+   8 with its window of 4,096), the KV/state bytes (268,959,744 /
+   68,157,440 / 27,557,888 / 402,849,792 / 268,697,600 / 537,395,200 /
+   117,669,888 / 160,006,144 / 537,395,200 B: Gemma3's 22 local layers keep
+   rings of 512 slots, Mixtral's 8 rings of 4,096), the request whose
+   decode steps wrap the rings (Gemma3 509 + 32, Mixtral 4,090 + 16) and
+   the longest prompt that overran them in the prefill (Gemma3 1,716,
+   Mixtral 8,192: two MoE token groups) decoded again and held against a
+   prefill of the whole sequence, each prompt's
    logits against the plain path on the card (the same model with K5/K7
    swapped for their plain versions, ``plain_kernels``), TTFT, prefill and
    decode tokens/s, peak memory, and the device time of K5 / K7, the
@@ -164,7 +170,8 @@ against their plain PyTorch versions:
    the first prefill's and decode step's logits within
    tests/test_kv_quant.py's tolerances, ms a decode step both ways;
 7. holds each served architecture at full width, 2 layers (RecurrentGemma 3;
-   Gemma3 6, over a prompt of 600 past its window; Seamless 2 encoder and
+   Gemma3 6, over a prompt of 600 past its window; Mixtral 2 over a prompt
+   of 4,200 past its window; Seamless 2 encoder and
    2 decoder layers over 200 frames, its training loss and gradients too,
    at step 9's limits), f32 compute, kernel path against plain path:
    prefill and 4 decode steps at 1e-4; then
@@ -174,8 +181,9 @@ against their plain PyTorch versions:
 8. trains Llama-3.2-1B at full width and depth (B 8 x S 512, 4 steps, a
    step of 2 microbatches, then a profiled step), Gemma3-1B at full width
    and depth (B 4 x S 1,024, 2 steps, then a profiled step), and RWKV6-7B
-   (2 layers), RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2) and Qwen2-VL-7B
-   (2, on the launcher's embeds batches, and a step of 2 microbatches) at
+   (2 layers), RecurrentGemma-9B (3), Qwen2-MoE-A2.7B (2), Qwen2-VL-7B
+   (2, on the launcher's embeds batches, and a step of 2 microbatches) and
+   Mixtral-8x7B (1: K5 2, K6 1 at (2,048, 4,096, 32,000)) at
    full width (B 4 x S 512, 2 steps, then a profiled step): f32 params,
    bf16 compute, remat, ``xent_impl="chunked"``, the launcher's AdamW,
    token-pipeline batches; every loss finite, launches per step pinned
@@ -291,7 +299,9 @@ against their plain PyTorch versions:
     at 1,000 frames (encoder and cross-attention without the mask,
     decoder), at Gemma3-1B's served S 1,000 and train shape (B 4 x S
     1,024), under its window of 512 and without (SDPA's yardstick with
-    the window as a boolean mask), K7 at S 128/509/512/1000 (each of its
+    the window as a boolean mask), at Mixtral-8x7B's served S 509 / 4,097
+    / 8,192 and train shape (B 4 x S 512) under its window of 4,096, K7 at
+    S 128/509/512/1000 (each of its
     two kernels by name)
     and at each shape the sharded phases gave it,
     K5 also at the train shapes of Llama (B 8 x S 512; its launches, and
@@ -300,7 +310,7 @@ against their plain PyTorch versions:
     prefills and the sharded train steps gave it (a data row's rows or, at
     batch 1, its span at its query offset, beside SDPA under the same mask;
     a model coordinate's heads), K6
-    at the six train shapes, and at the sharded train cells' data-row
+    at the seven train shapes, and at the sharded train cells' data-row
     tokens over the whole vocab and, in its partial form, over one model
     coordinate's vocab block) with
     CUDA events
@@ -308,6 +318,16 @@ against their plain PyTorch versions:
     computing the same function where there is one, and its bound from the
     shapes (K6's on its route, 3xTF32 at the TF32 tensor-core peak, with
     the f32 CUDA-core figure beside it).
+
+``--mixtral-only`` builds, checks K5 and K6 and runs ``mixtral_sharded``
+alone: Mixtral-8x7B at full width and depth (46.70 B parameters, 93.4 GB of
+bf16, over one card) on ("data", "model") = (1, 4) over four distinct cards
+(or (1, 2) over two; with fewer it exits 2), every layer drawn straight
+into its blocks (``Model.init_params(shardings=)``), served through the
+sharded steps at 4 x 509 and 1 x 8,192 tokens (``max_seq`` 8,448, rings of
+4,096 slots), 16 greedy steps each: first its 8-layer prefix against the
+unsharded path on cuda:0, then all 32 layers held against themselves (see
+``mixtral_sharded_phase``).
 
 Prints one JSON object per line: the phases' results, then the card's
 ``nvidia-smi`` name and power limit, then ``{"kernels": [...]}``, and last
@@ -2273,7 +2293,14 @@ K5_EXTRA = [(1, 1000, 32, 8, 64, 256, 0.0), (1, 512, 32, 8, 64, 0, 50.0),
             # shortest, a middle and its longest prompt, and
             # torch_train_llm's microbatch (B 4 x S 128, 2 heads over 1, h 64)
             (1, 4, 8, 4, 32, 0, 0.0), (1, 41, 8, 4, 32, 0, 0.0), (1, 47, 8, 4, 32, 0, 0.0),
-            (4, 128, 2, 1, 64, 0, 0.0)]
+            (4, 128, 2, 1, 64, 0, 0.0),
+            # Mixtral-8x7B: 32 query heads over 8 KV heads (GQA 4:1, h 128), every
+            # layer under the window of 4,096: served at 509 (the window past
+            # the keys), 4,097 and 8,192 (where it bites), and its train shape
+            # (B 4 x S 512); the sharded shapes of --mixtral-only are
+            # K5_MIXTRAL_SHARDED
+            (1, 509, 32, 8, 128, 4096, 0.0), (1, 4097, 32, 8, 128, 4096, 0.0),
+            (1, 8192, 32, 8, 128, 4096, 0.0), (4, 512, 32, 8, 128, 4096, 0.0)]
 # K5 at the shapes the sharded prefills of sharded_serve give it on (2, 2): a
 # data row's rows and a model coordinate's heads.  Llama-3-8B: 16 query heads
 # over 4 KV heads (h 128) at prompts of 509 and 128; RecurrentGemma-9B's
@@ -2398,11 +2425,19 @@ K7_KERNELS = ("wkv_intra_kernel", "wkv_carry_kernel")  # one K7 call launches bo
 # HBM3 at 700 W, 0.1016 / 0.0227 served (the ring decode against a prefill
 # 0.0742 / 0.0177, sharded_serve's steps 0.1133 / 0.0221 at most), with
 # ~3.5x / 3x headroom (K5 in all 26 layers, 22 of them windowed).
+# Mixtral-8x7B's is its first readings on an H100 80GB HBM3 at 700 W, with
+# ~3.5x / 3x headroom: its 8 served layers against the plain path 0.900 /
+# 0.248 (the largest), the (1, 4) prefix against the unsharded path 0.760 /
+# 0.099 at 4 x 509 and 0.051 / 0.013 at 1 x 8,192, a decode over the rings
+# against a prefill 0.047 / 0.012 under lifted_capacity.  The gaps at the
+# real capacity are MoE routing's: a top-2 choice that K5's bf16 rounding
+# flips moves a token's output by a whole expert and every later token's
+# capacity slot; at f32 (lm_strict) the kernel path is within 1.8e-5.
 LM_LOGITS_TOL = {"llama3.2-1b": (0.25, 0.05), "rwkv6-7b": (3.0, 0.75),
                  "recurrentgemma-9b": (0.5, 0.1), "qwen2-moe-a2.7b": (1.0, 0.2),
                  "llama3-8b": (0.25, 0.05), "nemotron-4-15b": (0.3, 0.06),
                  "seamless-m4t-large-v2": (0.2, 0.04), "qwen2-vl-7b": (0.25, 0.05),
-                 "gemma3-1b": (0.36, 0.07)}
+                 "gemma3-1b": (0.36, 0.07), "mixtral-8x7b": (3.2, 0.75)}
 LM_STRICT_TOL = 1e-4  # f32 compute, TF32 off: rtol = atol
 # RWKV6-7B at full depth, kernel path against plain path (rwkv_drift_phase),
 # on the prompts below, at f32 compute: the final logits' (max |difference|,
@@ -2440,6 +2475,13 @@ LM_ENGINES = {
     # caches are rings of 512 slots: prompts of 512 and 513 fill and
     # overrun them in the prefill, 509 + 32 new tokens wraps them in decode
     "gemma3-1b": (7, 8, 2048, 32, (1, 128, 509, 512, 513, 1000, 1500), (9, 2, 2017), "K5"),
+    # Mixtral-8x7B: 32 sliding-window layers (K5 with the window of 4,096, h
+    # 128, GQA 32:8), each a MoE of 8 experts of 14,336, top 2; max_seq
+    # 8,448 is past the window, so every cache is a ring of 4,096 slots:
+    # 4,090 + 16 new tokens wraps them in decode, 4,097 and 8,192 overrun
+    # them in the prefill, and 8,192 (a multiple of 4,096) is routed in two
+    # token groups of 4,096 (4,097 in one)
+    "mixtral-8x7b": (8, 4, 8448, 16, (1, 128, 509, 4090, 4097, 8192), (4, 2, 8193), "K5"),
 }
 # lm_engine's depth where it cuts the config's, to keep the run's time
 # within its bound as archs were added: Llama-3-8B 16 of 32 layers
@@ -2447,13 +2489,16 @@ LM_ENGINES = {
 # 32 at f32 and bf16), Qwen2-MoE-A2.7B 12 of 24, Qwen2-VL-7B 14 of 28 (and
 # vl_embeds on the same model), RecurrentGemma-9B 20 of 38 (six whole
 # (rglru, rglru, local) groups and two rglru layers); every other served
-# arch whole
+# arch whole; Mixtral-8x7B 8 of 32 (23.5 GB of bf16 weights, what a card
+# holds of the whole model on (1, 4); its 46.7 B parameters, 93.4 GB, are over
+# one card: chip_smoke.py --mixtral-only serves all 32 over 2-4 cards)
 LM_ENGINE_LAYERS = {"llama3-8b": 16, "rwkv6-7b": 16, "qwen2-moe-a2.7b": 12,
-                    "qwen2-vl-7b": 14, "recurrentgemma-9b": 20}
+                    "qwen2-vl-7b": 14, "recurrentgemma-9b": 20, "mixtral-8x7b": 8}
 LM_KV_BYTES = {"llama3.2-1b": 268_959_744, "rwkv6-7b": 68_157_440,
                "recurrentgemma-9b": 27_557_888, "qwen2-moe-a2.7b": 402_849_792,
                "llama3-8b": 268_697_600, "nemotron-4-15b": 537_395_200,
-               "qwen2-vl-7b": 117_669_888, "gemma3-1b": 160_006_144}
+               "qwen2-vl-7b": 117_669_888, "gemma3-1b": 160_006_144,
+               "mixtral-8x7b": 537_395_200}
 # A name every kernel of K5 / K7 has in the profiler
 LM_KERNEL_SYMBOL = {"K5": "flash_fwd", "K7": "wkv_"}
 # Plain-PyTorch parts of the served prefills timed as profiler ranges:
@@ -2465,12 +2510,14 @@ LM_RANGES = (("repro_torch.models.griffin", "rg_lru", "rg_lru_scan"),
 # Seamless-M4T 2 encoder and 2 decoder layers over LM_STRICT_SRC frames;
 # Gemma3-1B one whole 5:1 group (5 local layers, 1 global) on a prompt past
 # its window, so the prefill overruns the rings and the decode steps write
-# and read them wrapped.  The cache holds max(LM_STRICT_MAX_SEQ, prompt + 4)
+# and read them wrapped; Mixtral-8x7B 2 layers on a prompt of 4,200, past its
+# window of 4,096 (rings of 4,096 slots, one MoE token group of 4,200).  The
+# cache holds max(LM_STRICT_MAX_SEQ, prompt + 4)
 LM_STRICT = (("llama3.2-1b", 10, 129, 2), ("rwkv6-7b", 11, 200, 2),
              ("recurrentgemma-9b", 12, 200, 3), ("qwen2-moe-a2.7b", 13, 200, 2),
              ("seamless-m4t-large-v2", 14, 16, 2), ("llama3-8b", 15, 200, 2),
              ("nemotron-4-15b", 16, 200, 2), ("qwen2-vl-7b", 17, 200, 2),
-             ("gemma3-1b", 18, 600, 6))
+             ("gemma3-1b", 18, 600, 6), ("mixtral-8x7b", 19, 4200, 2))
 LM_STRICT_MAX_SEQ = 512
 LM_STRICT_SRC = 200
 # Seamless-M4T-large-v2 served (encdec_phase): (frames, prompt tokens) of
@@ -2536,6 +2583,24 @@ def plain_kernels():
         flash_ops.flash_attention, wkv_ops.wkv, xent_ops.fused_xent = saved
 
 
+@contextlib.contextmanager
+def lifted_capacity():
+    """Inside, every MoE token group's expert capacity is its token count,
+    so no (token, expert) choice is dropped.  A decode step never drops
+    one; a prefill at the real capacity (1.25 x a group's share) does, and
+    its dropped experts change the hidden states the cache holds, so a
+    decode is held against a prefill of the same sequence only with the
+    capacity lifted in both (as tests/test_torch_lm.py holds them)."""
+    from repro_torch.models import moe
+
+    saved = moe.capacity
+    moe.capacity = lambda cfg, tokens_per_group, factor=1.25: tokens_per_group
+    try:
+        yield
+    finally:
+        moe.capacity = saved
+
+
 def k5_cases() -> list:
     """Every shape ``k5_checks`` holds K5 at, in f32 and in bf16: (B, S,
     T, H, K, h, window, softcap, causal, q_offset)."""
@@ -2572,6 +2637,7 @@ def k5_checks(torch, np, report) -> None:
     worst_offset = {"f32": 0.0, "bf16": 0.0}  # K5_OFFSET, past offset 0
     worst_encoder = {"f32": 0.0, "bf16": 0.0}  # K5_ENCODER_SPLIT
     worst_window = {"f32": 0.0, "bf16": 0.0}  # a window some query row sees past
+    worst_mixtral = {"f32": 0.0, "bf16": 0.0}  # Mixtral-8x7B's window of 4,096
     n_window = 0
     worst_row = 0.0
     n_checks = 0
@@ -2611,6 +2677,8 @@ def k5_checks(torch, np, report) -> None:
             if window and off + S > window:
                 worst_window[kind] = max(worst_window[kind], err)
                 n_window += 1
+            if window == MIXTRAL_ATTENTION[3]:
+                worst_mixtral[kind] = max(worst_mixtral[kind], err)
             worst_row = max(worst_row, row)
             n_checks += 1
     # strided views of one fused (B, S, H + 2K, h) projection, as they come
@@ -2653,6 +2721,8 @@ def k5_checks(torch, np, report) -> None:
                  "encoder_split_checks": 2 * len(K5_ENCODER_SPLIT),
                  "encoder_split_max_abs_err": worst_encoder,
                  "window_bites_checks": n_window, "window_bites_max_abs_err": worst_window,
+                 "mixtral_checks": 2 * sum(c[6] == MIXTRAL_ATTENTION[3] for c in cases),
+                 "mixtral_max_abs_err": worst_mixtral,
                  "bf16_worst_row_share": max(worst_row, row, mis_row),
                  "strided_views_max_abs_err": err,
                  "misaligned_views_max_abs_err": mis_err, "tolerance": K5_TOL,
@@ -2826,35 +2896,39 @@ def _k5_by_window(by_key) -> dict:
 
 
 def _ring_decode_check(torch, np, model, params, req, max_seq, limit) -> dict:
-    """A served request whose decode wraps the rings: its prompt prefilled
-    alone, then its served tokens fed back through ``make_decode_step``
-    (teacher-forced); the logits of the step at the first position past the
-    window (its K/V written over the ring's slot 0) and of the last step,
-    each against ``Model.prefill`` of the whole sequence up to that
-    position (a linear pass over every key).  Raises unless both are
-    finite and within ``limit`` (max abs, relative 2-norm)."""
+    """A served request whose decode wraps the rings, or whose prompt
+    overran them in the prefill: its prompt prefilled alone, then its
+    served tokens fed back through ``make_decode_step`` (teacher-forced);
+    the logits of the first step at a position past the window (its K/V
+    written over a ring slot) and of the last step, each against
+    ``Model.prefill`` of the whole sequence up to that position (a linear
+    pass over every key); a MoE config's passes all under
+    ``lifted_capacity``.  Raises unless both are finite and within
+    ``limit`` (max abs, relative 2-norm)."""
     from repro_torch.serve.step import make_decode_step
 
     cfg = model.cfg
     P = len(req.prompt)
     seq = np.concatenate([req.prompt, np.asarray(req.out_tokens, np.int32)])
-    first, last = cfg.window, P + len(req.out_tokens) - 2
-    cache, _ = model.prefill(params, {"tokens": torch.as_tensor(seq[None, :P],
-                                                                device="cuda")}, max_seq)
-    decode = make_decode_step(model, max_seq)
+    first, last = max(cfg.window, P), P + len(req.out_tokens) - 2
     gaps = {}
-    for pos in range(P, last + 1):
-        tok = torch.as_tensor(seq[None, pos:pos + 1], device="cuda")
-        at = torch.tensor([pos], dtype=torch.int32, device="cuda")
-        _, logits, cache = decode(params, cache, tok, at)
-        if pos in (first, last):
-            _, want = model.prefill(params, {"tokens": torch.as_tensor(
-                seq[None, :pos + 1], device="cuda")}, max_seq)
-            gaps[pos] = {"max_abs": float((logits - want).abs().max()),
-                         "rel_rms": float((logits - want).norm() / want.norm()),
-                         "finite": bool(torch.isfinite(logits).all())}
-    del cache
+    with lifted_capacity() if cfg.moe else contextlib.nullcontext():
+        cache, _ = model.prefill(params, {"tokens": torch.as_tensor(seq[None, :P],
+                                                                    device="cuda")}, max_seq)
+        decode = make_decode_step(model, max_seq)
+        for pos in range(P, last + 1):
+            tok = torch.as_tensor(seq[None, pos:pos + 1], device="cuda")
+            at = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            _, logits, cache = decode(params, cache, tok, at)
+            if pos in (first, last):
+                _, want = model.prefill(params, {"tokens": torch.as_tensor(
+                    seq[None, :pos + 1], device="cuda")}, max_seq)
+                gaps[pos] = {"max_abs": float((logits - want).abs().max()),
+                             "rel_rms": float((logits - want).norm() / want.norm()),
+                             "finite": bool(torch.isfinite(logits).all())}
+        del cache
     out = {"prompt": P, "positions": sorted(gaps), "ring_slots": cfg.window,
+           "moe_capacity_lifted": cfg.moe is not None,
            "logits_vs_prefill": {str(k): v for k, v in gaps.items()}, "limit": limit}
     if not all(g["finite"] and g["max_abs"] <= limit[0] and g["rel_rms"] <= limit[1]
                for g in gaps.values()):
@@ -2957,14 +3031,20 @@ def lm_engine_phase(torch, np, report) -> dict:
                                      f"{int(lk[0].argmax())} vs served {req.out_tokens[0]}")
             worst = {"max_abs": max(worst["max_abs"], err),
                      "rel_rms": max(worst["rel_rms"], rel)}
-        # a request whose decode steps wrap the rings (Gemma3-1B's 509 + 32)
+        # a request whose decode steps wrap the rings (Gemma3-1B's 509 + 32,
+        # Mixtral's 4,090 + 16), and the longest prompt that overran them in
+        # the prefill (Gemma3's 1,716, Mixtral's 8,192), decoded on from there
         rings = _ring_layers(cfg, max_seq)
         wraps = [r for r in reqs if rings and len(r.prompt) < cfg.window
                  < len(r.prompt) + max_new - 1]
-        ring_decode = (_ring_decode_check(torch, np, model, params, wraps[0], max_seq,
-                                          LM_LOGITS_TOL[arch]) if wraps else None)
-        if rings and ring_decode is None:
-            raise AssertionError(f"{arch}: no served request wraps its rings in decode")
+        overran = sorted((r for r in reqs if rings and len(r.prompt) > cfg.window),
+                         key=lambda r: len(r.prompt))
+        ring_decode = [_ring_decode_check(torch, np, model, params, r, max_seq,
+                                          LM_LOGITS_TOL[arch])
+                       for r in wraps[:1] + overran[-1:]]
+        if rings and not (wraps and overran):
+            raise AssertionError(f"{arch}: no served request wraps its rings in decode, "
+                                 f"or none overruns them in the prefill")
 
         # -- numbers -------------------------------------------------------------
         serve_ts = tracer.spans("serve")[0][0]
@@ -2984,7 +3064,7 @@ def lm_engine_phase(torch, np, report) -> dict:
             "tokens_per_s": stats.tokens_per_s,
             **{f"{k.lower()}_launches": c for k, (c, _) in counts.items()},
             "k5_launches_by_window": {str(w): n for w, n in sorted(by_window.items())},
-            "ring_cache_layers": rings, "ring_decode": ring_decode,
+            "ring_cache_layers": rings, "ring_decode": ring_decode or None,
             "plan_report": plan,
             f"{kern.lower()}_device_ms_served_prefills": kern_device_ms,
             f"{kern.lower()}_kernel_records_served_prefills": kern_records,
@@ -3502,74 +3582,37 @@ def _roofline(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
-                    serve_keys, train_keys, demo_k5) -> list:
-    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
-    also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
-    Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
-    frames: the encoder's and the cross-attention's, without the mask, and
-    the decoder's), K5 at Llama's train shape (B 8, S 512), and K5 at
-    each shape the sharded prefills gave it (a data row's rows and a model
-    coordinate's heads), and likewise at each shape the sharded train
-    steps gave it, a batch-1 span at its query offset among them: event
-    ms, device ms, plain ms, the library yardstick for K5 (SDPA, causal or
-    not as K5; at an offset with the same mask as a boolean ``attn_mask``),
-    the bound.  ``encdec_k5``: K5's launches by key in the served enc-dec
-    batches; ``serve_keys`` and ``train_keys``: K5's and K7's launches by
-    (arch,) + key in ``sharded_serve``'s prefills and ``sharded_train``'s
-    steps; ``demo_k5``: K5's launches in ``examples_phase``'s run of
-    ``examples/torch_serve_llm.py`` (serve-demo-50m, h 32, timed at its
-    longest prompt)."""
+def mixtral_timing_cases(lm_counts, train_counts) -> list:
+    """``lm_timing_phase``'s cases for Mixtral-8x7B, (mode, arch, B, S, T, H,
+    K, h, causal, launches, window, q_offset): under its window of 4,096 at
+    the served prompts of 509 (the window past every key), 4,097 and 8,192
+    (where it bites), each with the served launches of the prompts nearest
+    it (up to 4,096 tokens, to 8,191, from 8,192; K5 launch keys carry S
+    third), and at its train shape (B 4 x S 512)."""
+    H, K, h, window = MIXTRAL_ATTENTION
+    served = lm_counts["mixtral-8x7b"]["K5"][1]
+    cases = []
+    for S, lo, hi in ((509, 0, window), (window + 1, window + 1, 2 * window - 1),
+                      (2 * window, 2 * window, None)):
+        n = sum(c for key, c in served.items()
+                if key[2] >= lo and (hi is None or key[2] <= hi))
+        cases.append(("prefill", "mixtral-8x7b", 1, S, S, H, K, h, True, n, window, 0))
+    return cases + [("train", "mixtral-8x7b", 4, 512, 512, H, K, h, True,
+                     train_counts["mixtral-8x7b"]["K5"], window, 0)]
+
+
+def k5_timing(torch, np, report, rng, cases) -> list:
+    """K5 timed at each of ``cases``, (mode, arch, B, S, T, H, K, h, causal,
+    launches, window, q_offset), bf16, inputs drawn from ``rng``: event ms,
+    device ms, plain ms, SDPA's (causal or not as K5; at an offset or under
+    a window that bites, the same mask as a boolean ``attn_mask``), the
+    bound; a timing line and a kernels-line entry each."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import base as cfgbase
     from repro_torch.kernels.flash.ops import flash_attention
     from repro_torch.kernels.flash.ref import attention_ref, visible
 
     entries = []
-    rng = np.random.default_rng(11)
-    k7_launches = lm_counts["rwkv6-7b"]["K7"][0]
-    # (name, arch, B, S, T, H, K, h, causal, launches): Llama's served and
-    # train shapes, the other families' served shapes at their longest
-    # prompt (RecurrentGemma's window of 2048 is past S, so causal attention
-    # is its function here), and Seamless's three modes at 1,000 frames
-    cases = [("train" if B > 1 else "prefill", "llama3.2-1b", B, S, S, 32, 8, 64, True,
-              train_counts["llama3.2-1b"]["K5"] if B > 1 else lm_counts["llama3.2-1b"]["K5"][0])
-             for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512))]
-    cases += [("prefill", arch, 1, 509, 509, H, K, h, True, lm_counts[arch]["K5"][0])
-              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
-                                    ("qwen2-moe-a2.7b", 16, 16, 128),
-                                    ("llama3-8b", 32, 8, 128),
-                                    ("nemotron-4-15b", 48, 8, 128),
-                                    ("qwen2-vl-7b", 28, 4, 128))]
-    # the train shapes of RecurrentGemma, Qwen2-MoE and Qwen2-VL (B 4 x S 512;
-    # RecurrentGemma's window of 2048 is past S)
-    cases += [("train", arch, 4, 512, 512, H, K, h, True, train_counts[arch]["K5"])
-              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
-                                    ("qwen2-moe-a2.7b", 16, 16, 128),
-                                    ("qwen2-vl-7b", 28, 4, 128))]
-    T, S = ENCDEC_BATCHES[-1]
-    cases += [(mode, "seamless-m4t-large-v2", ENCDEC_LANES, sq, tk, 16, 16, 64, causal,
-               sum(n for key, n in encdec_k5.items() if key[1:8] == (ENCDEC_LANES, sq, tk, 16,
-                                                                     16, 64, causal)))
-              for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
-                                           ("decoder", S, S, True))]
-    cases.append(("prefill", "serve-demo-50m", 1, 47, 47, 8, 4, 32, True, demo_k5))
-    cases = [c + (0, 0) for c in cases]  # no window, query offset 0
-    # Gemma3-1B's served prompt of 1,000 and train shape (B 4 x S 1,024): its
-    # local layers under the window of 512, its global layers without (a
-    # train step launches K5 on every layer alike)
-    served = _k5_by_window(lm_counts["gemma3-1b"]["K5"][1])
-    blocks = cfgbase.get_config("gemma3-1b").blocks()
-    window = cfgbase.get_config("gemma3-1b").window
-    for w, n in ((window, blocks.count("local")), (0, blocks.count("attn"))):
-        cases.append(("prefill", "gemma3-1b", 1, 1000, 1000, 4, 1, 256, True, served[w], w, 0))
-        cases.append(("train", "gemma3-1b", 4, 1024, 1024, 4, 1, 256, True,
-                      train_counts["gemma3-1b"]["K5"] * n // len(blocks), w, 0))
-    for mode, by_key in (("sharded prefill", serve_keys["K5"]),
-                         ("sharded train", train_keys["K5"])):
-        cases += [(mode, key[0], *key[2:9], n, key[9], key[11])
-                  for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
     for mode, arch, B, S, T, H, K, h, causal, launches, window, off in cases:
         q = torch.as_tensor(rng.standard_normal((B, S, H, h)), dtype=torch.bfloat16,
                             device="cuda")
@@ -3622,6 +3665,73 @@ def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": bms, "bound_by": bby,
             "library_ms": t["library_ms"], "device_ms": t["device_ms"]})
+    return entries
+
+
+def lm_timing_phase(torch, np, report, lm_counts, train_counts, encdec_k5,
+                    serve_keys, train_keys, demo_k5) -> list:
+    """K5 and K7 at the served shapes (bf16, B=1, S 128 / 512 / 1000; K5
+    also at RecurrentGemma-9B's, Qwen2-MoE's, Llama-3-8B's and
+    Nemotron-4-15B's, S 509, and at Seamless-M4T's batch of 4 at 1,000
+    frames: the encoder's and the cross-attention's, without the mask, and
+    the decoder's), K5 at Llama's train shape (B 8, S 512), at Gemma3-1B's
+    and Mixtral-8x7B's (``mixtral_timing_cases``) under their windows, and
+    K5 at each shape the sharded prefills gave it (a data row's rows and a
+    model coordinate's heads), and likewise at each shape the sharded train
+    steps gave it, a batch-1 span at its query offset among them
+    (``k5_timing``).  ``encdec_k5``: K5's launches by key in the served
+    enc-dec batches; ``serve_keys`` and ``train_keys``: K5's and K7's
+    launches by (arch,) + key in ``sharded_serve``'s prefills and
+    ``sharded_train``'s steps; ``demo_k5``: K5's launches in
+    ``examples_phase``'s run of ``examples/torch_serve_llm.py``
+    (serve-demo-50m, h 32, timed at its longest prompt)."""
+    from repro_torch.configs import base as cfgbase
+
+    rng = np.random.default_rng(11)
+    k7_launches = lm_counts["rwkv6-7b"]["K7"][0]
+    # (name, arch, B, S, T, H, K, h, causal, launches): Llama's served and
+    # train shapes, the other families' served shapes at their longest
+    # prompt (RecurrentGemma's window of 2048 is past S, so causal attention
+    # is its function here), and Seamless's three modes at 1,000 frames
+    cases = [("train" if B > 1 else "prefill", "llama3.2-1b", B, S, S, 32, 8, 64, True,
+              train_counts["llama3.2-1b"]["K5"] if B > 1 else lm_counts["llama3.2-1b"]["K5"][0])
+             for B, S in ((1, 128), (1, 512), (1, 1000), (8, 512))]
+    cases += [("prefill", arch, 1, 509, 509, H, K, h, True, lm_counts[arch]["K5"][0])
+              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
+                                    ("qwen2-moe-a2.7b", 16, 16, 128),
+                                    ("llama3-8b", 32, 8, 128),
+                                    ("nemotron-4-15b", 48, 8, 128),
+                                    ("qwen2-vl-7b", 28, 4, 128))]
+    # the train shapes of RecurrentGemma, Qwen2-MoE and Qwen2-VL (B 4 x S 512;
+    # RecurrentGemma's window of 2048 is past S)
+    cases += [("train", arch, 4, 512, 512, H, K, h, True, train_counts[arch]["K5"])
+              for arch, H, K, h in (("recurrentgemma-9b", 16, 1, 256),
+                                    ("qwen2-moe-a2.7b", 16, 16, 128),
+                                    ("qwen2-vl-7b", 28, 4, 128))]
+    T, S = ENCDEC_BATCHES[-1]
+    cases += [(mode, "seamless-m4t-large-v2", ENCDEC_LANES, sq, tk, 16, 16, 64, causal,
+               sum(n for key, n in encdec_k5.items() if key[1:8] == (ENCDEC_LANES, sq, tk, 16,
+                                                                     16, 64, causal)))
+              for mode, sq, tk, causal in (("encoder", T, T, False), ("cross", S, T, False),
+                                           ("decoder", S, S, True))]
+    cases.append(("prefill", "serve-demo-50m", 1, 47, 47, 8, 4, 32, True, demo_k5))
+    cases = [c + (0, 0) for c in cases]  # no window, query offset 0
+    # Gemma3-1B's served prompt of 1,000 and train shape (B 4 x S 1,024): its
+    # local layers under the window of 512, its global layers without (a
+    # train step launches K5 on every layer alike)
+    served = _k5_by_window(lm_counts["gemma3-1b"]["K5"][1])
+    blocks = cfgbase.get_config("gemma3-1b").blocks()
+    window = cfgbase.get_config("gemma3-1b").window
+    for w, n in ((window, blocks.count("local")), (0, blocks.count("attn"))):
+        cases.append(("prefill", "gemma3-1b", 1, 1000, 1000, 4, 1, 256, True, served[w], w, 0))
+        cases.append(("train", "gemma3-1b", 4, 1024, 1024, 4, 1, 256, True,
+                      train_counts["gemma3-1b"]["K5"] * n // len(blocks), w, 0))
+    cases += mixtral_timing_cases(lm_counts, train_counts)
+    for mode, by_key in (("sharded prefill", serve_keys["K5"]),
+                         ("sharded train", train_keys["K5"])):
+        cases += [(mode, key[0], *key[2:9], n, key[9], key[11])
+                  for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
+    entries = k5_timing(torch, np, report, rng, cases)
     sharded_k7 = [(mode, key, n) for mode, by_key in (("sharded prefill", serve_keys["K7"]),
                                                       ("sharded train", train_keys["K7"]))
                   for key, n in sorted(by_key.items(), key=lambda kv: str(kv[0]))]
@@ -3739,6 +3849,9 @@ K6_CASES = [
     (1024, 1152, 262144, 0.0, None),
     # examples/torch_train_llm.py's microbatch: 4 x 128 tokens, d 128, tied V 512
     (512, 128, 512, 0.0, None),
+    # Mixtral-8x7B's train shape: B 4 x S 512 tokens, d 4,096, untied V 32,000
+    # (250 vocab tiles)
+    (2048, 4096, 32000, 0.0, None),
 ]
 # Per token: |K6 - plain| <= K6_RTOL |plain| + K6_ATOL + K6_EPS_UNITS eps M,
 # M = |x_n| max_v |w_v| (Cauchy-Schwarz bound on a logit's magnitude sum
@@ -3787,6 +3900,10 @@ TRAIN_RUNS = {
     "qwen2-moe-a2.7b": (23, 2, 4, 512, 2, False, {"K5": 4, "K6": 1}),
     "qwen2-vl-7b": (24, 2, 4, 512, 2, True, {"K5": 4, "K6": 1}),
     "gemma3-1b": (26, None, 4, 1024, 2, False, {"K5": 52, "K6": 1}),
+    # Mixtral-8x7B at full width, 1 of 32 layers (1.713 B params, ~27.4 GB
+    # under AdamW; 8 experts of 14,336): K5 1 + 1 under the window of 4,096,
+    # K6 at V 32,000 untied
+    "mixtral-8x7b": (27, 1, 4, 512, 2, False, {"K5": 2, "K6": 1}),
 }
 # train_strict: (arch, seed, layers, seq) at f32 compute, batch 2; Gemma3-1B
 # one whole 5:1 group on sequences past its window
@@ -5504,6 +5621,319 @@ def _sharded_serve_mixed(torch, np, report) -> None:
                                  f"{err} off cuda:0 alone")
 
 
+# mixtral_sharded (python3 chip_smoke.py --mixtral-only): Mixtral-8x7B on
+# ("data", "model") = (1, n) over n distinct cards, n the first of
+# MIXTRAL_MODEL_AXES the machine has cards for (never one card: its 46.70 B
+# parameters are 93.4 GB of bf16, over the card's 80 GB), through
+# jit_prefill_step / jit_decode_step.  a: its first MIXTRAL_PREFIX_LAYERS
+# layers from lm_engine's seed (init_params draws the embeddings first, so
+# they are the full model's first layers), served unsharded on cuda:0, then
+# drawn again straight into their blocks and served sharded, teacher-forced;
+# b: all 32 layers drawn straight into their blocks and served, each batch's
+# decode held against a sharded prefill of the sequence up to a step.
+# MIXTRAL_ATTENTION is configs/mixtral_8x7b.py's (H, K, h, window), pinned
+# by a CPU test; every K5 shape the phase launches is K5_MIXTRAL_SHARDED's.
+MIXTRAL_SEED = LM_ENGINES["mixtral-8x7b"][0]
+MIXTRAL_PREFIX_LAYERS = LM_ENGINE_LAYERS["mixtral-8x7b"]
+MIXTRAL_MAX_SEQ = LM_ENGINES["mixtral-8x7b"][2]
+MIXTRAL_BATCHES = ((4, 509), (1, 8192))  # (B, prompt): 8,192 overruns the rings
+MIXTRAL_STEPS = 16
+MIXTRAL_MODEL_AXES = (4, 2)
+MIXTRAL_ATTENTION = (32, 8, 128, 4096)
+
+
+def mixtral_check_positions(S: int) -> list:
+    """The decode steps (by position) that part b holds against a sharded
+    prefill of the sequence up to them, after a prompt of ``S``: the first
+    at or past the window (its K/V written over a ring slot), where there
+    is one, and the last."""
+    window, last = MIXTRAL_ATTENTION[3], S + MIXTRAL_STEPS - 1
+    return sorted({p for p in (max(window, S), last) if p <= last})
+
+
+def mixtral_sharded_k5_shapes(n: int) -> list:
+    """(B, S, H, K, h, window, softcap) of every K5 launch of
+    ``mixtral_sharded_phase`` on (1, ``n``): a model coordinate's heads at
+    each batch's prompt and at each check prefill's length."""
+    H, K, h, window = MIXTRAL_ATTENTION
+    return [(B, L, H // n, K // n, h, window, 0.0) for B, S in MIXTRAL_BATCHES
+            for L in [S] + [p + 1 for p in mixtral_check_positions(S)]]
+
+
+K5_MIXTRAL_SHARDED = [c for n in MIXTRAL_MODEL_AXES for c in mixtral_sharded_k5_shapes(n)]
+K5_EXTRA += K5_MIXTRAL_SHARDED
+
+
+def mixtral_cards(torch) -> int:
+    """The first model-axis size of MIXTRAL_MODEL_AXES the machine has
+    distinct cards for, or 0."""
+    return next((n for n in MIXTRAL_MODEL_AXES if torch.cuda.device_count() >= n), 0)
+
+
+def _layer_draw_bytes(model) -> int:
+    """One layer's draw at its largest: the layer in ``param_dtype`` and
+    its largest leaf once more (stored in the compute dtype beside it,
+    ``store_compute_dtype``), from the abstract tree."""
+    from repro_torch.launch import inputs as inp
+    from repro_torch.tree import leaves
+
+    layer = leaves(inp.abstract_params(model)["layers"][0])
+    return (sum(x.numel() * x.element_size() for x in layer)
+            + max(x.numel() * x.element_size() for x in layer))
+
+
+def _mixtral_serve_checks(np, sh, dec, mesh, n_attn, gathers) -> dict:
+    """What part a and part b both hold a sharded run to: finite logits; K5
+    once an attention layer a model coordinate in the prefill and never in
+    a decode step, only at shapes ``k5_checks`` holds; no leaf gathered;
+    every cache leaf placed by its spec, each coordinate holding its spec's
+    bytes, the rings split on KV heads.  Returns the readings with
+    ``faults``."""
+    from repro_torch.sharding import tensor_parallel as tp
+    from repro_torch.tree import leaves
+
+    cache = sh["cache"]
+    _, K, h, window = MIXTRAL_ATTENTION
+    n = mesh.shape["model"]
+    no_kernels = {k: 0 for k in sh["prefill_launches"]}
+    by_coord = _coordinate_bytes(np, [(cache, dec.cache_shardings)], mesh)
+    k_blocks = sorted({tuple(cache[0]["k"].shard(c).shape) for c in mesh.coords()})
+    out = {"prefill_launches": sh["prefill_launches"],
+           "decode_launches": sh["decode_launches"][0],
+           "k5_keys": sorted(str(k) for k in sh["k5_by_key"]),
+           "k5_shapes_not_held": [str(k) for k in k5_unheld(sh["k5_by_key"])],
+           "gathers_by_leaf": gathers,
+           "cache_layout": tp.cache_layout(cache[0]["k"]), "k_block_shapes": k_blocks,
+           "cache_bytes_by_coordinate_held_vs_specs": by_coord,
+           "placements_kept": all(x.sharding == s for x, s in
+                                  zip(leaves(cache), leaves(dec.cache_shardings)))}
+    B = cache[0]["k"].shape[0]
+    faults = []
+    if not all(bool(lg.isfinite().all()) for lg in [sh["logits"]] + sh["step_logits"]):
+        faults.append("logits not finite")
+    if sh["prefill_launches"] != {**no_kernels, "K5": n_attn * n}:
+        faults.append(f"prefill launches {sh['prefill_launches']}, want K5 {n_attn * n}")
+    if any(c != no_kernels for c in sh["decode_launches"]):
+        faults.append("a kernel launched in a decode step")
+    if out["k5_shapes_not_held"] or gathers or not out["placements_kept"]:
+        faults.append("K5 at a shape k5_checks does not hold, a leaf gathered or a cache "
+                      "leaf off its placement")
+    if any(v[0] != v[1] for v in by_coord.values()):
+        faults.append("a coordinate's cache bytes off its specs")
+    if k_blocks != [(B, window, K // n, h)]:
+        faults.append(f"ring blocks {k_blocks}, want {[(B, window, K // n, h)]}")
+    out["faults"] = faults
+    return out
+
+
+def mixtral_sharded_phase(torch, np, report, devices, layers=None) -> None:
+    """Mixtral-8x7B at full width on ("data", "model") = (1, len(devices))
+    through ``jit_prefill_step`` / ``jit_decode_step`` (bf16 weights, every
+    cache a ring of 4,096 slots split on KV heads), MIXTRAL_BATCHES'
+    prompts, MIXTRAL_STEPS greedy steps each.
+
+    a. Its first MIXTRAL_PREFIX_LAYERS layers served whole on cuda:0 and
+       freed, then drawn again into their blocks (``init_params(shardings=)``)
+       and served sharded, each decode step fed the unsharded run's token:
+       the prefill's and every step's logits within LM_LOGITS_TOL of the
+       unsharded path's, and ``_mixtral_serve_checks``.
+    b. All ``layers`` (the config's 32) drawn into their blocks: each card
+       holds its spec's bytes, fewer than the whole model's, and its peak
+       during the draw stays under what it held before, its blocks and one
+       layer's draw (``_layer_draw_bytes``).  Each batch served with greedy
+       steps and held to ``_mixtral_serve_checks``; then, under
+       ``lifted_capacity``, prefilled again and decoded teacher-forced with
+       the served tokens, the logits of its steps at
+       ``mixtral_check_positions`` each within LM_LOGITS_TOL of a sharded
+       prefill of the whole sequence up to that step.  Records TTFT, ms a
+       decode step, tokens/s, cache bytes and peak memory a card."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgbase
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.step import make_decode_step
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh((1, len(devices)), ("data", "model"), devices=devices)
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    counters = _counters()
+    steps, max_seq = MIXTRAL_STEPS, MIXTRAL_MAX_SEQ
+    max_abs, rel_rms = LM_LOGITS_TOL["mixtral-8x7b"]
+    full = cfgbase.get_config("mixtral-8x7b")
+    rng = np.random.default_rng(MIXTRAL_SEED)
+    prompts = [torch.as_tensor(rng.integers(0, full.vocab_size, (B, S)).astype(np.int32),
+                               device="cuda") for B, S in MIXTRAL_BATCHES]
+    mesh_rec = {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices.flat]}
+
+    def within(gap):
+        return gap["max_abs"] <= max_abs and gap["rel_rms"] <= rel_rms
+
+    def peaks():
+        return {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
+
+    def reset_peaks():
+        _sync_all(torch)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+
+    def warm_up(model, policy, placed):
+        """A sharded prefill of 8 tokens outside the timed runs: each
+        card's first cuBLAS calls and kernel loads."""
+        _sharded_steps(model, policy, 1, 8, max_seq)[0](placed, {"tokens": prompts[0][:1, :8]})
+        _sync_all(torch)
+
+    # -- a: the prefix, whole on cuda:0, then drawn into its blocks ----------
+    model, params = _lm_model(torch, "mixtral-8x7b", MIXTRAL_SEED,
+                              num_layers=MIXTRAL_PREFIX_LAYERS)
+    cfg = model.cfg
+    model.prefill(params, {"tokens": prompts[0][:1, :8]}, max_seq)  # warm-up
+    udecode = make_decode_step(model, max_seq)
+    unsharded = []
+    for tokens in prompts:
+        u = _serve_run(torch, counters, lambda: model.prefill(params, {"tokens": tokens}, max_seq),
+                       lambda c, tok, pos: udecode(params, c, tok, pos), tokens.shape[1], steps)
+        del u["cache"]
+        unsharded.append(u)
+    del params, udecode
+    torch.cuda.empty_cache()
+    policy = ShardingPolicy(mesh, cfg)
+    steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq) for B, S in MIXTRAL_BATCHES]
+    placed = model.init_params(torch.Generator("cuda").manual_seed(MIXTRAL_SEED),
+                               store_dtype=torch.bfloat16,
+                               shardings=steps_by_batch[0][0].param_shardings)
+    warm_up(model, policy, placed)
+    for (B, S), tokens, u, (pre, dec) in zip(MIXTRAL_BATCHES, prompts, unsharded,
+                                             steps_by_batch):
+        with _counting_gathers(placed) as gathers:
+            sh = _serve_run(torch, counters, lambda: pre(placed, {"tokens": tokens}),
+                            lambda c, tok, pos: dec(placed, c, tok, pos), S, steps,
+                            force=u["tokens"])
+        checks = _mixtral_serve_checks(np, sh, dec, mesh, cfg.num_layers, gathers)
+        gaps = [_logits_gap(sh["logits"], u["logits"])] + [
+            _logits_gap(a, b) for a, b in zip(sh["step_logits"], u["step_logits"])]
+        off = [i for i, g in enumerate(gaps) if not within(g)]
+        if u["prefill_launches"]["K5"] != cfg.num_layers:
+            checks["faults"].append(f"unsharded prefill K5 {u['prefill_launches']['K5']}")
+        rec = {"phase": "mixtral_sharded", "part": "a", "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "batch": B, "prompt": S, "max_seq": max_seq,
+               "decode_steps": steps, "mesh": mesh_rec, **checks,
+               "logits_vs_unsharded": gaps[0], "decode_logits_vs_unsharded": gaps[1:],
+               "steps_off_limit": off, "logits_limit": {"max_abs": max_abs,
+                                                        "rel_rms": rel_rms},
+               "greedy_token_agreement": [float((a == b).float().mean())
+                                          for a, b in zip(sh["tokens"], u["tokens"])],
+               "ttft_ms": {"sharded": sh["ttft_ms"], "unsharded": u["ttft_ms"]},
+               "decode_step_ms_p50": {"sharded": _pct(np, sh["decode_step_ms"], 50),
+                                      "unsharded": _pct(np, u["decode_step_ms"], 50)},
+               "max_memory_allocated": peaks()}
+        report.emit(rec)
+        if off or checks["faults"]:
+            raise AssertionError(f"mixtral_sharded a, batch {B} x {S}: {rec}")
+        del sh
+    del placed, unsharded, steps_by_batch
+    _sync_all(torch)
+    torch.cuda.empty_cache()
+
+    # -- b: every layer, drawn into its blocks --------------------------------
+    model = Model(dataclasses.replace(cfg, num_layers=layers or full.num_layers),
+                  rwkv_chunk=64)
+    cfg = model.cfg
+    policy = ShardingPolicy(mesh, cfg)
+    steps_by_batch = [_sharded_steps(model, policy, B, S, max_seq) for B, S in MIXTRAL_BATCHES]
+    shardings = steps_by_batch[0][0].param_shardings
+    draw = _layer_draw_bytes(model)
+    reset_peaks()
+    before = {str(d): torch.cuda.memory_allocated(d) for d in cards}
+    t0 = time.perf_counter()
+    placed = model.init_params(torch.Generator("cuda").manual_seed(MIXTRAL_SEED),
+                               store_dtype=torch.bfloat16, shardings=shardings)
+    _sync_all(torch)
+    draw_s = time.perf_counter() - t0
+    draw_peak = peaks()
+    held = {}
+    for x in leaves(placed):
+        for dev, nb in x.device_bytes().items():
+            held[str(dev)] = held.get(str(dev), 0) + nb
+    whole = sum(x.shape.numel() * x.dtype.itemsize for x in leaves(placed))
+    by_coord = _coordinate_bytes(np, [(placed, shardings)], mesh)
+    limit = {d: before[d] + held[d] + draw for d in held}
+    faults = [f"{d}: peak {draw_peak[d]} over {limit[d]}" for d in held
+              if draw_peak[d] > limit[d]]
+    faults += [f"coordinate {c}: {v[0]} bytes, specs {v[1]}" for c, v in by_coord.items()
+               if v[0] != v[1]]
+    if len(cards) > 1:
+        faults += [f"{d} holds {held[d]} of the whole {whole}" for d in held
+                   if held[d] >= whole]
+    rec = {"phase": "mixtral_sharded", "part": "b_draw", "layers": cfg.num_layers,
+           "params": sum(x.shape.numel() for x in leaves(placed)), "param_bytes": whole,
+           "mesh": mesh_rec, "draw_s": draw_s, "param_bytes_by_card": held,
+           "param_bytes_by_coordinate_held_vs_specs": by_coord,
+           "draw_peak_by_card": draw_peak, "draw_peak_limit_by_card": limit,
+           "allocated_before_draw_by_card": before,
+           "layer_draw_bytes": draw, "faults": faults}
+    report.emit(rec)
+    if faults:
+        raise AssertionError(f"mixtral_sharded b, the draw: {rec}")
+    warm_up(model, policy, placed)
+    for (B, S), tokens, (pre, dec) in zip(MIXTRAL_BATCHES, prompts, steps_by_batch):
+        reset_peaks()
+        with _counting_gathers(placed) as gathers:
+            sh = _serve_run(torch, counters, lambda: pre(placed, {"tokens": tokens}),
+                            lambda c, tok, pos: dec(placed, c, tok, pos), S, steps)
+        serve_peak = peaks()
+        checks = _mixtral_serve_checks(np, sh, dec, mesh, cfg.num_layers, gathers)
+        del sh["cache"]
+        # held to itself, as _ring_decode_check: under lifted_capacity the
+        # prompt prefilled again and the served tokens fed back through the
+        # decode steps, the steps at mixtral_check_positions each against a
+        # sharded prefill of the sequence up to them (a linear pass over
+        # every key; K5 under the window where it bites)
+        seq = torch.cat([tokens.cpu()] + sh["tokens"], dim=1)
+        held_to_prefill = {}
+        with lifted_capacity():
+            again = _serve_run(torch, counters, lambda: pre(placed, {"tokens": tokens}),
+                               lambda c, tok, pos: dec(placed, c, tok, pos), S, steps,
+                               force=sh["tokens"])
+            del again["cache"]
+            for p in mixtral_check_positions(S):
+                check_pre = _sharded_steps(model, policy, B, p + 1, max_seq)[0]
+                for c in counters.values():
+                    c.reset()
+                _, want = check_pre(placed, {"tokens": seq[:, :p + 1].to("cuda")})
+                unheld = k5_unheld(dict(counters["K5"].by_key))
+                got = again["step_logits"][p - S]
+                gap = {**_logits_gap(got, want), "finite": bool(torch.isfinite(got).all())}
+                held_to_prefill[str(p)] = gap
+                if not (gap["finite"] and within(gap)) or unheld:
+                    checks["faults"].append(f"step at {p} against a prefill of {p + 1}: "
+                                            f"{gap}, K5 unheld {unheld}")
+                del check_pre, want
+        del again
+        ttft = sh["ttft_ms"]
+        step_ms = _pct(np, sh["decode_step_ms"], 50)
+        rec = {"phase": "mixtral_sharded", "part": "b", "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "batch": B, "prompt": S, "max_seq": max_seq,
+               "decode_steps": steps, "mesh": mesh_rec, **checks,
+               "decode_vs_sharded_prefill": held_to_prefill,
+               "logits_limit": {"max_abs": max_abs, "rel_rms": rel_rms},
+               "ttft_ms": ttft, "prefill_tokens_per_s": B * S / (ttft / 1e3),
+               "decode_step_ms": sh["decode_step_ms"], "decode_step_ms_p50": step_ms,
+               "decode_tokens_per_s": B / (step_ms / 1e3),
+               "max_memory_allocated_by_card": serve_peak}
+        report.emit(rec)
+        if checks["faults"]:
+            raise AssertionError(f"mixtral_sharded b, batch {B} x {S}: {rec}")
+        del sh
+    del placed, steps_by_batch
+    _sync_all(torch)
+    torch.cuda.empty_cache()
+    report.emit({"phase": "mixtral_sharded_done",
+                 "seconds": round(time.perf_counter() - t_phase, 3)})
+
+
 def reshard_phase(torch, np, report, state, step) -> None:
     """Elastic re-mesh of the sharded train state from (2, 2): ``ckpt.save``
     of the placed params (whole leaves) and ``restore(shardings=)`` of them
@@ -5631,7 +6061,8 @@ K6_TRAIN_SHAPES = {"llama3.2-1b": (4096, 2048, 128256), "rwkv6-7b": (2048, 4096,
                    "recurrentgemma-9b": (2048, 4096, 256000),
                    "qwen2-moe-a2.7b": (2048, 2048, 151936),
                    "qwen2-vl-7b": (2048, 3584, 152064),
-                   "gemma3-1b": (4096, 1152, 262144)}
+                   "gemma3-1b": (4096, 1152, 262144),
+                   "mixtral-8x7b": (2048, 4096, 32000)}
 K6_ROUTE = ("3xTF32 on the tensor cores: mma.sync.m16n8k8 TF32 products of hi/lo "
             "splits of each f32 operand, f32 accumulation")
 
@@ -5771,6 +6202,10 @@ def main(argv=None) -> int:
                     help="build, check K5, K6 and K7, run the sharded_train, sharded_mixed, "
                          "reshard, sharded_serve and pipeline phases and stop (on a "
                          "machine of four cards: the meshes over distinct cards)")
+    ap.add_argument("--mixtral-only", action="store_true",
+                    help="build, check K5 and K6, serve Mixtral-8x7B at full width and "
+                         "depth over (1, 4) or (1, 2) distinct cards (the mixtral_sharded "
+                         "phase) and stop; exits 2 with fewer than two cards")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -5781,6 +6216,12 @@ def main(argv=None) -> int:
               "needs one NVIDIA card", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401 - fails here outside a checkout
+
+    if args.mixtral_only and not mixtral_cards(torch):
+        print(f"chip_smoke: --mixtral-only needs {MIXTRAL_MODEL_AXES[-1]} cards or more "
+              f"(Mixtral-8x7B's 93.4 GB of bf16 weights are over one card); this machine "
+              f"has {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
 
     # f32 is compared at 1e-5 (kernels, LeNet) and 1e-4 (the DAG nets, whose
     # unfused 1x1 convs run through cuDNN): no TF32 anywhere.
@@ -5802,6 +6243,12 @@ def main(argv=None) -> int:
 
     if args.examples_only:
         examples_phase(report)
+        return stop_early()
+    if args.mixtral_only:
+        k5_checks(torch, np, report)
+        k6_checks(torch, report)
+        mixtral_sharded_phase(torch, np, report, [torch.device("cuda", i)
+                                                  for i in range(mixtral_cards(torch))])
         return stop_early()
     if args.sharded_only:
         k5_checks(torch, np, report)

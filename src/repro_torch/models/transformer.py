@@ -418,36 +418,59 @@ class Model:
 
     # -- params ---------------------------------------------------------------
     def init_params(self, generator: torch.Generator, device="cuda",
-                    store_dtype=None) -> dict:
+                    store_dtype=None, shardings=None) -> dict:
         """Random params in ``param_dtype``, drawn from ``generator`` on its
         own device and placed on ``device``.  With ``store_dtype`` each
         embedding and layer is stored in it (:func:`store_compute_dtype`)
         as soon as it is drawn: the same draws and values as storing the
         whole tree afterwards, but no more than one layer's or embedding's
-        ``param_dtype`` weights exist at a time.  On ``device="meta"`` the
-        tree has its shapes and dtypes and nothing is drawn (``generator``
-        may be None): :func:`repro_torch.launch.inputs.abstract_params`."""
+        ``param_dtype`` weights exist at a time.  With ``shardings`` (a tree
+        of :class:`repro_torch.sharding.placement.NamedSharding` like the
+        params, ``ShardingPolicy.shardings(param_specs(...))``) each leaf is
+        placed by its sharding as soon as it is drawn and stored, and the
+        drawn copy freed: bit for bit ``reshard_tree(init_params(...),
+        shardings)``, but ``device`` never holds more than its blocks and
+        one layer's draw, so a model larger than one device is drawn
+        straight into its blocks.  The draws come in one order whatever
+        the depth (the embeddings and the final norm before the layers), so
+        the first L layers of a deeper model from one seed are those of
+        the L-layer model.  On ``device="meta"`` the tree has its shapes
+        and dtypes and nothing is drawn (``generator`` may be None):
+        :func:`repro_torch.launch.inputs.abstract_params`."""
+        from repro_torch.ft.resilience import reshard_tree
+
         cfg = self.cfg
         dev = resolve(device)
 
-        def stored(tree):
-            return tree if store_dtype is None else store_compute_dtype(tree, store_dtype)
+        def placed(tree, path):
+            if shardings is None:
+                return tree
+            sh = shardings
+            for key in path:
+                sh = sh[key]
+            return reshard_tree(tree, sh)
 
-        def embed():
+        def stored(tree, path):
+            tree = tree if store_dtype is None else store_compute_dtype(tree, store_dtype)
+            return placed(tree, path)
+
+        def embed(name):
             w = embed_init(generator, (cfg.vocab_size, cfg.d_model), pdt(cfg), dev)
-            return w if store_dtype is None else w.to(store_dtype)
+            return placed(w if store_dtype is None else w.to(store_dtype), (name,))
 
         params: Dict[str, Any] = {
-            "embed": embed(),
-            "final_norm": make_norm_params(cfg, cfg.d_model, dev),
+            "embed": embed("embed"),
+            "final_norm": placed(make_norm_params(cfg, cfg.d_model, dev), ("final_norm",)),
         }
         if not cfg.tie_embeddings:
-            params["unembed"] = embed()
-        params["layers"] = [stored(_init_block(cfg, kind, generator, dev, cross=cfg.is_encdec))
-                            for kind in cfg.blocks()]
+            params["unembed"] = embed("unembed")
+        params["layers"] = [
+            stored(_init_block(cfg, kind, generator, dev, cross=cfg.is_encdec), ("layers", i))
+            for i, kind in enumerate(cfg.blocks())]
         if cfg.is_encdec:
-            params["enc_layers"] = [stored(_init_block(cfg, "enc", generator, dev))
-                                    for _ in range(cfg.encoder_layers)]
+            params["enc_layers"] = [stored(_init_block(cfg, "enc", generator, dev),
+                                           ("enc_layers", i))
+                                    for i in range(cfg.encoder_layers)]
         return params
 
     # -- embedding ------------------------------------------------------------

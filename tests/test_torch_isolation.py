@@ -12,6 +12,7 @@
 import torch_threads  # noqa: F401  (first: one OpenMP thread, set before torch loads)
 import ast
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -458,6 +459,68 @@ def test_new_families_attention_goes_through_k5(arch, monkeypatch):
         kv = torch.empty(B, S, K, h, dtype=torch.bfloat16, device="cuda")
         with pytest.raises(RuntimeError, match="reached the build of flash_fwd"):
             attend(q, kv, kv, window=window)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_mixtral_k5_shapes_are_held_by_k5_checks():
+    """Every K5 shape Mixtral-8x7B's phases launch is one ``k5_checks``
+    holds, in f32 and bf16: served through ``Engine`` at 509, 4,097 and
+    8,192 tokens (the shapes ``lm_timing_phase`` times), its train shape,
+    and ``mixtral_sharded``'s on (1, 2) and (1, 4), a model coordinate's
+    heads: each batch's prompt (4 x 509, 1 x 8,192) and the prefills its
+    decode steps are held against (4 x 525 up to the last step; 1 x 8,193
+    at the first step past the window, 1 x 8,208 at the last)."""
+    cs = _chip_smoke()
+    cfg = cfgbase.get_config("mixtral-8x7b")
+    assert cs.MIXTRAL_ATTENTION == (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window)
+    held = {(B, S, H, K, h, window, softcap)
+            for B, S, T, H, K, h, window, softcap, causal, off in cs.k5_cases()
+            if causal and off == 0 and T == S}
+    timed = {(B, S, H, K, h, window, 0.0) for _, _, B, S, T, H, K, h, causal, _, window, off
+             in cs.mixtral_timing_cases({"mixtral-8x7b": {"K5": (0, {})}},
+                                        {"mixtral-8x7b": {"K5": 0}})}
+    assert timed == {(1, S, 32, 8, 128, 4096, 0.0) for S in (509, 4097, 8192)} | {
+        (4, 512, 32, 8, 128, 4096, 0.0)}
+    # each served launch counted once, beside the timed prompt nearest it
+    served = {("flash_fwd_bf16", 1, S, S, 32, 8, 128, True, 4096, 0.0, 0): 8
+              for S in (1, 509, 4096, 4097, 6969, 8191, 8192)}
+    launches = [c[9] for c in cs.mixtral_timing_cases({"mixtral-8x7b": {"K5": (56, served)}},
+                                                      {"mixtral-8x7b": {"K5": 6}})]
+    assert launches == [24, 24, 8, 6]
+    sharded = {(B, S, 32 // n, 8 // n, 128, 4096, 0.0) for n in (2, 4)
+               for B, S in ((4, 509), (4, 525), (1, 8192), (1, 8193), (1, 8208))}
+    assert {c for n in cs.MIXTRAL_MODEL_AXES for c in cs.mixtral_sharded_k5_shapes(n)} == sharded
+    assert timed | sharded <= held
+    assert cs.TRAIN_RUNS["mixtral-8x7b"][2:4] == (4, 512)
+    assert [cs.mixtral_check_positions(S) for _, S in cs.MIXTRAL_BATCHES] == [[524],
+                                                                             [8192, 8207]]
+
+
+def test_mixtral_smoke_tables():
+    """``LM_KV_BYTES["mixtral-8x7b"]`` is ``lm_state_bytes`` at lm_engine's 8
+    layers, 4 lanes and ``max_seq`` 8,448 (8 rings of 4,096 slots), and K6's
+    launch at Mixtral's train shape, (2,048, 4,096, 32,000) whole at the
+    automatic split count of an H100 SXM's 132 SMs, is one ``k6_checks``
+    holds."""
+    from repro_torch.kernels.xent.kernel import split_count
+
+    cs = _chip_smoke()
+    seed, lanes, max_seq, *_ = cs.LM_ENGINES["mixtral-8x7b"]
+    cfg = dataclasses.replace(cfgbase.get_config("mixtral-8x7b"),
+                              num_layers=cs.LM_ENGINE_LAYERS["mixtral-8x7b"])
+    assert (cfg.num_layers, lanes, max_seq) == (8, 4, 8448)
+    assert cs.lm_state_bytes(cfg, lanes, max_seq) == cs.LM_KV_BYTES["mixtral-8x7b"] == (
+        8 * 4 * (2 * 4096 * 8 * 128 * 2 + 4096 * 4))
+    assert cs._ring_layers(cfg, max_seq) == 8
+    N, D, V = cs.K6_TRAIN_SHAPES["mixtral-8x7b"]
+    assert (N, D, V) == (4 * 512, cfg.d_model, cfg.vocab_size)
+    assert ("xent_fwd_f32", N, D, V, split_count(N, V, 132), 0.0) in cs.k6_held(132)
 
 
 def test_sharded_prefill_attention_goes_through_k5_on_every_coordinate(monkeypatch):
